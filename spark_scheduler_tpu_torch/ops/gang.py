@@ -1,0 +1,260 @@
+"""The per-gang solve, in plain PyTorch.
+
+Counterpart of the closures the JAX package shares between its two Mosaic
+kernels (spark_scheduler_tpu/ops/pallas_fifo.py `make_driver_selector`,
+`make_fill_runner`, `make_gang_solver`). The same math runs on the card as
+CUDA device functions in csrc/gang_solve.cuh; this module is its plain
+version, used on the CPU and as the card kernel's yardstick of correctness.
+
+Nodes are keyed by the segment's priority RANKS: `drank`/`erank` are
+permutations of 0..N-1 (rank of each node in the driver/executor priority
+order) and `d_order`/`e_order` their inverses, so "the first node in
+priority order among a mask" is the minimum rank over the mask, and its node
+is `order[rank]`. Fill derivations (pallas_fifo.py:26-40):
+
+  tightly-pack: every slot goes to the open node of smallest executor rank.
+      A node keeps winning until its remaining capacity is spent, so one
+      round places min(remaining, slots left) slots at once.
+  distribute-evenly: every slot goes to the open node of smallest
+      (slots already placed there, executor rank) -> key placed * N + rank,
+      int32 (`_check_cumsum_bound` keeps N * emax below 2^31).
+  minimal-fragmentation: branch A, the smallest single node fitting the
+      whole gang (capacity asc, rank asc); else branch B, consume nodes in
+      (clamped capacity desc, rank asc) order while the running total stays
+      <= count, the remainder on the smallest unconsumed node fitting it.
+      Branch A overwrites branch B.
+
+Single-AZ wrappers: the inner fill runs per zone; a zone's score is the
+float32 mean, over entries (driver + one per executor), of the per-node max
+dimension efficiency with the tentative reservation applied; the strictly
+greatest score wins, ties to the zone that appears first in driver priority
+order, and a best score of exactly 0.0 rejects (single_az.go:23-97). The
+weighted sum is accumulated in float64 over the float32 products and rounded
+once to float32, so it does not depend on summation order and the card
+kernel reproduces it exactly. The JAX package sums in float32 in tile order
+instead; the two can differ in the last ulp, so a cross-zone tie closer than
+about 1 ulp may break differently (the deviation pallas_fifo.py:49-56
+documents between the JAX package's own two paths).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spark_scheduler_tpu_torch.models.resources import INT32_INF
+
+PALLAS_FILLS = ("tightly-pack", "distribute-evenly", "minimal-fragmentation")
+
+# Single-AZ strategy -> (inner fill, az-aware plain fallback, executors
+# counted in the zone-efficiency reservation — the minimalFragmentation
+# quirk, ops/efficiency.py).
+PALLAS_SINGLE_AZ = {
+    "single-az-tightly-pack": ("tightly-pack", False, True),
+    "single-az-minimal-fragmentation": ("minimal-fragmentation", False, False),
+    "az-aware-tightly-pack": ("tightly-pack", True, True),
+}
+
+INF = INT32_INF
+
+
+def _masked_min(mask: torch.Tensor, vals: torch.Tensor) -> int:
+    return int(torch.where(mask, vals, INF).min())
+
+
+def select_driver(count, cap_e, cap_wd, fit_d, elig_d, drank, d_order, zmask):
+    """The feasibility identity (ops/packing.py pack_one_app): reserving the
+    driver on node i only changes node i's executor capacity. Returns
+    (found, driver node or -1, executor capacities with it reserved)."""
+    cap_e_m = torch.where(zmask, cap_e, 0)
+    cap_wd_m = torch.where(zmask, cap_wd, 0)
+    cap_e_c = torch.clamp(cap_e_m, max=count)
+    cap_wd_c = torch.clamp(cap_wd_m, max=count)
+    total_if = cap_e_c.sum() - cap_e_c + cap_wd_c
+    feasible = elig_d & zmask & fit_d & (total_if >= count)
+    best_rank = _masked_min(feasible, drank)
+    if best_rank >= INF:
+        return False, -1, cap_e_m
+    drv = int(d_order[best_rank])
+    caps_fill = cap_e_m.clone()
+    caps_fill[drv] = cap_wd_m[drv]
+    return True, drv, caps_fill
+
+
+def run_fill(inner_fill, emax, count, ok, caps_fill, elig_mask, erank, e_order):
+    """Executor placement for one gang: ([emax] node per slot, -1 padded;
+    [N] int32 executors per node)."""
+    n = caps_fill.shape[0]
+    execs = [-1] * emax
+    counts = torch.zeros(n, dtype=torch.int32, device=caps_fill.device)
+    if not ok:
+        return execs, counts
+    if inner_fill == "tightly-pack":
+        j = 0
+        while j < count:
+            k_sel = _masked_min(counts < caps_fill, erank)
+            if k_sel >= INF:  # no open node: the slot reads node 0
+                execs[j:count] = [0] * (count - j)
+                break
+            node = int(e_order[k_sel])
+            take = min(int(caps_fill[node] - counts[node]), count - j)
+            execs[j:j + take] = [node] * take
+            counts[node] += take
+            j += take
+    elif inner_fill == "distribute-evenly":
+        for j in range(count):
+            open_ = elig_mask & (counts < caps_fill)
+            if not bool(open_.any()):  # no open node: the slot reads node 0
+                execs[j] = 0
+                continue
+            k_min = _masked_min(open_, counts * n + erank)
+            node = int(e_order[k_min % n])
+            execs[j] = node
+            counts[node] += 1
+    elif inner_fill == "minimal-fragmentation":
+        _fill_minimal_fragmentation(
+            emax, count, caps_fill, erank, e_order, execs, counts
+        )
+    else:
+        raise ValueError(f"unsupported fill: {inner_fill}")
+    return execs, counts
+
+
+def _lex_min(mask, primary, erank, e_order) -> int:
+    """Node with the smallest (primary, erank) among `mask`, or -1.
+    `primary` may itself hold INF (a capacity no dimension bounds)."""
+    if not bool(mask.any()):
+        return -1
+    p = _masked_min(mask, primary)
+    return int(e_order[_masked_min(mask & (primary == p), erank)])
+
+
+def _fill_minimal_fragmentation(emax, count, caps_fill, erank, e_order,
+                                execs, counts):
+    cap_ok = caps_fill > 0
+    caps_c = torch.clamp(caps_fill, max=count)
+    node_a = _lex_min(cap_ok & (caps_fill >= count), caps_fill, erank, e_order)
+    if node_a >= 0:  # branch A: one node holds the whole gang
+        execs[:count] = [node_a] * count
+        counts[node_a] = count
+        return
+    consumed = torch.zeros_like(cap_ok)
+    placed = 0
+    for _ in range(emax):
+        open_b = cap_ok & ~consumed
+        c_max = int(torch.where(open_b, caps_c, -1).max())
+        if c_max <= 0 or placed + c_max > count:
+            break  # the state is unchanged, so every later round stops too
+        node = int(e_order[_masked_min(open_b & (caps_c == c_max), erank)])
+        execs[placed:placed + c_max] = [node] * c_max
+        counts[node] += c_max
+        consumed[node] = True
+        placed += c_max
+    remainder = count - placed
+    if remainder <= 0:
+        return
+    node_f = _lex_min(
+        cap_ok & ~consumed & (caps_fill >= remainder), caps_fill, erank,
+        e_order,
+    )
+    if node_f < 0:  # no node fits the remainder: the slots read node 0
+        execs[placed:count] = [0] * remainder
+        return
+    execs[placed:count] = [node_f] * remainder
+    counts[node_f] += remainder
+
+
+def zone_efficiency(count, drv, counts, sched, avail, dreq, ereq,
+                    include_exec_in_reserved) -> np.float32:
+    """Single-AZ zone score: float32 mean over entries of the per-node max
+    dimension efficiency with the tentative reservation applied
+    (efficiency.go:85-144), summed in float64 and rounded once."""
+    is_drv = torch.zeros_like(counts)
+    if drv >= 0:
+        is_drv[drv] = 1
+    effs = []
+    for d in range(3):
+        new_res = is_drv * int(dreq[d])
+        if include_exec_in_reserved:
+            new_res = new_res + counts * int(ereq[d])
+        reserved = (sched[:, d] - avail[:, d]) + new_res
+        denom = torch.clamp(sched[:, d], min=1).to(torch.float32)
+        effs.append(reserved.to(torch.float32) / denom)
+    eff_gpu = torch.where(sched[:, 2] != 0, effs[2], 0.0)
+    node_max = torch.maximum(eff_gpu, torch.maximum(effs[0], effs[1]))
+    w = (counts + is_drv).to(torch.float32)
+    total = np.float32(float((node_max * w).to(torch.float64).sum()))
+    return total / np.float32(count + 1)
+
+
+def gang_solve(
+    fill: str,
+    *,
+    num_zones: int,
+    emax: int,
+    count: int,
+    cap_e: torch.Tensor,  # [N] i32 executor capacity, no driver reserved
+    cap_wd: torch.Tensor,  # [N] i32 executor capacity with the driver
+    fit_d: torch.Tensor,  # [N] bool driver fits
+    elig_e: torch.Tensor,  # [N] bool
+    elig_d: torch.Tensor,  # [N] bool
+    drank: torch.Tensor,  # [N] i32
+    d_order: torch.Tensor,  # [N] i32
+    erank: torch.Tensor,  # [N] i32
+    e_order: torch.Tensor,  # [N] i32
+    zone: torch.Tensor,  # [N] i32
+    sched: torch.Tensor,  # [N,3] i32
+    avail: torch.Tensor,  # [N,3] i32
+    dreq,  # [3] ints
+    ereq,  # [3] ints
+):
+    """Driver selection + executor fill for one gang, and for the single-AZ
+    wrappers the per-zone pack and zone pick (make_gang_solver semantics).
+    Returns (ok, driver node or -1, [emax] executor slots, [N] counts)."""
+    if fill in PALLAS_SINGLE_AZ:
+        inner, az_fallback, include_exec = PALLAS_SINGLE_AZ[fill]
+    elif fill in PALLAS_FILLS:
+        inner, az_fallback, include_exec = fill, False, True
+    else:
+        raise ValueError(f"unsupported strategy: {fill}")
+    all_nodes = torch.ones_like(elig_e)
+
+    def solve_in(zmask, elig_mask):
+        found, drv, caps = select_driver(
+            count, cap_e, cap_wd, fit_d, elig_d, drank, d_order, zmask
+        )
+        execs, counts = run_fill(
+            inner, emax, count, found, caps, elig_mask, erank, e_order
+        )
+        return found, drv, execs, counts
+
+    if fill not in PALLAS_SINGLE_AZ:
+        return solve_in(all_nodes, elig_e)
+
+    best = None
+    best_eff = np.float32(-1.0)
+    best_first = INF
+    any_valid = False
+    for z in range(num_zones):
+        zmask = zone == z
+        zone_first = _masked_min(elig_d & zmask, drank)
+        zone_has_exec = bool((elig_e & zmask).any())
+        found, drv, execs, counts = solve_in(zmask, elig_e & zmask)
+        valid_z = found and zone_first < INF and zone_has_exec
+        if not valid_z:
+            continue
+        any_valid = True
+        eff = zone_efficiency(
+            count, drv, counts, sched, avail, dreq, ereq, include_exec
+        )
+        if eff > best_eff or (eff == best_eff and zone_first < best_first):
+            best_eff, best_first = eff, zone_first
+            best = (True, drv, execs, counts)
+    # chooseBestResult replaces only on strictly greater than 0.0.
+    if any_valid and best_eff > 0.0:
+        return best
+    if az_fallback:
+        # az-aware: the plain pack when no single zone fits
+        # (az_aware_pack_tightly.go:27-38).
+        return solve_in(all_nodes, elig_e)
+    return False, -1, [-1] * emax, torch.zeros_like(cap_e)

@@ -1,0 +1,129 @@
+"""Import hygiene and the device contract of the PyTorch port.
+
+The port must import and build with `jax`, `jaxlib` and the JAX package
+blocked, and its entry points must ask for CUDA unless told otherwise: on a
+machine without a card, `PlacementSolver()` raises instead of running on the
+CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "spark_scheduler_tpu_torch"
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "spark_scheduler_tpu")
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        for b in BLOCKED:
+            if name == b or name.startswith(b + "."):
+                raise ImportError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import spark_scheduler_tpu_torch as pkg
+
+mods = [pkg.__name__]
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+    mods.append(info.name)
+leaked = [m for m in sys.modules
+          if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print(len(mods))
+"""
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT.rglob("*.py")
+        if p.name != "__init__.py"
+    )
+
+
+def test_port_imports_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    # Every module file of the port was imported (plus the package inits).
+    assert int(out.stdout.strip()) >= len(_port_modules())
+
+
+def test_blocker_does_not_refuse_the_port_prefix():
+    """The finder matches `spark_scheduler_tpu` exactly or with a dot, so
+    the port (which shares the prefix) still imports while the JAX
+    package does not."""
+    code = _BLOCKED_IMPORT.split("sys.meta_path.insert")[0] + (
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import spark_scheduler_tpu_torch.models.resources\n"
+        "try:\n"
+        "    import spark_scheduler_tpu.models.resources\n"
+        "except ImportError:\n"
+        "    print('refused')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "refused"
+
+
+def test_no_port_source_names_jax():
+    for path in PORT.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            if stripped.startswith(("import ", "from ")):
+                assert "jax" not in stripped, (path, line)
+                assert not stripped.startswith(
+                    ("import spark_scheduler_tpu.", "from spark_scheduler_tpu.",
+                     "import spark_scheduler_tpu ", "from spark_scheduler_tpu ")
+                ), (path, line)
+
+
+def test_solver_defaults_to_cuda_and_never_falls_back():
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+
+    if torch.cuda.is_available():
+        assert PlacementSolver().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlacementSolver()
+    assert PlacementSolver(device="cpu").device.type == "cpu"
+
+
+def test_window_pack_refuses_other_devices():
+    import numpy as np
+
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.window import (
+        make_segmented_window,
+        window_pack,
+    )
+
+    n = 8
+    cluster = cluster_from_numpy(
+        [np.ones((n, 3), np.int32), np.ones((n, 3), np.int32),
+         np.zeros(n, np.int32), np.arange(n, dtype=np.int32),
+         np.zeros(n, np.int32), np.zeros(n, np.int32), np.zeros(n, bool),
+         np.ones(n, bool), np.ones(n, bool)],
+        device="meta",
+    )
+    row = (np.ones(3, np.int32), np.ones(3, np.int32), 1, False)
+    win = make_segmented_window([[row]], [np.ones(n, bool)], [np.ones(n, bool)])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        window_pack(cluster, win, fill="tightly-pack", emax=8, num_zones=2)
+    with pytest.raises(ValueError, match="window path supports"):
+        window_pack(cluster, win, fill="first-fit", emax=8, num_zones=2)
