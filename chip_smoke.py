@@ -14,6 +14,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the same CUDA inputs, all six strategies, seeded random windows at
      N = 24 and N = 300 (roomy and tight clusters). Every output must be
      identical (tolerance: none).
+  2b. The same for the CUDA queue kernel: `fifo_pack` on CUDA tensors
+     against `fifo_pack_reference` on the same CUDA inputs, all six
+     strategies, N = 24 and N = 300 (roomy and tight), B = 9 padded to 12
+     with gangs up to emax + 2 wide; then per strategy negative
+     availability with zero-count gangs, strict-FIFO blocking behind a
+     too-big gang, an empty queue (B = 0: no launch), and a grouped solve of
+     3 queues (`grouped_fifo_pack`, one launch). Tolerance: none.
   3. Main path at full width: a 10,000-node cluster (4 zones, heterogeneous
      nodes, ~10% with GPUs, 30-70% prior usage) built through
      `PlacementSolver(device="cuda").build_tensors`; 8 windows of 32
@@ -23,8 +30,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
      Admitted gangs are committed into the usage between windows. Every
      window's decisions must equal those of `PlacementSolver(device="cpu")`
      on the same state. Kernel launch counts are read around this phase.
-  4. Measurements at a main-path window: the kernel wrapper's time, its
-     plain version's time on the card, the bound, a device-time split.
+  4. Measurements: at a main-path window, the window kernel wrapper's time,
+     its plain version's time on the card, the bound, a device-time split;
+     at a config-5 queue window (10,000 nodes, 100 apps), the same for the
+     queue kernel; the probe.
+  5. The queue path at full width: BASELINE.json configs 1, 2, 2b, 3, 4
+     and 5, generated as bench.py does (`_make_cluster`, `_make_batches`,
+     numpy from a seed), the availability threaded from window to window as
+     bench.py's `_windowed_chain` does. Config 5: 10,000 nodes, 1,000 apps
+     in 10 windows of 100 (tightly-pack), then one window per other
+     strategy; config 4: 5 instance groups of 1,000 nodes solved by
+     `grouped_fifo_pack`, one launch per call. Every decision and every
+     `available_after` must equal the CPU plain path on the same state.
+     Queue-kernel launch counts are read around this phase.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -161,6 +179,138 @@ def compare_small(device) -> int:
                 worst = max(worst, err)
                 cases += 1
     print(f"phase 2: {cases} windows, kernel == plain on every output",
+          flush=True)
+    return worst
+
+
+# --------------------------------------------------------------- phase 2b
+
+
+def queue_cluster_fields(rng, n, hi=40):
+    """Nine cluster fields as numpy arrays (tests/test_packing_golden.py's
+    generator: ~10% unschedulable, ~10% not ready, ~5% invalid nodes; a
+    small `hi` makes a tight cluster)."""
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+
+    avail = rng.integers(0, hi, size=(n, 3)).astype(np.int32)
+    avail[:, 1] = rng.integers(0, 64 * hi // 40, size=n)
+    avail[:, 2] = rng.integers(0, 3, size=n) * rng.integers(0, 2, size=n)
+    sched = (avail + rng.integers(0, 8, size=(n, 3))).astype(np.int32)
+    return [
+        avail, sched, rng.integers(0, 4, size=n).astype(np.int32),
+        rng.permutation(n).astype(np.int32),
+        np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+        rng.random(n) < 0.1, rng.random(n) > 0.1, rng.random(n) > 0.05,
+    ]
+
+
+def queue_apps(rng, b, pad_to, emax=8):
+    """tests/test_pallas_fifo.py's queue: gangs 0..emax+2 wide (too-big
+    included), ~30% skippable."""
+    from spark_scheduler_tpu_torch.ops.batched import make_app_batch
+
+    driver = rng.integers(1, 6, size=(b, 3)).astype(np.int32)
+    driver[:, 2] = rng.integers(0, 2, size=b)
+    execs = rng.integers(1, 8, size=(b, 3)).astype(np.int32)
+    execs[:, 2] = rng.integers(0, 2, size=b)
+    counts = rng.integers(0, emax + 3, size=b).astype(np.int32)
+    return make_app_batch(driver, execs, counts, pad_to=pad_to,
+                          skippable=rng.random(b) < 0.3)
+
+
+def packing_diff(got, want) -> int:
+    """Largest |a - b| over the five BatchedPacking outputs; raises if a
+    shape differs."""
+    worst = 0
+    for name, g, w in zip(got._fields, got, want):
+        check(tuple(g.shape) == tuple(w.shape),
+              f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel():
+            worst = max(worst, int((g.long().cpu() - w.long().cpu()).abs().max()))
+    return worst
+
+
+def compare_queue_small(device) -> int:
+    """Phase 2b. Returns the largest |kernel - plain| over every output."""
+    import torch
+
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import (
+        app_batch_to_device,
+        make_app_batch,
+    )
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack, fifo_pack_reference
+    from spark_scheduler_tpu_torch.parallel import (
+        grouped_fifo_pack,
+        grouped_fifo_pack_reference,
+        stack_groups,
+    )
+
+    kw = dict(emax=8, num_zones=4)
+    worst, cases = 0, 0
+
+    def run(label, fields, apps, fill):
+        nonlocal worst, cases
+        cluster = cluster_from_numpy(fields, device=device)
+        dev_apps = app_batch_to_device(apps, device)
+        before = fifo_pack.launches
+        got = fifo_pack(cluster, dev_apps, fill=fill, **kw)
+        torch.cuda.synchronize()
+        b = int(np.asarray(apps.app_valid).shape[0])
+        check(fifo_pack.launches == before + (1 if b else 0),
+              f"{label}: {fifo_pack.launches - before} launches")
+        want = fifo_pack_reference(cluster, dev_apps, fill=fill, **kw)
+        err = packing_diff(got, want)
+        if err:
+            for name, g, w in zip(got._fields, got, want):
+                bad = (g != w).nonzero()[:8].tolist()
+                print(f"  mismatch {label} {fill} {name} at {bad}", flush=True)
+        check(err == 0, f"queue kernel != plain: {label} {fill}")
+        check(got.available_after.data_ptr() != cluster.available.data_ptr(),
+              f"{label}: available_after aliases the input")
+        worst = max(worst, err)
+        cases += 1
+        return got
+
+    for fill in STRATEGIES:
+        for n, hi in ((24, 40), (300, 40), (300, 8)):
+            for seed in range(3):
+                rng = np.random.default_rng(100 * n + hi + seed)
+                run(f"n={n} hi={hi} seed={seed}", queue_cluster_fields(rng, n, hi),
+                    queue_apps(rng, 9, pad_to=12), fill)
+        rng = np.random.default_rng(11)
+        fields = queue_cluster_fields(rng, 24)
+        fields[0][3] = -5
+        fields[0][7, 0] = -1
+        ones = np.ones((3, 3), np.int32)
+        run("negative availability, zero-count", fields,
+            make_app_batch(ones, ones, [0, 3, 0], pad_to=4), fill)
+        execs = np.ones((4, 3), np.int32)
+        execs[1] = 1000
+        out = run("blocking", queue_cluster_fields(rng, 24),
+                  make_app_batch(np.ones((5, 3)), np.vstack([execs, ones[:1]]),
+                                 [2, 8, 2, 11, 2], skippable=np.zeros(5, bool)),
+                  fill)
+        check(not bool(out.packed[1]) and not out.admitted[2:].any(),
+              f"blocking: {fill} admitted behind a blocked gang")
+        out = run("empty queue", queue_cluster_fields(rng, 24),
+                  make_app_batch(np.zeros((0, 3)), np.zeros((0, 3)), []), fill)
+        check(out.driver_node.shape == (0,), "empty queue shape")
+        # Three instance groups in one launch.
+        clusters, batches = [], []
+        for _ in range(3):
+            clusters.append(cluster_from_numpy(queue_cluster_fields(rng, 300),
+                                               device=device))
+            batches.append(app_batch_to_device(queue_apps(rng, 9, 12), device))
+        sc, sa = stack_groups(clusters, batches)
+        before = fifo_pack.launches
+        got = grouped_fifo_pack(sc, sa, fill=fill, **kw)
+        torch.cuda.synchronize()
+        check(fifo_pack.launches == before + 1, "grouped: not one launch")
+        err = packing_diff(got, grouped_fifo_pack_reference(sc, sa, fill=fill, **kw))
+        check(err == 0, f"grouped queue kernel != plain: {fill}")
+        cases += 1
+    print(f"phase 2b: {cases} queues, queue kernel == plain on every output",
           flush=True)
     return worst
 
@@ -355,8 +505,8 @@ def window_bound(cluster, batch, fill):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_split(fn):
-    """Device time of one call, split into the row-walk kernel and the rest
+def device_split(fn, name="window_row_walk"):
+    """Device time of one call, split into the named kernel and the rest
     (sorts, masks, copies): kernel events of torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -369,7 +519,7 @@ def device_split(fn):
     for evt in prof.events():
         if str(getattr(evt, "device_type", "")).endswith("CUDA"):
             us = evt.time_range.elapsed_us()
-            if "window_row_walk" in evt.name:
+            if name in evt.name:
                 kernel += us
             else:
                 other += us
@@ -426,6 +576,254 @@ def measure(last, device, card, worst_small):
     }
 
 
+def queue_bound(cluster, apps, emax, num_zones, fill):
+    """Least time for one fifo_pack call, reckoned as `window_bound` is:
+    bytes (inputs read once, the five outputs written once) over the HBM
+    rate, and the int32 work this queue's valid apps need (the same
+    OPS_PER_NODE_ROW basis, times the zones for single-AZ) plus the one
+    pair of priority sorts, over the scalar peak; the larger wins."""
+    n = cluster.num_nodes
+    b = int(apps.app_valid.shape[0])
+    live = int(apps.app_valid.sum())
+    in_bytes = sum(t.numel() * t.element_size() for t in cluster.fields())
+    in_bytes += sum(t.numel() * t.element_size() for t in apps if t is not None)
+    out_bytes = b * 4 + b * emax * 4 + 2 * b + n * 3 * 4
+    zone_passes = num_zones if fill.startswith(("single-az", "az-aware")) else 1
+    ops = live * n * OPS_PER_NODE_ROW * zone_passes
+    ops += 2 * 6 * n * int(np.ceil(np.log2(n)))
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_SCALAR_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def measure_queue(device, card, worst_small):
+    """Phase 4, queue kernel: at the first config-5 window (10,000 nodes,
+    100 apps, tightly-pack) the wrapper's time and that of its sorts alone
+    (CUDA events), the kernel's device time (profiler), the plain version's
+    time on the card, the bound."""
+    import torch
+
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import app_batch_to_device
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        fifo_pack,
+        fifo_pack_reference,
+        kernel_orders,
+    )
+
+    rng = np.random.default_rng(CONFIG_SEEDS["config5"])
+    cluster = cluster_from_numpy(baseline_cluster(rng, 10_000), device=device)
+    apps = app_batch_to_device(baseline_batches(rng, 100, 100, 8)[0], device)
+    args = dict(fill="tightly-pack", emax=8, num_zones=4)
+    got = fifo_pack(cluster, apps, **args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fifo_pack_reference(cluster, apps, **args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(worst_small, packing_diff(got, want))
+    check(err == 0, "queue kernel != plain at the config-5 window")
+    ms = cuda_time_ms(lambda: fifo_pack(cluster, apps, **args), 20)
+    sort_ms = cuda_time_ms(lambda: kernel_orders(cluster, 4), 20)
+    bound, bound_by = queue_bound(cluster, apps, 8, 4, "tightly-pack")
+    kern, other = device_split(lambda: fifo_pack(cluster, apps, **args),
+                               "fifo_queue_kernel")
+    idle = max(0.0, 1 - (kern + other) / ms) if kern else None
+    print(f"queue kernel at a config-5 window ({card}): {ms:.3f} ms per "
+          f"fifo_pack call (CUDA events, median of 20) for 100 apps on "
+          f"10,000 nodes, of which the priority sorts and masks alone take "
+          f"{sort_ms:.3f} ms; plain version on the card {plain_ms:.1f} ms; bound "
+          f"{bound:.5f} ms ({bound_by}); profiled device time: queue kernel "
+          f"{kern:.3f} ms ({kern * 10:.1f} us per app), other device work "
+          f"{other:.3f} ms; device idle share of the call "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=None)
+
+
+# ---------------------------------------------------------------- phase 5
+
+# One numpy seed per BASELINE config (bench.py draws them from one stream).
+CONFIG_SEEDS = {"config1": 1, "config2": 2, "config2b": 22, "config3": 3,
+                "config4": 4, "config5": 5}
+
+
+def baseline_cluster(rng, n_nodes, num_zones=4, *, cpu=(8, 96), mem=(16, 256),
+                     gpu=(0, 2)):
+    """bench.py `_make_cluster` (:65-86): nine cluster fields as numpy."""
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+
+    avail = np.empty((n_nodes, 3), np.int32)
+    avail[:, 0] = rng.integers(*cpu, size=n_nodes)
+    avail[:, 1] = rng.integers(*mem, size=n_nodes)
+    avail[:, 2] = rng.integers(*gpu, size=n_nodes)
+    return [
+        avail, avail.copy(),
+        rng.integers(0, num_zones, size=n_nodes).astype(np.int32),
+        rng.permutation(n_nodes).astype(np.int32),
+        np.full(n_nodes, INT32_INF, np.int32),
+        np.full(n_nodes, INT32_INF, np.int32),
+        np.zeros(n_nodes, bool), np.ones(n_nodes, bool), np.ones(n_nodes, bool),
+    ]
+
+
+def baseline_batches(rng, n_apps, window, emax, *, exec_count=None,
+                     skippable=True):
+    """bench.py `_make_batches` (:89-112): host AppBatches of `window`
+    apps each."""
+    from spark_scheduler_tpu_torch.ops.batched import make_app_batch
+
+    driver = rng.integers(1, 4, size=(n_apps, 3)).astype(np.int32)
+    driver[:, 2] = 0
+    execs = rng.integers(1, 6, size=(n_apps, 3)).astype(np.int32)
+    execs[:, 2] = 0
+    if exec_count is None:
+        counts = rng.integers(1, emax + 1, size=n_apps).astype(np.int32)
+    else:
+        counts = np.full(n_apps, exec_count, np.int32)
+    return [
+        make_app_batch(
+            driver[lo:lo + window], execs[lo:lo + window],
+            counts[lo:lo + window],
+            skippable=np.full(min(window, n_apps - lo), skippable, bool),
+        )
+        for lo in range(0, n_apps, window)
+    ]
+
+
+def queue_chain(device, solve, clusters, batches, fills, **kw):
+    """Thread the availability through the windows on the card and, with
+    the same solve on CPU tensors, through the plain path; every window's
+    five outputs must be equal. `solve` is fifo_pack or grouped_fifo_pack;
+    `clusters` a ClusterTensors on the card (stacked for grouped);
+    `batches` card AppBatches. Returns (per-window card ms from CUDA events,
+    admitted per window, CPU plain seconds)."""
+    import dataclasses
+
+    import torch
+
+    from spark_scheduler_tpu_torch.models.cluster import ClusterTensors
+    from spark_scheduler_tpu_torch.ops.batched import AppBatch
+
+    def to_cpu(x):
+        return type(x)(*(None if t is None else t.cpu() for t in (
+            x.fields() if isinstance(x, ClusterTensors) else x)))
+
+    gpu_c, cpu_c = clusters, to_cpu(clusters)
+    cpu_batches = [to_cpu(AppBatch(*b)) for b in batches]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms, admitted, cpu_s = [], [], 0.0
+    for i, (apps, fill) in enumerate(zip(batches, fills)):
+        torch.cuda.synchronize()
+        start.record()
+        got = solve(gpu_c, apps, fill=fill, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        want = solve(cpu_c, cpu_batches[i], fill=fill, **kw)
+        cpu_s += time.perf_counter() - t0
+        err = packing_diff(got, want)
+        check(err == 0, f"window {i} ({fill}): card != CPU plain path")
+        admitted.append(int(got.admitted.sum()))
+        gpu_c = dataclasses.replace(gpu_c, available=got.available_after)
+        cpu_c = dataclasses.replace(cpu_c, available=want.available_after)
+    return ms, admitted, cpu_s
+
+
+def run_queue_path(device):
+    """Phase 5: BASELINE configs 1, 2, 2b, 3, 4, 5 through the queue path at
+    full size. Returns the queue-kernel launches of this phase."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import app_batch_to_device
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.parallel import grouped_fifo_pack, stack_groups
+
+    def up(fields):
+        return cluster_from_numpy(fields, device=device)
+
+    def ups(batches):
+        return [app_batch_to_device(b, device) for b in batches]
+
+    configs = []
+    rng = np.random.default_rng(CONFIG_SEEDS["config5"])
+    c5 = up(baseline_cluster(rng, 10_000))
+    b5 = ups(baseline_batches(rng, 1_500, 100, 8))
+    configs.append(("config5", "10,000 nodes, 1,000 apps in windows of 100, "
+                    "then one window per other strategy", fifo_pack, c5, b5,
+                    ["tightly-pack"] * 10 + list(STRATEGIES[1:]), 8, 10))
+    rng = np.random.default_rng(CONFIG_SEEDS["config2"])
+    c2 = up(baseline_cluster(rng, 500))
+    b2 = ups(baseline_batches(rng, 1_200, 100, 8, exec_count=8, skippable=False))
+    configs.append(("config2", "500 nodes, 12 windows of 100, strict FIFO",
+                    fifo_pack, c2, b2, ["distribute-evenly"] * 12, 8, 12))
+    rng = np.random.default_rng(CONFIG_SEEDS["config2b"])
+    c2b = up(baseline_cluster(rng, 500))
+    b2b = ups(baseline_batches(rng, 1_200, 100, 8, exec_count=8, skippable=False))
+    configs.append(("config2b", "500 nodes, 12 windows of 100, strict FIFO",
+                    fifo_pack, c2b, b2b, ["az-aware-tightly-pack"] * 12, 8, 12))
+    rng = np.random.default_rng(CONFIG_SEEDS["config3"])
+    c3 = up(baseline_cluster(rng, 1_000))
+    b3 = ups(baseline_batches(rng, 2_400, 200, 32, exec_count=2))
+    configs.append(("config3", "1,000 nodes, 12 windows of 200, emax 32",
+                    fifo_pack, c3, b3, ["tightly-pack"] * 12, 32, 12))
+    rng = np.random.default_rng(CONFIG_SEEDS["config4"])
+    shapes = [  # bench.py:330-336, (cpu, mem, gpu) ranges per group
+        ((4, 16), (8, 32), (0, 1)),
+        ((8, 32), (32, 128), (0, 1)),
+        ((16, 96), (64, 512), (0, 2)),
+        ((8, 64), (16, 128), (1, 5)),
+        ((32, 128), (128, 1024), (0, 1)),
+    ]
+    groups, group_apps = [], []
+    for cpu, mem, gpu in shapes:
+        groups.append(up(baseline_cluster(rng, 1_000, cpu=cpu, mem=mem, gpu=gpu)))
+        group_apps.append(ups(baseline_batches(rng, 40, 40, 8))[0])
+    c4, a4 = stack_groups(groups, group_apps)
+    configs.append(("config4", "5 groups x 1,000 nodes, 40 apps each, "
+                    "grouped_fifo_pack, 3 chained calls", grouped_fifo_pack,
+                    c4, [a4] * 3, ["tightly-pack"] * 3, 8, 3))
+    rng = np.random.default_rng(CONFIG_SEEDS["config1"])
+    c1 = up(baseline_cluster(rng, 10))
+    b1 = ups(baseline_batches(rng, 12, 1, 8, exec_count=8))
+    configs.append(("config1", "10 nodes, 12 windows of 1 app", fifo_pack, c1,
+                    b1, ["tightly-pack"] * 12, 8, 12))
+
+    fifo_pack.launches = 0
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    stats = {}
+    for name, what, solve, cluster, batches, fills, emax, timed in configs:
+        before = fifo_pack.launches
+        ms, admitted, cpu_s = queue_chain(device, solve, cluster, batches,
+                                          fills, emax=emax, num_zones=4)
+        launches = fifo_pack.launches - before
+        check(launches == len(batches),
+              f"{name}: {launches} queue-kernel launches for {len(batches)} calls")
+        head = ms[:timed]
+        stats[name] = dict(what=what, windows=len(batches), emax=emax,
+                           admitted=admitted, p50_ms=float(np.percentile(head, 50)),
+                           p99_ms=float(np.percentile(head, 99)),
+                           ms=ms, launches=launches, cpu_plain_s=cpu_s)
+        apps = sum(int(b.app_valid.sum()) for b in batches)
+        print(f"  {name} ({what}): admitted {sum(admitted)}/{apps} "
+              f"(per call {admitted}); {fills[0]} fifo_pack per call p50 "
+              f"{stats[name]['p50_ms']:.3f} ms p99 {stats[name]['p99_ms']:.3f} "
+              f"ms over {len(head)} calls (CUDA events); queue-kernel launches "
+              f"{launches}; CPU plain path {cpu_s:.1f} s", flush=True)
+        if len(ms) > timed:
+            print("    other strategies, one window each: " + ", ".join(
+                f"{f} {m:.3f} ms ({a} admitted)" for f, m, a in
+                zip(fills[timed:], ms[timed:], admitted[timed:])), flush=True)
+    check(window_pack.launches == 0 and probe_add_one.launches == 0,
+          "phase 5 launched another kernel")
+    check(stats["config4"]["launches"] == 3, "config 4: not one launch per call")
+    return fifo_pack.launches
+
+
 def main() -> int:
     try:
         import torch
@@ -463,6 +861,7 @@ def main() -> int:
           f"card: {card}", flush=True)
 
     worst_small = compare_small(device)
+    worst_queue = compare_queue_small(device)
 
     t0 = time.perf_counter()
     launches, stats, last = run_main_path(device)
@@ -477,11 +876,22 @@ def main() -> int:
           flush=True)
 
     m = measure(last, device, card, worst_small)
+    m_queue = measure_queue(device, card, worst_queue)
+
+    t0 = time.perf_counter()
+    queue_launches = run_queue_path(device)
+    print(f"phase 5: BASELINE configs 1, 2, 2b, 3, 4, 5 identical to the CPU "
+          f"plain path in {time.perf_counter() - t0:.1f} s; queue-kernel "
+          f"launches {queue_launches} ({card})", flush=True)
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",
              replaces="spark_scheduler_tpu/ops/pallas_window.py:85",
              launches=launches["window"], **m["window"]),
+        dict(name="fifo_queue", route="cuda",
+             source="spark_scheduler_tpu_torch/csrc/fifo_kernel.cu",
+             replaces="spark_scheduler_tpu/ops/pallas_fifo.py:413",
+             launches=queue_launches, **m_queue),
         dict(name="probe_add_one", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/probe.cu",
              replaces="spark_scheduler_tpu/ops/pallas_fifo.py:720",
@@ -496,7 +906,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": 1,  # the smoke drives one card
         },
     }))
     return 0

@@ -2,10 +2,11 @@
 //
 // Replaces the gang math the JAX package shares between its two Mosaic
 // kernels: spark_scheduler_tpu/ops/pallas_fifo.py `make_driver_selector`,
-// `make_fill_runner` and `make_gang_solver` (:119-410). The segmented-window
-// kernel (window_kernel.cu) includes this header today; the queue kernel of
-// a later port includes it too, so the two cannot drift. The plain PyTorch
-// version of the same math is spark_scheduler_tpu_torch/ops/gang.py.
+// `make_fill_runner` and `make_gang_solver` (:119-410). Both CUDA kernels,
+// the segmented-window row walk (window_kernel.cu) and the queue-mode FIFO
+// admission (fifo_kernel.cu), include this header and walk their rows with
+// the same `gs_fifo_row`, so the two cannot drift. The plain PyTorch version
+// of the same math is spark_scheduler_tpu_torch/ops/gang.py.
 //
 // Every function is called by ALL threads of the block with the same
 // arguments and returns the same (uniform) values in every thread. Per-node
@@ -326,4 +327,144 @@ __device__ void gs_gang_solve(const GangCtx& c, int fill, bool single_az,
     *ok = d >= 0;
     *drv = d;
   }
+}
+
+// The strategy as the kernels receive it (ops/gang.py strategy_params).
+struct GsStrategy {
+  int fill, single_az, az_fallback, include_exec, num_zones;
+};
+
+// One block's global-memory workspace: 8 n + 2 emax + 2 num_zones int32
+// words, carved from the scratch buffer the wrapper allocates.
+struct GsWork {
+  int* avail;   // [3][n] availability, dimension-major
+  int* cap_e;   // [n]
+  int* cap_wd;  // [n]
+  int* fit_d;   // [n]
+  int* cnt0;    // [n]
+  int* cnt1;    // [n]
+  int* ex0;     // [emax]
+  int* ex1;     // [emax]
+  int* zfirst;  // [num_zones]
+  int* zhas;    // [num_zones]
+};
+
+__device__ __forceinline__ GsWork gs_carve(int* scratch, int n, int emax, int num_zones) {
+  GsWork w;
+  w.avail = scratch;
+  w.cap_e = w.avail + 3 * n;
+  w.cap_wd = w.cap_e + n;
+  w.fit_d = w.cap_wd + n;
+  w.cnt0 = w.fit_d + n;
+  w.cnt1 = w.cnt0 + n;
+  w.ex0 = w.cnt1 + n;
+  w.ex1 = w.ex0 + emax;
+  w.zfirst = w.ex1 + emax;
+  w.zhas = w.zfirst + num_zones;
+  return w;
+}
+
+// Availability-independent zone facts, once per set of orders (single-AZ
+// strategies only): per zone, the smallest driver rank among its
+// driver-eligible nodes and whether it has an executor-eligible node.
+// Ends with a barrier.
+__device__ void gs_zone_facts(const GangCtx& c, const GsStrategy& s, const GsWork& w) {
+  if (s.single_az) {
+    for (int z = 0; z < s.num_zones; ++z) {
+      int first = GS_INF, has = 0;
+      for (int i = threadIdx.x; i < c.n; i += blockDim.x) {
+        if (c.zone[i] != z) continue;
+        if (c.elig_d[i]) first = min(first, c.drank[i]);
+        if (c.elig_e[i]) has = 1;
+      }
+      first = gs_block_reduce<int>(first, GsMin(), reinterpret_cast<int*>(c.red));
+      has = gs_block_reduce<int>(has, GsMax(), reinterpret_cast<int*>(c.red));
+      if (threadIdx.x == 0) {
+        w.zfirst[z] = first;
+        w.zhas[z] = has;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// A padding row: nothing packs, nothing is debited, nothing blocks.
+__device__ __forceinline__ void gs_empty_row(int* meta, int* execs, int emax) {
+  if (threadIdx.x == 0) {
+    meta[0] = -1;
+    meta[1] = 0;
+    meta[2] = 0;
+    meta[3] = 0;
+  }
+  for (int j = threadIdx.x; j < emax; j += blockDim.x) execs[j] = -1;
+}
+
+// One valid FIFO row (pallas_fifo.py:475-553): node capacities from the
+// carried availability, the gang solve, `packed = ok && !too_big`,
+// `admitted = packed && !blocked`, the admitted gang debited from
+// w.avail (and from `commit_base` [n][3] too when it is not null), the
+// meta row (driver, admitted, packed, 0) and executor slots written, and
+// strict-FIFO blocking: a non-skippable failure blocks the later rows
+// (resource.go:241-249). Ends with a barrier.
+__device__ void gs_fifo_row(GangCtx& c, const GsStrategy& s, const GsWork& w,
+                            const int* dreq, const int* ereq, int raw, bool skip,
+                            bool* blocked, int* commit_base, int* meta, int* execs) {
+  const int n = c.n;
+  const bool too_big = raw > c.emax;
+  c.count = min(raw, c.emax);
+  for (int d = 0; d < 3; ++d) {
+    c.dreq[d] = dreq[d];
+    c.ereq[d] = ereq[d];
+  }
+  // Node capacities (ops/capacity.py): per dim 0 if the reservation
+  // exceeds availability, INF if the request is 0, else the floor of a
+  // non-negative quotient; min over dims, never negative.
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    int ce = GS_INF, cw = GS_INF, fd = 1;
+    for (int d = 0; d < 3; ++d) {
+      const int a = w.avail[d * n + i];
+      const int er = c.ereq[d], dr = c.dreq[d];
+      const int safe = max(er, 1);
+      const int pe = 0 > a ? 0 : (er == 0 ? GS_INF : a / safe);
+      const int pw = dr > a ? 0 : (er == 0 ? GS_INF : (a - dr) / safe);
+      ce = min(ce, pe);
+      cw = min(cw, pw);
+      fd &= dr <= a ? 1 : 0;
+    }
+    const bool e = c.elig_e[i] != 0;
+    w.cap_e[i] = e ? max(ce, 0) : 0;
+    w.cap_wd[i] = e ? max(cw, 0) : 0;
+    w.fit_d[i] = fd;
+  }
+  __syncthreads();
+
+  bool ok;
+  int drv;
+  int *cnt, *ex;
+  gs_gang_solve(c, s.fill, s.single_az != 0, s.az_fallback != 0, s.include_exec != 0,
+                s.num_zones, w.zfirst, w.zhas, w.cnt0, w.cnt1, w.ex0, w.ex1, &ok, &drv,
+                &cnt, &ex);
+  const bool packed = ok && !too_big;
+  const bool admitted = packed && !*blocked;
+  if (admitted) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int k = cnt[i];
+      const int is_drv = i == drv ? 1 : 0;
+      if (k == 0 && !is_drv) continue;
+      for (int d = 0; d < 3; ++d) {
+        const int delta = k * c.ereq[d] + is_drv * c.dreq[d];
+        w.avail[d * n + i] -= delta;
+        if (commit_base) commit_base[i * 3 + d] -= delta;
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    meta[0] = admitted ? drv : -1;
+    meta[1] = admitted ? 1 : 0;
+    meta[2] = packed ? 1 : 0;
+    meta[3] = 0;
+  }
+  for (int j = threadIdx.x; j < c.emax; j += blockDim.x) execs[j] = admitted ? ex[j] : -1;
+  *blocked = *blocked || (!packed && !skip);
+  __syncthreads();
 }

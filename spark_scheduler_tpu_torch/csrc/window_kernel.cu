@@ -65,28 +65,20 @@ struct WalkParams {
 __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p) {
   __shared__ unsigned long long red[32];
   const int n = p.n;
-  int* avail = p.scratch;        // [3][n]
-  int* cap_e = avail + 3 * n;    // [n]
-  int* cap_wd = cap_e + n;       // [n]
-  int* fit_d = cap_wd + n;       // [n]
-  int* cnt0 = fit_d + n;         // [n]
-  int* cnt1 = cnt0 + n;          // [n]
-  int* ex0 = cnt1 + n;           // [emax]
-  int* ex1 = ex0 + p.emax;       // [emax]
-  int* zfirst = ex1 + p.emax;    // [num_zones]
-  int* zhas = zfirst + p.num_zones;
+  const GsWork w = gs_carve(p.scratch, n, p.emax, p.num_zones);
+  const GsStrategy s{p.fill, p.single_az, p.az_fallback, p.include_exec, p.num_zones};
 
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    for (int d = 0; d < 3; ++d) avail[d * n + i] = p.base[i * 3 + d];
+    for (int d = 0; d < 3; ++d) w.avail[d * n + i] = p.base[i * 3 + d];
 
   GangCtx c;
   c.n = n;
   c.emax = p.emax;
-  c.avail = avail;
+  c.avail = w.avail;
   c.sched = p.sched;
-  c.cap_e = cap_e;
-  c.cap_wd = cap_wd;
-  c.fit_d = fit_d;
+  c.cap_e = w.cap_e;
+  c.cap_wd = w.cap_wd;
+  c.fit_d = w.fit_d;
   c.elig_e = p.elig_e;
   c.elig_d = p.elig_d;
   c.zone = p.zone;
@@ -95,102 +87,19 @@ __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p)
   c.erank = p.erank;
   c.e_order = p.e_order;
   c.red = red;
-
-  if (p.single_az) {
-    // Availability-independent zone facts, once per segment.
-    for (int z = 0; z < p.num_zones; ++z) {
-      int first = GS_INF, has = 0;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        if (p.zone[i] != z) continue;
-        if (p.elig_d[i]) first = min(first, p.drank[i]);
-        if (p.elig_e[i]) has = 1;
-      }
-      first = gs_block_reduce<int>(first, GsMin(), reinterpret_cast<int*>(red));
-      has = gs_block_reduce<int>(has, GsMax(), reinterpret_cast<int*>(red));
-      if (threadIdx.x == 0) {
-        zfirst[z] = first;
-        zhas[z] = has;
-      }
-    }
-  }
-  __syncthreads();
+  gs_zone_facts(c, s, w);  // once per segment
 
   bool blocked = false;
   for (int r = 0; r < p.rows; ++r) {
     int* meta = p.meta + r * 4;
     int* execs = p.execs + r * p.emax;
     if (r >= p.row_count || !p.valid[r]) {
-      if (threadIdx.x == 0) {
-        meta[0] = -1;
-        meta[1] = 0;
-        meta[2] = 0;
-        meta[3] = 0;
-      }
-      for (int j = threadIdx.x; j < p.emax; j += blockDim.x) execs[j] = -1;
+      gs_empty_row(meta, execs, p.emax);
       continue;
     }
-    const int raw = p.cnt[r];
-    const bool too_big = raw > p.emax;
-    c.count = min(raw, p.emax);
-    for (int d = 0; d < 3; ++d) {
-      c.dreq[d] = p.dreq[r * 3 + d];
-      c.ereq[d] = p.ereq[r * 3 + d];
-    }
-    // Node capacities (ops/capacity.py): per dim 0 if the reservation
-    // exceeds availability, INF if the request is 0, else the floor of a
-    // non-negative quotient; min over dims, never negative.
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      int ce = GS_INF, cw = GS_INF, fd = 1;
-      for (int d = 0; d < 3; ++d) {
-        const int a = avail[d * n + i];
-        const int er = c.ereq[d], dr = c.dreq[d];
-        const int safe = max(er, 1);
-        const int pe = 0 > a ? 0 : (er == 0 ? GS_INF : a / safe);
-        const int pw = dr > a ? 0 : (er == 0 ? GS_INF : (a - dr) / safe);
-        ce = min(ce, pe);
-        cw = min(cw, pw);
-        fd &= dr <= a ? 1 : 0;
-      }
-      const bool e = p.elig_e[i] != 0;
-      cap_e[i] = e ? max(ce, 0) : 0;
-      cap_wd[i] = e ? max(cw, 0) : 0;
-      fit_d[i] = fd;
-    }
-    __syncthreads();
-
-    bool ok;
-    int drv;
-    int *cnt, *ex;
-    gs_gang_solve(c, p.fill, p.single_az != 0, p.az_fallback != 0,
-                  p.include_exec != 0, p.num_zones, zfirst, zhas, cnt0, cnt1,
-                  ex0, ex1, &ok, &drv, &cnt, &ex);
-    const bool packed = ok && !too_big;
-    const bool admitted = packed && !blocked;
-    const bool commit = admitted && r == p.row_count - 1;
-    if (admitted) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int k = cnt[i];
-        const int is_drv = i == drv ? 1 : 0;
-        if (k == 0 && !is_drv) continue;
-        for (int d = 0; d < 3; ++d) {
-          const int delta = k * c.ereq[d] + is_drv * c.dreq[d];
-          avail[d * n + i] -= delta;
-          if (commit) p.base[i * 3 + d] -= delta;
-        }
-      }
-    }
-    if (threadIdx.x == 0) {
-      meta[0] = admitted ? drv : -1;
-      meta[1] = admitted ? 1 : 0;
-      meta[2] = packed ? 1 : 0;
-      meta[3] = 0;
-    }
-    for (int j = threadIdx.x; j < p.emax; j += blockDim.x)
-      execs[j] = admitted ? ex[j] : -1;
-    // Strict FIFO: a non-skippable failure blocks the segment's later rows
-    // (resource.go:241-249).
-    blocked = blocked || (!packed && !p.skip[r]);
-    __syncthreads();
+    // The committing row (the segment's last) is also debited from the base.
+    gs_fifo_row(c, s, w, p.dreq + r * 3, p.ereq + r * 3, p.cnt[r], p.skip[r] != 0,
+                &blocked, r == p.row_count - 1 ? p.base : nullptr, meta, execs);
   }
 }
 

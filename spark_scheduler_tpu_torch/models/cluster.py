@@ -107,6 +107,25 @@ def cluster_from_numpy(fields: Sequence, device="cuda") -> ClusterTensors:
     )
 
 
+def check_cluster(cluster: ClusterTensors) -> None:
+    """Raise unless every field has its dtype and shape ([N,3] or [N]) and
+    lies on the cluster's device: what the CUDA kernels take as they are."""
+    n = cluster.num_nodes
+    for f, t, want in zip(
+        dataclasses.fields(cluster), cluster.fields(), FIELD_DTYPES
+    ):
+        shape = (n, 3) if f.name in ("available", "schedulable") else (n,)
+        if t.dtype != want or tuple(t.shape) != shape:
+            raise ValueError(
+                f"cluster.{f.name}: expected {want} {shape}, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != cluster.device:
+            raise ValueError(
+                f"cluster.{f.name} is on {t.device}, expected {cluster.device}"
+            )
+
+
 def pad_bucket(n: int, minimum: int) -> int:
     """Power-of-two size bucketing (the solver pads its tensors with it)."""
     out = minimum

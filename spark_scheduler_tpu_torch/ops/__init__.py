@@ -1,2 +1,3 @@
 """Tensor ops of the port: capacity, node sorting, the gang solve, the
-segmented window solve and its CUDA kernel, and the kernels' build."""
+segmented window solve and the queue-mode FIFO admission with their CUDA
+kernels, and the kernels' build."""

@@ -1,0 +1,278 @@
+"""Queue-mode FIFO gang admission: the port of spark_scheduler_tpu/ops/pallas_fifo.py.
+
+`fifo_pack` admits a FIFO queue of B apps in queue mode, for all six
+strategies: the priority orders are sorted ONCE per call from the starting
+availability (`ops/batched.queue_mode_orders`), then the apps are walked in
+order with the availability carried from app to app and strict-FIFO
+blocking. It is the counterpart of both `fifo_pack_pallas` and
+`fifo_pack_auto`:
+
+  - CUDA tensors: the sorts in PyTorch, then ONE launch of the hand-written
+    queue kernel csrc/fifo_kernel.cu, which walks the whole queue in one
+    block (it shares its per-app step with the window kernel through
+    csrc/gang_solve.cuh);
+  - CPU tensors: `fifo_pack_reference`, its plain PyTorch version (the same
+    sorts, then `ops/gang.walk_rows`);
+  - any other device raises. There is no switch and no fallback.
+
+Nodes are keyed by priority rank, as in the window path, so
+`available_after` comes out in node order: the JAX kernel's pre-permuted,
+sublane-folded node axis (pallas_fifo.py:88-96, :623-651) is a TPU layout
+choice, not part of the contract.
+
+Deviation from the JAX package, shared with the window path (ops/gang.py):
+the single-AZ zone scores are summed in float64 and rounded once, where the
+JAX package sums float32 in tile order, so a cross-zone tie closer than
+about 1 ulp may break differently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from spark_scheduler_tpu_torch.models.cluster import (
+    ClusterTensors,
+    check_cluster,
+)
+from spark_scheduler_tpu_torch.ops.batched import (
+    APP_DTYPES,
+    AppBatch,
+    BatchedPacking,
+    queue_mode_orders,
+)
+from spark_scheduler_tpu_torch.ops.gang import (
+    FILL_CODES,
+    PALLAS_FILLS,
+    PALLAS_SINGLE_AZ,
+    strategy_params,
+    walk_rows,
+)
+from spark_scheduler_tpu_torch.ops.packing import (
+    _check_cumsum_bound,
+    _rank_of_position,
+)
+
+def fifo_eligible(apps: AppBatch, fill: str) -> bool:
+    """What the queue path serves (pallas_fifo.py `pallas_eligible`): queue
+    mode (no per-app masks, no window rows) with any of the six
+    strategies."""
+    return (
+        (fill in PALLAS_FILLS or fill in PALLAS_SINGLE_AZ)
+        and apps.commit is None
+        and apps.driver_cand is None
+        and apps.domain is None
+    )
+
+
+def check_queue(apps: AppBatch, fill: str) -> None:
+    if not fifo_eligible(apps, fill):
+        raise ValueError(
+            f"queue path supports queue mode with "
+            f"{PALLAS_FILLS + tuple(PALLAS_SINGLE_AZ)}, got "
+            f"fill={fill!r} masked={apps.driver_cand is not None or apps.domain is not None} "
+            f"segmented={apps.commit is not None}"
+        )
+
+
+def kernel_orders(cluster: ClusterTensors, num_zones: int):
+    """The queue-mode orders as the row walk takes them: (elig_e, elig_d,
+    drank, d_order, erank, e_order), ranks and orders int32 permutations of
+    0..N-1."""
+    driver_elig, exec_elig, d_order, d_rank, e_order, _ = queue_mode_orders(
+        cluster, num_zones
+    )
+    return (
+        exec_elig, driver_elig, d_rank, d_order,
+        _rank_of_position(e_order), e_order,
+    )
+
+
+def empty_packing(available: torch.Tensor, emax: int, lead=()) -> BatchedPacking:
+    """An empty queue admits nothing and leaves the availability unchanged
+    (pallas_fifo.py:604-613); `available_after` is a copy."""
+    dev = available.device
+    return BatchedPacking(
+        driver_node=torch.zeros((*lead, 0), dtype=torch.int32, device=dev),
+        executor_nodes=torch.zeros((*lead, 0, emax), dtype=torch.int32, device=dev),
+        admitted=torch.zeros((*lead, 0), dtype=torch.bool, device=dev),
+        packed=torch.zeros((*lead, 0), dtype=torch.bool, device=dev),
+        available_after=available.clone(),
+    )
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def fifo_pack_reference(
+    cluster: ClusterTensors,
+    apps: AppBatch,
+    *,
+    fill: str = "tightly-pack",
+    emax: int,
+    num_zones: int,
+) -> BatchedPacking:
+    """The plain PyTorch version of `fifo_pack`: `queue_mode_orders` once,
+    then a Python loop over the B apps (`ops/gang.walk_rows`), carrying the
+    availability and the blocked flag. Runs on whatever device `cluster`
+    lives on; the app fields may be tensors or numpy arrays."""
+    check_queue(apps, fill)
+    _check_cumsum_bound(cluster.num_nodes, emax)
+    avail = cluster.available.clone()
+    if apps.driver_req.shape[0] == 0:
+        return empty_packing(cluster.available, emax)
+    meta, execs = walk_rows(
+        fill, num_zones=num_zones, emax=emax, cluster=cluster, avail=avail,
+        orders=kernel_orders(cluster, num_zones),
+        driver_req=_host(apps.driver_req), exec_req=_host(apps.exec_req),
+        exec_count=_host(apps.exec_count), valid=_host(apps.app_valid),
+        skippable=_host(apps.skippable),
+    )
+    dev = cluster.device
+    meta = torch.tensor(meta, device=dev)
+    return BatchedPacking(
+        driver_node=meta[:, 0].contiguous(),
+        executor_nodes=torch.tensor(execs, device=dev),
+        admitted=meta[:, 1] != 0,
+        packed=meta[:, 2] != 0,
+        available_after=avail,
+    )
+
+
+def device_apps(apps: AppBatch, device: torch.device, lead=()) -> list:
+    """The five queue fields of `apps` as contiguous tensors of the kernel's
+    dtypes; raises unless each is a tensor on `device` of shape
+    lead + [B, 3] or lead + [B]."""
+    out = []
+    b = None
+    # The first five AppBatch fields: the queue-mode ones.
+    for field, dtype in zip(AppBatch._fields[:5], APP_DTYPES[:5]):
+        t = getattr(apps, field)
+        if not isinstance(t, torch.Tensor) or t.device != device:
+            raise ValueError(
+                f"apps.{field} must be a tensor on {device} "
+                "(ops/batched.app_batch_to_device)"
+            )
+        b = t.shape[len(lead)] if b is None else b
+        want = (*lead, b, 3) if field.endswith("_req") else (*lead, b)
+        if tuple(t.shape) != want:
+            raise ValueError(f"apps.{field}: expected shape {want}, got {tuple(t.shape)}")
+        out.append(t.to(dtype).contiguous())
+    return out
+
+
+_QUEUE_ARGTYPES = (
+    # groups, rows, n, emax, num_zones, fill, single_az, az_fallback,
+    # include_exec
+    [ctypes.c_int] * 9
+    + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip
+    # avail, elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
+    + [ctypes.c_void_p] * 9
+    + [ctypes.c_void_p] * 4  # meta, execs, avail_out, scratch
+    + [ctypes.c_void_p]  # stream
+)
+
+
+def _queue_lib():
+    from spark_scheduler_tpu_torch.ops._build import load_library
+
+    lib = load_library("fifo_kernel")
+    fn = lib.fifo_queue
+    if fn.argtypes is None:
+        fn.argtypes = _QUEUE_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.fifo_kernel_error.argtypes = [ctypes.c_int]
+        lib.fifo_kernel_error.restype = ctypes.c_char_p
+    return lib
+
+
+def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones):
+    """ONE launch of the CUDA queue kernel over G independent queues, one
+    block each. Every input is a contiguous CUDA tensor stacked on a
+    leading group axis: `avail`/`sched` [G,N,3] i32, `zone` [G,N] i32,
+    `orders` the six [G,N] tensors of `kernel_orders`, `app_fields` the
+    five of `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4],
+    execs [G,B,emax], avail_after [G,N,3]), all new tensors; the kernel runs
+    on the current stream and nothing waits for it."""
+    g, n, _ = avail.shape
+    b = app_fields[0].shape[1]
+    dev = avail.device
+    # The scratch and any temporaries may be freed when this returns, before
+    # the kernel ends: the caching allocator hands their memory only to
+    # later work on the same stream, which runs after the kernel.
+    inner, single_az, az_fallback, include_exec = strategy_params(fill)
+    lib = _queue_lib()
+    meta = torch.empty((g, b, 4), dtype=torch.int32, device=dev)
+    execs = torch.empty((g, b, emax), dtype=torch.int32, device=dev)
+    avail_out = torch.empty((g, n, 3), dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        g * (8 * n + 2 * emax + 2 * num_zones), dtype=torch.int32, device=dev
+    )
+    err = lib.fifo_queue(
+        g, b, n, emax, num_zones, FILL_CODES[inner], int(single_az),
+        int(az_fallback), int(include_exec),
+        *(t.data_ptr() for t in app_fields),
+        avail.data_ptr(),
+        *(t.data_ptr() for t in orders),
+        zone.data_ptr(), sched.data_ptr(),
+        meta.data_ptr(), execs.data_ptr(), avail_out.data_ptr(),
+        scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            "queue kernel launch failed: " + lib.fifo_kernel_error(err).decode()
+        )
+    fifo_pack.launches += 1
+    return meta, execs, avail_out
+
+
+def fifo_pack(
+    cluster: ClusterTensors,
+    apps: AppBatch,
+    *,
+    fill: str = "tightly-pack",
+    emax: int,
+    num_zones: int,
+) -> BatchedPacking:
+    """Admit a FIFO queue in queue mode. CUDA tensors: the sorts in
+    PyTorch, then one launch of the CUDA queue kernel (the app fields must
+    be tensors on the cluster's device). CPU tensors: `fifo_pack_reference`.
+    Any other device raises. `emax` is the executor-slot padding; a gang of
+    more than `emax` executors never packs. `available_after` is always a
+    new tensor: the caller's `cluster.available` is left as it was."""
+    check_queue(apps, fill)
+    check_cluster(cluster)
+    dev = cluster.device
+    if dev.type == "cpu":
+        return fifo_pack_reference(
+            cluster, apps, fill=fill, emax=emax, num_zones=num_zones
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"fifo_pack runs on cuda or cpu, got {dev}")
+    _check_cumsum_bound(cluster.num_nodes, emax)
+    fields = device_apps(apps, dev)
+    if fields[0].shape[0] == 0:
+        return empty_packing(cluster.available, emax)
+    orders = kernel_orders(cluster, num_zones)
+    meta, execs, avail_after = fifo_queue(
+        cluster.available.contiguous()[None],
+        cluster.schedulable.contiguous()[None],
+        cluster.zone_id.contiguous()[None],
+        [t.contiguous()[None] for t in orders],
+        [t[None] for t in fields],
+        fill=fill, emax=emax, num_zones=num_zones,
+    )
+    return BatchedPacking(
+        driver_node=meta[0, :, 0].contiguous(),
+        executor_nodes=execs[0],
+        admitted=meta[0, :, 1] != 0,
+        packed=meta[0, :, 2] != 0,
+        available_after=avail_after[0],
+    )
+
+
+fifo_pack.launches = 0

@@ -2,9 +2,11 @@
 
 Counterpart of the closures the JAX package shares between its two Mosaic
 kernels (spark_scheduler_tpu/ops/pallas_fifo.py `make_driver_selector`,
-`make_fill_runner`, `make_gang_solver`). The same math runs on the card as
-CUDA device functions in csrc/gang_solve.cuh; this module is its plain
-version, used on the CPU and as the card kernel's yardstick of correctness.
+`make_fill_runner`, `make_gang_solver`), and `walk_rows`, the FIFO row walk
+around it that the window and queue paths share. The same math runs on the
+card as CUDA device functions in csrc/gang_solve.cuh; this module is its
+plain version, used on the CPU and as the card kernels' yardstick of
+correctness.
 
 Nodes are keyed by the segment's priority RANKS: `drank`/`erank` are
 permutations of 0..N-1 (rank of each node in the driver/executor priority
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from spark_scheduler_tpu_torch.models.resources import INT32_INF
+from spark_scheduler_tpu_torch.ops.capacity import fits, node_capacities
 
 PALLAS_FILLS = ("tightly-pack", "distribute-evenly", "minimal-fragmentation")
 
@@ -55,7 +58,25 @@ PALLAS_SINGLE_AZ = {
     "az-aware-tightly-pack": ("tightly-pack", True, True),
 }
 
+# Inner fill -> the `fill` code of the CUDA kernels (csrc/gang_solve.cuh).
+FILL_CODES = {
+    "tightly-pack": 0,
+    "distribute-evenly": 1,
+    "minimal-fragmentation": 2,
+}
+
 INF = INT32_INF
+
+
+def strategy_params(fill: str):
+    """(inner fill, single-AZ, az-aware fallback, executors counted in the
+    zone-efficiency reservation) of one of the six strategies."""
+    if fill in PALLAS_SINGLE_AZ:
+        inner, az_fallback, include_exec = PALLAS_SINGLE_AZ[fill]
+        return inner, True, az_fallback, include_exec
+    if fill in PALLAS_FILLS:
+        return fill, False, False, True
+    raise ValueError(f"unsupported strategy: {fill}")
 
 
 def _masked_min(mask: torch.Tensor, vals: torch.Tensor) -> int:
@@ -211,12 +232,7 @@ def gang_solve(
     """Driver selection + executor fill for one gang, and for the single-AZ
     wrappers the per-zone pack and zone pick (make_gang_solver semantics).
     Returns (ok, driver node or -1, [emax] executor slots, [N] counts)."""
-    if fill in PALLAS_SINGLE_AZ:
-        inner, az_fallback, include_exec = PALLAS_SINGLE_AZ[fill]
-    elif fill in PALLAS_FILLS:
-        inner, az_fallback, include_exec = fill, False, True
-    else:
-        raise ValueError(f"unsupported strategy: {fill}")
+    inner, single_az, az_fallback, include_exec = strategy_params(fill)
     all_nodes = torch.ones_like(elig_e)
 
     def solve_in(zmask, elig_mask):
@@ -228,7 +244,7 @@ def gang_solve(
         )
         return found, drv, execs, counts
 
-    if fill not in PALLAS_SINGLE_AZ:
+    if not single_az:
         return solve_in(all_nodes, elig_e)
 
     best = None
@@ -258,3 +274,71 @@ def gang_solve(
         # (az_aware_pack_tightly.go:27-38).
         return solve_in(all_nodes, elig_e)
     return False, -1, [-1] * emax, torch.zeros_like(cap_e)
+
+
+def walk_rows(
+    fill: str,
+    *,
+    num_zones: int,
+    emax: int,
+    cluster,  # ClusterTensors: zone_id and schedulable are read
+    avail: torch.Tensor,  # [N,3] i32, debited in place by admitted rows
+    orders,  # (elig_e, elig_d, drank, d_order, erank, e_order)
+    driver_req: np.ndarray,  # [R,3] i32
+    exec_req: np.ndarray,  # [R,3] i32
+    exec_count: np.ndarray,  # [R] i32
+    valid: np.ndarray,  # [R] bool
+    skippable: np.ndarray,  # [R] bool
+):
+    """The plain FIFO row walk, shared by the window and queue paths (the
+    loop of pallas_fifo.py `_make_kernel` and of the window kernel): rows in
+    order, availability carried from row to row, one `gang_solve` per valid
+    row. `packed` = the gang fits and `count <= emax`; `admitted` = packed
+    and not blocked; an admitted gang is debited from `avail`; a valid,
+    non-skippable row that does not pack blocks every later row
+    (resource.go:241-249). Padding rows never pack, debit or block.
+
+    Returns host (meta [R,4] i32 rows of (driver, admitted, packed, 0) with
+    driver -1 unless admitted, execs [R,emax] i32, -1 unless admitted)."""
+    elig_e, elig_d, drank, d_order, erank, e_order = orders
+    dev = avail.device
+    r_pad = len(exec_count)
+    meta = np.zeros((r_pad, 4), np.int32)
+    meta[:, 0] = -1
+    execs = np.full((r_pad, emax), -1, np.int32)
+    no_res = torch.zeros_like(avail)
+    blocked = False
+    for r in range(r_pad):
+        if not valid[r]:
+            continue
+        raw = int(exec_count[r])
+        count = min(raw, emax)
+        dreq = driver_req[r]
+        ereq = exec_req[r]
+        dreq_t = torch.as_tensor(dreq, dtype=torch.int32, device=dev)
+        ereq_t = torch.as_tensor(ereq, dtype=torch.int32, device=dev)
+        cap_e = torch.where(elig_e, node_capacities(avail, no_res, ereq_t), 0)
+        cap_wd = torch.where(
+            elig_e,
+            node_capacities(avail, dreq_t.expand_as(avail), ereq_t),
+            0,
+        )
+        ok, drv, row_execs, counts = gang_solve(
+            fill, num_zones=num_zones, emax=emax, count=count,
+            cap_e=cap_e, cap_wd=cap_wd, fit_d=fits(avail, dreq_t),
+            elig_e=elig_e, elig_d=elig_d, drank=drank, d_order=d_order,
+            erank=erank, e_order=e_order, zone=cluster.zone_id,
+            sched=cluster.schedulable, avail=avail, dreq=dreq, ereq=ereq,
+        )
+        packed = ok and raw <= emax
+        admitted = packed and not blocked
+        if admitted:
+            delta = counts[:, None] * ereq_t[None, :]
+            delta[drv] += dreq_t
+            avail -= delta
+            meta[r] = (drv, 1, 1, 0)
+            execs[r] = row_execs
+        else:
+            meta[r, 2] = int(packed)
+        blocked = blocked or (not packed and not skippable[r])
+    return meta, execs

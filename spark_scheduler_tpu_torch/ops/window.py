@@ -24,21 +24,21 @@ node indices, the contract of `window_pack_pallas`.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from spark_scheduler_tpu_torch.models.cluster import (
-    FIELD_DTYPES,
     ClusterTensors,
+    check_cluster,
 )
-from spark_scheduler_tpu_torch.ops.capacity import fits, node_capacities
 from spark_scheduler_tpu_torch.ops.gang import (
+    FILL_CODES,
     PALLAS_FILLS,
     PALLAS_SINGLE_AZ,
-    gang_solve,
+    strategy_params,
+    walk_rows,
 )
 from spark_scheduler_tpu_torch.ops.packing import (
     _check_cumsum_bound,
@@ -198,8 +198,8 @@ def window_pack_reference(
     num_zones: int,
 ):
     """The plain PyTorch version of `window_pack`: the same sorts, then the
-    row walk as a Python loop over rows with `ops/gang.gang_solve` per gang.
-    Runs on whatever device `cluster` lives on."""
+    row walk as a Python loop over rows (`ops/gang.walk_rows`, one
+    `gang_solve` per gang). Runs on whatever device `cluster` lives on."""
     _check_fill(fill)
     n = cluster.num_nodes
     _check_cumsum_bound(n, emax)
@@ -210,8 +210,6 @@ def window_pack_reference(
     base = cluster.available.clone()
     cand = torch.as_tensor(win.driver_cand, device=dev)
     dom = torch.as_tensor(win.domain, device=dev)
-    zone = cluster.zone_id
-    no_res = torch.zeros_like(base)
     for s in range(s_pad):
         rc = int(win.row_count[s])
         if rc == 0:  # padding segment: no sorts, no rows
@@ -219,44 +217,14 @@ def window_pack_reference(
         elig_e, elig_d, drank, d_order, erank, e_order = _segment_orders(
             cluster, base, cand[s], dom[s], num_zones
         )
-        avail = base.clone()
-        blocked = False
-        for r in range(r_pad):
-            meta[s, r, 0] = -1
-            if not win.valid[s, r]:
-                continue
-            raw = int(win.exec_count[s, r])
-            count = min(raw, emax)
-            dreq = win.driver_req[s, r]
-            ereq = win.exec_req[s, r]
-            dreq_t = torch.as_tensor(dreq, dtype=torch.int32, device=dev)
-            ereq_t = torch.as_tensor(ereq, dtype=torch.int32, device=dev)
-            cap_e = torch.where(elig_e, node_capacities(avail, no_res, ereq_t), 0)
-            cap_wd = torch.where(
-                elig_e,
-                node_capacities(avail, dreq_t.expand_as(avail), ereq_t),
-                0,
-            )
-            ok, drv, row_execs, counts = gang_solve(
-                fill, num_zones=num_zones, emax=emax, count=count,
-                cap_e=cap_e, cap_wd=cap_wd, fit_d=fits(avail, dreq_t),
-                elig_e=elig_e, elig_d=elig_d, drank=drank, d_order=d_order,
-                erank=erank, e_order=e_order, zone=zone,
-                sched=cluster.schedulable, avail=avail, dreq=dreq, ereq=ereq,
-            )
-            packed = ok and raw <= emax
-            admitted = packed and not blocked
-            if admitted:
-                delta = counts[:, None] * ereq_t[None, :]
-                delta[drv] += dreq_t
-                avail -= delta
-                meta[s, r] = (drv, 1, 1, 0)
-                execs[s, r] = row_execs
-            else:
-                meta[s, r, 2] = int(packed)
-            # Strict FIFO: a non-skippable failure blocks the segment's
-            # later rows (resource.go:241-249).
-            blocked = blocked or (not packed and not win.skippable[s, r])
+        meta[s], execs[s] = walk_rows(
+            fill, num_zones=num_zones, emax=emax, cluster=cluster,
+            avail=base.clone(),
+            orders=(elig_e, elig_d, drank, d_order, erank, e_order),
+            driver_req=win.driver_req[s], exec_req=win.exec_req[s],
+            exec_count=win.exec_count[s], valid=win.valid[s],
+            skippable=win.skippable[s],
+        )
         ci = rc - 1
         if meta[s, ci, 1]:
             _commit(
@@ -269,12 +237,6 @@ def window_pack_reference(
         base,
     )
 
-
-_FILL_CODES = {
-    "tightly-pack": 0,
-    "distribute-evenly": 1,
-    "minimal-fragmentation": 2,
-}
 
 _ROW_WALK_ARGTYPES = (
     [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip (segment slices)
@@ -302,23 +264,6 @@ def _row_walk_lib():
     return lib
 
 
-def _check_cluster(cluster: ClusterTensors) -> None:
-    n = cluster.num_nodes
-    for f, t, want in zip(
-        dataclasses.fields(cluster), cluster.fields(), FIELD_DTYPES
-    ):
-        shape = (n, 3) if f.name in ("available", "schedulable") else (n,)
-        if t.dtype != want or tuple(t.shape) != shape:
-            raise ValueError(
-                f"cluster.{f.name}: expected {want} {shape}, got "
-                f"{t.dtype} {tuple(t.shape)}"
-            )
-        if t.device != cluster.device:
-            raise ValueError(
-                f"cluster.{f.name} is on {t.device}, expected {cluster.device}"
-            )
-
-
 def window_pack(
     cluster: ClusterTensors,
     win: SegmentedWindow,
@@ -333,7 +278,7 @@ def window_pack(
     inside the segment loop. CPU tensors: `window_pack_reference`. Any
     other device raises."""
     _check_fill(fill)
-    _check_cluster(cluster)
+    check_cluster(cluster)
     dev = cluster.device
     if dev.type == "cpu":
         return window_pack_reference(
@@ -368,10 +313,7 @@ def window_pack(
     scratch = torch.empty(
         8 * n + 2 * emax + 2 * num_zones, dtype=torch.int32, device=dev
     )
-    single_az = fill in PALLAS_SINGLE_AZ
-    inner, az_fallback, include_exec = (
-        PALLAS_SINGLE_AZ[fill] if single_az else (fill, False, True)
-    )
+    inner, single_az, az_fallback, include_exec = strategy_params(fill)
     stream = torch.cuda.current_stream(dev).cuda_stream
     dead = np.flatnonzero(np.asarray(win.row_count) == 0)
     for s in range(s_pad):
@@ -390,7 +332,7 @@ def window_pack(
             drank.data_ptr(), d_order.data_ptr(),
             erank.data_ptr(), e_order.data_ptr(),
             zone.data_ptr(), sched.data_ptr(),
-            n, emax, num_zones, _FILL_CODES[inner], int(single_az),
+            n, emax, num_zones, FILL_CODES[inner], int(single_az),
             int(az_fallback), int(include_exec),
             meta[s].data_ptr(), execs[s].data_ptr(), scratch.data_ptr(),
             stream,

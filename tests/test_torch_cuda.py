@@ -5,9 +5,9 @@ kernel has no interpret mode). On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerance: none. The window kernel's outputs are integers, and its
-single-AZ zone scores are summed in float64 and rounded once, exactly as the
-plain version does, so every output must be identical.
+Tolerance: none. The window and queue kernels' outputs are integers, and
+their single-AZ zone scores are summed in float64 and rounded once, exactly
+as the plain versions do, so every output must be identical.
 """
 
 import numpy as np
@@ -83,5 +83,74 @@ def test_window_kernel_matches_plain(cuda_device, fill):
     assert window_pack.launches == before + len(requests)
     want = window_pack_reference(cluster, win, fill=fill, emax=emax,
                                  num_zones=4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _queue_case(rng, n, b, device, hi=40):
+    """A random cluster (tests/test_packing_golden.py's generator) and a
+    queue of b apps padded to b + 3 (tests/test_pallas_fifo.py's), with
+    gangs up to emax + 2 wide and some non-skippable."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+    from spark_scheduler_tpu_torch.ops.batched import (
+        app_batch_to_device,
+        make_app_batch,
+    )
+
+    avail = rng.integers(0, hi, size=(n, 3)).astype(np.int32)
+    avail[:, 2] = rng.integers(0, 3, size=n) * rng.integers(0, 2, size=n)
+    cluster = cluster_from_numpy(
+        [avail, avail + rng.integers(0, 8, size=(n, 3)).astype(np.int32),
+         rng.integers(0, 4, size=n).astype(np.int32),
+         rng.permutation(n).astype(np.int32),
+         np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+         rng.random(n) < 0.1, rng.random(n) > 0.1, rng.random(n) > 0.05],
+        device=device,
+    )
+    driver = rng.integers(1, 6, size=(b, 3)).astype(np.int32)
+    driver[:, 2] = rng.integers(0, 2, size=b)
+    execs = rng.integers(1, 8, size=(b, 3)).astype(np.int32)
+    execs[:, 2] = rng.integers(0, 2, size=b)
+    apps = make_app_batch(
+        driver, execs, rng.integers(0, 8 + 3, size=b).astype(np.int32),
+        pad_to=b + 3, skippable=rng.random(b) < 0.3,
+    )
+    return cluster, app_batch_to_device(apps, device)
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
+def test_queue_kernel_matches_plain(cuda_device, fill):
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack, fifo_pack_reference
+
+    for seed, (n, hi) in enumerate(((37, 40), (300, 40), (300, 8))):
+        cluster, apps = _queue_case(np.random.default_rng(seed), n, 9, cuda_device, hi)
+        before = fifo_pack.launches
+        got = fifo_pack(cluster, apps, fill=fill, emax=8, num_zones=4)
+        torch.cuda.synchronize()
+        assert fifo_pack.launches == before + 1
+        want = fifo_pack_reference(cluster, apps, fill=fill, emax=8, num_zones=4)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (fill, n, hi)
+
+
+def test_grouped_queue_kernel_is_one_launch(cuda_device):
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.parallel import (
+        grouped_fifo_pack,
+        grouped_fifo_pack_reference,
+        stack_groups,
+    )
+
+    rng = np.random.default_rng(9)
+    cases = [_queue_case(rng, 200, 20, cuda_device) for _ in range(3)]
+    clusters, apps = stack_groups([c for c, _ in cases], [a for _, a in cases])
+    before = fifo_pack.launches
+    got = grouped_fifo_pack(clusters, apps, fill="tightly-pack", emax=8, num_zones=4)
+    torch.cuda.synchronize()
+    assert fifo_pack.launches == before + 1
+    want = grouped_fifo_pack_reference(
+        clusters, apps, fill="tightly-pack", emax=8, num_zones=4
+    )
     for g, w in zip(got, want):
         assert torch.equal(g, w)
