@@ -10,10 +10,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. Build every CUDA source of the port with nvcc (one process per source,
      all at once), launch the probe kernel and check it, print the card.
   2. Kernel vs plain, small: the CUDA window kernel (`window_pack` on CUDA
-     tensors) against its plain PyTorch version (`window_pack_reference`) on
-     the same CUDA inputs, all six strategies, seeded random windows at
-     N = 24 and N = 300 (roomy and tight clusters). Every output must be
-     identical (tolerance: none).
+     tensors, one thread-block cluster per segment) against its plain
+     PyTorch version (`window_pack_reference`) on the same CUDA inputs, all
+     six strategies, seeded random windows at N = 24 and N = 300 (roomy and
+     tight clusters) and N = 8,193 and 10,000 with the node state in shared
+     memory, at N = 300 and 10,000 with it forced into global memory, and
+     gangs up to 2,048 executors wide. Every output must be identical
+     (tolerance: none).
   2b. The same for the CUDA queue kernel: `fifo_pack` on CUDA tensors
      against `fifo_pack_reference` on the same CUDA inputs, all six
      strategies, N = 24 and N = 300 (roomy and tight), B = 9 padded to 12
@@ -31,9 +34,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
      window's decisions must equal those of `PlacementSolver(device="cpu")`
      on the same state. Kernel launch counts are read around this phase.
   4. Measurements: at a main-path window, the window kernel wrapper's time,
-     its plain version's time on the card, the bound, a device-time split;
-     at a config-5 queue window (10,000 nodes, 100 apps), the same for the
-     queue kernel; the probe.
+     its plain version's time on the card, the bound, a device-time split,
+     for the shared-memory layout (the main path's) and the global-state
+     layout in turns; the kernel's registers and the card's resident-cluster
+     count; at a
+     config-5 queue window (10,000 nodes, 100 apps), the same for the queue
+     kernel; the probe and `torch.add`, by CUDA events and device time.
   5. The queue path at full width: BASELINE.json configs 1, 2, 2b, 3, 4
      and 5, generated as bench.py does (`_make_cluster`, `_make_batches`,
      numpy from a seed), the availability threaded from window to window as
@@ -146,40 +152,82 @@ def max_abs_diff(a, b) -> int:
     return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
 
 
+def wide_window(device):
+    """Gangs of 1,100-2,048 executors (emax 2,048) on 300 roomy nodes: the
+    slot writes stride past one block's 1,024 threads."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+    from spark_scheduler_tpu_torch.ops.window import make_segmented_window
+
+    rng = np.random.default_rng(8)
+    n = 300
+    avail = rng.integers(0, 64, size=(n, 3)).astype(np.int32)
+    avail[:, 2] = 0
+    cluster = cluster_from_numpy(
+        [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+         rng.permutation(n).astype(np.int32),
+         np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+         np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool)],
+        device=device,
+    )
+    one = np.array([1, 1, 0], np.int32)
+    ones = [np.ones(n, bool)] * 2
+    win = make_segmented_window(
+        [[(one, one, 1500, True), (one, one, 1100, False)],
+         [(one, one, 2048, False)]], ones, ones)
+    return cluster, win
+
+
 def compare_small(device) -> int:
     """Phase 2. Returns the largest |kernel - plain| over every output."""
     import torch
 
     from spark_scheduler_tpu_torch.ops.window import (
+        walk_layout,
         window_pack,
         window_pack_reference,
     )
 
     worst, cases = 0, 0
-    for n, n_req, max_rows, hi in ((24, 5, 4, 24), (300, 8, 8, 24),
-                                   (300, 8, 8, 6)):
+
+    def run(label, cluster, win, fill, emax, layout):
+        nonlocal worst, cases
+        got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4,
+                          layout=layout)
+        want = window_pack_reference(cluster, win, fill=fill, emax=emax,
+                                     num_zones=4)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        if err:
+            for name, g, w in zip(("meta", "execs", "base"), got, want):
+                bad = (g != w).nonzero()[:8].tolist()
+                print(f"  mismatch {label} {name} at {bad}", flush=True)
+        check(err == 0, f"kernel != plain: {label}")
+        worst = max(worst, err)
+        cases += 1
+
+    # (n, requests, max rows, availability bound, seeds, node-state layout):
+    # the default layout (shared memory) at every n, the global layout
+    # forced at a small and a large n.
+    grid = ((24, 5, 4, 24, 3, None), (300, 8, 8, 24, 3, None),
+            (300, 8, 8, 6, 3, None), (8193, 3, 3, 24, 1, None),
+            (10_000, 3, 3, 24, 1, None), (300, 8, 8, 6, 1, "global"),
+            (10_000, 3, 3, 24, 1, "global"))
+    for n, n_req, max_rows, hi, seeds, state in grid:
+        layout = walk_layout(n, state=state)
         for fill in STRATEGIES:
-            for seed in range(3):
+            for seed in range(seeds):
                 rng = np.random.default_rng(1000 * n + 10 * hi + seed)
                 cluster = small_cluster(rng, n, hi, device)
                 win = small_window(rng, n, n_req, max_rows, 8)
-                got = window_pack(cluster, win, fill=fill, emax=8, num_zones=4)
-                want = window_pack_reference(
-                    cluster, win, fill=fill, emax=8, num_zones=4
-                )
-                torch.cuda.synchronize()
-                err = max_abs_diff(got, want)
-                if err:
-                    for name, g, w in zip(("meta", "execs", "base"), got, want):
-                        bad = (g != w).nonzero()[:8].tolist()
-                        print(f"  mismatch {fill} n={n} hi={hi} "
-                              f"seed={seed} {name} at {bad}", flush=True)
-                check(err == 0, f"kernel != plain for {fill} n={n} hi={hi} "
-                                f"seed={seed}")
-                worst = max(worst, err)
-                cases += 1
-    print(f"phase 2: {cases} windows, kernel == plain on every output",
-          flush=True)
+                run(f"{fill} n={n} hi={hi} seed={seed} {layout.state}",
+                    cluster, win, fill, 8, layout)
+    cluster, win = wide_window(device)
+    for fill in STRATEGIES:
+        run(f"{fill} wide gangs", cluster, win, fill, 2048, None)
+    print(f"phase 2: {cases} windows (n = 24, 300, 8,193, 10,000; node state "
+          f"in shared and in global memory; gangs up to 2,048 wide), kernel "
+          f"== plain on every output", flush=True)
     return worst
 
 
@@ -526,6 +574,14 @@ def device_split(fn, name="window_row_walk"):
     return kernel / 1e3, other / 1e3
 
 
+def device_us_per_call(fn, calls, name=""):
+    """Profiled device time of one call of `fn` in microseconds, over
+    `calls` calls: the kernels whose name holds `name` (every device event
+    for ""). "not measured" when the profiler recorded none."""
+    kern, _ = device_split(lambda: [fn() for _ in range(calls)], name)
+    return f"{kern * 1e3 / calls:.3f} us" if kern else "not measured"
+
+
 def measure(last, device, card, worst_small):
     import torch
 
@@ -534,12 +590,23 @@ def measure(last, device, card, worst_small):
         probe_reference,
     )
     from spark_scheduler_tpu_torch.ops.window import (
+        WALK_STATIC_SMEM,
+        walk_layout,
+        window_kernel_info,
         window_pack,
         window_pack_reference,
     )
 
     cluster, batch = last
     args = dict(fill="tightly-pack", emax=batch.emax, num_zones=batch.num_zones)
+    n = cluster.num_nodes
+    main = walk_layout(n)
+    info = window_kernel_info(main)
+    check(main.state == "smem", f"the main path's node state is not in "
+                                f"shared memory at n={n}: {main}")
+    check(info["static_smem"] == WALK_STATIC_SMEM,
+          f"static shared memory {info['static_smem']} B != {WALK_STATIC_SMEM}")
+    check(info["max_active_clusters"] >= 1, f"cluster cannot run: {info}")
     got = window_pack(cluster, batch.win, **args)
     t0 = time.perf_counter()
     want = window_pack_reference(cluster, batch.win, **args)
@@ -547,19 +614,34 @@ def measure(last, device, card, worst_small):
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(worst_small, max_abs_diff(got, want))
     check(err == 0, "kernel != plain at the main-path window")
-    ms = cuda_time_ms(lambda: window_pack(cluster, batch.win, **args), 5)
     bound, bound_by = window_bound(cluster, batch, "tightly-pack")
-    kern, other = device_split(lambda: window_pack(cluster, batch.win, **args))
     rows = int(batch.win.row_count.sum())
-    idle = max(0.0, 1 - (kern + other) / ms) if kern else None
+
+    # The two layouts in turns (A B A B): node state in shared memory (the
+    # main path's) and in global memory. Both must give the same outputs.
+    layouts = {"smem": main, "global": walk_layout(n, state="global")}
+    print(f"window kernel at n={n}: {main}; ptxas/runtime {info}", flush=True)
+    timed = {}
+    for turn in range(2):
+        for label, lay in layouts.items():
+            def call(lay=lay):
+                return window_pack(cluster, batch.win, **args, layout=lay)
+            check(max_abs_diff(call(), got) == 0, f"{label} layout != main")
+            ms = cuda_time_ms(call, 5)
+            kern, other = device_split(call)
+            timed.setdefault(label, []).append((ms, kern, other))
+            idle = max(0.0, 1 - (kern + other) / ms) if kern else None
+            print(f"window kernel, {label} state, turn {turn + 1} ({card}): "
+                  f"{ms:.3f} ms per window_pack call (CUDA events, median "
+                  f"of 5) for {rows} rows; profiled device time: row-walk "
+                  f"kernel {kern:.3f} ms ({kern * 1e3 / rows:.2f} us per row), "
+                  f"other device work {other:.3f} ms; device idle share "
+                  f"{'not measured' if idle is None else f'{idle:.3f}'}",
+                  flush=True)
+    ms = float(np.median([t[0] for t in timed["smem"]]))
     print(f"window kernel at the main path ({card}): {ms:.3f} ms per "
-          f"window_pack call (CUDA events, median of 5) for {rows} rows; "
-          f"plain version on the card {plain_ms:.1f} ms; bound {bound:.5f} "
-          f"ms ({bound_by}); profiled device time: row-walk kernel "
-          f"{kern:.3f} ms ({kern * 1e3 / rows:.1f} us per row), other device "
-          f"work {other:.3f} ms; device idle share of the call "
-          f"{'not measured' if idle is None else f'{idle:.3f}'}",
-          flush=True)
+          f"window_pack call; plain version on the card {plain_ms:.1f} ms; "
+          f"bound {bound:.5f} ms ({bound_by})", flush=True)
 
     x = torch.zeros((8, 128), dtype=torch.int32, device=device)
     p_err = int((probe_add_one(x) - probe_reference(x)).abs().max())
@@ -567,10 +649,19 @@ def measure(last, device, card, worst_small):
     p_ms = cuda_time_ms(lambda: probe_add_one(x), 100)
     p_plain = cuda_time_ms(lambda: probe_reference(x), 100)
     p_lib = cuda_time_ms(lambda: torch.add(x, 1), 100)
+    p_dev = device_us_per_call(lambda: probe_add_one(x), 100, "probe_add_one")
+    lib_dev = device_us_per_call(lambda: torch.add(x, 1), 100)
     p_bound = 2 * x.numel() * 4 / PEAK_BYTES_S * 1e3
+    print(f"probe ({card}): probe_add_one {p_ms:.5f} ms, torch.add "
+          f"{p_lib:.5f} ms per call (CUDA events, median of 100); profiled "
+          f"device time per call: probe kernel {p_dev}, torch.add {lib_dev}",
+          flush=True)
+    layout_keys = dict(layout=main.state, cluster=main.k,
+                       smem_bytes=main.smem_bytes, regs=info["regs"])
     return {
         "window": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=bound_by, library_ms=None),
+                       bound_ms=bound, bound_by=bound_by, library_ms=None,
+                       **layout_keys),
         "probe": dict(max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
                       bound_ms=p_bound, bound_by="bytes", library_ms=p_lib),
     }

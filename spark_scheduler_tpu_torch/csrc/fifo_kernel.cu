@@ -24,20 +24,22 @@
 // queues of a grouped solve are G blocks of one launch and run side by side
 // on G SMs.
 //
-// What the design does about it: the same as the window kernel. Per-node
-// state (availability, both capacities, driver fit, two count buffers, 8 n
-// int32 words per queue) lives in global memory and stays in L2; nodes are
-// keyed by priority rank, so an argmin is a block min over ranks and an
-// order[] lookup and no node permutation is needed (the TPU kernel's
-// pre-permuted, sublane-folded node axis is a layout choice of that chip).
-// Shared-memory tiling and several blocks per queue are left for later work.
+// What the design does about it: one block is the team (gang_solve.cuh
+// `BlockTeam`). Per-node state (availability, both capacities, driver fit,
+// two count buffers, 8 n int32 words per queue) lives in global memory and
+// stays in L2; nodes are keyed by priority rank, so an argmin is a block
+// min over a (rank, payload) key and an order[] lookup and no node
+// permutation is needed (the TPU kernel's pre-permuted, sublane-folded node
+// axis is a layout choice of that chip). The window kernel runs the same
+// gang math on a thread-block cluster with the state in shared memory
+// (`ClusterTeam`); this kernel moving to it is left for later work.
 #include <cuda_runtime.h>
 
 #include "gang_solve.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = kGsThreads;
 
 // Every per-queue array is stacked [G][...] and contiguous.
 struct QueueParams {
@@ -68,12 +70,15 @@ __global__ void __launch_bounds__(kThreads) fifo_queue_kernel(QueueParams p) {
   const long long g = blockIdx.x;
   const int n = p.n, rows = p.rows, emax = p.emax;
   const long long words = 8LL * n + 2LL * emax + 2LL * p.s.num_zones;
-  const GsWork w = gs_carve(p.scratch + g * words, n, emax, p.s.num_zones);
+  int* scratch = p.scratch + g * words;
+  const GsWork w = gs_carve(scratch, n, scratch + 8 * n, emax, p.s.num_zones);
   const int* avail0 = p.avail + g * n * 3;
   int* avail_out = p.avail_out + g * n * 3;
+  BlockTeam t{n, n, red};
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
+  GS_NODES(t, li, i) {
     for (int d = 0; d < 3; ++d) w.avail[d * n + i] = avail0[i * 3 + d];
+  }
 
   GangCtx c;
   c.n = n;
@@ -90,8 +95,7 @@ __global__ void __launch_bounds__(kThreads) fifo_queue_kernel(QueueParams p) {
   c.d_order = p.d_order + g * n;
   c.erank = p.erank + g * n;
   c.e_order = p.e_order + g * n;
-  c.red = red;
-  gs_zone_facts(c, p.s, w);  // the orders are fixed for the whole queue
+  gs_zone_facts(t, c, p.s, w);  // the orders are fixed for the whole queue
 
   const int* dreq = p.dreq + g * rows * 3;
   const int* ereq = p.ereq + g * rows * 3;
@@ -103,15 +107,15 @@ __global__ void __launch_bounds__(kThreads) fifo_queue_kernel(QueueParams p) {
   bool blocked = false;
   for (int b = 0; b < rows; ++b) {
     if (!valid[b]) {  // padding: never packs, debits or blocks
-      gs_empty_row(meta + b * 4, execs + b * emax, emax);
+      gs_empty_row(t, meta + b * 4, execs + b * emax, emax);
       continue;
     }
-    gs_fifo_row(c, p.s, w, dreq + b * 3, ereq + b * 3, cnt[b], skip[b] != 0, &blocked,
+    gs_fifo_row(t, c, p.s, w, dreq + b * 3, ereq + b * 3, cnt[b], skip[b] != 0, &blocked,
                 nullptr, meta + b * 4, execs + b * emax);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
+  GS_NODES(t, li, i) {
     for (int d = 0; d < 3; ++d) avail_out[i * 3 + d] = w.avail[d * n + i];
+  }
 }
 
 }  // namespace

@@ -12,9 +12,11 @@ The work splits as in the JAX package:
     the committed base (`_segment_orders`);
   - the row walk, per segment: hypothetical earlier drivers + the committing
     row, availability carried from row to row. On the card this is the
-    hand-written CUDA kernel csrc/window_kernel.cu (one launch per live
-    segment, which also subtracts the committing row from the base); on the
-    CPU it is `window_pack_reference`, its plain PyTorch version.
+    hand-written CUDA kernel csrc/window_kernel.cu (one launch of one
+    thread-block cluster per live segment, which also subtracts the
+    committing row from the base; `walk_layout` picks where its node state
+    lives); on the CPU it is `window_pack_reference`, its plain PyTorch
+    version.
 
 `window_pack` returns (meta [S,R,4] i32, execs [S,R,emax] i32,
 base_after [N,3] i32); meta rows are (driver_node, admitted, packed, 0) in
@@ -238,6 +240,51 @@ def window_pack_reference(
     )
 
 
+# The row walk's launch shape (csrc/window_kernel.cu). A cluster of K
+# blocks runs one segment; block r owns nodes [r * slice, (r + 1) * slice).
+CLUSTER_BLOCKS = 8  # kGsCluster: the largest portable cluster on Hopper
+SMEM_PER_BLOCK = 232_448  # shared memory one H100 block may opt into
+STATE_WORDS = 8  # int32 words of mutable state per node
+WALK_STATIC_SMEM = 400  # static reduction buffers: (32 + 2 x 8 + 2) x 8 B
+
+
+class WalkLayout(NamedTuple):
+    """Launch shape of the row walk for one node count."""
+
+    k: int  # blocks in the cluster
+    slice: int  # nodes per block, ceil(n / k)
+    smem_bytes: int  # shared memory per block, static + dynamic
+    state: str  # "smem": node state in shared memory; "global": in scratch
+
+
+def walk_layout(n: int, *, state: str | None = None) -> WalkLayout:
+    """The row walk's layout for `n` nodes: the node state in shared memory
+    when a block's slice of it (8 words a node) fits beside the static
+    buffers, else in global scratch (n above 58,008). Both are the same
+    hand-written kernel. `state` forces one layout (tests)."""
+    if n < 1:
+        raise ValueError(f"walk_layout needs n >= 1, got {n}")
+    sl = -(-n // CLUSTER_BLOCKS)
+    smem = STATE_WORDS * 4 * sl + WALK_STATIC_SMEM
+    fits = smem <= SMEM_PER_BLOCK
+    if state is None:
+        state = "smem" if fits else "global"
+    if state not in ("smem", "global") or (state == "smem" and not fits):
+        raise ValueError(f"no {state!r} row-walk layout for n={n}")
+    return WalkLayout(
+        CLUSTER_BLOCKS, sl, smem if state == "smem" else WALK_STATIC_SMEM, state
+    )
+
+
+def walk_scratch_words(layout: WalkLayout, emax: int, num_zones: int) -> int:
+    """Global scratch of one launch: per block, the gang's two slot buffers
+    and the zone facts, plus the node state in the global layout."""
+    per_block = 2 * emax + 2 * num_zones
+    if layout.state == "global":
+        per_block += STATE_WORDS * layout.slice
+    return layout.k * per_block
+
+
 _ROW_WALK_ARGTYPES = (
     [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip (segment slices)
     + [ctypes.c_int] * 2  # rows, row_count
@@ -247,6 +294,7 @@ _ROW_WALK_ARGTYPES = (
     # n, emax, num_zones, fill, single_az, az_fallback, include_exec
     + [ctypes.c_int] * 7
     + [ctypes.c_void_p] * 3  # meta, execs, scratch
+    + [ctypes.c_int] * 2  # slice, smem_state
     + [ctypes.c_void_p]  # stream
 )
 
@@ -261,7 +309,24 @@ def _row_walk_lib():
         fn.restype = ctypes.c_int
         lib.window_kernel_error.argtypes = [ctypes.c_int]
         lib.window_kernel_error.restype = ctypes.c_char_p
+        lib.window_kernel_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.window_kernel_info.restype = ctypes.c_int
     return lib
+
+
+def window_kernel_info(layout: WalkLayout) -> dict:
+    """What the card reports for the row walk at `layout`: registers and
+    local (spill) bytes a thread, static shared bytes a block, and how many
+    such clusters can be resident at once (0: the launch cannot run)."""
+    lib = _row_walk_lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.window_kernel_info(int(layout.state == "smem"), layout.slice, out)
+    if err != 0:
+        raise RuntimeError(
+            "window kernel query failed: " + lib.window_kernel_error(err).decode()
+        )
+    return dict(regs=out[0], local_bytes=out[1], static_smem=out[2],
+                max_active_clusters=out[3])
 
 
 def window_pack(
@@ -271,12 +336,15 @@ def window_pack(
     fill: str,
     emax: int,
     num_zones: int,
+    layout: WalkLayout | None = None,
 ):
     """Serve a segmented window. CUDA tensors: per live segment, the sorts
-    in PyTorch, then one launch of the CUDA row-walk kernel (which also
-    subtracts the committing row from the base) — no host synchronisation
-    inside the segment loop. CPU tensors: `window_pack_reference`. Any
-    other device raises."""
+    in PyTorch, then one launch of the CUDA row-walk kernel on one
+    thread-block cluster (which also subtracts the committing row from the
+    base) — no host synchronisation inside the segment loop. CPU tensors:
+    `window_pack_reference`. Any other device raises. `layout` defaults to
+    `walk_layout(n)`; tests pass another to drive the global-state layout
+    at a small n."""
     _check_fill(fill)
     check_cluster(cluster)
     dev = cluster.device
@@ -291,6 +359,10 @@ def window_pack(
     s_pad, r_pad = win.exec_count.shape
     if win.driver_cand.shape != (s_pad, n) or win.domain.shape != (s_pad, n):
         raise ValueError("window masks must be [S, N] over the cluster's N")
+    if layout is None:
+        layout = walk_layout(n)
+    if layout.k != CLUSTER_BLOCKS or layout.slice * layout.k < n:
+        raise ValueError(f"{layout} is not a row-walk layout for {n} nodes")
     lib = _row_walk_lib()
 
     def up(a, dtype):
@@ -308,10 +380,8 @@ def window_pack(
     sched = cluster.schedulable.contiguous()
     meta = torch.empty((s_pad, r_pad, 4), dtype=torch.int32, device=dev)
     execs = torch.empty((s_pad, r_pad, emax), dtype=torch.int32, device=dev)
-    # Workspace: avail [3N], cap_e, cap_wd, fit_d, two count buffers [N]
-    # each, two execs buffers [emax] each, zone constants [2 * num_zones].
     scratch = torch.empty(
-        8 * n + 2 * emax + 2 * num_zones, dtype=torch.int32, device=dev
+        walk_scratch_words(layout, emax, num_zones), dtype=torch.int32, device=dev
     )
     inner, single_az, az_fallback, include_exec = strategy_params(fill)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -335,6 +405,7 @@ def window_pack(
             n, emax, num_zones, FILL_CODES[inner], int(single_az),
             int(az_fallback), int(include_exec),
             meta[s].data_ptr(), execs[s].data_ptr(), scratch.data_ptr(),
+            layout.slice, int(layout.state == "smem"),
             stream,
         )
         if err != 0:

@@ -48,17 +48,22 @@ def test_probe_kernel(cuda_device):
 
 
 @pytest.mark.parametrize("fill", STRATEGIES)
-def test_window_kernel_matches_plain(cuda_device, fill):
+@pytest.mark.parametrize("n", [24, 300, 8193, 10000])
+@pytest.mark.parametrize("state", ["smem", "global"])
+def test_window_kernel_matches_plain(cuda_device, fill, n, state):
+    """The cluster kernel in both node-state layouts (global forced at every
+    n through the launcher's layout argument) against the plain version."""
     from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.models.resources import INT32_INF
     from spark_scheduler_tpu_torch.ops.window import (
         make_segmented_window,
+        walk_layout,
         window_pack,
         window_pack_reference,
     )
 
     rng = np.random.default_rng(5)
-    n, emax = 300, 8
+    emax = 8
     avail = rng.integers(0, 24, size=(n, 3)).astype(np.int32)
     avail[:, 2] = rng.integers(0, 3, size=n)
     cluster = cluster_from_numpy(
@@ -78,11 +83,49 @@ def test_window_kernel_matches_plain(cuda_device, fill):
     masks = [rng.random(n) < 0.9 for _ in requests]
     win = make_segmented_window(requests, masks, [np.ones(n, bool)] * 6)
     before = window_pack.launches
-    got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4)
+    got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4,
+                      layout=walk_layout(n, state=state))
     torch.cuda.synchronize()
     assert window_pack.launches == before + len(requests)
     want = window_pack_reference(cluster, win, fill=fill, emax=emax,
                                  num_zones=4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
+def test_window_kernel_wide_gangs(cuda_device, fill):
+    """Gangs of more than 1,024 executors: the slot writes stride past one
+    block's threads."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+    from spark_scheduler_tpu_torch.ops.window import (
+        make_segmented_window,
+        window_pack,
+        window_pack_reference,
+    )
+
+    rng = np.random.default_rng(8)
+    n, emax = 300, 2048
+    avail = rng.integers(0, 64, size=(n, 3)).astype(np.int32)
+    avail[:, 2] = 0
+    cluster = cluster_from_numpy(
+        [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+         rng.permutation(n).astype(np.int32),
+         np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+         np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool)],
+        device=cuda_device,
+    )
+    one = np.array([1, 1, 0], np.int32)
+    requests = [[(one, one, 1500, True), (one, one, 1100, False)],
+                [(one, one, 2048, False)]]
+    masks = [np.ones(n, bool)] * 2
+    win = make_segmented_window(requests, masks, masks)
+    got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4)
+    torch.cuda.synchronize()
+    want = window_pack_reference(cluster, win, fill=fill, emax=emax,
+                                 num_zones=4)
+    assert int(want[0][0, 0, 1]) == 1  # the first gang was admitted
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
