@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
      with gangs up to emax + 2 wide; then per strategy negative
      availability with zero-count gangs, strict-FIFO blocking behind a
      too-big gang, an empty queue (B = 0: no launch), and a grouped solve of
-     3 queues (`grouped_fifo_pack`, one launch). Tolerance: none.
+     3 queues (`grouped_fifo_pack`, one launch). Then each of the kernel's
+     four layouts forced (block or cluster team, node state in shared or
+     global memory; `ops/fifo.queue_layout`) where it fits, at N = 9 to
+     10,000 and with gangs up to 2,048 wide. Tolerance: none.
   3. Main path at full width: a 10,000-node cluster (4 zones, heterogeneous
      nodes, ~10% with GPUs, 30-70% prior usage) built through
      `PlacementSolver(device="cuda").build_tensors`; 8 windows of 32
@@ -37,9 +40,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
      its plain version's time on the card, the bound, a device-time split,
      for the shared-memory layout (the main path's) and the global-state
      layout in turns; the kernel's registers and the card's resident-cluster
-     count; at a
-     config-5 queue window (10,000 nodes, 100 apps), the same for the queue
-     kernel; the probe and `torch.add`, by CUDA events and device time.
+     count; at a config-5 queue window (10,000 nodes, 100 apps), the same
+     for the queue kernel; the probe and `torch.add`, by CUDA events and
+     device time. Then the queue kernel's registers, spills and resident
+     teams per layout, its device time in every layout that fits at the
+     first window of configs 5, 3, 2 and 4 (in turns A B .. B A), and the
+     block/cluster crossover sweep (N = 500 to 10,000) behind
+     `QUEUE_CLUSTER_MIN_NODES`.
   5. The queue path at full width: BASELINE.json configs 1, 2, 2b, 3, 4
      and 5, generated as bench.py does (`_make_cluster`, `_make_batches`,
      numpy from a seed), the availability threaded from window to window as
@@ -287,7 +294,11 @@ def compare_queue_small(device) -> int:
         app_batch_to_device,
         make_app_batch,
     )
-    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack, fifo_pack_reference
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        fifo_pack,
+        fifo_pack_reference,
+        queue_layout,
+    )
     from spark_scheduler_tpu_torch.parallel import (
         grouped_fifo_pack,
         grouped_fifo_pack_reference,
@@ -358,9 +369,99 @@ def compare_queue_small(device) -> int:
         err = packing_diff(got, grouped_fifo_pack_reference(sc, sa, fill=fill, **kw))
         check(err == 0, f"grouped queue kernel != plain: {fill}")
         cases += 1
-    print(f"phase 2b: {cases} queues, queue kernel == plain on every output",
-          flush=True)
+    # Every layout forced, where it fits, at node counts on both sides of
+    # the crossover and of the block's shared-memory limit (n = 9 leaves
+    # cluster blocks 5-7 without nodes), and gangs 1,100-2,048 wide.
+    forced = 0
+    for team, state in QUEUE_LAYOUTS:
+        for n in (9, 300, 1_000, 4_000, 8_193, 10_000):
+            layout = fitting_layout(n, team, state)
+            if layout is None:
+                continue
+            for fill in STRATEGIES:
+                rng = np.random.default_rng(7 * n + 1)
+                cluster = cluster_from_numpy(queue_cluster_fields(rng, n), device=device)
+                apps = app_batch_to_device(queue_apps(rng, 9, pad_to=12), device)
+                got = forced_queue(cluster, apps, layout, fill=fill, **kw)
+                want = fifo_pack_reference(cluster, apps, fill=fill, **kw)
+                err = packing_diff(got, want)
+                check(err == 0, f"queue kernel != plain: {fill} n={n} {layout}")
+                forced += 1
+        cluster, apps = wide_queue(device)
+        for fill in STRATEGIES:
+            layout = queue_layout(300, team=team, state=state)
+            got = forced_queue(cluster, apps, layout, fill=fill, emax=2048,
+                               num_zones=4)
+            want = fifo_pack_reference(cluster, apps, fill=fill, emax=2048,
+                                       num_zones=4)
+            check(bool(want.admitted[0]), "wide queue: the first gang not admitted")
+            check(packing_diff(got, want) == 0,
+                  f"queue kernel != plain: {fill} wide gangs {layout}")
+            forced += 1
+    print(f"phase 2b: {cases} queues through fifo_pack / grouped_fifo_pack and "
+          f"{forced} with the layout forced (block and cluster teams, node "
+          f"state in shared and in global memory, n = 9 to 10,000, gangs up to "
+          f"2,048 wide): queue kernel == plain on every output", flush=True)
     return worst
+
+
+# The queue kernel's four layouts: (team, node-state place).
+QUEUE_LAYOUTS = (("block", "smem"), ("block", "global"),
+                 ("cluster", "smem"), ("cluster", "global"))
+
+
+def fitting_layout(n, team, state):
+    """queue_layout(n, team=..., state=...), or None where the node state
+    does not fit in shared memory."""
+    from spark_scheduler_tpu_torch.ops.fifo import queue_layout
+
+    try:
+        return queue_layout(n, team=team, state=state)
+    except ValueError:
+        return None
+
+
+def queue_args(cluster, apps, num_zones):
+    """fifo_queue's operands for one queue or, for a stacked cluster, for
+    G queues."""
+    from spark_scheduler_tpu_torch.ops.fifo import device_apps, queue_operands
+    from spark_scheduler_tpu_torch.parallel import grouped_queue_operands
+
+    dev = cluster.available.device
+    if cluster.available.dim() == 3:
+        g = cluster.available.shape[0]
+        return grouped_queue_operands(
+            cluster, device_apps(apps, dev, lead=(g,)), num_zones)
+    return queue_operands(cluster, device_apps(apps, dev), num_zones)
+
+
+def forced_queue(cluster, apps, layout, **kw):
+    """fifo_pack's launch with the kernel layout forced."""
+    import torch
+
+    from spark_scheduler_tpu_torch.ops.batched import BatchedPacking
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_queue, queue_packing
+
+    out = queue_packing(*fifo_queue(*queue_args(cluster, apps, kw["num_zones"]),
+                                    layout=layout, **kw))
+    torch.cuda.synchronize()
+    return BatchedPacking(*(x[0] for x in out))
+
+
+def wide_queue(device):
+    """Three queue-mode gangs of 1,100-2,048 executors (emax 2,048) on 300
+    roomy nodes."""
+    from spark_scheduler_tpu_torch.ops.batched import (
+        app_batch_to_device,
+        make_app_batch,
+    )
+
+    cluster, _ = wide_window(device)
+    one = np.ones((3, 3), np.int32)
+    one[:, 2] = 0
+    apps = make_app_batch(one, one, [1500, 1100, 2048],
+                          skippable=np.array([True, False, False]))
+    return cluster, app_batch_to_device(apps, device)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -732,7 +833,166 @@ def measure_queue(device, card, worst_small):
                 bound_by=bound_by, library_ms=None)
 
 
+def device_us(fn, calls):
+    """Device time of one call of `fn` in microseconds, by CUDA events
+    around `calls` back-to-back calls, and the results of those calls and
+    of one call before them. Each call is one kernel launch that runs
+    longer than the host takes to enqueue the next, so the card never
+    waits for the host between the events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    outs = [fn()]  # the card runs it while the host queues the rest
+    start.record()
+    outs += [fn() for _ in range(calls)]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls, outs
+
+
+def time_layouts(label, cluster, apps, layouts, card, *, fill, emax, calls=5):
+    """The queue kernel's device time at one shape for each layout of
+    `layouts`, in turns A B ... B A; every call's outputs must equal those
+    of the first layout. Returns {layout: [us a launch, one per turn]}."""
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_queue
+
+    args = queue_args(cluster, apps, 4)
+    b = int(args[4][0].shape[1])
+    kw = dict(fill=fill, emax=emax, num_zones=4)
+    first = fifo_queue(*args, layout=layouts[0], **kw)
+    times = {}
+    for lay in list(layouts) + list(reversed(layouts)):
+        us, outs = device_us(lambda lay=lay: fifo_queue(*args, layout=lay, **kw),
+                             calls)
+        for out in outs:
+            check(max_abs_diff(out, first) == 0,
+                  f"{label}: {lay.team}/{lay.state} != {layouts[0].team}/"
+                  f"{layouts[0].state}")
+        times.setdefault(lay, []).append(us)
+        print(f"    {label} {lay.team}/{lay.state}: device time {us:.2f} us a "
+              f"launch (CUDA events over {calls} back-to-back launches), "
+              f"{us / b:.3f} us an app ({b} apps a queue)", flush=True)
+    return times
+
+
+def turns(t):
+    return " / ".join(f"{x:.2f}" for x in t)
+
+
+def measure_queue_layouts(device, card):
+    """Phase 4, queue kernel layouts: device time of every layout that fits
+    at the first window of configs 5, 3, 2 and 4 (in turns), the kernel's
+    registers per instantiation, and the block/cluster crossover sweep."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import app_batch_to_device
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        QUEUE_BLOCK_STATIC_SMEM,
+        QUEUE_CLUSTER_MIN_NODES,
+        fifo_kernel_info,
+        queue_layout,
+    )
+    from spark_scheduler_tpu_torch.ops.window import WALK_STATIC_SMEM
+    from spark_scheduler_tpu_torch.parallel import stack_groups
+
+    for team, state in QUEUE_LAYOUTS:
+        for n in (1_000, 10_000):
+            lay = fitting_layout(n, team, state)
+            if lay is None:
+                continue
+            info = fifo_kernel_info(lay)
+            static = WALK_STATIC_SMEM if team == "cluster" else QUEUE_BLOCK_STATIC_SMEM
+            check(info["static_smem"] == static,
+                  f"{lay}: static shared memory {info['static_smem']} B != {static}")
+            check(info["max_active_teams"] >= 1, f"{lay} cannot run: {info}")
+            print(f"  queue kernel {team}/{state} at n={n}: slice {lay.slice}, "
+                  f"{lay.smem_bytes} B shared a block; ptxas/runtime {info}",
+                  flush=True)
+
+    def up(fields):
+        return cluster_from_numpy(fields, device=device)
+
+    def first_window(seed, n, window, emax, **kw):
+        rng = np.random.default_rng(seed)
+        cluster = up(baseline_cluster(rng, n))
+        apps = baseline_batches(rng, window, window, emax, **kw)[0]
+        return cluster, app_batch_to_device(apps, device)
+
+    rng = np.random.default_rng(CONFIG_SEEDS["config4"])
+    groups, group_apps = [], []
+    for cpu, mem, gpu in CONFIG4_SHAPES:
+        groups.append(up(baseline_cluster(rng, 1_000, cpu=cpu, mem=mem, gpu=gpu)))
+        group_apps.append(app_batch_to_device(baseline_batches(rng, 40, 40, 8)[0],
+                                              device))
+    shapes = [
+        ("config 5 (10,000 nodes, 100 apps, tightly-pack)", "tightly-pack", 8,
+         *first_window(CONFIG_SEEDS["config5"], 10_000, 100, 8)),
+        ("config 3 (1,000 nodes, 200 apps, emax 32, tightly-pack)", "tightly-pack",
+         32, *first_window(CONFIG_SEEDS["config3"], 1_000, 200, 32, exec_count=2)),
+        ("config 2 (500 nodes, 100 apps, distribute-evenly)", "distribute-evenly", 8,
+         *first_window(CONFIG_SEEDS["config2"], 500, 100, 8, exec_count=8,
+                       skippable=False)),
+        ("config 4 (5 groups x 1,000 nodes, 40 apps each, tightly-pack)",
+         "tightly-pack", 8, *stack_groups(groups, group_apps)),
+    ]
+    for label, fill, emax, cluster, apps in shapes:
+        n = cluster.available.shape[-2]
+        default = queue_layout(n)
+        layouts = [default] + [
+            lay for lay in (fitting_layout(n, t, st) for t, st in QUEUE_LAYOUTS)
+            if lay is not None and lay != default]
+        print(f"  queue kernel at {label}, {card}, default layout "
+              f"{default.team}/{default.state}:", flush=True)
+        t = time_layouts(label.split(" (")[0], cluster, apps, layouts, card,
+                         fill=fill, emax=emax)
+        med = {lay: float(np.median(v)) for lay, v in t.items()}
+        old = queue_layout(n, team="block", state="global")
+        fastest = min(med, key=med.get)
+        print(f"  queue kernel at {label}: default {default.team}/{default.state} "
+              f"{turns(t[default])} us, block/global (the parent's layout) "
+              f"{turns(t[old])} us ({med[old] / med[default]:.2f}x the default); "
+              f"fastest {fastest.team}/{fastest.state} {turns(t[fastest])} us "
+              f"(device time a launch, one per turn)", flush=True)
+
+    # The crossover: block against cluster, both with the state in shared
+    # memory (block/global where the block's state does not fit), on one
+    # 100-app tightly-pack queue of config 5's kind.
+    print(f"  queue kernel crossover sweep ({card}), 100 apps, tightly-pack:",
+          flush=True)
+    apps = app_batch_to_device(
+        baseline_batches(np.random.default_rng(55), 100, 100, 8)[0], device)
+    cluster_faster = []
+    for n in (500, 1_000, 1_250, 1_500, 1_750, 2_000, 3_000, 4_000, 5_500,
+              7_000, 10_000):
+        cluster = up(baseline_cluster(np.random.default_rng(n), n))
+        block = queue_layout(n, team="block")
+        team = queue_layout(n, team="cluster")
+        t = time_layouts(f"n={n}", cluster, apps, [block, team], card,
+                         fill="tightly-pack", emax=8)
+        b_us, c_us = float(np.median(t[block])), float(np.median(t[team]))
+        print(f"  crossover n={n}: block/{block.state} {turns(t[block])} us, "
+              f"cluster/{team.state} {turns(t[team])} us, cluster/block "
+              f"{c_us / b_us:.3f}", flush=True)
+        cluster_faster.append((n, c_us < b_us))
+    slower = [n for n, faster in cluster_faster if not faster]
+    crossover = next((n for n, faster in cluster_faster
+                      if faster and all(m < n for m in slower)), None)
+    print(f"  crossover: the cluster team is faster from n = {crossover} of the "
+          f"sweep on (block faster at {slower}); QUEUE_CLUSTER_MIN_NODES = "
+          f"{QUEUE_CLUSTER_MIN_NODES}", flush=True)
+
+
 # ---------------------------------------------------------------- phase 5
+
+# bench.py:330-336, (cpu, mem, gpu) ranges of config 4's five groups.
+CONFIG4_SHAPES = (
+    ((4, 16), (8, 32), (0, 1)),
+    ((8, 32), (32, 128), (0, 1)),
+    ((16, 96), (64, 512), (0, 2)),
+    ((8, 64), (16, 128), (1, 5)),
+    ((32, 128), (128, 1024), (0, 1)),
+)
 
 # One numpy seed per BASELINE config (bench.py draws them from one stream).
 CONFIG_SEEDS = {"config1": 1, "config2": 2, "config2b": 22, "config3": 3,
@@ -862,15 +1122,8 @@ def run_queue_path(device):
     configs.append(("config3", "1,000 nodes, 12 windows of 200, emax 32",
                     fifo_pack, c3, b3, ["tightly-pack"] * 12, 32, 12))
     rng = np.random.default_rng(CONFIG_SEEDS["config4"])
-    shapes = [  # bench.py:330-336, (cpu, mem, gpu) ranges per group
-        ((4, 16), (8, 32), (0, 1)),
-        ((8, 32), (32, 128), (0, 1)),
-        ((16, 96), (64, 512), (0, 2)),
-        ((8, 64), (16, 128), (1, 5)),
-        ((32, 128), (128, 1024), (0, 1)),
-    ]
     groups, group_apps = [], []
-    for cpu, mem, gpu in shapes:
+    for cpu, mem, gpu in CONFIG4_SHAPES:
         groups.append(up(baseline_cluster(rng, 1_000, cpu=cpu, mem=mem, gpu=gpu)))
         group_apps.append(ups(baseline_batches(rng, 40, 40, 8))[0])
     c4, a4 = stack_groups(groups, group_apps)
@@ -944,7 +1197,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  {name}: {line.strip()}")
     probe(device)
     card = card_line()
@@ -968,6 +1221,7 @@ def main() -> int:
 
     m = measure(last, device, card, worst_small)
     m_queue = measure_queue(device, card, worst_queue)
+    measure_queue_layouts(device, card)
 
     t0 = time.perf_counter()
     queue_launches = run_queue_path(device)

@@ -5,10 +5,10 @@
 // kernels: spark_scheduler_tpu/ops/pallas_fifo.py `make_driver_selector`,
 // `make_fill_runner` and `make_gang_solver` (:119-410). Both CUDA kernels,
 // the segmented-window row walk (window_kernel.cu, a ClusterTeam) and the
-// queue-mode FIFO admission (fifo_kernel.cu, a BlockTeam), include this
-// header and walk their rows with the same `gs_fifo_row`, so the two cannot
-// drift. The plain PyTorch version of the same math is
-// spark_scheduler_tpu_torch/ops/gang.py.
+// queue-mode FIFO admission (fifo_kernel.cu, a BlockTeam or a ClusterTeam
+// by node count), include this header and walk their rows with the same
+// `gs_fifo_row`, so the two cannot drift. The plain PyTorch version of the
+// same math is spark_scheduler_tpu_torch/ops/gang.py.
 //
 // Every function is called by ALL threads of the team with the same
 // arguments and returns the same (uniform) values in every thread. The team
@@ -47,16 +47,20 @@ enum GsFill { GS_TIGHTLY = 0, GS_DISTRIBUTE = 1, GS_MINFRAG = 2 };
 constexpr int kGsThreads = 1024;
 
 // Block-wide reduction; every thread gets the result. `red` is a 32-entry
-// shared buffer. The leading barrier keeps a previous reduction's readers
-// from seeing this one's partials.
+// shared buffer: warp w's partial goes to red[w], then every warp reads the
+// 32 partials, one a lane, and combines them with the same five xor
+// shuffles, so every thread of the block ends with the same bits (the
+// scheme of ClusterTeam::reduce). The caller alternates two such buffers:
+// reduction t + 2 writes the buffer of t only after every thread has passed
+// the barrier of t + 1, so after its own reads of t, and one barrier a
+// reduction is enough.
 template <typename T, typename Op>
 __device__ __forceinline__ T gs_block_reduce(T v, Op op, T* red) {
   for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  T r = red[0];
-  for (int w = 1; w < kGsThreads / 32; ++w) r = op(r, red[w]);
+  T r = red[threadIdx.x & 31];  // kGsThreads / 32 == 32 warps, one per lane
+  for (int o = 16; o > 0; o >>= 1) r = op(r, __shfl_xor_sync(0xffffffffu, r, o));
   return r;
 }
 
@@ -73,26 +77,32 @@ struct GsSum {
   __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
 };
 
-// One block owns every node (the queue kernel). Node state is indexed by
-// node (lo = 0, slice = n), in global memory.
+// One block owns every node (the queue kernel's team for small clusters).
+// Node state is indexed by node (lo = 0, slice = n), in shared or global
+// memory.
 struct BlockTeam {
   static constexpr int lo = 0;
   static constexpr bool leader = true;  // writes the gang's outputs
   int count;  // nodes owned = n
   int slice;  // stride of the state arrays = n
-  unsigned long long* red;  // shared, 32 entries
+  unsigned long long* red;  // shared, [2][32] partials, alternating by parity
+  int parity;               // the buffer the next reduction uses
 
   template <typename T, typename Op>
   __device__ __forceinline__ T reduce(T v, Op op) {
-    return gs_block_reduce<T>(v, op, reinterpret_cast<T*>(red));
+    static_assert(sizeof(T) <= 8, "a partial fits one 8-byte slot");
+    T* buf = reinterpret_cast<T*>(red + 32 * parity);
+    parity ^= 1;
+    return gs_block_reduce<T>(v, op, buf);
   }
   __device__ __forceinline__ bool owns(int node) const {
     return node < count && (node & (kGsThreads - 1)) == static_cast<int>(threadIdx.x);
   }
 };
 
-// Blocks in the row walk's cluster: the largest portable cluster. (16, the
-// non-portable size, measured no faster on an H100: PERF.md.)
+// Blocks in a cluster team: the largest portable cluster. (16, the
+// non-portable size, measured no faster for the row walk on an H100:
+// PERF.md.)
 constexpr int kGsCluster = 8;
 
 // Shared-memory address helpers (PTX): the 32-bit shared::cta address of a

@@ -8,9 +8,10 @@ blocking. It is the counterpart of both `fifo_pack_pallas` and
 `fifo_pack_auto`:
 
   - CUDA tensors: the sorts in PyTorch, then ONE launch of the hand-written
-    queue kernel csrc/fifo_kernel.cu, which walks the whole queue in one
-    block (it shares its per-app step with the window kernel through
-    csrc/gang_solve.cuh);
+    queue kernel csrc/fifo_kernel.cu, which walks the whole queue on one
+    team of threads, a block or a thread-block cluster by node count
+    (`queue_layout`; it shares its per-app step with the window kernel
+    through csrc/gang_solve.cuh);
   - CPU tensors: `fifo_pack_reference`, its plain PyTorch version (the same
     sorts, then `ops/gang.walk_rows`);
   - any other device raises. There is no switch and no fallback.
@@ -29,6 +30,7 @@ about 1 ulp may break differently.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,6 +55,12 @@ from spark_scheduler_tpu_torch.ops.gang import (
 from spark_scheduler_tpu_torch.ops.packing import (
     _check_cumsum_bound,
     _rank_of_position,
+)
+from spark_scheduler_tpu_torch.ops.window import (
+    CLUSTER_BLOCKS,
+    SMEM_PER_BLOCK,
+    STATE_WORDS,
+    WALK_STATIC_SMEM,
 )
 
 def fifo_eligible(apps: AppBatch, fill: str) -> bool:
@@ -164,6 +172,70 @@ def device_apps(apps: AppBatch, device: torch.device, lead=()) -> list:
     return out
 
 
+# The queue kernel's teams (csrc/fifo_kernel.cu). From this node count on, a
+# queue runs on a cluster of CLUSTER_BLOCKS blocks, below it on one block.
+# chip_smoke.py phase 4's crossover sweep (100 tightly-pack apps, both teams
+# with the node state in shared memory, NVIDIA H100 80GB HBM3 at 700 W):
+# the block was faster at 1,000 nodes (431 against 481 us), the cluster from
+# 1,250 on (480 against 509 us); at 10,000 nodes, where the block's state
+# no longer fits in shared memory, 3.4x faster than the block (PERF.md).
+QUEUE_CLUSTER_MIN_NODES = 1_250
+# The block team's static shared memory: two alternating buffers of 32
+# 8-byte warp partials. The cluster team's is the row walk's,
+# WALK_STATIC_SMEM.
+QUEUE_BLOCK_STATIC_SMEM = 2 * 32 * 8
+_TEAM_CODES = {"block": 0, "cluster": 1}
+
+
+class QueueLayout(NamedTuple):
+    """Launch shape of the queue kernel for one node count."""
+
+    team: str  # "block": one block a queue; "cluster": one cluster a queue
+    k: int  # blocks a team
+    slice: int  # nodes a block owns, ceil(n / k)
+    smem_bytes: int  # shared memory a block, static + dynamic
+    state: str  # "smem": node state in shared memory; "global": in scratch
+
+
+def queue_layout(
+    n: int, *, team: str | None = None, state: str | None = None
+) -> QueueLayout:
+    """The queue kernel's layout for `n` nodes: one block a queue below
+    QUEUE_CLUSTER_MIN_NODES nodes, one cluster from there on; the node state
+    (8 words a node) in shared memory where a block's slice of it fits
+    beside the static buffers (n up to 7,248 for a block, 58,008 for a
+    cluster), else in global scratch. `team` and `state` force a layout
+    (tests and chip_smoke.py); a forced "smem" that does not fit raises."""
+    if n < 1:
+        raise ValueError(f"queue_layout needs n >= 1, got {n}")
+    if team is None:
+        team = "cluster" if n >= QUEUE_CLUSTER_MIN_NODES else "block"
+    if team not in _TEAM_CODES:
+        raise ValueError(f"no {team!r} queue team")
+    k = CLUSTER_BLOCKS if team == "cluster" else 1
+    static = WALK_STATIC_SMEM if team == "cluster" else QUEUE_BLOCK_STATIC_SMEM
+    sl = -(-n // k)
+    smem = STATE_WORDS * 4 * sl + static
+    fits = smem <= SMEM_PER_BLOCK
+    if state is None:
+        state = "smem" if fits else "global"
+    if state not in ("smem", "global") or (state == "smem" and not fits):
+        raise ValueError(f"no {team!r}/{state!r} queue layout for n={n}")
+    return QueueLayout(team, k, sl, smem if state == "smem" else static, state)
+
+
+def queue_scratch_words(
+    layout: QueueLayout, groups: int, emax: int, num_zones: int
+) -> int:
+    """Global scratch of one launch over `groups` queues: per block, the
+    gang's two slot buffers and the zone facts, plus the node state in the
+    global layout."""
+    per_block = 2 * emax + 2 * num_zones
+    if layout.state == "global":
+        per_block += STATE_WORDS * layout.slice
+    return groups * layout.k * per_block
+
+
 _QUEUE_ARGTYPES = (
     # groups, rows, n, emax, num_zones, fill, single_az, az_fallback,
     # include_exec
@@ -172,6 +244,7 @@ _QUEUE_ARGTYPES = (
     # avail, elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
     + [ctypes.c_void_p] * 9
     + [ctypes.c_void_p] * 4  # meta, execs, avail_out, scratch
+    + [ctypes.c_int] * 3  # team, slice, smem_state
     + [ctypes.c_void_p]  # stream
 )
 
@@ -186,18 +259,40 @@ def _queue_lib():
         fn.restype = ctypes.c_int
         lib.fifo_kernel_error.argtypes = [ctypes.c_int]
         lib.fifo_kernel_error.restype = ctypes.c_char_p
+        lib.fifo_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.fifo_kernel_info.restype = ctypes.c_int
     return lib
 
 
-def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones):
+def fifo_kernel_info(layout: QueueLayout) -> dict:
+    """What the card reports for the queue kernel at `layout`: registers
+    and local (spill) bytes a thread, static shared bytes a block, and how
+    many such teams can be resident at once (0: the launch cannot run)."""
+    lib = _queue_lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.fifo_kernel_info(
+        _TEAM_CODES[layout.team], int(layout.state == "smem"), layout.slice, out
+    )
+    if err != 0:
+        raise RuntimeError(
+            "queue kernel query failed: " + lib.fifo_kernel_error(err).decode()
+        )
+    return dict(regs=out[0], local_bytes=out[1], static_smem=out[2],
+                max_active_teams=out[3])
+
+
+def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
+               layout: QueueLayout):
     """ONE launch of the CUDA queue kernel over G independent queues, one
-    block each. Every input is a contiguous CUDA tensor stacked on a
-    leading group axis: `avail`/`sched` [G,N,3] i32, `zone` [G,N] i32,
+    team of `layout` each. Every input is a contiguous CUDA tensor stacked
+    on a leading group axis: `avail`/`sched` [G,N,3] i32, `zone` [G,N] i32,
     `orders` the six [G,N] tensors of `kernel_orders`, `app_fields` the
     five of `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4],
     execs [G,B,emax], avail_after [G,N,3]), all new tensors; the kernel runs
     on the current stream and nothing waits for it."""
     g, n, _ = avail.shape
+    if layout != queue_layout(n, team=layout.team, state=layout.state):
+        raise ValueError(f"{layout} is not a queue layout for {n} nodes")
     b = app_fields[0].shape[1]
     dev = avail.device
     # The scratch and any temporaries may be freed when this returns, before
@@ -209,7 +304,8 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones)
     execs = torch.empty((g, b, emax), dtype=torch.int32, device=dev)
     avail_out = torch.empty((g, n, 3), dtype=torch.int32, device=dev)
     scratch = torch.empty(
-        g * (8 * n + 2 * emax + 2 * num_zones), dtype=torch.int32, device=dev
+        queue_scratch_words(layout, g, emax, num_zones), dtype=torch.int32,
+        device=dev,
     )
     err = lib.fifo_queue(
         g, b, n, emax, num_zones, FILL_CODES[inner], int(single_az),
@@ -220,6 +316,7 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones)
         zone.data_ptr(), sched.data_ptr(),
         meta.data_ptr(), execs.data_ptr(), avail_out.data_ptr(),
         scratch.data_ptr(),
+        _TEAM_CODES[layout.team], layout.slice, int(layout.state == "smem"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -228,6 +325,31 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones)
         )
     fifo_pack.launches += 1
     return meta, execs, avail_out
+
+
+def queue_operands(cluster: ClusterTensors, fields: list, num_zones: int) -> tuple:
+    """`fifo_queue`'s five operands for one queue (the cluster's
+    availability, schedulable and zones, its queue-mode orders, the app
+    fields of `device_apps`), each with a group axis of 1."""
+    orders = kernel_orders(cluster, num_zones)
+    return (
+        cluster.available.contiguous()[None],
+        cluster.schedulable.contiguous()[None],
+        cluster.zone_id.contiguous()[None],
+        [t.contiguous()[None] for t in orders],
+        [t[None] for t in fields],
+    )
+
+
+def queue_packing(meta, execs, avail_after) -> BatchedPacking:
+    """`fifo_queue`'s outputs as a BatchedPacking stacked [G, ...]."""
+    return BatchedPacking(
+        driver_node=meta[..., 0].contiguous(),
+        executor_nodes=execs,
+        admitted=meta[..., 1] != 0,
+        packed=meta[..., 2] != 0,
+        available_after=avail_after,
+    )
 
 
 def fifo_pack(
@@ -239,8 +361,9 @@ def fifo_pack(
     num_zones: int,
 ) -> BatchedPacking:
     """Admit a FIFO queue in queue mode. CUDA tensors: the sorts in
-    PyTorch, then one launch of the CUDA queue kernel (the app fields must
-    be tensors on the cluster's device). CPU tensors: `fifo_pack_reference`.
+    PyTorch, then one launch of the CUDA queue kernel in the layout
+    `queue_layout` picks for the node count (the app fields must be tensors
+    on the cluster's device). CPU tensors: `fifo_pack_reference`.
     Any other device raises. `emax` is the executor-slot padding; a gang of
     more than `emax` executors never packs. `available_after` is always a
     new tensor: the caller's `cluster.available` is left as it was."""
@@ -257,22 +380,12 @@ def fifo_pack(
     fields = device_apps(apps, dev)
     if fields[0].shape[0] == 0:
         return empty_packing(cluster.available, emax)
-    orders = kernel_orders(cluster, num_zones)
-    meta, execs, avail_after = fifo_queue(
-        cluster.available.contiguous()[None],
-        cluster.schedulable.contiguous()[None],
-        cluster.zone_id.contiguous()[None],
-        [t.contiguous()[None] for t in orders],
-        [t[None] for t in fields],
+    out = queue_packing(*fifo_queue(
+        *queue_operands(cluster, fields, num_zones),
         fill=fill, emax=emax, num_zones=num_zones,
-    )
-    return BatchedPacking(
-        driver_node=meta[0, :, 0].contiguous(),
-        executor_nodes=execs[0],
-        admitted=meta[0, :, 1] != 0,
-        packed=meta[0, :, 2] != 0,
-        available_after=avail_after[0],
-    )
+        layout=queue_layout(cluster.num_nodes),
+    ))
+    return BatchedPacking(*(x[0] for x in out))
 
 
 fifo_pack.launches = 0

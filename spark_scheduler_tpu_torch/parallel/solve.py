@@ -5,8 +5,9 @@ of spark_scheduler_tpu/parallel/solve.py (`grouped_fifo_pack_auto` ->
 Instance groups (failover.go:276-313) are independent subproblems: each has
 its own cluster, its own app queue and its own priority orders, and no data
 flows between them. So `grouped_fifo_pack` sorts each group in PyTorch and
-then makes ONE launch of the queue kernel with one block per group: the G
-queues run side by side on G SMs. Spreading groups over several cards is
+then makes ONE launch of the queue kernel with one team per group (a block
+or a thread-block cluster, `ops/fifo.queue_layout`): the G queues run side
+by side. Spreading groups over several cards is
 later work; there is no mesh here.
 """
 
@@ -27,6 +28,8 @@ from spark_scheduler_tpu_torch.ops.fifo import (
     fifo_pack_reference,
     fifo_queue,
     kernel_orders,
+    queue_layout,
+    queue_packing,
 )
 from spark_scheduler_tpu_torch.ops.packing import _check_cumsum_bound
 
@@ -82,6 +85,26 @@ def _groups(clusters: ClusterTensors, apps: AppBatch):
     ]
 
 
+def grouped_queue_operands(
+    clusters: ClusterTensors, fields: list, num_zones: int
+) -> tuple:
+    """`ops/fifo.fifo_queue`'s five operands for G stacked queues: the
+    clusters' availability, schedulable and zones, each group's queue-mode
+    orders stacked, and the app fields of `device_apps`."""
+    g = clusters.available.shape[0]
+    per_group = [
+        kernel_orders(ClusterTensors(*(f[i] for f in clusters.fields())), num_zones)
+        for i in range(g)
+    ]
+    return (
+        clusters.available.contiguous(),
+        clusters.schedulable.contiguous(),
+        clusters.zone_id.contiguous(),
+        [torch.stack(cols) for cols in zip(*per_group)],
+        fields,
+    )
+
+
 def grouped_fifo_pack_reference(
     clusters: ClusterTensors,  # fields stacked [G, N, ...]
     apps: AppBatch,  # fields stacked [G, B, ...]
@@ -110,7 +133,7 @@ def grouped_fifo_pack(
 ) -> BatchedPacking:
     """G independent queue-mode solves; outputs stacked [G, ...]. CUDA
     tensors: each group's sorts in PyTorch, then ONE launch of the queue
-    kernel with G blocks. CPU tensors: `grouped_fifo_pack_reference`. Any
+    kernel with G teams. CPU tensors: `grouped_fifo_pack_reference`. Any
     other device raises. Decisions equal G separate `fifo_pack` calls."""
     check_queue(apps, fill)
     groups = _groups(clusters, apps)
@@ -128,17 +151,8 @@ def grouped_fifo_pack(
     fields = device_apps(apps, dev, lead=(g,))
     if fields[0].shape[1] == 0:
         return empty_packing(clusters.available, emax, lead=(g,))
-    per_group = [kernel_orders(c, num_zones) for c, _ in groups]
-    orders = [torch.stack(cols) for cols in zip(*per_group)]
-    meta, execs, avail_after = fifo_queue(
-        clusters.available.contiguous(), clusters.schedulable.contiguous(),
-        clusters.zone_id.contiguous(), orders, fields,
+    return queue_packing(*fifo_queue(
+        *grouped_queue_operands(clusters, fields, num_zones),
         fill=fill, emax=emax, num_zones=num_zones,
-    )
-    return BatchedPacking(
-        driver_node=meta[:, :, 0].contiguous(),
-        executor_nodes=execs,
-        admitted=meta[:, :, 1] != 0,
-        packed=meta[:, :, 2] != 0,
-        available_after=avail_after,
-    )
+        layout=queue_layout(clusters.available.shape[1]),
+    ))

@@ -162,38 +162,151 @@ def _queue_case(rng, n, b, device, hi=40):
     return cluster, app_batch_to_device(apps, device)
 
 
-@pytest.mark.parametrize("fill", STRATEGIES)
-def test_queue_kernel_matches_plain(cuda_device, fill):
-    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack, fifo_pack_reference
+# The queue kernel's four layouts: (team, node-state place).
+QUEUE_LAYOUTS = [("block", "smem"), ("block", "global"),
+                 ("cluster", "smem"), ("cluster", "global")]
 
-    for seed, (n, hi) in enumerate(((37, 40), (300, 40), (300, 8))):
+
+def _forced_layout(n, team, state):
+    """The queue layout forced to (team, state), or a skip where the node
+    state does not fit in shared memory at n."""
+    from spark_scheduler_tpu_torch.ops.fifo import queue_layout
+
+    try:
+        return queue_layout(n, team=team, state=state)
+    except ValueError:
+        pytest.skip(f"no {team}/{state} layout at n={n}: the state does not fit")
+
+
+def _forced_queue(cluster, apps, layout, **kw):
+    """`fifo_pack`'s launch with the kernel layout forced."""
+    from spark_scheduler_tpu_torch.ops.batched import BatchedPacking
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        device_apps,
+        fifo_pack,
+        fifo_queue,
+        queue_operands,
+        queue_packing,
+    )
+
+    before = fifo_pack.launches
+    out = queue_packing(*fifo_queue(
+        *queue_operands(cluster, device_apps(apps, cluster.device), kw["num_zones"]),
+        layout=layout, **kw,
+    ))
+    torch.cuda.synchronize()
+    assert fifo_pack.launches == before + 1
+    return BatchedPacking(*(x[0] for x in out))
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
+@pytest.mark.parametrize("n", [9, 37, 300, 1000, 8193, 10000])
+@pytest.mark.parametrize("team,state", QUEUE_LAYOUTS)
+def test_queue_kernel_matches_plain(cuda_device, fill, n, team, state):
+    """Every forced layout against the plain version, on a roomy and a
+    tight cluster (n = 9 leaves cluster blocks 5-7 without nodes)."""
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack_reference
+
+    layout = _forced_layout(n, team, state)
+    for seed, hi in enumerate((40, 8)):
         cluster, apps = _queue_case(np.random.default_rng(seed), n, 9, cuda_device, hi)
+        got = _forced_queue(cluster, apps, layout, fill=fill, emax=8, num_zones=4)
+        want = fifo_pack_reference(cluster, apps, fill=fill, emax=8, num_zones=4)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (fill, n, hi, layout)
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
+def test_queue_kernel_default_layout(cuda_device, fill):
+    """`fifo_pack` itself, in the layout `queue_layout` picks, on either
+    side of the block/cluster crossover."""
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        QUEUE_CLUSTER_MIN_NODES,
+        fifo_pack,
+        fifo_pack_reference,
+    )
+
+    for seed, n in enumerate((QUEUE_CLUSTER_MIN_NODES - 1, QUEUE_CLUSTER_MIN_NODES)):
+        cluster, apps = _queue_case(np.random.default_rng(seed), n, 9, cuda_device)
         before = fifo_pack.launches
         got = fifo_pack(cluster, apps, fill=fill, emax=8, num_zones=4)
         torch.cuda.synchronize()
         assert fifo_pack.launches == before + 1
         want = fifo_pack_reference(cluster, apps, fill=fill, emax=8, num_zones=4)
         for g, w in zip(got, want):
-            assert torch.equal(g, w), (fill, n, hi)
+            assert torch.equal(g, w), (fill, n)
 
 
-def test_grouped_queue_kernel_is_one_launch(cuda_device):
-    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+@pytest.mark.parametrize("fill", STRATEGIES)
+@pytest.mark.parametrize("team", ["block", "cluster"])
+def test_queue_kernel_wide_gangs(cuda_device, fill, team):
+    """Queue-mode gangs of more than 1,024 executors (emax 2,048): the slot
+    writes stride past one block's threads."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+    from spark_scheduler_tpu_torch.ops.batched import (
+        app_batch_to_device,
+        make_app_batch,
+    )
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack_reference, queue_layout
+
+    rng = np.random.default_rng(8)
+    n, emax = 300, 2048
+    avail = rng.integers(0, 64, size=(n, 3)).astype(np.int32)
+    avail[:, 2] = 0
+    cluster = cluster_from_numpy(
+        [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+         rng.permutation(n).astype(np.int32),
+         np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+         np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool)],
+        device=cuda_device,
+    )
+    one = np.ones((3, 3), np.int32)
+    one[:, 2] = 0
+    apps = app_batch_to_device(make_app_batch(
+        one, one, [1500, 1100, 2048], skippable=np.array([True, False, False]),
+    ), cuda_device)
+    got = _forced_queue(cluster, apps, queue_layout(n, team=team), fill=fill,
+                        emax=emax, num_zones=4)
+    want = fifo_pack_reference(cluster, apps, fill=fill, emax=emax, num_zones=4)
+    assert bool(want.admitted[0])  # the first gang was admitted
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("groups", [5, 20])
+@pytest.mark.parametrize("team", ["block", "cluster"])
+def test_grouped_queue_kernel_is_one_launch(cuda_device, groups, team):
+    """G queues as G teams of one launch; G = 20 clusters is more than can
+    be resident at once, so some wait for others to finish."""
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        device_apps,
+        fifo_pack,
+        fifo_queue,
+        queue_layout,
+        queue_packing,
+    )
     from spark_scheduler_tpu_torch.parallel import (
         grouped_fifo_pack,
         grouped_fifo_pack_reference,
+        grouped_queue_operands,
         stack_groups,
     )
 
     rng = np.random.default_rng(9)
-    cases = [_queue_case(rng, 200, 20, cuda_device) for _ in range(3)]
+    cases = [_queue_case(rng, 200, 20, cuda_device) for _ in range(groups)]
     clusters, apps = stack_groups([c for c, _ in cases], [a for _, a in cases])
+    kw = dict(fill="tightly-pack", emax=8, num_zones=4)
+    want = grouped_fifo_pack_reference(clusters, apps, **kw)
     before = fifo_pack.launches
-    got = grouped_fifo_pack(clusters, apps, fill="tightly-pack", emax=8, num_zones=4)
+    got = queue_packing(*fifo_queue(
+        *grouped_queue_operands(
+            clusters, device_apps(apps, cuda_device, lead=(groups,)), 4),
+        layout=queue_layout(200, team=team), **kw,
+    ))
+    default = grouped_fifo_pack(clusters, apps, **kw)
     torch.cuda.synchronize()
-    assert fifo_pack.launches == before + 1
-    want = grouped_fifo_pack_reference(
-        clusters, apps, fill="tightly-pack", emax=8, num_zones=4
-    )
-    for g, w in zip(got, want):
+    assert fifo_pack.launches == before + 2
+    for g, d, w in zip(got, default, want):
         assert torch.equal(g, w)
+        assert torch.equal(d, w)
