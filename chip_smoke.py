@@ -57,6 +57,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `available_after` must equal the CPU plain path on the same state.
      Queue-kernel launch counts are read around this phase.
 
+  6. The extender on the card: two `SparkSchedulerExtender`s wired from the
+     port's parts, one on `PlacementSolver(device="cuda")` and one on
+     `PlacementSolver(device="cpu")`, each on its own in-memory backend
+     holding phase 3's 10,000 nodes (one instance group, the prior usage as
+     one running pod of another scheduler per node); `tightly-pack`, FIFO
+     on, synchronous write-back, one fixed clock. Both get the same
+     traffic: 256 driver predicates in 8 windows of 32, window k+1
+     dispatched (`predicate_window_dispatch`) before window k completes,
+     as the server's PredicateBatcher does (gangs of 2-8 executors, ~15%
+     32 wide); the admitted apps' executors in the following windows; 16
+     dynamic-allocation extra executors (soft reservations); a pod deletion
+     and a node add, each while windows are in flight (the availability
+     and static deltas of the pipelined build); then 16 executor
+     reschedules, each a solo `pack` (one row of the row-walk kernel).
+     Every result, reservation and demand must be equal on both sides;
+     every driver window must launch the row walk once per segment and
+     every solo pack once. Prints the launches, the build kinds
+     (full / delta / reuse) and the p50 / p99 wall time of
+     `predicate_window_complete` and of a solo pack on the card.
+
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
 """
@@ -1168,6 +1188,349 @@ def run_queue_path(device):
     return fifo_pack.launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+EXT_IG_LABEL = "resource_channel"
+EXT_IG = "batch-medium-priority"
+EXT_NS = "namespace"
+EXT_CLOCK = 2.0e9  # one fixed clock for both extenders (FIFO age gates)
+EXT_WINDOWS = 8
+EXT_WINDOW = 32
+EXT_EXTRAS = 16
+EXT_RESCHEDULES = 16
+
+
+def build_extender(device):
+    """A port extender wired from its parts as the JAX package's
+    server/app.py `build_scheduler_app` wires its own: an in-memory backend
+    with the Demand CRD, synchronous write-back, `tightly-pack`, FIFO on,
+    reconciler / metrics / events / waste / recorder / policy off, one
+    fixed clock. Returns (extender, backend, solver)."""
+    from spark_scheduler_tpu_torch.core.binpacker import select_binpacker
+    from spark_scheduler_tpu_torch.core.demands import DemandManager
+    from spark_scheduler_tpu_torch.core.extender import (
+        ExtenderConfig,
+        SparkSchedulerExtender,
+    )
+    from spark_scheduler_tpu_torch.core.overhead import OverheadComputer
+    from spark_scheduler_tpu_torch.core.reservation_manager import (
+        ResourceReservationManager,
+    )
+    from spark_scheduler_tpu_torch.core.soft_reservations import (
+        SoftReservationStore,
+    )
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.core.sparkpods import SparkPodLister
+    from spark_scheduler_tpu_torch.store.backend import (
+        DEMAND_CRD,
+        InMemoryBackend,
+    )
+    from spark_scheduler_tpu_torch.store.cache import (
+        ResourceReservationCache,
+        SafeDemandCache,
+    )
+
+    def clock():
+        return EXT_CLOCK
+
+    backend = InMemoryBackend()
+    backend.register_crd(DEMAND_CRD)
+    rr_cache = ResourceReservationCache(backend, sync_writes=True)
+    demand_cache = SafeDemandCache(backend, sync_writes=True)
+    soft_store = SoftReservationStore(backend)
+    lister = SparkPodLister(backend, EXT_IG_LABEL)
+    rrm = ResourceReservationManager(backend, rr_cache, soft_store, lister)
+    overhead = OverheadComputer(backend, rrm)
+    binpacker = select_binpacker("tightly-pack")
+    demands = DemandManager(backend, demand_cache, EXT_IG_LABEL,
+                            is_single_az_binpacker=binpacker.is_single_az,
+                            events=None, waste=None, clock=clock)
+    solver = PlacementSolver(device=device)
+    ext = SparkSchedulerExtender(
+        backend, lister, rrm, demands, overhead, binpacker, solver,
+        config=ExtenderConfig(fifo=True, instance_group_label=EXT_IG_LABEL),
+        reconciler=None, metrics=None, events=None, waste=None,
+        recorder=None, clock=clock, policy=None,
+    )
+    ext._last_request = float("inf")  # no time-gap resync
+    return ext, backend, solver
+
+
+def extender_cluster(backend):
+    """Phase 3's 10,000 nodes (4 zones, one instance group), with its prior
+    usage as one running pod of another scheduler on each node (the
+    extender counts it as overhead)."""
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    nodes, usage = main_cluster(seed=7)
+    for i, node in enumerate(nodes):
+        node.labels[EXT_IG_LABEL] = EXT_IG
+        backend.add_node(node)
+        backend.add_pod(Pod(
+            name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+            scheduler_name="default-scheduler", node_name=node.name,
+            phase="Running",
+            containers=[Container(requests=Resources(*map(int, usage[i])))],
+        ))
+    return [n.name for n in nodes]
+
+
+def extender_apps(rng):
+    """256 apps for the driver windows (2-8 executors, ~15% 32 wide), the
+    first 16 with dynamic allocation (min 2, max 3: one extra executor
+    each). As (app id, executors, dynamic)."""
+    apps = []
+    for i in range(EXT_WINDOWS * EXT_WINDOW):
+        dyn = i < EXT_EXTRAS
+        n = 2 if dyn else (32 if rng.random() < 0.15 else int(rng.integers(2, 9)))
+        apps.append((f"app-{i:03d}", n + (1 if dyn else 0), dyn))
+    return apps
+
+
+def spark_pods(app_id, executors, dynamic, ts):
+    """The driver and executor pods of one app (both extenders get their
+    own objects, made alike)."""
+    from spark_scheduler_tpu_torch.core import sparkpods as sp
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    ann = {sp.DRIVER_CPU: "1", sp.DRIVER_MEMORY: "2Gi",
+           sp.EXECUTOR_CPU: "2", sp.EXECUTOR_MEMORY: "4Gi"}
+    if dynamic:
+        ann.update({sp.DYNAMIC_ALLOCATION_ENABLED: "true",
+                    sp.DA_MIN_EXECUTOR_COUNT: str(executors - 1),
+                    sp.DA_MAX_EXECUTOR_COUNT: str(executors)})
+    else:
+        ann[sp.EXECUTOR_COUNT] = str(executors)
+
+    def pod(name, role, annotations, req):
+        return Pod(
+            name=name, namespace=EXT_NS, uid=f"uid-{name}",
+            labels={sp.SPARK_ROLE_LABEL: role, sp.SPARK_APP_ID_LABEL: app_id},
+            annotations=annotations, creation_timestamp=ts,
+            scheduler_name=sp.SPARK_SCHEDULER_NAME,
+            node_selector={EXT_IG_LABEL: EXT_IG},
+            containers=[Container(requests=Resources.from_quantities(*req))],
+        )
+
+    return [pod(f"{app_id}-driver", sp.ROLE_DRIVER, ann, ("1", "2Gi"))] + [
+        pod(f"{app_id}-exec-{k + 1}", sp.ROLE_EXECUTOR, {}, ("2", "4Gi"))
+        for k in range(executors)
+    ]
+
+
+class ExtenderSide:
+    """One extender of phase 6 with its own backend and pod objects."""
+
+    def __init__(self, device, apps):
+        self.ext, self.backend, self.solver = build_extender(device)
+        self.names = extender_cluster(self.backend)
+        self.pods = {
+            app: spark_pods(app, n, dyn, float(1 + i))
+            for i, (app, n, dyn) in enumerate(apps)
+        }
+
+    def args(self, pod, names=None):
+        from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
+
+        return ExtenderArgs(pod=pod, node_names=list(names or self.names))
+
+    def state(self):
+        """Every reservation (hard and soft) and every demand, by name."""
+        def by_name(kind):
+            return sorted(self.backend.list(kind),
+                          key=lambda o: (o.namespace, o.name))
+
+        return (by_name("resourcereservations"),
+                self.ext._rrm.soft_store.get_all_copy(),
+                by_name("demands"))
+
+    def bind(self, pods, results):
+        for pod, res in zip(pods, results):
+            if res.ok:
+                self.backend.bind_pod(pod, res.node_names[0])
+
+
+def run_extender_phase(device, card):
+    """Phase 6: the extender on the card (see the module docstring). Returns
+    the row-walk and probe launches of the phase."""
+    import torch
+
+    from spark_scheduler_tpu_torch.models.kube import Node, ZONE_LABEL
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    t_setup = time.perf_counter()
+    apps = extender_apps(np.random.default_rng(17))
+    gpu = ExtenderSide(device, apps)
+    cpu = ExtenderSide("cpu", apps)
+    sides = (gpu, cpu)
+    print(f"phase 6: two extenders (cuda, cpu) on {len(gpu.names)} nodes, "
+          f"set up in {time.perf_counter() - t_setup:.1f} s", flush=True)
+
+    # Held back from the windows: each dynamic app's extra executor (served
+    # in a window after the drivers) and one executor each of 16 other apps
+    # (rescheduled at the end through the solo pack).
+    extras = [app for app, _, dyn in apps if dyn]
+    resched = [app for app, _, dyn in apps if not dyn][:EXT_RESCHEDULES]
+
+    def held(app, k):
+        return (app in extras and k == len(gpu.pods[app]) - 1) or (
+            app in resched and k == 1)
+
+    upload_kinds: dict[str, int] = {}
+    complete_ms, pack_ms = [], []
+    counts = {"window": 0}
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    solo_packs = [0]
+    orig_pack = gpu.solver.pack
+
+    def timed_pack(*a, **kw):
+        before = window_pack.launches
+        t0 = time.perf_counter()
+        out = orig_pack(*a, **kw)
+        torch.cuda.synchronize()
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+        check(window_pack.launches == before + 1,
+              "a solo pack did not launch the row walk once")
+        solo_packs[0] += 1
+        return out
+
+    gpu.solver.pack = timed_pack
+
+    def same(got, want, what):
+        check(got == want, f"phase 6: cuda != cpu at {what}")
+
+    def dispatch(batch):
+        """Dispatch one window on both sides; batch = [(app, pod index)]."""
+        out = []
+        for s in sides:
+            for app, k in batch:
+                s.backend.add_pod(s.pods[app][k])
+            before = window_pack.launches
+            t = s.ext.predicate_window_dispatch(
+                [s.args(s.pods[app][k]) for app, k in batch])
+            if s is gpu:
+                kind = s.solver.last_state_upload if t.handle is not None else None
+                if kind:
+                    upload_kinds[kind] = upload_kinds.get(kind, 0) + 1
+                segs = len(t.handle.requests) if t.handle is not None else 0
+                check(window_pack.launches - before == segs,
+                      f"window dispatch launched {window_pack.launches - before}"
+                      f" row walks for {segs} segments")
+                counts["window"] += bool(segs)
+            out.append(t)
+        return out
+
+    def complete(batch, tickets):
+        results = []
+        for s, t in zip(sides, tickets):
+            t0 = time.perf_counter()
+            res = s.ext.predicate_window_complete(t)
+            if s is gpu:
+                complete_ms.append((time.perf_counter() - t0) * 1e3)
+            s.bind([s.pods[app][k] for app, k in batch], res)
+            results.append(res)
+        same(results[0], results[1], f"window results {batch[:2]}...")
+        same(gpu.state(), cpu.state(), "reservations and demands")
+        return results[0]
+
+    admitted_queue: list = []
+    pending = None
+    t0 = time.perf_counter()
+    mid_events = {3: "pod-delete", 5: "node-add"}
+    for w in range(EXT_WINDOWS + 2):
+        batch = []
+        if w < EXT_WINDOWS:
+            batch += [(app, 0) for app, _, _ in
+                      apps[w * EXT_WINDOW:(w + 1) * EXT_WINDOW]]
+        while admitted_queue:
+            app = admitted_queue.pop(0)
+            batch += [(app, k) for k in range(1, len(gpu.pods[app]))
+                      if not held(app, k)]
+        if w == EXT_WINDOWS + 1:
+            batch += [(app, len(gpu.pods[app]) - 1) for app in extras]
+        tickets = dispatch(batch) if batch else None
+        if w in mid_events and pending is not None:
+            # Lands while the window just dispatched (and the one before
+            # it) is in flight.
+            for s in sides:
+                if mid_events[w] == "pod-delete":
+                    s.backend.delete_pod(
+                        s.backend.get("pods", "other", "base-00000"))
+                else:
+                    s.backend.add_node(Node(
+                        name="node-10000",
+                        allocatable=Resources(64_000, 256 << 20, 0),
+                        labels={ZONE_LABEL: "zone-0", EXT_IG_LABEL: EXT_IG},
+                    ))
+                    s.names = s.names + ["node-10000"]
+        if pending is not None:
+            res = complete(*pending)
+            for (app, k), r in zip(pending[0], res):
+                if k == 0 and r.ok:
+                    admitted_queue.append(app)
+        pending = (batch, tickets) if batch else None
+    if pending is not None:
+        complete(*pending)
+    windows_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    outcomes = []
+    for app in resched:
+        results = []
+        for s in sides:
+            rr = s.ext._rrm.get_resource_reservation(app, EXT_NS)
+            taken = {r.node for r in rr.spec.reservations.values()}
+            pod = s.pods[app][1]
+            s.backend.add_pod(pod)
+            res = s.ext.predicate(
+                s.args(pod, [n for n in s.names if n not in taken]))
+            s.bind([pod], [res])
+            results.append(res)
+        same(results[0], results[1], f"reschedule of {app}")
+        outcomes.append(results[0].outcome)
+    same(gpu.state(), cpu.state(), "reservations and demands after reschedules")
+    resched_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    rr = gpu.backend.list("resourcereservations")
+    check(len(rr) == len(apps), f"{len(rr)} reservations for {len(apps)} apps")
+    check(outcomes.count("success-rescheduled") == EXT_RESCHEDULES,
+          f"reschedule outcomes {outcomes}")
+    check(solo_packs[0] == EXT_RESCHEDULES, f"{solo_packs[0]} solo packs")
+    soft = gpu.ext._rrm.soft_store.get_all_copy()
+    n_soft = sum(len(v.reservations) for v in soft.values())
+    check(n_soft == EXT_EXTRAS, f"{n_soft} soft reservations for "
+                                f"{EXT_EXTRAS} extra executors")
+    check(upload_kinds.get("delta", 0) >= 2,
+          f"the mid-flight pod deletion and node add did not ship as deltas: "
+          f"{upload_kinds}")
+    launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    check(launches["probe"] == 1, f"probe launches {launches['probe']}")
+    p = np.percentile
+    print(f"phase 6: {len(apps)} driver predicates in {EXT_WINDOWS} pipelined "
+          f"windows of {EXT_WINDOW} (window k+1 dispatched before window k "
+          f"completes), then the admitted apps' executors in the following "
+          f"windows, {EXT_EXTRAS} dynamic-allocation extra executors (soft "
+          f"reservations), a pod deletion (window 4) and a node add (window 6) "
+          f"while windows were in flight, and {EXT_RESCHEDULES} executor "
+          f"reschedules through the solo pack: cuda == cpu on every result, "
+          f"reservation and demand ({len(rr)} reservations, {n_soft} soft) "
+          f"in {windows_s:.1f} s + {resched_s:.1f} s", flush=True)
+    print(f"phase 6 ({card}): row-walk launches {launches['window']} "
+          f"({counts['window']} driver windows, {solo_packs[0]} solo packs); "
+          f"builds {upload_kinds}; predicate_window_complete p50 "
+          f"{p(complete_ms, 50):.3f} ms p99 {p(complete_ms, 99):.3f} ms over "
+          f"{len(complete_ms)} windows; solo pack p50 {p(pack_ms, 50):.3f} ms "
+          f"p99 {p(pack_ms, 99):.3f} ms over {len(pack_ms)} calls "
+          f"(host clock, ending in torch.cuda.synchronize)", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1228,6 +1591,14 @@ def main() -> int:
     print(f"phase 5: BASELINE configs 1, 2, 2b, 3, 4, 5 identical to the CPU "
           f"plain path in {time.perf_counter() - t0:.1f} s; queue-kernel "
           f"launches {queue_launches} ({card})", flush=True)
+
+    t0 = time.perf_counter()
+    ext_launches = run_extender_phase(device, card)
+    print(f"phase 6: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    # The row walk and the probe serve both main paths: the solver's
+    # windows (phase 3) and the extender's (phase 6).
+    for k in launches:
+        launches[k] += ext_launches[k]
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",
@@ -1251,7 +1622,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # the smoke drives one card
+            "count": torch.cuda.device_count(),
         },
     }))
     return 0

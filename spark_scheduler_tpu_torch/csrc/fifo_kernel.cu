@@ -53,6 +53,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "device_setup.cuh"
 #include "gang_solve.cuh"
 
 namespace {
@@ -175,9 +176,12 @@ __global__ void __launch_bounds__(kThreads) fifo_queue_kernel(QueueParams p) {
 
 using QueueKernel = void (*)(QueueParams);
 
-// The instantiation for (team, smem_state), with its dynamic shared memory
-// for `slice` nodes a block allowed.
-cudaError_t prepare(int team, int smem_state, int slice, QueueKernel* kernel, int* dynamic) {
+SmemAllowance<2> g_smem_allowance;  // slot: team
+
+// Sets `device` current and picks the instantiation for (team, smem_state),
+// with its dynamic shared memory for `slice` nodes a block allowed there.
+cudaError_t prepare(int device, int team, int smem_state, int slice, QueueKernel* kernel,
+                    int* dynamic) {
   if (team == kTeamCluster)
     *kernel = smem_state ? &fifo_queue_kernel<kTeamCluster, true>
                          : &fifo_queue_kernel<kTeamCluster, false>;
@@ -185,9 +189,11 @@ cudaError_t prepare(int team, int smem_state, int slice, QueueKernel* kernel, in
     *kernel = smem_state ? &fifo_queue_kernel<kTeamBlock, true>
                          : &fifo_queue_kernel<kTeamBlock, false>;
   *dynamic = smem_state ? 8 * slice * static_cast<int>(sizeof(int)) : 0;
-  return smem_state ? cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           *dynamic)
-                    : cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && smem_state)
+    e = g_smem_allowance.ensure(device, team == kTeamCluster ? 1 : 0,
+                                reinterpret_cast<const void*>(*kernel), *dynamic);
+  return e;
 }
 
 // The launch shape: `groups` teams of one block, or of one cluster of
@@ -218,7 +224,7 @@ cudaLaunchConfig_t queue_config(int team, int groups, int dynamic, cudaStream_t 
 // smem_state: where the node state lives (1 shared memory, 0 global
 // scratch). Returns the CUDA error of the launch (0 on success).
 extern "C" int fifo_queue(
-    int groups, int rows, int n, int emax, int num_zones, int fill, int single_az,
+    int device, int groups, int rows, int n, int emax, int num_zones, int fill, int single_az,
     int az_fallback, int include_exec, const int* dreq, const int* ereq, const int* cnt,
     const unsigned char* valid, const unsigned char* skip, const int* avail,
     const unsigned char* elig_e, const unsigned char* elig_d, const int* drank,
@@ -232,7 +238,7 @@ extern "C" int fifo_queue(
                 avail_out, scratch};
   QueueKernel kernel;
   int dynamic;
-  cudaError_t e = prepare(team, smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, team, smem_state, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -247,10 +253,10 @@ extern "C" int fifo_queue(
 // once (cudaOccupancyMaxActiveClusters for the cluster team, resident
 // blocks over all SMs for the block team; 0 means the launch cannot run).
 // Returns the CUDA error (0 on success).
-extern "C" int fifo_kernel_info(int team, int smem_state, int slice, int* out) {
+extern "C" int fifo_kernel_info(int device, int team, int smem_state, int slice, int* out) {
   QueueKernel kernel;
   int dynamic;
-  cudaError_t e = prepare(team, smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, team, smem_state, slice, &kernel, &dynamic);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -263,9 +269,8 @@ extern "C" int fifo_kernel_info(int team, int smem_state, int slice, int* out) {
     const cudaLaunchConfig_t cfg = queue_config(team, 1, dynamic, nullptr, &attr);
     e = cudaOccupancyMaxActiveClusters(&teams, kernel, &cfg);
   } else {
-    int device = 0, sms = 0, per_sm = 0;
-    e = cudaGetDevice(&device);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, dynamic);
     teams = sms * per_sm;

@@ -16,7 +16,11 @@ __global__ void probe_add_one_kernel(const int* x, int* o, int n) {
 
 }  // namespace
 
-extern "C" int probe_add_one(const int* x, int* o, int n, void* stream) {
+// One launch on `device` (set first: this library's current device is its
+// own, apart from PyTorch's).
+extern "C" int probe_add_one(int device, const int* x, int* o, int n, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   probe_add_one_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(x, o, n);

@@ -50,6 +50,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "device_setup.cuh"
 #include "gang_solve.cuh"
 
 namespace {
@@ -161,23 +162,28 @@ cudaLaunchConfig_t cluster_config(int dynamic, cudaStream_t stream, cudaLaunchAt
   return cfg;
 }
 
-// The instantiation for `smem_state`, with its dynamic shared memory for
-// `slice` nodes a block allowed.
-cudaError_t prepare(int smem_state, int slice, void (**kernel)(WalkParams), int* dynamic) {
+SmemAllowance<1> g_smem_allowance;
+
+// Sets `device` current and picks the instantiation for `smem_state`, with
+// its dynamic shared memory for `slice` nodes a block allowed there.
+cudaError_t prepare(int device, int smem_state, int slice, void (**kernel)(WalkParams),
+                    int* dynamic) {
   *kernel = smem_state ? &window_row_walk_kernel<true> : &window_row_walk_kernel<false>;
   *dynamic = smem_state ? 8 * slice * static_cast<int>(sizeof(int)) : 0;
-  return smem_state ? cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           *dynamic)
-                    : cudaSuccess;
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && smem_state)
+    e = g_smem_allowance.ensure(device, 0, reinterpret_cast<const void*>(*kernel), *dynamic);
+  return e;
 }
 
 }  // namespace
 
-// One launch: a cluster of kGsCluster blocks walks one segment. smem_state
-// selects where the node state lives (1: shared memory, 0: global
-// scratch). Returns the CUDA error of the launch (0 on success).
+// One launch on `device`: a cluster of kGsCluster blocks walks one
+// segment. smem_state selects where the node state lives (1: shared
+// memory, 0: global scratch). Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int window_row_walk(
-    const int* dreq, const int* ereq, const int* cnt, const unsigned char* valid,
+    int device, const int* dreq, const int* ereq, const int* cnt, const unsigned char* valid,
     const unsigned char* skip, int rows, int row_count, int* base,
     const unsigned char* elig_e, const unsigned char* elig_d, const int* drank,
     const int* d_order, const int* erank, const int* e_order, const int* zone,
@@ -190,7 +196,7 @@ extern "C" int window_row_walk(
                az_fallback, include_exec, meta, execs, scratch, slice};
   void (*kernel)(WalkParams);
   int dynamic;
-  cudaError_t e = prepare(smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, smem_state, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -199,15 +205,15 @@ extern "C" int window_row_walk(
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// What the card reports for one instantiation: out[0] registers a thread,
+// What `device` reports for one instantiation: out[0] registers a thread,
 // out[1] local (spill) bytes a thread, out[2] static shared bytes a block,
 // out[3] how many such clusters with `slice` nodes a block can be resident
 // at once (cudaOccupancyMaxActiveClusters; 0 means the launch cannot run).
 // Returns the CUDA error (0 on success).
-extern "C" int window_kernel_info(int smem_state, int slice, int* out) {
+extern "C" int window_kernel_info(int device, int smem_state, int slice, int* out) {
   void (*kernel)(WalkParams);
   int dynamic;
-  cudaError_t e = prepare(smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, smem_state, slice, &kernel, &dynamic);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);

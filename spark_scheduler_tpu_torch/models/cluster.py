@@ -51,7 +51,7 @@ FIELD_DTYPES = (
 @dataclasses.dataclass
 class ClusterTensors:
     """The dense scheduling view consumed by ops/. All fields live on one
-    device. `build_cluster_tensors` also sets a `host` attribute holding the
+    device. The solver's builds also set a `host` attribute holding the
     numpy arrays the tensors were uploaded from, so host-side math
     (candidate masks, fetch reconstruction) never reads the device."""
 
@@ -289,7 +289,7 @@ def _fit_rows(arr: np.ndarray, n_slots: int) -> np.ndarray:
     return arr[:n_slots]
 
 
-def build_cluster_tensors(
+def build_host_tensors(
     nodes: list[Node],
     usage: np.ndarray | Mapping[str, Resources],
     overhead: np.ndarray | Mapping[str, Resources],
@@ -298,15 +298,14 @@ def build_cluster_tensors(
     driver_label_priority: tuple[str, list[str]] | None = None,
     executor_label_priority: tuple[str, list[str]] | None = None,
     pad_to: int | None = None,
-    device="cuda",
 ) -> ClusterTensors:
-    """Build the dense scheduling view for a set of live nodes on `device`.
+    """The dense scheduling view for a set of live nodes as numpy arrays
+    (a ClusterTensors of fresh host arrays, nothing on a device).
 
     Mirrors `NodeSchedulingMetadataForNodes` (resources.go:61-100):
       available   = allocatable - usage - overhead
       schedulable = allocatable - overhead
     plus the priority inputs of sort/nodesorting.go. `pad_to` rounds N up.
-    The numpy source rides along as the result's `host` attribute.
     """
     for n in nodes:
         registry.intern(n.name)
@@ -358,7 +357,7 @@ def build_cluster_tensors(
         alloc - overhead.astype(np.int64), -INT32_INF, INT32_INF
     ).astype(np.int32)
 
-    host = ClusterTensors(
+    return ClusterTensors(
         available=available,
         schedulable=schedulable,
         zone_id=zone_id,
@@ -369,14 +368,11 @@ def build_cluster_tensors(
         ready=ready,
         valid=valid,
     )
-    out = cluster_from_numpy(host.fields(), device=device)
-    out.host = host
-    return out
 
 
 def host_view(cluster: ClusterTensors) -> ClusterTensors:
     """The numpy arrays behind `cluster`: its `host` attribute when
-    build_cluster_tensors set one, else a device-to-host copy."""
+    a build set one, else a device-to-host copy."""
     host = getattr(cluster, "host", None)
     if host is not None:
         return host

@@ -61,6 +61,7 @@ from spark_scheduler_tpu_torch.ops.window import (
     SMEM_PER_BLOCK,
     STATE_WORDS,
     WALK_STATIC_SMEM,
+    _device_index,
 )
 
 def fifo_eligible(apps: AppBatch, fill: str) -> bool:
@@ -237,9 +238,9 @@ def queue_scratch_words(
 
 
 _QUEUE_ARGTYPES = (
-    # groups, rows, n, emax, num_zones, fill, single_az, az_fallback,
-    # include_exec
-    [ctypes.c_int] * 9
+    # device index (the entry point sets it first), groups, rows, n, emax,
+    # num_zones, fill, single_az, az_fallback, include_exec
+    [ctypes.c_int] * 10
     + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip
     # avail, elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
     + [ctypes.c_void_p] * 9
@@ -259,19 +260,21 @@ def _queue_lib():
         fn.restype = ctypes.c_int
         lib.fifo_kernel_error.argtypes = [ctypes.c_int]
         lib.fifo_kernel_error.restype = ctypes.c_char_p
-        lib.fifo_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.fifo_kernel_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.fifo_kernel_info.restype = ctypes.c_int
     return lib
 
 
-def fifo_kernel_info(layout: QueueLayout) -> dict:
-    """What the card reports for the queue kernel at `layout`: registers
-    and local (spill) bytes a thread, static shared bytes a block, and how
-    many such teams can be resident at once (0: the launch cannot run)."""
+def fifo_kernel_info(layout: QueueLayout, device=None) -> dict:
+    """What a card (`device`, default the current one) reports for the
+    queue kernel at `layout`: registers and local (spill) bytes a thread,
+    static shared bytes a block, and how many such teams can be resident at
+    once (0: the launch cannot run)."""
     lib = _queue_lib()
     out = (ctypes.c_int * 4)()
     err = lib.fifo_kernel_info(
-        _TEAM_CODES[layout.team], int(layout.state == "smem"), layout.slice, out
+        _device_index(device), _TEAM_CODES[layout.team],
+        int(layout.state == "smem"), layout.slice, out,
     )
     if err != 0:
         raise RuntimeError(
@@ -308,7 +311,7 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
         device=dev,
     )
     err = lib.fifo_queue(
-        g, b, n, emax, num_zones, FILL_CODES[inner], int(single_az),
+        dev.index, g, b, n, emax, num_zones, FILL_CODES[inner], int(single_az),
         int(az_fallback), int(include_exec),
         *(t.data_ptr() for t in app_fields),
         avail.data_ptr(),

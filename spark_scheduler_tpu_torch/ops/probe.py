@@ -27,7 +27,8 @@ def _lib():
     lib = load_library("probe")
     if lib.probe_add_one.argtypes is None:
         lib.probe_add_one.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.probe_add_one.restype = ctypes.c_int
         lib.probe_error.argtypes = [ctypes.c_int]
@@ -47,7 +48,7 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     out = torch.empty_like(x)
     err = lib.probe_add_one(
-        x.data_ptr(), out.data_ptr(), x.numel(),
+        x.device.index, x.data_ptr(), out.data_ptr(), x.numel(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

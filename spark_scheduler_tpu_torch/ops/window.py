@@ -286,7 +286,8 @@ def walk_scratch_words(layout: WalkLayout, emax: int, num_zones: int) -> int:
 
 
 _ROW_WALK_ARGTYPES = (
-    [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip (segment slices)
+    [ctypes.c_int]  # device index: the entry point sets it first
+    + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip (segment slices)
     + [ctypes.c_int] * 2  # rows, row_count
     + [ctypes.c_void_p]  # base [N,3] (read, then commit row subtracted)
     # elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
@@ -299,6 +300,16 @@ _ROW_WALK_ARGTYPES = (
 )
 
 
+def _device_index(device) -> int:
+    """The CUDA device index of `device` (None: the current device)."""
+    if device is None:
+        return torch.cuda.current_device()
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"kernel queries need a CUDA device, got {device}")
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
 def _row_walk_lib():
     from spark_scheduler_tpu_torch.ops._build import load_library
 
@@ -309,18 +320,21 @@ def _row_walk_lib():
         fn.restype = ctypes.c_int
         lib.window_kernel_error.argtypes = [ctypes.c_int]
         lib.window_kernel_error.restype = ctypes.c_char_p
-        lib.window_kernel_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.window_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.window_kernel_info.restype = ctypes.c_int
     return lib
 
 
-def window_kernel_info(layout: WalkLayout) -> dict:
-    """What the card reports for the row walk at `layout`: registers and
-    local (spill) bytes a thread, static shared bytes a block, and how many
-    such clusters can be resident at once (0: the launch cannot run)."""
+def window_kernel_info(layout: WalkLayout, device=None) -> dict:
+    """What a card (`device`, default the current one) reports for the row
+    walk at `layout`: registers and local (spill) bytes a thread, static
+    shared bytes a block, and how many such clusters can be resident at
+    once (0: the launch cannot run)."""
     lib = _row_walk_lib()
     out = (ctypes.c_int * 4)()
-    err = lib.window_kernel_info(int(layout.state == "smem"), layout.slice, out)
+    err = lib.window_kernel_info(
+        _device_index(device), int(layout.state == "smem"), layout.slice, out
+    )
     if err != 0:
         raise RuntimeError(
             "window kernel query failed: " + lib.window_kernel_error(err).decode()
@@ -394,7 +408,7 @@ def window_pack(
             cluster, base, cand[s], dom[s], num_zones
         )
         err = lib.window_row_walk(
-            dreq[s].data_ptr(), ereq[s].data_ptr(), cnt[s].data_ptr(),
+            dev.index, dreq[s].data_ptr(), ereq[s].data_ptr(), cnt[s].data_ptr(),
             valid[s].data_ptr(), skip[s].data_ptr(),
             r_pad, rc,
             base.data_ptr(),

@@ -310,3 +310,119 @@ def test_grouped_queue_kernel_is_one_launch(cuda_device, groups, team):
     for g, d, w in zip(got, default, want):
         assert torch.equal(g, w)
         assert torch.equal(d, w)
+
+
+def test_kernels_launch_on_the_tensors_device(cuda_device):
+    """Each kernel library keeps its own current device (it links the
+    static CUDA runtime); every entry point must set the device of the
+    tensors it is handed. With cuda:0 current, the probe, a window and a
+    queue on cuda:1 must give the plain versions' results."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        fifo_kernel_info,
+        fifo_pack,
+        fifo_pack_reference,
+        queue_layout,
+    )
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import (
+        make_segmented_window,
+        walk_layout,
+        window_kernel_info,
+        window_pack,
+        window_pack_reference,
+    )
+
+    torch.cuda.set_device(0)
+    dev1 = torch.device("cuda", 1)
+    x = torch.arange(1024, dtype=torch.int32, device=dev1)
+    assert torch.equal(probe_add_one(x).cpu(), x.cpu() + 1)
+
+    rng = np.random.default_rng(13)
+    n, emax = 3000, 8
+    avail = rng.integers(0, 24, size=(n, 3)).astype(np.int32)
+    fields = [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+              rng.permutation(n).astype(np.int32),
+              np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+              np.zeros(n, bool), np.ones(n, bool), np.ones(n, bool)]
+    on1 = cluster_from_numpy(fields, device=dev1)
+    on_cpu = cluster_from_numpy(fields, device="cpu")
+    one = np.array([1, 1, 0], np.int32)
+    win = make_segmented_window(
+        [[(one, one, 5, False)], [(one, one, 7, True), (one, one, 3, False)]],
+        [np.ones(n, bool)] * 2, [np.ones(n, bool)] * 2,
+    )
+    kw = dict(fill="tightly-pack", emax=emax, num_zones=4)
+    got = window_pack(on1, win, **kw)
+    torch.cuda.synchronize(dev1)
+    want = window_pack_reference(on_cpu, win, **kw)
+    for g, w in zip(got, want):
+        assert g.device == dev1
+        assert torch.equal(g.cpu(), w)
+    assert window_kernel_info(walk_layout(n), device=dev1)["max_active_clusters"] > 0
+
+    _, apps1 = _queue_case(np.random.default_rng(3), n, 12, dev1)
+    cluster_cpu, apps_cpu = _queue_case(np.random.default_rng(3), n, 12, "cpu")
+    cluster1 = cluster_from_numpy(
+        [f.numpy() for f in cluster_cpu.fields()], device=dev1
+    )
+    got = fifo_pack(cluster1, apps1, **kw)
+    torch.cuda.synchronize(dev1)
+    want = fifo_pack_reference(cluster_cpu, apps_cpu, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert fifo_kernel_info(queue_layout(n), device=dev1)["max_active_teams"] > 0
+    assert torch.cuda.current_device() == 0
+
+
+def test_extender_on_cuda_matches_cpu(cuda_device):
+    """The port's extender on the card against the port's extender on the
+    CPU at 300 nodes: two pipelined driver windows (the second dispatched
+    before the first completes), the admitted apps' executors, and an
+    executor reschedule through the solo `pack`. Results, reservations and
+    demands must be equal after every request, and every driver window and
+    the solo pack must have launched the row walk."""
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    # By the module's own name (pytest puts tests/ on the path): the card's
+    # machine runs this file with --noconftest, where `tests` may name
+    # another package.
+    from test_torch_extender import PORT, Side
+
+    def scenario(h):
+        names = [f"node-{i:03d}" for i in range(300)]
+        h.add_nodes(*(h.node(n, zone=f"zone{i % 4}") for i, n in enumerate(names)))
+        apps = [h.spark_pods(f"app-{i}", 2 + i % 7) for i in range(24)]
+        for pods in apps:
+            h.add_pods(pods[0])
+        groups = [apps[0::2], apps[1::2]]
+        tickets = [h.dispatch([h.args(p[0], names) for p in g]) for g in groups]
+        for g, t in zip(groups, tickets):
+            for pods, res in zip(g, h.complete(t)):
+                assert res.ok
+                h.bind(pods[0], res)
+        for pods in apps[:4]:
+            for p in pods[1:]:
+                h.schedule(p, names)
+        # An executor offered only nodes outside its reservations:
+        # rescheduled through the solo pack.
+        late = apps[5][1]
+        reserved = {
+            r.node for r in h.rr_cache.get("namespace", "app-5").spec.reservations.values()
+        }
+        res = h.schedule(late, [n for n in names if n not in reserved])
+        assert res.outcome == "success-rescheduled"
+
+    before = window_pack.launches
+    gpu = Side(PORT, binpack="tightly-pack", device="cuda")
+    scenario(gpu)
+    launches = window_pack.launches - before
+    cpu = Side(PORT, binpack="tightly-pack", device="cpu")
+    scenario(cpu)
+    assert gpu.log == cpu.log
+    # 24 one-row segments in two windows, and one solo pack.
+    assert launches == 25, launches
+    assert gpu.solver.window_path_counts == {"cuda": 2}
+    assert gpu.solver.last_solve_info["path"] == "cuda"

@@ -5,6 +5,7 @@ blocked, and its entry points must ask for CUDA unless told otherwise: on a
 machine without a card, `PlacementSolver()` raises instead of running on the
 CPU."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -91,6 +92,59 @@ def test_no_port_source_names_jax():
                     ("import spark_scheduler_tpu.", "from spark_scheduler_tpu.",
                      "import spark_scheduler_tpu ", "from spark_scheduler_tpu ")
                 ), (path, line)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top == "jax" or top.startswith("jax") or top == "spark_scheduler_tpu"
+
+
+def _imported_modules(tree: ast.AST):
+    """Every module an AST imports, at any depth (function bodies, class
+    bodies, branches), with `importlib.import_module` / `__import__` calls
+    on a constant name counted as imports."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            arg = node.args[0]
+            if name in ("import_module", "__import__") and isinstance(
+                arg, ast.Constant
+            ) and isinstance(arg.value, str):
+                yield node.lineno, arg.value
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_jax_import_at_any_depth(path):
+    """An AST scan: no `import jax*` and no import of the JAX package
+    (`spark_scheduler_tpu`, not `spark_scheduler_tpu_torch`), however deep
+    in a function it sits."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, m) for line, m in _imported_modules(tree) if _forbidden(m)]
+    assert not bad, (path, bad)
+
+
+def test_import_scan_sees_nested_and_dynamic_imports():
+    src = (
+        "def f():\n"
+        "    if True:\n"
+        "        from spark_scheduler_tpu.core import solver\n"
+        "    import jaxlib\n"
+        "    importlib.import_module('jax.numpy')\n"
+        "import spark_scheduler_tpu_torch.core\n"
+    )
+    found = [m for _, m in _imported_modules(ast.parse(src)) if _forbidden(m)]
+    assert sorted(found) == ["jax.numpy", "jaxlib", "spark_scheduler_tpu.core"]
 
 
 def test_solver_defaults_to_cuda_and_never_falls_back():
