@@ -76,6 +76,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
      every solo pack once. Prints the launches, the build kinds
      (full / delta / reuse) and the p50 / p99 wall time of
      `predicate_window_complete` and of a solo pack on the card.
+  7. The HTTP server on the card: the port's `build_scheduler_app(...,
+     device="cuda")` behind `SchedulerHTTPServer` on port 0 (threaded
+     transport, flight recorder and debug routes on, `tightly-pack`, FIFO
+     on, synchronous write-back, one fixed clock). Readiness answers 503
+     until the first nodes arrive through PUT /state/nodes, then 200; the
+     rest of phase 3's 10,000 nodes (one instance group, the prior usage as
+     one running pod each) are added in process. 32 client threads post
+     256 driver predicates as k8s JSON, each after its pod's PUT
+     /state/pods (gangs of 2-8 executors, ~15% 32 wide); a pod DELETE and a
+     node PUT land while the third window is in flight; then the admitted
+     drivers are bound and their executors posted; then GET /metrics and
+     GET /status/readiness. Every pod and node change and every window the
+     batcher dispatched and completed is recorded in order, and a `cpu`
+     app of the port replays them: every response must equal its answer
+     byte for byte. The driver windows must be the ones /debug/decisions
+     reports (`dispatch_id`), the over-commit check
+     (`testing.harness.overcommit_violations`) must find nothing, and the
+     row-walk launches must equal the live segments of the dispatched
+     windows plus the solo packs. Prints the windows formed, the mean
+     window and the client-side p50 / p99 latency and decisions per second
+     of driver and executor predicates.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -1531,6 +1552,501 @@ def run_extender_phase(device, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+SRV_CLIENTS = 32
+SRV_DRIVERS = 256
+SRV_ROUTE_NODES = 4  # nodes synced through PUT /state/nodes
+
+
+class RecordedServer:
+    """The port's app behind its HTTP server, with a recorder around it:
+    every pod and node change the routes (or this script) make, and every
+    window dispatch and completion the batcher runs, land in `log` in the
+    order they took effect. One lock orders the changes against each
+    dispatch and each completion, so a replay of `log` on another app
+    sees, at each window, the state this server saw."""
+
+    def __init__(self, device, config):
+        import copy
+        import threading
+
+        from spark_scheduler_tpu_torch.core.solver import PipelineDrainRequired
+        from spark_scheduler_tpu_torch.metrics import (
+            MetricRegistry,
+            SchedulerMetrics,
+        )
+        from spark_scheduler_tpu_torch.ops.window import window_pack
+        from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+        from spark_scheduler_tpu_torch.server.http import SchedulerHTTPServer
+        from spark_scheduler_tpu_torch.store.backend import (
+            DEMAND_CRD,
+            InMemoryBackend,
+        )
+
+        self.backend = InMemoryBackend()
+        self.backend.register_crd(DEMAND_CRD)
+        self.registry = MetricRegistry()
+        self.app = build_scheduler_app(
+            self.backend, config,
+            metrics=SchedulerMetrics(self.registry, EXT_IG_LABEL),
+            clock=lambda: EXT_CLOCK, device=device,
+        )
+        self.lock = threading.RLock()
+        self.log: list = []
+        self.solo_packs = {"batcher": 0, "other": 0}
+        # Dispatches so far, and windows dispatched but not yet completed.
+        self.counts = {"dispatched": 0, "inflight": 0}
+        # Called on the dispatcher thread, outside the lock, right after the
+        # `trigger_at`-th dispatch: that window is in flight meanwhile.
+        self.trigger_at, self.on_trigger = None, None
+        backend, log, lock, counts = self.backend, self.log, self.lock, self.counts
+
+        def recorded(name):
+            orig = getattr(backend, name)
+
+            def call(*args):
+                if name == "update" and args[0] != "nodes":
+                    return orig(*args)
+                with lock:
+                    out = orig(*args)
+                    log.append(("change", name, copy.deepcopy(args),
+                                counts["inflight"]))
+                return out
+
+            setattr(backend, name, call)
+
+        for name in ("add_node", "update", "add_pod", "update_pod", "delete_pod"):
+            recorded(name)
+
+        ext = self.app.extender
+        dispatch, complete = ext.predicate_window_dispatch, ext.predicate_window_complete
+        entries = {}
+
+        def recorded_dispatch(args_list):
+            from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
+
+            with lock:
+                e = {"op": "dispatch", "drain": False,
+                     "args": [ExtenderArgs(pod=copy.deepcopy(a.pod),
+                                           node_names=list(a.node_names))
+                              for a in args_list]}
+                log.append(e)
+                before = window_pack.launches
+                t0 = time.perf_counter()
+                try:
+                    t = dispatch(args_list)
+                except PipelineDrainRequired:
+                    e["drain"] = True
+                    raise
+                e["ms"] = (time.perf_counter() - t0) * 1e3
+                counts["dispatched"] += 1
+                counts["inflight"] += 1
+                e["launches"] = window_pack.launches - before
+                e["segments"] = len(t.handle.requests) if t.handle is not None else 0
+                e["dispatch_id"] = (
+                    t.handle.info["dispatch_id"] if t.handle is not None else None
+                )
+                e["rows"] = t.handle.info["rows"] if t.handle is not None else 0
+                entries[id(t)] = e
+            if counts["dispatched"] == self.trigger_at and self.on_trigger:
+                self.on_trigger()
+            return t
+
+        def recorded_complete(t):
+            with lock:
+                e = {"op": "complete", "dispatch": entries.pop(id(t))}
+                log.append(e)
+                counts["inflight"] -= 1
+                before = window_pack.launches
+                t0 = time.perf_counter()
+                out = complete(t)
+                e["ms"] = (time.perf_counter() - t0) * 1e3
+                e["launches"] = window_pack.launches - before
+                return out
+
+        ext.predicate_window_dispatch = recorded_dispatch
+        ext.predicate_window_complete = recorded_complete
+        pack, solo = self.app.solver.pack, self.solo_packs
+
+        def counted_pack(*a, **kw):
+            who = ("batcher" if threading.current_thread().name == "predicate-batcher"
+                   else "other")
+            solo[who] += 1
+            return pack(*a, **kw)
+
+        self.app.solver.pack = counted_pack
+        self.server = SchedulerHTTPServer(
+            self.app, self.registry, port=0, debug_routes=True,
+            request_timeout_s=300.0,
+        )
+        self.server.start()
+
+
+def k8s_node_json(node):
+    a = node.allocatable
+    return {
+        "metadata": {"name": node.name, "labels": dict(node.labels)},
+        "status": {
+            "allocatable": {"cpu": str(a.cpu_milli // 1000),
+                            "memory": f"{a.mem_kib >> 20}Gi",
+                            "nvidia.com/gpu": str(a.gpu_milli // 1000)},
+            "conditions": [{"type": "Ready", "status": "True"}],
+        },
+    }
+
+
+def k8s_spark_pod_json(app_id, role, name, executors, created):
+    import datetime
+
+    ts = datetime.datetime.fromtimestamp(created, datetime.timezone.utc)
+    return {
+        "metadata": {
+            "name": name, "namespace": EXT_NS, "uid": f"uid-{name}",
+            "labels": {"spark-role": role, "spark-app-id": app_id},
+            "annotations": {
+                "spark-driver-cpu": "1", "spark-driver-mem": "2Gi",
+                "spark-executor-cpu": "2", "spark-executor-mem": "4Gi",
+                "spark-executor-count": str(executors),
+            },
+            "creationTimestamp": ts.strftime("%Y-%m-%dT%H:%M:%SZ"),
+        },
+        "spec": {
+            "schedulerName": "spark-scheduler",
+            "nodeSelector": {EXT_IG_LABEL: EXT_IG},
+            "containers": [{"name": "main", "resources": {"requests": (
+                {"cpu": "1", "memory": "2Gi"} if role == "driver"
+                else {"cpu": "2", "memory": "4Gi"})}}],
+        },
+        "status": {"phase": "Pending"},
+    }
+
+
+def run_clients(port, jobs, n_clients):
+    """Run `jobs` on `n_clients` threads (job i on thread i % n_clients),
+    each thread on one keep-alive connection. A job is a list of
+    (method, path, payload) requests, or a function that makes its
+    requests through the `send(method, path, payload)` it is given (and
+    may look at the answers). Returns {pod name: (status, body)} for the
+    predicates and their client-side latencies in ms."""
+    import http.client
+    import socket
+    import threading
+
+    out, lat, errors = {}, [], []
+    mu = threading.Lock()
+
+    def worker(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        # As kube-scheduler's Go client does: no Nagle delay between a
+        # request's header and body writes.
+        conn.connect()
+        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+        def send(method, path, payload):
+            body = json.dumps(payload).encode() if payload is not None else None
+            t0 = time.perf_counter()
+            conn.request(method, path, body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            ms = (time.perf_counter() - t0) * 1e3
+            with mu:
+                if path == "/predicates":
+                    out[payload["Pod"]["metadata"]["name"]] = (resp.status, data)
+                    lat.append(ms)
+                elif resp.status != 200:
+                    errors.append((method, path, resp.status, data[:200]))
+            return resp.status, data
+
+        try:
+            for job in jobs[k::n_clients]:
+                if callable(job):
+                    job(send)
+                    continue
+                for method, path, payload in job:
+                    send(method, path, payload)
+        except Exception as exc:  # surfaced below
+            with mu:
+                errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"phase 7 client errors: {errors[:4]}")
+    return out, lat
+
+
+def http_get(port, path):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    out = (resp.status, resp.read())
+    conn.close()
+    return out
+
+
+def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
+                     n_clients=SRV_CLIENTS):
+    """Phase 7: the port's HTTP server on the card (see the module
+    docstring). Returns the row-walk and probe launches of the phase."""
+    import copy
+    import threading
+
+    import torch
+
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    config = InstallConfig(
+        fifo=True, binpack_algo="tightly-pack",
+        instance_group_label=EXT_IG_LABEL, sync_writes=True,
+        debug_routes=True,
+    )
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    srv = RecordedServer(device, config)
+    port = srv.server.port
+    try:
+        nodes, usage = main_cluster(seed=7)
+        nodes, usage = nodes[:n_nodes], usage[:n_nodes]
+        for node in nodes:
+            node.labels[EXT_IG_LABEL] = EXT_IG
+        names = [n.name for n in nodes]
+        ready0 = http_get(port, "/status/readiness")
+        check(ready0[0] == 503, f"readiness before any node: {ready0}")
+        run_clients(port, [[("PUT", "/state/nodes", k8s_node_json(nd))]
+                           for nd in nodes[:SRV_ROUTE_NODES]], 1)
+        ready1 = http_get(port, "/status/readiness")
+        check(ready1 == (200, b'{"ready": true}'),
+              f"readiness after PUT /state/nodes: {ready1}")
+        for i, node in enumerate(nodes):
+            if i >= SRV_ROUTE_NODES:
+                srv.backend.add_node(node)
+            srv.backend.add_pod(Pod(
+                name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+                scheduler_name="default-scheduler", node_name=node.name,
+                phase="Running",
+                containers=[Container(requests=Resources(*map(int, usage[i])))],
+            ))
+        rng = np.random.default_rng(23)
+        apps = []
+        for i in range(n_drivers):
+            n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+            created = EXT_CLOCK - 500 + i  # younger than the marker's timeout
+            apps.append((f"srv-{i:03d}", n_exec, created))
+        drivers = {a: k8s_spark_pod_json(a, "driver", f"{a}-driver", n, c)
+                   for a, n, c in apps}
+        created = {a: c for a, _, c in apps}
+        t_setup = time.perf_counter() - t_phase
+        print(f"phase 7: server on port {port} ({srv.app.solver.device}), "
+              f"{len(nodes)} nodes ({SRV_ROUTE_NODES} through PUT "
+              f"/state/nodes), set up in {t_setup:.1f} s", flush=True)
+
+        # Drivers: each client PUTs its pod, then POSTs its predicate. A pod
+        # deletion and a node PUT land while windows are in flight.
+        extra = copy.deepcopy(nodes[0])
+        extra.name = f"node-{n_nodes:05d}"
+
+        def mid_flight():
+            # Through the routes, from another thread, while the third
+            # dispatched window is in flight.
+            side = threading.Thread(target=run_clients, args=(port, [[
+                ("DELETE", "/state/pods/other/base-00001", None),
+                ("PUT", "/state/nodes", k8s_node_json(extra))]], 1))
+            side.start()
+            side.join()
+
+        srv.trigger_at, srv.on_trigger = 3, mid_flight
+
+        def driver_job(app):
+            def job(send):
+                pod = drivers[app]
+                send("PUT", "/state/pods", pod)
+                status, data = send("POST", "/predicates",
+                                    {"Pod": pod, "NodeNames": names})
+                res = json.loads(data) if status == 200 else {}
+                if res.get("NodeNames"):
+                    # kube-scheduler binds the admitted driver.
+                    bound = copy.deepcopy(pod)
+                    bound["spec"]["nodeName"] = res["NodeNames"][0]
+                    bound["status"]["phase"] = "Running"
+                    send("PUT", "/state/pods", bound)
+            return job
+
+        t0 = time.perf_counter()
+        got, lat_drv = run_clients(port, [driver_job(a) for a, _, _ in apps],
+                                   n_clients)
+        drv_s = time.perf_counter() - t0
+        stage_mark = len(srv.log)
+        status, body = http_get(port, "/debug/decisions?role=driver&limit=100000")
+        check(status == 200, f"/debug/decisions: {status}")
+        recorded = json.loads(body)["decisions"]
+
+        # Executors of the admitted apps.
+        admitted = []
+        for a, n, _ in apps:
+            st, data = got[f"{a}-driver"]
+            res = json.loads(data)
+            check(st == 200 and not res["Error"], f"driver {a}: {st} {data[:200]}")
+            if res["NodeNames"]:
+                admitted.append((a, n, res["NodeNames"][0]))
+        jobs = []
+        for a, n, node in admitted:
+            job = []
+            for k in range(n):
+                ex = k8s_spark_pod_json(a, "executor", f"{a}-exec-{k + 1}", n,
+                                        created[a])
+                job += [("PUT", "/state/pods", ex),
+                        ("POST", "/predicates", {"Pod": ex, "NodeNames": names})]
+            jobs.append(job)
+        t0 = time.perf_counter()
+        got_exec, lat_exec = run_clients(port, jobs, n_clients)
+        exec_s = time.perf_counter() - t0
+        got.update(got_exec)
+        metrics = http_get(port, "/metrics")
+        ready2 = http_get(port, "/status/readiness")
+        check(metrics[0] == 200, f"/metrics: {metrics[0]}")
+        check(ready2 == (200, b'{"ready": true}'), f"readiness at the end: {ready2}")
+        batcher = json.loads(metrics[1])["predicate_batcher"]
+        violations = overcommit_violations(srv.app, srv.backend)
+        check(not violations, f"phase 7 over-commit: {violations[:8]}")
+    finally:
+        srv.server.stop()
+    launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    serve_s = time.perf_counter() - t_phase
+
+    # What the log says: the windows, their segments and solo packs.
+    log = srv.log
+    dispatches = [e for e in log if isinstance(e, dict) and e["op"] == "dispatch"]
+    done = [e for e in dispatches if not e["drain"]]
+    drains = len(dispatches) - len(done)
+    driver_windows = [e for e in done if e["dispatch_id"] is not None]
+    segments = sum(e["segments"] for e in done)
+    solo = srv.solo_packs
+    check(solo["other"] == 0, f"solo packs off the batcher thread: {solo}")
+    if on_card:
+        window_launches = sum(e["launches"] for e in log
+                              if isinstance(e, dict) and "launches" in e)
+        check(window_launches == launches["window"],
+              f"launches outside dispatch/complete: {launches['window']} vs "
+              f"{window_launches}")
+        check(launches["window"] == segments + solo["batcher"],
+              f"row-walk launches {launches['window']} != {segments} live "
+              f"segments + {solo['batcher']} solo packs")
+        check(launches["probe"] == 1, f"probe launches {launches['probe']}")
+    # The driver windows the server formed, as /debug/decisions reports
+    # them (dispatch_id), equal the recorded ones.
+    by_id: dict = {}
+    for d in recorded:
+        if d.get("dispatch_id") is not None:
+            by_id.setdefault(d["dispatch_id"], set()).add(d["pod_name"])
+    want_ids = {e["dispatch_id"]: {a.pod.name for a in e["args"]
+                                   if a.pod.labels.get("spark-role") == "driver"}
+                for e in driver_windows}
+    want_ids = {k: v for k, v in want_ids.items() if v}
+    check(by_id == want_ids, "phase 7: /debug/decisions windows differ from "
+                             "the dispatched ones")
+
+    # Replay: a cpu app of the port fed the same changes and windows in the
+    # same order must answer every predicate with the same bytes.
+    t0 = time.perf_counter()
+    compared = replay_server_log(log, config, got)
+    check(compared == len(got), f"compared {compared} of {len(got)} responses")
+    mid = [(e[1], e[3]) for e in log if isinstance(e, tuple)
+           and (e[1] == "delete_pod" or (e[1] == "add_node"
+                                         and e[2][0].name == f"node-{n_nodes:05d}"))]
+    check(len(mid) == 2, f"mid-flight changes {mid}")
+    replay_s = time.perf_counter() - t0
+
+    def busy_s(entries):
+        return sum(e.get("ms", 0.0) for e in entries if isinstance(e, dict)) / 1e3
+
+    drv_busy, exec_busy = busy_s(log[:stage_mark]), busy_s(log[stage_mark:])
+    n_windows = batcher["windows_served"]
+    p = np.percentile
+    n_admitted = len(admitted)
+    print(f"phase 7: {n_drivers} driver predicates from {n_clients} client "
+          f"threads ({n_admitted} admitted), then {len(lat_exec)} executor "
+          f"predicates; {drains} pipeline drains; a pod DELETE and a node PUT "
+          f"with {mid[0][1]} and {mid[1][1]} windows in flight; responses "
+          f"byte-identical to a cpu "
+          f"replay of the same {len(done)} windows ({compared} compared, "
+          f"replay {replay_s:.1f} s); over-commit none", flush=True)
+    print(f"phase 7 ({card}): windows formed {n_windows} (driver windows "
+          f"{len(driver_windows)}, mean window {batcher['mean_window']}, "
+          f"largest {batcher['max_window_seen']}, pipelined "
+          f"{batcher['pipelined_windows']}); driver /predicates p50 "
+          f"{p(lat_drv, 50):.3f} ms p99 {p(lat_drv, 99):.3f} ms, "
+          f"{n_drivers / drv_s:.1f} decisions/s; executor /predicates p50 "
+          f"{p(lat_exec, 50):.3f} ms p99 {p(lat_exec, 99):.3f} ms, "
+          f"{len(lat_exec) / exec_s:.1f} decisions/s (client host clock); "
+          f"the batcher's dispatch + complete took {drv_busy:.2f} s of the "
+          f"driver stage's {drv_s:.2f} s and {exec_busy:.2f} s of the "
+          f"executor stage's {exec_s:.2f} s; "
+          f"row-walk launches {launches['window']} = {segments} live segments "
+          f"({sum(e['rows'] for e in done)} rows) + {solo['batcher']} solo "
+          f"packs; probe {launches['probe']}; "
+          f"served in {serve_s:.1f} s", flush=True)
+    return launches
+
+
+def replay_server_log(log, config, got):
+    """Feed a `cpu` app of the port the recorded changes and windows in
+    their order; every answer must equal, byte for byte, the body the
+    server sent for that pod (`got`). Returns how many were compared.
+    The recorded objects are private copies, so the replay consumes them
+    as they are."""
+    from spark_scheduler_tpu_torch.core.solver import PipelineDrainRequired
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.routing import encode_filter_result
+    from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD, InMemoryBackend
+
+    backend = InMemoryBackend()
+    backend.register_crd(DEMAND_CRD)
+    ref = build_scheduler_app(backend, config, clock=lambda: EXT_CLOCK,
+                              device="cpu")
+    tickets, compared = {}, 0
+    for e in log:
+        if isinstance(e, tuple):
+            getattr(backend, e[1])(*e[2])
+            continue
+        if e["op"] == "dispatch":
+            try:
+                t = ref.extender.predicate_window_dispatch(e["args"])
+            except PipelineDrainRequired:
+                check(e["drain"], "replay drained where the server did not")
+                continue
+            check(not e["drain"], "the server drained where the replay did not")
+            tickets[id(e)] = t
+        else:
+            args = e["dispatch"]["args"]
+            res = ref.extender.predicate_window_complete(
+                tickets.pop(id(e["dispatch"])))
+            for a, r in zip(args, res):
+                status, body = got[a.pod.name]
+                want = encode_filter_result(r, a.node_names)
+                check(status == 200 and body == want,
+                      f"phase 7: {a.pod.name}: the server answered {body[:160]} "
+                      f"where the cpu replay answers {want[:160]}")
+                compared += 1
+    check(not tickets, f"{len(tickets)} windows never completed")
+    ref.stop()
+    return compared
+
+
 def main() -> int:
     try:
         import torch
@@ -1595,10 +2111,15 @@ def main() -> int:
     t0 = time.perf_counter()
     ext_launches = run_extender_phase(device, card)
     print(f"phase 6: passed in {time.perf_counter() - t0:.1f} s", flush=True)
-    # The row walk and the probe serve both main paths: the solver's
-    # windows (phase 3) and the extender's (phase 6).
+
+    t0 = time.perf_counter()
+    srv_launches = run_server_phase(device, card)
+    print(f"phase 7: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    # The row walk and the probe serve the main path at each of its entry
+    # points: the solver's windows (phase 3), the extender's (phase 6) and
+    # the HTTP server's (phase 7).
     for k in launches:
-        launches[k] += ext_launches[k]
+        launches[k] += ext_launches[k] + srv_launches[k]
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

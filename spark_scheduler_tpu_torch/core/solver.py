@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence
 
@@ -222,11 +223,16 @@ class PlacementSolver:
         self._delta_statics = bool(delta_statics)
         # Candidate-mask memo keyed by (N, registry epoch, names): serving
         # windows pass the same (usually cluster-wide) candidate list once
-        # per request, and the mask build walks every name.
+        # per request, and the mask build walks every name. The lock guards
+        # the memo's order: the unschedulable-pod marker's solo `pack` runs
+        # on its own thread beside the predicate batcher's windows.
         self._cand_cache: OrderedDict = OrderedDict()
+        self._cand_lock = threading.Lock()
         # The card's kernels are built and checked by one probe launch
-        # before the first solve on a CUDA device.
+        # before the first solve on a CUDA device (once, whichever thread
+        # solves first).
         self._probed = False
+        self._probe_lock = threading.Lock()
         # Which path served each dispatched window: "cuda" (the row-walk
         # kernel) or "reference" (its plain version on the CPU).
         self.window_path_counts: dict[str, int] = {}
@@ -290,6 +296,13 @@ class PlacementSolver:
         path without its native arena, so it accepts them and reads none:
         no hint can change a result."""
         return self._upload(self._build_host(nodes, usage, overhead))
+
+    def close(self) -> None:
+        """Release the pipelined device state (the app's shutdown). The
+        solver keeps no worker threads: a dispatch's decision copy is
+        queued on the card's stream, so there is no queued work to
+        cancel."""
+        self._pipe = None
 
     def discard_pipeline(self) -> None:
         """Drop the pipelined device state: the next build_tensors_pipelined
@@ -438,8 +451,10 @@ class PlacementSolver:
 
     def _ensure_probed(self) -> None:
         if self.device.type == "cuda" and not self._probed:
-            probe(self.device)
-            self._probed = True
+            with self._probe_lock:
+                if not self._probed:
+                    probe(self.device)
+                    self._probed = True
 
     def candidate_mask(self, tensors, node_names: Sequence[str]) -> np.ndarray:
         """[N] bool host mask of the named nodes (read-only, memoized)."""
@@ -447,10 +462,11 @@ class PlacementSolver:
         names = tuple(node_names)
         epoch = self.registry.epoch
         key = (n, epoch, names)
-        mask = self._cand_cache.get(key)
-        if mask is not None:
-            self._cand_cache.move_to_end(key)
-            return mask
+        with self._cand_lock:
+            mask = self._cand_cache.get(key)
+            if mask is not None:
+                self._cand_cache.move_to_end(key)
+                return mask
         mask = np.zeros(n, dtype=bool)
         index_of = self.registry.index_of
         for name in names:
@@ -460,9 +476,10 @@ class PlacementSolver:
         mask.flags.writeable = False
         # Seqlock read: cache only a walk over one stable mapping.
         if not epoch & 1 and self.registry.epoch == epoch:
-            self._cand_cache[key] = mask
-            while len(self._cand_cache) > 64:
-                self._cand_cache.popitem(last=False)
+            with self._cand_lock:
+                self._cand_cache[key] = mask
+                while len(self._cand_cache) > 64:
+                    self._cand_cache.popitem(last=False)
         return mask
 
     def _num_zones_bucket(self) -> int:

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -27,6 +28,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# One build-and-load at a time: a server solves on more than one thread.
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -100,7 +103,10 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib

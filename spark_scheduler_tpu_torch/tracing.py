@@ -12,10 +12,10 @@ lib pkg/logging/logging.go:23-55). This module provides both natively:
   - `svc1log`: JSON-line service log with explicit safe-param dicts —
     `pod_safe_params`, `demand_safe_params`, `rr_safe_params` mirror the
     reference's safe-param helpers so log pipelines receive identical keys.
-
-The port's copy of spark_scheduler_tpu/tracing.py without the JAX profiler
-hooks (`start_jax_profile` / `stop_jax_profile`); their torch.profiler
-counterpart comes with the server's /debug/profile route.
+  - torch.profiler hooks: `start_torch_profile(dir)` /
+    `stop_torch_profile()` drive the server's /debug/profile routes (the
+    JAX package's `start_jax_profile` / `stop_jax_profile`); a stopped
+    trace is written to `<dir>/trace.json` in the Chrome trace format.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from __future__ import annotations
 import collections
 import itertools
 import json
+import os
 import random
 import secrets
 import sys
@@ -262,6 +263,78 @@ def set_tracer(t: Tracer) -> Tracer:
 
 
 # --------------------------------------------------- svc1log + safe params
+
+
+
+# ------------------------------------------------------- torch.profiler
+
+_profile_lock = threading.Lock()
+_profile: Optional[tuple] = None  # (stop event, worker, directory, errors)
+
+
+def _profile_worker(log_dir, started, stop, errors) -> None:
+    """One thread starts, stops and exports the trace: the profiler is
+    bound to the thread that started it, and the HTTP routes that drive it
+    run on whichever handler thread took the request."""
+    import torch
+
+    try:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+    except Exception as exc:
+        errors.append(exc)
+        started.set()
+        return
+    started.set()
+    stop.wait()
+    try:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    except Exception as exc:
+        errors.append(exc)
+
+
+def start_torch_profile(log_dir: str) -> bool:
+    """Start a torch.profiler trace (host, and the card's kernels when CUDA
+    is available) that `stop_torch_profile` writes into `log_dir`. Returns
+    False if a trace is already running."""
+    global _profile
+    with _profile_lock:
+        if _profile is not None:
+            return False
+        os.makedirs(log_dir, exist_ok=True)
+        started, stop, errors = threading.Event(), threading.Event(), []
+        worker = threading.Thread(
+            target=_profile_worker,
+            args=(log_dir, started, stop, errors),
+            daemon=True,
+            name="torch-profile",
+        )
+        worker.start()
+        started.wait()
+        if errors:
+            raise errors[0]
+        _profile = (stop, worker, log_dir, errors)
+        return True
+
+
+def stop_torch_profile() -> Optional[str]:
+    """Stop the running trace and write `<dir>/trace.json`; returns the
+    directory (None if no trace was running). The running state is cleared
+    before the write, so a failed write never wedges later starts."""
+    global _profile
+    with _profile_lock:
+        if _profile is None:
+            return None
+        (stop, worker, out, errors), _profile = _profile, None
+        stop.set()
+        worker.join()
+        if errors:
+            raise errors[0]
+        return out
 
 
 def pod_safe_params(pod) -> dict:

@@ -426,3 +426,122 @@ def test_extender_on_cuda_matches_cpu(cuda_device):
     assert launches == 25, launches
     assert gpu.solver.window_path_counts == {"cuda": 2}
     assert gpu.solver.last_solve_info["path"] == "cuda"
+
+
+def _port_server(device):
+    """The port's app on `device` behind its HTTP server on port 0."""
+    from spark_scheduler_tpu_torch.metrics import MetricRegistry, SchedulerMetrics
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.server.http import SchedulerHTTPServer
+    from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD, InMemoryBackend
+
+    backend = InMemoryBackend()
+    backend.register_crd(DEMAND_CRD)
+    registry = MetricRegistry()
+    app = build_scheduler_app(
+        backend,
+        InstallConfig(fifo=True, binpack_algo="tightly-pack",
+                      instance_group_label="resource_channel", sync_writes=True),
+        metrics=SchedulerMetrics(registry, "resource_channel"),
+        clock=lambda: 2.0e9,
+        device=device,
+    )
+    server = SchedulerHTTPServer(app, registry, port=0)
+    server.start()
+    return server
+
+
+def _call(server, method, path, payload=None):
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+    body = json.dumps(payload).encode() if payload is not None else None
+    conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = (resp.status, resp.read())
+    conn.close()
+    return out
+
+
+def test_server_on_cuda_matches_cpu(cuda_device):
+    """The port's HTTP server with its app on the card against the same
+    server with its app on the CPU, at 300 nodes, fed the same requests one
+    at a time (each its own window): node and pod PUTs, 24 driver
+    predicates, the admitted drivers' binds and their executors. Every
+    response must be byte-identical, and every driver window must have run
+    the row-walk kernel."""
+    import json
+
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    rng = np.random.default_rng(5)
+    nodes = [
+        {
+            "metadata": {
+                "name": f"node-{i:03d}",
+                "labels": {
+                    "failure-domain.beta.kubernetes.io/zone": f"zone{i % 4}",
+                    "resource_channel": "batch",
+                },
+            },
+            "status": {"allocatable": {
+                "cpu": str(int(rng.choice([8, 16, 32]))),
+                "memory": f"{int(rng.choice([16, 32, 64]))}Gi",
+                "nvidia.com/gpu": "0",
+            }},
+        }
+        for i in range(300)
+    ]
+    names = [n["metadata"]["name"] for n in nodes]
+
+    def pod(app, role, name, executors):
+        return {
+            "metadata": {
+                "name": name, "namespace": "ns", "uid": f"uid-{name}",
+                "labels": {"spark-role": role, "spark-app-id": app},
+                "annotations": {
+                    "spark-driver-cpu": "1", "spark-driver-mem": "2Gi",
+                    "spark-executor-cpu": "2", "spark-executor-mem": "4Gi",
+                    "spark-executor-count": str(executors),
+                },
+                "creationTimestamp": 1.9999e9 + len(app),
+            },
+            "spec": {"schedulerName": "spark-scheduler",
+                     "nodeSelector": {"resource_channel": "batch"},
+                     "containers": [{"name": "main"}]},
+            "status": {"phase": "Pending"},
+        }
+
+    servers = [_port_server("cuda"), _port_server("cpu")]
+    try:
+        def both(method, path, payload=None):
+            got, want = (_call(s, method, path, payload) for s in servers)
+            assert got == want, (method, path, got[1][:300], want[1][:300])
+            return got
+
+        for n in nodes:
+            both("PUT", "/state/nodes", n)
+        before = window_pack.launches
+        apps = [(f"app-{i:02d}", 32 if i % 7 == 0 else 2 + i % 6) for i in range(24)]
+        for app, n in apps:
+            drv = pod(app, "driver", f"{app}-driver", n)
+            both("PUT", "/state/pods", drv)
+            status, body = both("POST", "/predicates", {"Pod": drv, "NodeNames": names})
+            res = json.loads(body)
+            if not res["NodeNames"]:
+                continue
+            drv["spec"]["nodeName"] = res["NodeNames"][0]
+            both("PUT", "/state/pods", drv)
+            for k in range(n):
+                ex = pod(app, "executor", f"{app}-exec-{k + 1}", n)
+                both("PUT", "/state/pods", ex)
+                both("POST", "/predicates", {"Pod": ex, "NodeNames": names})
+        solver = servers[0].app.solver
+        assert window_pack.launches - before >= len(apps)
+        assert set(solver.window_path_counts) <= {"cuda"}
+        assert both("GET", "/status/readiness")[0] == 200
+    finally:
+        for s in servers:
+            s.stop()
