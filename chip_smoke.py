@@ -8,7 +8,9 @@ decides right on the card.
 Phases, in order; any failure exits non-zero and prints no result line:
 
   1. Build every CUDA source of the port with nvcc (one process per source,
-     all at once), launch the probe kernel and check it, print the card.
+     all at once) and, beside them, the port's native runtime
+     (spark_scheduler_tpu_torch/native/runtime.cpp) with g++; launch the
+     probe kernel and check it, print the card.
   2. Kernel vs plain, small: the CUDA window kernel (`window_pack` on CUDA
      tensors, one thread-block cluster per segment) against its plain
      PyTorch version (`window_pack_reference`) on the same CUDA inputs, all
@@ -97,6 +99,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
      windows plus the solo packs. Prints the windows formed, the mean
      window and the client-side p50 / p99 latency and decisions per second
      of driver and executor predicates.
+  8. Phase 7's traffic at the same width on the async transport with the
+     native ingest lane: `SchedulerHTTPServer(transport="async",
+     ingest="native")` in front of a fresh `build_scheduler_app(...,
+     device="cuda")`. Half the client threads post the k8s JSON body, the
+     other half the binary `application/x-spark-predicate` body with the
+     same content. The same record, cpu replay (byte for byte), decisions,
+     over-commit and launch checks as phase 7; besides, every native
+     decode must be a fast-path hit (hit ratio 1.0), and /metrics'
+     `solver.window.dispatches`, `solver.device.uploads` and d2h
+     `solver.transfer.bytes` must equal the dispatches, pipelined builds
+     (by kind) and decision bytes this script counted. Prints the windows,
+     the client-side p50 / p99 and decisions per second beside phase 7's,
+     the batcher's busy time per stage, the native decode hit ratio and
+     decode-ns p50, and the async transport's parse, queue and write
+     means and keep-alive reuse.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -1567,7 +1584,7 @@ class RecordedServer:
     dispatch and each completion, so a replay of `log` on another app
     sees, at each window, the state this server saw."""
 
-    def __init__(self, device, config):
+    def __init__(self, device, config, transport="threaded", ingest="python"):
         import copy
         import threading
 
@@ -1594,7 +1611,7 @@ class RecordedServer:
         )
         self.lock = threading.RLock()
         self.log: list = []
-        self.solo_packs = {"batcher": 0, "other": 0}
+        self.solo_packs = {"batcher": 0, "other": 0, "d2h": 0}
         # Dispatches so far, and windows dispatched but not yet completed.
         self.counts = {"dispatched": 0, "inflight": 0}
         # Called on the dispatcher thread, outside the lock, right after the
@@ -1627,9 +1644,15 @@ class RecordedServer:
             from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
 
             with lock:
+                # A native ticket (NativeNodeNames) is immutable and is
+                # recorded as it is: listing it would decode its names.
                 e = {"op": "dispatch", "drain": False,
                      "args": [ExtenderArgs(pod=copy.deepcopy(a.pod),
-                                           node_names=list(a.node_names))
+                                           node_names=(
+                                               a.node_names
+                                               if hasattr(a.node_names,
+                                                          "names_digest")
+                                               else list(a.node_names)))
                               for a in args_list]}
                 log.append(e)
                 before = window_pack.launches
@@ -1648,6 +1671,8 @@ class RecordedServer:
                     t.handle.info["dispatch_id"] if t.handle is not None else None
                 )
                 e["rows"] = t.handle.info["rows"] if t.handle is not None else 0
+                # The decision blob each window's fetch copies to the host.
+                e["d2h"] = t.handle.blob.nbytes if t.handle is not None else 0
                 entries[id(t)] = e
             if counts["dispatched"] == self.trigger_at and self.on_trigger:
                 self.on_trigger()
@@ -1668,18 +1693,46 @@ class RecordedServer:
         ext.predicate_window_dispatch = recorded_dispatch
         ext.predicate_window_complete = recorded_complete
         pack, solo = self.app.solver.pack, self.solo_packs
+        from spark_scheduler_tpu_torch.models.cluster import pad_bucket
 
         def counted_pack(*a, **kw):
             who = ("batcher" if threading.current_thread().name == "predicate-batcher"
                    else "other")
             solo[who] += 1
+            # The decision row a solo pack copies to the host: driver,
+            # admitted, packed and the executor slots, int32.
+            count = kw["executor_count"] if "executor_count" in kw else a[4]
+            solo["d2h"] += 4 * (3 + pad_bucket(max(count, 1), 8))
             return pack(*a, **kw)
 
         self.app.solver.pack = counted_pack
+        # How every successful pipelined build reached the card.
+        self.builds = {"full": 0, "delta": 0, "reuse": 0}
+        build, solver = self.app.solver.build_tensors_pipelined, self.app.solver
+
+        def counted_build(*a, **kw):
+            out = build(*a, **kw)
+            self.builds[solver.last_state_upload] += 1
+            return out
+
+        self.app.solver.build_tensors_pipelined = counted_build
         self.server = SchedulerHTTPServer(
             self.app, self.registry, port=0, debug_routes=True,
-            request_timeout_s=300.0,
+            request_timeout_s=300.0, transport=transport, ingest=ingest,
         )
+        # Native decode times of the fast-path hits (the codec's own
+        # telemetry keeps only their sum).
+        self.decode_ns: list = []
+        codec = self.server.ingest_codec
+        if codec is not None:
+            finish, decode_ns = codec._finish, self.decode_ns
+
+            def timed_finish(slot, hit, binary):
+                if hit:
+                    decode_ns.append(slot.decode_ns)
+                return finish(slot, hit, binary)
+
+            codec._finish = timed_finish
         self.server.start()
 
 
@@ -1722,13 +1775,30 @@ def k8s_spark_pod_json(app_id, role, name, executors, created):
     }
 
 
-def run_clients(port, jobs, n_clients):
+def binary_predicate(pod, names, _frames={}):
+    """The `application/x-spark-predicate` body of {"Pod": pod, "NodeNames":
+    names}, as server/ingest.encode_predicate_binary writes it; the names
+    frame is encoded once per list."""
+    import struct
+
+    from spark_scheduler_tpu_torch.server.ingest import encode_predicate_binary
+
+    frame = _frames.get(id(names))
+    if frame is None:
+        frame = encode_predicate_binary(b"", names)[9:]
+        _frames[id(names)] = frame
+    raw = json.dumps(pod).encode()
+    return b"SPRD\x01" + struct.pack("<I", len(raw)) + raw + frame
+
+
+def run_clients(port, jobs, n_clients, binary=False):
     """Run `jobs` on `n_clients` threads (job i on thread i % n_clients),
     each thread on one keep-alive connection. A job is a list of
     (method, path, payload) requests, or a function that makes its
     requests through the `send(method, path, payload)` it is given (and
-    may look at the answers). Returns {pod name: (status, body)} for the
-    predicates and their client-side latencies in ms."""
+    may look at the answers). With `binary`, the odd-numbered threads post
+    their predicates as binary bodies. Returns {pod name: (status, body)}
+    for the predicates and their client-side latencies in ms."""
     import http.client
     import socket
     import threading
@@ -1743,11 +1813,18 @@ def run_clients(port, jobs, n_clients):
         conn.connect()
         conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
+        as_binary = binary and k % 2 == 1
+
         def send(method, path, payload):
-            body = json.dumps(payload).encode() if payload is not None else None
+            ctype = "application/json"
+            if as_binary and path == "/predicates":
+                body = binary_predicate(payload["Pod"], payload["NodeNames"])
+                ctype = "application/x-spark-predicate"
+            else:
+                body = json.dumps(payload).encode() if payload is not None else None
             t0 = time.perf_counter()
             conn.request(method, path, body=body,
-                         headers={"Content-Type": "application/json"})
+                         headers={"Content-Type": ctype})
             resp = conn.getresponse()
             data = resp.read()
             ms = (time.perf_counter() - t0) * 1e3
@@ -1777,7 +1854,7 @@ def run_clients(port, jobs, n_clients):
         t.start()
     for t in threads:
         t.join()
-    check(not errors, f"phase 7 client errors: {errors[:4]}")
+    check(not errors, f"client errors: {errors[:4]}")
     return out, lat
 
 
@@ -1792,10 +1869,21 @@ def http_get(port, path):
     return out
 
 
+def series(snapshot, name):
+    """{tags as a sorted tuple: value} of one counter in a /metrics JSON
+    snapshot."""
+    return {tuple(sorted(e["tags"].items())): e["value"]
+            for e in snapshot.get(name, [])}
+
+
 def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
-                     n_clients=SRV_CLIENTS):
-    """Phase 7: the port's HTTP server on the card (see the module
-    docstring). Returns the row-walk and probe launches of the phase."""
+                     n_clients=SRV_CLIENTS, *, phase=7, transport="threaded",
+                     ingest="python", before=None):
+    """Phase 7 (threaded transport, python ingest), or phase 8 (async
+    transport, native ingest, half the clients on binary bodies): the
+    port's HTTP server on the card (see the module docstring). `before` is
+    phase 7's stats, printed beside phase 8's. Returns the row-walk and
+    probe launches of the phase and its stats."""
     import copy
     import threading
 
@@ -1815,9 +1903,10 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         instance_group_label=EXT_IG_LABEL, sync_writes=True,
         debug_routes=True,
     )
+    native = ingest == "native"
     window_pack.launches = 0
     probe_add_one.launches = 0
-    srv = RecordedServer(device, config)
+    srv = RecordedServer(device, config, transport=transport, ingest=ingest)
     port = srv.server.port
     try:
         nodes, usage = main_cluster(seed=7)
@@ -1851,7 +1940,8 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
                    for a, n, c in apps}
         created = {a: c for a, _, c in apps}
         t_setup = time.perf_counter() - t_phase
-        print(f"phase 7: server on port {port} ({srv.app.solver.device}), "
+        print(f"phase {phase}: server on port {port} ({srv.app.solver.device}, "
+              f"{transport} transport, {ingest} ingest), "
               f"{len(nodes)} nodes ({SRV_ROUTE_NODES} through PUT "
               f"/state/nodes), set up in {t_setup:.1f} s", flush=True)
 
@@ -1888,7 +1978,7 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
 
         t0 = time.perf_counter()
         got, lat_drv = run_clients(port, [driver_job(a) for a, _, _ in apps],
-                                   n_clients)
+                                   n_clients, binary=native)
         drv_s = time.perf_counter() - t0
         stage_mark = len(srv.log)
         status, body = http_get(port, "/debug/decisions?role=driver&limit=100000")
@@ -1913,16 +2003,17 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
                         ("POST", "/predicates", {"Pod": ex, "NodeNames": names})]
             jobs.append(job)
         t0 = time.perf_counter()
-        got_exec, lat_exec = run_clients(port, jobs, n_clients)
+        got_exec, lat_exec = run_clients(port, jobs, n_clients, binary=native)
         exec_s = time.perf_counter() - t0
         got.update(got_exec)
         metrics = http_get(port, "/metrics")
         ready2 = http_get(port, "/status/readiness")
         check(metrics[0] == 200, f"/metrics: {metrics[0]}")
         check(ready2 == (200, b'{"ready": true}'), f"readiness at the end: {ready2}")
-        batcher = json.loads(metrics[1])["predicate_batcher"]
+        snapshot = json.loads(metrics[1])
+        batcher = snapshot["predicate_batcher"]
         violations = overcommit_violations(srv.app, srv.backend)
-        check(not violations, f"phase 7 over-commit: {violations[:8]}")
+        check(not violations, f"phase {phase} over-commit: {violations[:8]}")
     finally:
         srv.server.stop()
     launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
@@ -1957,8 +2048,39 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
                                    if a.pod.labels.get("spark-role") == "driver"}
                 for e in driver_windows}
     want_ids = {k: v for k, v in want_ids.items() if v}
-    check(by_id == want_ids, "phase 7: /debug/decisions windows differ from "
-                             "the dispatched ones")
+    check(by_id == want_ids, f"phase {phase}: /debug/decisions windows differ "
+                             "from the dispatched ones")
+
+    # The solver telemetry on /metrics against what this script counted.
+    path = "pallas" if on_card else "xla"
+    dispatches = series(snapshot, "foundry.spark.scheduler.solver.window.dispatches")
+    check(dispatches == {(("path", path),): len(driver_windows)},
+          f"phase {phase}: solver.window.dispatches {dispatches} != "
+          f"{len(driver_windows)} driver windows")
+    uploads = series(snapshot, "foundry.spark.scheduler.solver.device.uploads")
+    label = str(srv.app.solver.device)
+    want_uploads = {(("device", label), ("kind", k)): v
+                    for k, v in srv.builds.items() if v}
+    check(uploads == want_uploads, f"phase {phase}: solver.device.uploads "
+                                   f"{uploads} != builds {srv.builds}")
+    transfer = series(snapshot, "foundry.spark.scheduler.solver.transfer.bytes")
+    d2h = sum(e.get("d2h", 0) for e in done) + solo["d2h"]
+    check(transfer.get((("direction", "d2h"),)) == d2h,
+          f"phase {phase}: d2h solver.transfer.bytes {transfer} != {d2h} "
+          f"decision bytes")
+    h2d = transfer.get((("direction", "h2d"),), 0)
+    check(h2d > 0, f"phase {phase}: no h2d solver.transfer.bytes")
+
+    # Native tickets the serving path decoded into Python strings (before
+    # the replay below decodes any): a ticket whose names were iterated
+    # keeps its decoded list.
+    decoded = {}
+    if native:
+        for e in done:
+            for a in e["args"]:
+                role = a.pod.labels.get("spark-role", "")
+                n_dec, n_all = decoded.get(role, (0, 0))
+                decoded[role] = (n_dec + (a.node_names._list is not None), n_all + 1)
 
     # Replay: a cpu app of the port fed the same changes and windows in the
     # same order must answer every predicate with the same bytes.
@@ -1970,6 +2092,16 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
                                          and e[2][0].name == f"node-{n_nodes:05d}"))]
     check(len(mid) == 2, f"mid-flight changes {mid}")
     replay_s = time.perf_counter() - t0
+    ingest_stats = snapshot["server_ingest"]
+    transport_stats = snapshot["server_transport"]
+    if native:
+        posts = len(lat_drv) + len(lat_exec)
+        check(ingest_stats["decode_fallbacks"] == 0
+              and ingest_stats["decode_hits"] == posts
+              and len(srv.decode_ns) == posts,
+              f"phase {phase}: native decodes {ingest_stats} for {posts} "
+              f"predicates (every one must be a fast-path hit)")
+        check(ingest_stats["binary_requests"] > 0, "phase 8: no binary body")
 
     def busy_s(entries):
         return sum(e.get("ms", 0.0) for e in entries if isinstance(e, dict)) / 1e3
@@ -1978,14 +2110,21 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     n_windows = batcher["windows_served"]
     p = np.percentile
     n_admitted = len(admitted)
-    print(f"phase 7: {n_drivers} driver predicates from {n_clients} client "
+    stats = {
+        "drv_p50": p(lat_drv, 50), "drv_p99": p(lat_drv, 99),
+        "drv_rate": n_drivers / drv_s,
+        "exec_p50": p(lat_exec, 50), "exec_p99": p(lat_exec, 99),
+        "exec_rate": len(lat_exec) / exec_s,
+        "drv_busy": drv_busy, "exec_busy": exec_busy,
+    }
+    print(f"phase {phase}: {n_drivers} driver predicates from {n_clients} client "
           f"threads ({n_admitted} admitted), then {len(lat_exec)} executor "
           f"predicates; {drains} pipeline drains; a pod DELETE and a node PUT "
           f"with {mid[0][1]} and {mid[1][1]} windows in flight; responses "
           f"byte-identical to a cpu "
           f"replay of the same {len(done)} windows ({compared} compared, "
           f"replay {replay_s:.1f} s); over-commit none", flush=True)
-    print(f"phase 7 ({card}): windows formed {n_windows} (driver windows "
+    print(f"phase {phase} ({card}): windows formed {n_windows} (driver windows "
           f"{len(driver_windows)}, mean window {batcher['mean_window']}, "
           f"largest {batcher['max_window_seen']}, pipelined "
           f"{batcher['pipelined_windows']}); driver /predicates p50 "
@@ -2000,7 +2139,39 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
           f"({sum(e['rows'] for e in done)} rows) + {solo['batcher']} solo "
           f"packs; probe {launches['probe']}; "
           f"served in {serve_s:.1f} s", flush=True)
-    return launches
+    print(f"phase {phase}: /metrics solver.window.dispatches {path} "
+          f"{len(driver_windows)}, solver.device.uploads {srv.builds}, "
+          f"solver.transfer.bytes h2d {h2d} d2h {d2h}: equal to this "
+          f"script's count", flush=True)
+    if before is not None:
+        print(f"phase {phase} against phase 7 ({card}, same run): driver p50 "
+              f"{stats['drv_p50']:.3f} / {before['drv_p50']:.3f} ms, p99 "
+              f"{stats['drv_p99']:.3f} / {before['drv_p99']:.3f} ms, "
+              f"{stats['drv_rate']:.1f} / {before['drv_rate']:.1f} decisions/s; "
+              f"executor p50 {stats['exec_p50']:.3f} / {before['exec_p50']:.3f} "
+              f"ms, p99 {stats['exec_p99']:.3f} / {before['exec_p99']:.3f} ms, "
+              f"{stats['exec_rate']:.1f} / {before['exec_rate']:.1f} "
+              f"decisions/s; batcher busy {stats['drv_busy']:.2f} / "
+              f"{before['drv_busy']:.2f} s (driver stage), "
+              f"{stats['exec_busy']:.2f} / {before['exec_busy']:.2f} s "
+              f"(executor stage)", flush=True)
+    if native:
+        print(f"phase {phase}: native ingest {ingest_stats['decode_hits']} "
+              f"decodes, hit ratio {ingest_stats['zero_copy_hit_ratio']}, "
+              f"{ingest_stats['binary_requests']} binary; decode p50 "
+              f"{np.percentile(srv.decode_ns, 50):.0f} ns, p99 "
+              f"{np.percentile(srv.decode_ns, 99):.0f} ns; {transport} "
+              f"transport: parse mean {transport_stats['parse_mean_ms']} ms, "
+              f"queue mean {transport_stats['queue_mean_ms']} ms, write mean "
+              f"{transport_stats['write_mean_ms']} ms, keep-alive reuse "
+              f"{transport_stats['keepalive_reuse_ratio']} "
+              f"({transport_stats['requests_total']} requests on "
+              f"{transport_stats['connections_total']} connections); "
+              f"tickets whose names the serving path decoded into Python "
+              f"strings: "
+              + ", ".join(f"{role} {n} of {m}" for role, (n, m) in sorted(decoded.items())),
+              flush=True)
+    return launches, stats
 
 
 def replay_server_log(log, config, got):
@@ -2071,7 +2242,18 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    logs = build_all()
+    # The native runtime (g++) builds beside the CUDA sources (nvcc); a
+    # failure of either raises.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_scheduler_tpu_torch import native
+
+    with ThreadPoolExecutor(1) as pool:
+        native_built = pool.submit(native.build)
+        logs = build_all()
+        if native_built.result():
+            logs["native runtime (g++)"] = ""
+    native.load()
     print(f"phase 1: built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
@@ -2113,13 +2295,19 @@ def main() -> int:
     print(f"phase 6: passed in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    srv_launches = run_server_phase(device, card)
+    srv_launches, srv_stats = run_server_phase(device, card)
     print(f"phase 7: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    async_launches, _ = run_server_phase(device, card, phase=8,
+                                         transport="async", ingest="native",
+                                         before=srv_stats)
+    print(f"phase 8: passed in {time.perf_counter() - t0:.1f} s", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6) and
-    # the HTTP server's (phase 7).
+    # the HTTP server's on both transports (phases 7 and 8).
     for k in launches:
-        launches[k] += ext_launches[k] + srv_launches[k]
+        launches[k] += ext_launches[k] + srv_launches[k] + async_launches[k]
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

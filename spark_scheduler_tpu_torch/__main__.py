@@ -1,14 +1,20 @@
 """CLI (cmd/root.go:22-35, cmd/server.go:44-54):
 
   python -m spark_scheduler_tpu_torch server [--config install.yml] [--port N]
+      [--transport threaded|async] [--ingest python|native]
   python -m spark_scheduler_tpu_torch print-crds [--conversion-webhook-url URL]
+  python -m spark_scheduler_tpu_torch conversion-webhook [--port N]
+  python -m spark_scheduler_tpu_torch version
+
+`conversion-webhook` is the standalone CRD-conversion service the reference
+ships as a second binary (spark-scheduler-conversion-webhook/main.go:27).
 
 The port's copy of spark_scheduler_tpu/__main__.py for the in-memory
 backend. The server solves on the current CUDA card and raises without one;
 an install key the port cannot serve yet raises NotImplementedError
-(server/app.py). The JAX package's `version` and `conversion-webhook`
-subcommands and its durable-store, apiserver, HA, fleet, autoscaler and
-multi-device flags are not ported.
+(server/app.py), and `--ingest native` builds the port's native library or
+raises. The JAX package's durable-store, apiserver, HA, fleet, autoscaler
+and multi-device flags are not ported.
 """
 
 from __future__ import annotations
@@ -16,14 +22,36 @@ from __future__ import annotations
 import argparse
 import sys
 
+__version__ = "0.1.0"
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="spark-scheduler-torch")
     sub = parser.add_subparsers(dest="command")
+    sub.add_parser("version", help="print version")
     srv = sub.add_parser("server", help="run the scheduler extender server")
     srv.add_argument("--config", help="install YAML (config/config.go:24-84 surface)")
     srv.add_argument("--host", default="0.0.0.0")
     srv.add_argument("--port", type=int, default=None)
+    srv.add_argument(
+        "--transport",
+        choices=("threaded", "async"),
+        default=None,
+        help="serving transport: 'threaded' (stdlib thread-per-connection,"
+        " default) or 'async' (single-threaded event loop with pipelined"
+        " keep-alive framing and explicit backpressure); overrides the"
+        " install config's server.transport",
+    )
+    srv.add_argument(
+        "--ingest",
+        choices=("python", "native"),
+        default=None,
+        help="serving ingest lane: 'python' (json.loads per predicate "
+        "body, default) or 'native' (C++ request framing + zero-copy "
+        "predicate decode via native/runtime.cpp; raises when the native "
+        "library cannot be built); overrides the install config's "
+        "server.ingest",
+    )
     srv.add_argument(
         "--no-delta-statics",
         action="store_true",
@@ -42,8 +70,23 @@ def main(argv=None) -> int:
         default=None,
         help="wire the webhook conversion strategy with this client URL",
     )
+    cw = sub.add_parser(
+        "conversion-webhook", help="run the standalone CRD-conversion webhook"
+    )
+    cw.add_argument("--host", default="0.0.0.0")
+    cw.add_argument("--port", type=int, default=8485)
+    cw.add_argument("--cert-file", default=None)
+    cw.add_argument("--key-file", default=None)
+    cw.add_argument(
+        "--request-log",
+        action="store_true",
+        help="emit a structured request.2 access-log line per HTTP call",
+    )
     args = parser.parse_args(argv)
 
+    if args.command == "version":
+        print(__version__)
+        return 0
     if args.command == "print-crds":
         import yaml
 
@@ -61,6 +104,21 @@ def main(argv=None) -> int:
             ),
             end="",
         )
+        return 0
+    if args.command == "conversion-webhook":
+        from spark_scheduler_tpu_torch.server.http import ConversionWebhookServer
+
+        server = ConversionWebhookServer(
+            host=args.host,
+            port=args.port,
+            cert_file=args.cert_file,
+            key_file=args.key_file,
+            request_log=args.request_log,
+        )
+        print(
+            f"conversion webhook serving on {args.host}:{server.port}", file=sys.stderr
+        )
+        server.serve_forever()
         return 0
     if args.command != "server":
         parser.print_help()
@@ -90,6 +148,10 @@ def main(argv=None) -> int:
             config = InstallConfig.from_dict(yaml.safe_load(f) or {})
     if args.port is not None:
         config.port = args.port
+    if args.transport is not None:
+        config.server_transport = args.transport
+    if args.ingest is not None:
+        config.server_ingest = args.ingest
     if args.no_delta_statics:
         config.solver_delta_statics = False
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence
 
@@ -143,6 +144,16 @@ _STATIC_FIELDS = (
 _INT32 = np.iinfo(np.int32)
 
 
+def _host_nbytes(host: ClusterTensors) -> int:
+    """Bytes of a full upload of the host view (every field)."""
+    return sum(np.asarray(f).nbytes for f in host.fields())
+
+
+def _window_nbytes(win: SegmentedWindow) -> int:
+    """Bytes of a segmented window's arrays (what a dispatch ships)."""
+    return sum(np.asarray(a).nbytes for a in win)
+
+
 class WindowHandle:
     """A dispatched-but-not-yet-fetched window solve
     (PlacementSolver.pack_window_dispatch -> pack_window_fetch)."""
@@ -151,7 +162,7 @@ class WindowHandle:
         "strategy", "blob", "ready", "requests", "host_avail",
         "host_schedulable", "priors", "placement_rows", "placement_vals",
         "row_driver_req", "row_exec_req", "row_skippable", "seg_map", "info",
-        "request_device",
+        "request_device", "dispatched_at",
     )
 
     def __init__(self, *, strategy, blob, requests, host_avail,
@@ -184,6 +195,8 @@ class WindowHandle:
         self.info = None
         # Multi-device attribution of each request; None on one device.
         self.request_device = None
+        # Host clock at dispatch (the dispatch -> decisions telemetry).
+        self.dispatched_at = 0.0
 
     def fetch_blob(self) -> np.ndarray:
         """The decision blob on the host, waiting for the device if the
@@ -251,8 +264,10 @@ class PlacementSolver:
         self.device_state_stats = {"static_delta_uploads": 0}
         # Dispatch info of the most recent solve (solo pack or window).
         self.last_solve_info: dict | None = None
-        # The extender's telemetry hook: not ported yet. There is no
-        # degraded mode either: a build or launch failure raises.
+        # SolverTelemetry hook surface (observability/telemetry.py), wired
+        # by build_scheduler_app; None keeps every hot-path hook a single
+        # attribute test. There is no degraded mode: a build or launch
+        # failure raises.
         self.telemetry = None
 
     def _build_host(self, nodes: Sequence[Node], usage, overhead):
@@ -303,6 +318,7 @@ class PlacementSolver:
         queued on the card's stream, so there is no queued work to
         cancel."""
         self._pipe = None
+        self._note_inflight()
 
     def discard_pipeline(self) -> None:
         """Drop the pipelined device state: the next build_tensors_pipelined
@@ -311,6 +327,17 @@ class PlacementSolver:
         host view is the durable truth once every surviving window has
         applied."""
         self._pipe = None
+        self._note_inflight()
+        if self.telemetry is not None:
+            self.telemetry.on_pipeline_event("discard")
+
+    def _note_inflight(self) -> None:
+        """Publish the dispatched-but-unfetched pipelined windows."""
+        if self.telemetry is not None:
+            p = self._pipe
+            self.telemetry.on_device_inflight(
+                str(self.device), len(p["unfetched"]) if p is not None else 0
+            )
 
     def build_tensors_pipelined(
         self,
@@ -323,6 +350,31 @@ class PlacementSolver:
         dirty_hint=None,
         avail_epoch=None,
         avail_journal=None,
+    ) -> ClusterTensors:
+        """Timing and telemetry shell around the pipelined build: its wall
+        time, the rows the dense mirror compare examined and the rows it
+        found changed (`on_build`), and how the build reached the device
+        (`on_device_upload`). The keyword arguments are build accelerators
+        the port does not read (see build_tensors)."""
+        t0 = time.perf_counter()
+        counts = {"compared": 0, "dirty": 0}
+        try:
+            tensors = self._build_tensors_pipelined(nodes, usage, overhead, counts)
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.on_build(
+                    (time.perf_counter() - t0) * 1e3,
+                    counts["compared"],
+                    counts["dirty"],
+                )
+        if self.telemetry is not None:
+            self.telemetry.on_device_upload(
+                str(self.device), self.last_state_upload
+            )
+        return tensors
+
+    def _build_tensors_pipelined(
+        self, nodes: Sequence[Node], usage, overhead, counts: dict
     ) -> ClusterTensors:
         """Device-resident availability threaded ACROSS serving windows.
 
@@ -341,8 +393,8 @@ class PlacementSolver:
         (`delta_statics`); any other static change needs a full upload,
         which raises PipelineDrainRequired while a window is in flight —
         fetch it first, then retry. So does an availability delta beyond
-        int32. The keyword arguments are build accelerators the port does
-        not read (see build_tensors). Single-threaded by contract."""
+        int32. `counts` receives the rows compared and found dirty.
+        Single-threaded by contract."""
         host = self._build_host(nodes, usage, overhead)
         p = self._pipe
         static_plan = None
@@ -363,6 +415,8 @@ class PlacementSolver:
             # Rows whose availability the delta must ship: a dense compare
             # of the host view against the mirror.
             dirty = np.flatnonzero((mirror != host.available).any(axis=1))
+            counts["compared"] += len(mirror)
+            counts["dirty"] += len(dirty)
             delta_rows = host.available[dirty].astype(np.int64) - mirror[dirty]
             # A swing too large for int32 delta rows falls through to a
             # FULL re-upload instead of wrapping and corrupting the base.
@@ -370,6 +424,8 @@ class PlacementSolver:
                 delta_rows.min() >= _INT32.min and delta_rows.max() <= _INT32.max
             )
             if not fits_i32 and p["unfetched"]:
+                if self.telemetry is not None:
+                    self.telemetry.on_pipeline_event("drain")
                 raise PipelineDrainRequired(
                     "availability delta exceeds int32 with a window in flight"
                 )
@@ -381,14 +437,14 @@ class PlacementSolver:
                 if dirty.size:
                     # Out of place: the base a caller still holds (through
                     # an earlier build's tensors) is never written.
+                    rows32 = delta_rows.astype(np.int32)
                     avail = avail.index_add(
                         0,
                         torch.as_tensor(dirty, device=self.device),
-                        torch.as_tensor(
-                            delta_rows.astype(np.int32), device=self.device
-                        ),
+                        torch.as_tensor(rows32, device=self.device),
                     )
                     mirror[dirty] = host.available[dirty]
+                    self._note_transfer("h2d", dirty.nbytes + rows32.nbytes)
                 self.last_state_upload = (
                     "delta" if dirty.size or static_plan is not None else "reuse"
                 )
@@ -399,10 +455,13 @@ class PlacementSolver:
                 p.update(host=host, tensors=tensors, avail=avail)
                 return tensors
         if p is not None and p["unfetched"]:
+            if self.telemetry is not None:
+                self.telemetry.on_pipeline_event("drain")
             raise PipelineDrainRequired(
                 "cluster topology changed with a window in flight"
             )
         tensors = self._upload(host)
+        self._note_transfer("h2d", _host_nbytes(host))
         self.last_state_upload = "full"
         self._pipe = {
             "host": host,
@@ -440,14 +499,20 @@ class PlacementSolver:
         changed, rows = plan
         idx = torch.as_tensor(rows, device=self.device)
         out = {}
+        nbytes = rows.nbytes
         for f in changed:
             cur = getattr(p["tensors"], f)
-            vals = torch.as_tensor(
-                np.asarray(getattr(host, f))[rows], device=self.device
-            ).to(cur.dtype)
+            host_vals = np.asarray(getattr(host, f))[rows]
+            nbytes += host_vals.nbytes
+            vals = torch.as_tensor(host_vals, device=self.device).to(cur.dtype)
             out[f] = cur.index_copy(0, idx, vals)
         self.device_state_stats["static_delta_uploads"] += 1
+        self._note_transfer("h2d", nbytes)
         return out
+
+    def _note_transfer(self, direction: str, nbytes: int) -> None:
+        if self.telemetry is not None:
+            self.telemetry.on_transfer(direction, nbytes)
 
     def _ensure_probed(self) -> None:
         if self.device.type == "cuda" and not self._probed:
@@ -457,9 +522,20 @@ class PlacementSolver:
                     self._probed = True
 
     def candidate_mask(self, tensors, node_names: Sequence[str]) -> np.ndarray:
-        """[N] bool host mask of the named nodes (read-only, memoized)."""
+        """[N] bool host mask of the named nodes (read-only, memoized).
+
+        Native-ingest tickets (server/ingest.NativeNodeNames) hash by their
+        content digest with memcmp equality: the memo keys on the ticket
+        itself, so a steady-state request (kube-scheduler resends the same
+        candidate list every call) hits WITHOUT materializing its names or
+        hashing a tuple of them; only a cold miss iterates. Plain lists
+        keep the tuple key."""
         n = tensors.num_nodes
-        names = tuple(node_names)
+        names = (
+            node_names
+            if getattr(node_names, "names_digest", None) is not None
+            else tuple(node_names)
+        )
         epoch = self.registry.epoch
         key = (n, epoch, names)
         with self._cand_lock:
@@ -595,6 +671,8 @@ class PlacementSolver:
             np.zeros(1, bool), [1], [driver_mask],
             [np.asarray(domain_mask, bool)], pad_segments=1, pad_rows=1,
         )
+        tel = self.telemetry
+        compiles_before = tel.compile_count() if tel is not None else None
         self._ensure_probed()
         meta, execs, _base_after = window_pack(
             tensors, win, fill=strategy, emax=emax,
@@ -606,6 +684,15 @@ class PlacementSolver:
             "nodes": n,
             "emax": emax,
         }
+        if tel is not None:
+            # No library built during this solve: the build-cache hit the
+            # flight recorder reports.
+            self.last_solve_info["compile_cache_hit"] = (
+                tel.compile_count() == compiles_before
+            )
+            tel.on_pack(nodes=n, emax=emax)
+            tel.on_transfer("h2d", _window_nbytes(win))
+            tel.on_transfer("d2h", blob.nbytes)
         driver_idx = int(blob[0])
         executor_nodes = blob[3:]
         eff = avg_packing_efficiency_np(
@@ -661,6 +748,8 @@ class PlacementSolver:
             )
         n = tensors.num_nodes
         batch = self.window_batch(tensors, requests)
+        tel = self.telemetry
+        compiles_before = tel.compile_count() if tel is not None else None
         self._ensure_probed()
         path = "cuda" if self.device.type == "cuda" else "reference"
         meta, execs, base_after = window_pack(
@@ -697,6 +786,17 @@ class PlacementSolver:
             "dispatch_id": next(self._dispatch_seq),
         }
         self.last_solve_info = info
+        if tel is not None:
+            info["compile_cache_hit"] = tel.compile_count() == compiles_before
+            # The path as the JAX package's telemetry names it: "pallas" for
+            # the row-walk kernel on the card (the route it stands for),
+            # "xla" for the plain path on the CPU.
+            tel.on_window_dispatch(
+                "pallas" if self.device.type == "cuda" else "xla",
+                nodes=n, rows=info["rows"], row_bucket=r_pad,
+                segment_bucket=s_pad,
+            )
+            tel.on_transfer("h2d", _window_nbytes(batch.win))
         host = host_view(tensors)
         handle = WindowHandle(
             strategy=strategy,
@@ -707,6 +807,7 @@ class PlacementSolver:
             priors=priors,
         )
         handle.ready = ready
+        handle.dispatched_at = time.perf_counter()
         # int64 so the fetch-side subtractions against the int64 base
         # never wrap.
         handle.row_driver_req = batch.driver_req.astype(np.int64)
@@ -716,6 +817,7 @@ class PlacementSolver:
         handle.info = info
         if pipelined:
             p["unfetched"].append(handle)
+            self._note_inflight()
         return handle
 
     def pack_window_fetch(self, handle: WindowHandle) -> list[WindowDecision]:
@@ -723,7 +825,9 @@ class PlacementSolver:
         per-request outcomes (the second half of pack_window)."""
         if not handle.requests:
             return []
-        blob = handle.fetch_blob()[handle.seg_map[0], handle.seg_map[1]]
+        full = handle.fetch_blob()
+        self._note_transfer("d2h", full.nbytes)
+        blob = full[handle.seg_map[0], handle.seg_map[1]]
         drivers = blob[:, 0]
         admitted = blob[:, 1].astype(bool)
         packed = blob[:, 2].astype(bool)
@@ -750,6 +854,13 @@ class PlacementSolver:
             p["unfetched"].remove(handle)
             if prows.size:
                 p["mirror"][prows] -= placements[prows]
+            self._note_inflight()
+        if self.telemetry is not None:
+            # Dispatch -> decisions on the host; one window a dispatch (no
+            # fused claims in the port).
+            self.telemetry.on_dispatch_complete(
+                (time.perf_counter() - handle.dispatched_at) * 1e3, 1
+            )
         return decisions
 
     @staticmethod

@@ -5,8 +5,12 @@ explainability).
     `DecisionRecord` (verdict, per-node failure map, FIFO queue position,
     dispatch id, phase times) in a bounded thread-safe ring, queryable at
     GET /debug/decisions.
-  - `telemetry`: `RetryTelemetry` and `TransportTelemetry`, the retry
-    ladder's and the HTTP transport's series.
+  - `telemetry`: `SolverTelemetry` — the hook surface core/solver.py calls
+    to publish library-build counts/seconds, padding-bucket occupancy,
+    pipeline drain/discard counters, build kinds and host<->device
+    transfer bytes under `foundry.spark.scheduler.solver.*` — and
+    `RetryTelemetry` / `TransportTelemetry`, the retry ladder's and the
+    HTTP transport's series.
   - `exposition`: Prometheus text rendering of a MetricRegistry snapshot,
     giving the push-only JSON-line reporter a pull surface (GET /metrics).
   - `state`: the point-in-time GET /debug/state snapshot (hard/soft
@@ -19,7 +23,9 @@ from spark_scheduler_tpu_torch.observability.recorder import (  # noqa: F401
 )
 from spark_scheduler_tpu_torch.observability.telemetry import (  # noqa: F401
     RetryTelemetry,
+    SolverTelemetry,
     TransportTelemetry,
+    compile_stats,
 )
 from spark_scheduler_tpu_torch.observability.exposition import (  # noqa: F401
     prefers_prometheus,
@@ -33,7 +39,9 @@ __all__ = [
     "DecisionRecord",
     "FlightRecorder",
     "RetryTelemetry",
+    "SolverTelemetry",
     "TransportTelemetry",
+    "compile_stats",
     "prefers_prometheus",
     "render_prometheus",
     "debug_state_snapshot",

@@ -12,7 +12,7 @@ The port's copy of spark_scheduler_tpu/observability/state.py. It reports
 what the port's app has: no autoscaler, trace sink, device pool, pruned
 solve or degraded-mode controller sections, since the port has none of
 them yet; the solver section names the device and how each window was
-served.
+served, and the server section the transport and the ingest lane.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ from spark_scheduler_tpu_torch.core.unschedulable import (
 )
 
 
-def debug_state_snapshot(app, clock=time.time) -> dict:
+def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
+    """The snapshot of `app`; with `server` (the SchedulerHTTPServer in
+    front of it) also its transport and ingest lane."""
     now = clock()
 
     hard = []
@@ -130,4 +132,12 @@ def debug_state_snapshot(app, clock=time.time) -> dict:
         dev_state = getattr(solver, "device_state_stats", None)
         if dev_state is not None:
             out["device_state"] = dict(dev_state)
+    if server is not None:
+        # The serving front end: which transport frames requests and which
+        # ingest lane decodes predicate bodies (the native lane's decode
+        # counters with it).
+        out["server"] = {
+            "transport": server.transport_name,
+            "ingest": server.ingest_stats(),
+        }
     return out

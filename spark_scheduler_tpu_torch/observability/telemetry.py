@@ -1,9 +1,16 @@
-"""Serving-path telemetry: the retry ladder and the HTTP transport.
+"""Serving-path telemetry: the solver, the retry ladder and the HTTP
+transport.
 
-The port's copy of `RetryTelemetry` and `TransportTelemetry` from
-spark_scheduler_tpu/observability/telemetry.py. The JAX package's
-`SolverTelemetry` (and its jax.monitoring compile listener), `HATelemetry`
-and `FleetTelemetry` are not ported yet (ROADMAP A.3c, A.9).
+The port's copy of `SolverTelemetry`, `RetryTelemetry` and
+`TransportTelemetry` from spark_scheduler_tpu/observability/telemetry.py.
+SolverTelemetry publishes the solver's internals as
+`foundry.spark.scheduler.solver.*` series: windows dispatched per path,
+padding-bucket occupancy, solo packs, pipelined builds and how they
+reached the device, pipeline drains and discards, host<->device bytes, and
+the host featurize split. The JAX package counts XLA compiles through a
+jax.monitoring listener; the port has none to count, and its compile
+gauges read the library builds of ops/_build.py instead. `HATelemetry`
+and `FleetTelemetry` are not ported yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -11,6 +18,349 @@ from __future__ import annotations
 import threading
 
 from spark_scheduler_tpu_torch.metrics.registry import MetricRegistry
+from spark_scheduler_tpu_torch.ops._build import build_totals
+
+JIT_COMPILES = "foundry.spark.scheduler.solver.jit.compiles"
+JIT_COMPILE_SECONDS = "foundry.spark.scheduler.solver.jit.compile.seconds"
+WINDOW_DISPATCHES = "foundry.spark.scheduler.solver.window.dispatches"
+BUCKET_OCCUPANCY = "foundry.spark.scheduler.solver.bucket.occupancy"
+PIPELINE_EVENTS = "foundry.spark.scheduler.solver.pipeline.events"
+TRANSFER_BYTES = "foundry.spark.scheduler.solver.transfer.bytes"
+SOLO_PACKS = "foundry.spark.scheduler.solver.packs"
+# Per-device series tagged device=<label> (one label per pool slot in the
+# JAX package; the port's one device).
+DEVICE_UPLOADS = "foundry.spark.scheduler.solver.device.uploads"
+DEVICE_INFLIGHT = "foundry.spark.scheduler.solver.device.inflight"
+DEVICE_SOLVE_MS = "foundry.spark.scheduler.solver.device.solve.ms"
+DEVICE_FETCH_MS = "foundry.spark.scheduler.solver.device.fetch.ms"
+DEVICE_RESIDENT_AGE = (
+    "foundry.spark.scheduler.solver.device.resident.age.seconds"
+)
+# Per-slot delta-synced availability mirrors: rows scattered
+# by delta catch-ups, full availability re-ships ("dense" syncs — the
+# number the pooled tier drives to 0 on pruned traffic), and catch-up
+# events, each tagged device=<label>.
+DEVICE_MIRROR_DELTA_ROWS = (
+    "foundry.spark.scheduler.solver.device.mirror.delta.rows"
+)
+DEVICE_MIRROR_DENSE_SYNCS = (
+    "foundry.spark.scheduler.solver.device.mirror.dense.syncs"
+)
+DEVICE_MIRROR_CATCHUP = (
+    "foundry.spark.scheduler.solver.device.mirror.catchup"
+)
+# Device-slot quarantine/recovery (the JAX package's _DevicePool):
+# events tagged event=quarantine|reinstate|redispatch|probe-failed and a
+# live count of quarantined slots.
+DEVICE_QUARANTINE_EVENTS = (
+    "foundry.spark.scheduler.solver.device.quarantine.events"
+)
+DEVICE_QUARANTINE_ACTIVE = (
+    "foundry.spark.scheduler.solver.device.quarantine.active"
+)
+# The degraded-mode gauge readiness keys on (faults/degraded.py, not
+# ported yet: nothing sets it).
+FAULTS_DEGRADED_ACTIVE = "foundry.spark.scheduler.faults.degraded.active"
+# Fused multi-window dispatch engine (core/solver.py
+# pack_windows_dispatch): how many windows each device dispatch carried,
+# the per-window share of the dispatch->decisions round trip, and how
+# busy the dispatch surface (pool slots / in-flight pipeline) was when a
+# new dispatch launched — the upload/solve/fetch overlap actually
+# engaging.
+PRUNE_WINDOWS = "foundry.spark.scheduler.solver.prune.windows"
+PRUNE_ESCALATIONS = "foundry.spark.scheduler.solver.prune.escalations"
+PRUNE_KEPT_ROWS = "foundry.spark.scheduler.solver.prune.kept.rows"
+PRUNE_KEPT_RATIO = "foundry.spark.scheduler.solver.prune.kept.ratio"
+# O(K + changed) planning: per-window prune phase wall times
+# (prefilter plan / statics+mask gather / zone-sum offset derivation) and
+# the statics-gather reuse hits that skip the host gather + re-upload.
+PRUNE_PLAN_MS = "foundry.spark.scheduler.solver.prune.plan.ms"
+PRUNE_GATHER_MS = "foundry.spark.scheduler.solver.prune.gather.ms"
+PRUNE_OFFSET_MS = "foundry.spark.scheduler.solver.prune.offset.ms"
+PRUNE_GATHER_REUSE = "foundry.spark.scheduler.solver.prune.gather.reuse"
+DISPATCH_FUSED_K = "foundry.spark.scheduler.solver.dispatch.fused.k"
+DISPATCH_AMORTIZED_RTT_MS = (
+    "foundry.spark.scheduler.solver.dispatch.amortized.rtt.ms"
+)
+DISPATCH_OVERLAP_OCCUPANCY = (
+    "foundry.spark.scheduler.solver.dispatch.overlap.occupancy"
+)
+# Host featurize (core/feature_store.py): per-window sub-phase wall times
+# tagged phase=snapshot|tensors|domains|fifo, and the store's O(changed)
+# evidence counters (roster re-walks vs snapshots served resident).
+FEATURIZE_MS = "foundry.spark.scheduler.solver.featurize.ms"
+FEATURIZE_SNAPSHOTS = "foundry.spark.scheduler.solver.featurize.snapshots"
+FEATURIZE_ROSTER_REBUILDS = (
+    "foundry.spark.scheduler.solver.featurize.roster.rebuilds"
+)
+FEATURIZE_USAGE_REFRESHES = (
+    "foundry.spark.scheduler.solver.featurize.usage.refreshes"
+)
+FEATURIZE_OVERHEAD_REFRESHES = (
+    "foundry.spark.scheduler.solver.featurize.overhead.refreshes"
+)
+# O(K + changed) tensor build: per-window build wall time, rows
+# the DENSE mirror sweep examined (0 in steady state — the fallback), and
+# rows the event-fed dirty-set sync examined instead.
+BUILD_MS = "foundry.spark.scheduler.solver.build.ms"
+BUILD_ROWS_COMPARED = "foundry.spark.scheduler.solver.build.rows.compared"
+BUILD_DIRTY_ROWS = "foundry.spark.scheduler.solver.build.dirty.rows"
+
+
+def compile_stats() -> dict:
+    """Process-wide library builds: {"count", "seconds"} (ops/_build.py)."""
+    return build_totals()
+
+
+class SolverTelemetry:
+    """Publishes solver internals into a tagged registry. Hook methods are
+    cheap (a counter/histogram touch) and only ever called guarded by
+    `solver.telemetry is not None`.
+
+    The port's copy of the JAX package's SolverTelemetry. The port
+    JIT-compiles nothing, so the compile gauges and `compile_count()`
+    report the libraries this process compiled (the CUDA kernels and the
+    native runtime, ops/_build.py) under the JAX package's series names.
+    `on_fused_dispatch`, the `on_prune_*`,
+    `on_device_mirror` / `on_device_age` / `on_device_window`,
+    `on_slot_event`, `on_quarantine_count` and `on_degraded` have no
+    caller until the fused dispatch, the pruned solve, the device pool and
+    degraded mode are ported (ROADMAP A.4-A.6, A.5b)."""
+
+    def __init__(self, registry: MetricRegistry | None = None):
+        self.registry = registry or MetricRegistry()
+        # Baseline so this scheduler reports ITS builds, not the whole
+        # process's history (test matrices build many apps per process).
+        self._base = compile_stats()
+
+    # -- compiles ------------------------------------------------------------
+
+    def compile_count(self) -> int:
+        return compile_stats()["count"] - self._base["count"]
+
+    def sync_compile_gauges(self) -> None:
+        cur = compile_stats()
+        self.registry.gauge(JIT_COMPILES).set(
+            cur["count"] - self._base["count"]
+        )
+        self.registry.gauge(JIT_COMPILE_SECONDS).set(
+            round(cur["seconds"] - self._base["seconds"], 6)
+        )
+
+    # -- windows / packs -----------------------------------------------------
+
+    def on_window_dispatch(
+        self,
+        path: str,
+        *,
+        nodes: int,
+        rows: int,
+        row_bucket: int,
+        segment_bucket: int = 1,
+    ) -> None:
+        """One dispatched window solve: count it per device path and record
+        how full its padding bucket was (padding is pure waste the compile
+        cache buys; occupancy says whether the bucket grid fits the
+        workload)."""
+        self.registry.counter(WINDOW_DISPATCHES, path=path).inc()
+        denom = max(1, row_bucket * segment_bucket)
+        self.registry.histogram(
+            BUCKET_OCCUPANCY,
+            nodes=str(nodes),
+            apps=str(row_bucket * segment_bucket),
+            path=path,
+        ).update(min(1.0, rows / denom))
+        self.sync_compile_gauges()
+
+    def on_featurize(self, phases: dict, store=None) -> None:
+        """One serving window's host-featurize breakdown. `phases` maps
+        record keys ("featurize_snapshot_ms", ...) to wall ms; `store` is
+        the HostFeatureStore whose counters become gauges (how often the
+        roster/usage/overhead actually refreshed vs served resident)."""
+        for key, ms in phases.items():
+            phase = key[len("featurize_"):]
+            if phase.endswith("_ms"):
+                phase = phase[:-3]
+            self.registry.histogram(FEATURIZE_MS, phase=phase).update(ms)
+        if store is not None:
+            self.registry.gauge(FEATURIZE_SNAPSHOTS).set(store.snapshots)
+            self.registry.gauge(FEATURIZE_ROSTER_REBUILDS).set(
+                store.roster_rebuilds
+            )
+            self.registry.gauge(FEATURIZE_USAGE_REFRESHES).set(
+                store.usage_refreshes
+            )
+            self.registry.gauge(FEATURIZE_OVERHEAD_REFRESHES).set(
+                store.overhead_refreshes
+            )
+
+    def on_pack(self, *, nodes: int, emax: int) -> None:
+        self.registry.counter(
+            SOLO_PACKS, nodes=str(nodes), emax=str(emax)
+        ).inc()
+        self.sync_compile_gauges()
+
+    # -- fused dispatch ------------------------------------------------------
+
+    def on_fused_dispatch(self, fused_k: int, occupancy: float) -> None:
+        """One fused multi-window dispatch: its batch size (fused_k = 1
+        means the fused claim found only one window's worth of backlog)
+        and the dispatch surface's busy fraction at launch."""
+        self.registry.histogram(DISPATCH_FUSED_K).update(fused_k)
+        self.registry.histogram(DISPATCH_OVERLAP_OCCUPANCY).update(
+            round(occupancy, 4)
+        )
+
+    def on_dispatch_complete(
+        self, amortized_rtt_ms: float, fused_k: int
+    ) -> None:
+        """Dispatch -> decisions-on-host wall time per WINDOW of the
+        dispatch (the fused batch divides one device round trip by K)."""
+        self.registry.histogram(
+            DISPATCH_AMORTIZED_RTT_MS, fused=str(fused_k)
+        ).update(round(amortized_rtt_ms, 3))
+
+    # -- device pool ---------------------------------------------------------
+
+    def on_device_upload(self, device: str, kind: str, nbytes: int = 0) -> None:
+        """How one pipelined build reached the device: kind is "full"
+        (the whole node state uploaded), "delta" (changed rows scattered
+        into the resident state) or "reuse" (the resident state served as
+        it was). The JAX package books this per device-pool slot only."""
+        self.registry.counter(DEVICE_UPLOADS, device=device, kind=kind).inc()
+        if nbytes > 0:
+            self.on_transfer("h2d", nbytes)
+
+    def on_device_mirror(
+        self, device: str, kind: str, rows: int, nbytes: int = 0
+    ) -> None:
+        """One per-slot availability-mirror sync: "catchup" =
+        a lagging slot scattered `rows` journaled rows instead of taking
+        the full [N,3] base; "dense" = the full re-ship (no replica, a
+        journal gap, or an unknowable epoch in the chain)."""
+        if kind == "catchup":
+            self.registry.counter(DEVICE_MIRROR_CATCHUP, device=device).inc()
+            if rows:
+                self.registry.counter(
+                    DEVICE_MIRROR_DELTA_ROWS, device=device
+                ).inc(int(rows))
+        else:
+            self.registry.counter(
+                DEVICE_MIRROR_DENSE_SYNCS, device=device
+            ).inc()
+        if nbytes > 0:
+            self.on_transfer("h2d", nbytes)
+
+    def on_device_inflight(self, device: str, inflight: int) -> None:
+        """Dispatched-but-unfetched window solves currently on the device."""
+        self.registry.gauge(DEVICE_INFLIGHT, device=device).set(inflight)
+
+    def on_device_age(self, device: str, age_s: float) -> None:
+        """Seconds since the slot's resident state was last fully uploaded
+        — a cold replica explains a latency outlier on that device."""
+        self.registry.gauge(DEVICE_RESIDENT_AGE, device=device).set(
+            round(age_s, 3)
+        )
+
+    def on_device_window(
+        self, device: str, solve_ms: float, fetch_ms: float,
+        inflight: int | None = None,
+    ) -> None:
+        """Per-slot phase wall times of one window (or window partition):
+        device solve vs decision-blob fetch."""
+        self.registry.histogram(DEVICE_SOLVE_MS, device=device).update(
+            solve_ms
+        )
+        self.registry.histogram(DEVICE_FETCH_MS, device=device).update(
+            fetch_ms
+        )
+        if inflight is not None:
+            self.on_device_inflight(device, inflight)
+
+    # -- quarantine / degraded ----------------------------------------------
+
+    def on_slot_event(self, event: str, device: str) -> None:
+        """quarantine | reinstate | redispatch | probe-failed — the
+        slot-failure recovery machinery's countable transitions."""
+        self.registry.counter(
+            DEVICE_QUARANTINE_EVENTS, event=event, device=device
+        ).inc()
+
+    def on_quarantine_count(self, count: int) -> None:
+        self.registry.gauge(DEVICE_QUARANTINE_ACTIVE).set(int(count))
+
+    def on_degraded(self, active: bool) -> None:
+        self.registry.gauge(FAULTS_DEGRADED_ACTIVE).set(1 if active else 0)
+
+    # -- candidate pruning (the two-tier solve) ------------------------------
+
+    def on_prune_dispatch(self, kept_rows: int, candidate_rows: int) -> None:
+        """One window (or pooled partition) served over a pruned top-K
+        gather: how many rows the device actually solved vs the domain's
+        full candidate count."""
+        self.registry.counter(PRUNE_WINDOWS).inc()
+        self.registry.histogram(PRUNE_KEPT_ROWS).update(kept_rows)
+        if candidate_rows > 0:
+            self.registry.histogram(PRUNE_KEPT_RATIO).update(
+                round(kept_rows / candidate_rows, 4)
+            )
+
+    def on_prune_escalation(self, reason: str) -> None:
+        """A failed soundness certificate: the window re-solved on the
+        exact full path. Labeled by the first failed test so a hot
+        escalation reason is visible."""
+        self.registry.counter(PRUNE_ESCALATIONS, reason=reason).inc()
+
+    def on_prune_phases(
+        self, plan_ms: float, gather_ms: float, offset_ms: float
+    ) -> None:
+        """One pruned window's host-side phase split: prefilter planning,
+        statics/mask gather (+ upload staging), and the zone-sum offset
+        derivation — the O(K + changed) claim as wall times."""
+        self.registry.histogram(PRUNE_PLAN_MS).update(round(plan_ms, 4))
+        self.registry.histogram(PRUNE_GATHER_MS).update(round(gather_ms, 4))
+        self.registry.histogram(PRUNE_OFFSET_MS).update(round(offset_ms, 4))
+
+    def on_prune_gather_reuse(self) -> None:
+        """A pruned window re-served the previous window's gathered
+        statics sub-blob (kept rows and their static fields unchanged):
+        no host gather, no h2d re-upload."""
+        self.registry.counter(PRUNE_GATHER_REUSE).inc()
+
+    # -- tensor build --------------------------------------------------------
+
+    def on_build(
+        self, ms: float, rows_compared: int, dirty_rows: int
+    ) -> None:
+        """One pipelined tensor build: wall time, rows the dense mirror
+        sweep examined (the fallback — 0 in steady state, the O(changed)
+        claim as a counter), and rows the event-fed dirty-set sync
+        examined."""
+        self.registry.histogram(BUILD_MS).update(round(ms, 4))
+        if rows_compared:
+            self.registry.counter(BUILD_ROWS_COMPARED).inc(
+                int(rows_compared)
+            )
+        if dirty_rows:
+            self.registry.counter(BUILD_DIRTY_ROWS).inc(int(dirty_rows))
+
+    # -- pipeline ------------------------------------------------------------
+
+    def on_pipeline_event(self, event: str) -> None:
+        """drain | discard | fetch-failure — the pipelined serving loop's
+        exceptional paths, countable so a drain storm is visible."""
+        self.registry.counter(PIPELINE_EVENTS, event=event).inc()
+
+    # -- transfers -----------------------------------------------------------
+
+    def on_transfer(self, direction: str, nbytes: int) -> None:
+        """Host->device ("h2d") / device->host ("d2h") bytes the serving
+        path actually ships (delta rows, full uploads, decision blobs)."""
+        if nbytes > 0:
+            self.registry.counter(TRANSFER_BYTES, direction=direction).inc(
+                int(nbytes)
+            )
+
 
 # Fault-tolerance subsystem: injected-fault counts per surface, retry-ladder
 # activity and breaker state.

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -30,6 +31,24 @@ NVCC_FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 # One build-and-load at a time: a server solves on more than one thread.
 _load_lock = threading.Lock()
+# Libraries this process compiled (the CUDA kernels here, the native runtime
+# in native/__init__.py) and the wall time their builds took: the solver
+# telemetry's compile gauges (observability/telemetry.py).
+_totals = {"count": 0, "seconds": 0.0}
+_totals_lock = threading.Lock()
+
+
+def note_builds(count: int, seconds: float) -> None:
+    """Book `count` libraries compiled in `seconds` of wall time."""
+    with _totals_lock:
+        _totals["count"] += count
+        _totals["seconds"] += seconds
+
+
+def build_totals() -> dict:
+    """{"count", "seconds"}: libraries compiled by this process so far."""
+    with _totals_lock:
+        return dict(_totals)
 
 
 def nvcc_path() -> str:
@@ -72,6 +91,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    t0 = time.perf_counter()
     procs = {}
     for name in todo:
         out = library_path(name)
@@ -94,6 +114,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+    note_builds(len(procs) - len(failed), time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return logs

@@ -12,12 +12,12 @@ JAX package's, line for line, for every option the port supports. The
 solver runs on the card unless the caller passes `device="cpu"`. An
 install key the port cannot serve yet raises NotImplementedError up front,
 naming the key and the ROADMAP item that ports it (`unsupported_keys`):
-the builder never degrades quietly. Two parts of the JAX wiring are absent
-by design until their modules are ported: the solver carries no telemetry
-(`solver.telemetry` stays None) and no degraded-mode controller
-(`solver.degraded` is unset, so readiness answers as a healthy server
-does and a solve failure reaches the client through the protocol's Error
-channel).
+the app builder never degrades quietly. With the flight recorder on (the
+default) the solver carries SolverTelemetry, as in the JAX package. One
+part of the JAX wiring is absent by design until its module is ported:
+the degraded-mode controller (`solver.degraded` is unset, so readiness
+answers as a healthy server does and a solve failure reaches the client
+through the protocol's Error channel).
 """
 
 from __future__ import annotations
@@ -54,9 +54,7 @@ UNSUPPORTED_KEYS = {
     "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.7"),
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
     "solver_fuse_windows": ("solver.fuse-windows", "ROADMAP A.4"),
-    "server_transport": ("server.transport", "ROADMAP A.3a"),
-    "server_ingest": ("server.ingest", "ROADMAP A.3a"),
-    "degraded_mode": ("server.degraded-mode", "ROADMAP A.3b"),
+    "degraded_mode": ("server.degraded-mode", "ROADMAP A.5b"),
     "kube_api_url": ("kube-api-url", "ROADMAP A.3d"),
     "durable_store_path": ("durable-store-path", "ROADMAP A.3d"),
     "autoscaler_enabled": ("autoscaler.enabled", "ROADMAP A.9"),
@@ -291,13 +289,21 @@ def build_scheduler_app(
     )
     recorder = None
     if config.flight_recorder:
-        # Flight recorder: decision explainability (GET /debug/decisions).
-        # The JAX package also attaches SolverTelemetry here; the port's
-        # solver has none yet, so `solver.telemetry` stays None.
-        from spark_scheduler_tpu_torch.observability import FlightRecorder
+        # Flight recorder + solver telemetry: decision explainability
+        # (GET /debug/decisions) and foundry.spark.scheduler.solver.*
+        # series. Telemetry lands in the caller's registry when metrics
+        # are wired so GET /metrics exposes it; otherwise it keeps a
+        # private registry (still drives build hit/miss on records).
+        from spark_scheduler_tpu_torch.observability import (
+            FlightRecorder,
+            SolverTelemetry,
+        )
 
         recorder = FlightRecorder(
             capacity=config.flight_recorder_capacity, clock=clock
+        )
+        solver.telemetry = SolverTelemetry(
+            metrics.registry if metrics is not None else None
         )
     # Delta-maintained reserved-usage aggregate over the solver's node-index
     # space: the hot path reads a dense array instead of walking every

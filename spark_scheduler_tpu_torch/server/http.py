@@ -31,17 +31,23 @@ carry the same information.
 
 This module is the SERVING CORE: the PredicateBatcher (the serialization
 point for mutable scheduling state) and the server facades that wire a
-route table (server/routing.py) onto a transport.
+route table (server/routing.py) onto a transport. Two transports exist,
+selected by the `server.transport` install knob:
 
-The port's copy of spark_scheduler_tpu/server/http.py. It serves the
-threaded transport (server/transport_threaded.py, the stdlib
-thread-per-connection stack) and the python ingest lane. The async
-transport and the native ingest lane are not ported yet (ROADMAP A.3a):
-`transport="async"` raises NotImplementedError, and the app builder
-refuses both install keys; the JAX package's degrade of `native` to
-`python` is not copied. The batcher has no fused multi-window claim
-(`solver.fuse-windows`, ROADMAP A.4). The HA and fleet facades wait for
-ROADMAP A.9.
+  threaded (default)  server/transport_threaded.py — the stdlib
+                      thread-per-connection stack; simplest to debug.
+  async               server/transport_async.py — a single-threaded event
+                      loop with an incremental HTTP/1.1 parser, pipelined
+                      keep-alive framing, one-write responses, and explicit
+                      backpressure (max-connections 503, max-body-bytes
+                      413, batcher-queue-depth load shedding). Requests
+                      hand straight to the PredicateBatcher.
+
+The port's copy of spark_scheduler_tpu/server/http.py. `ingest="native"`
+builds the port's native library (spark_scheduler_tpu_torch/native) or
+raises: the JAX package's degrade of `native` to `python` is not copied.
+The batcher has no fused multi-window claim (`solver.fuse-windows`,
+ROADMAP A.4). The HA and fleet facades wait for ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -64,6 +70,49 @@ from spark_scheduler_tpu_torch.server.transport_threaded import (  # noqa: F401
 )
 
 TRANSPORTS = ("threaded", "async")
+
+# Ingest lanes (`server.ingest`): how a framed predicate body becomes
+# ExtenderArgs — "python" (json.loads + dict walk) or "native" (the C++
+# framer/decoder in native/runtime.cpp emitting zero-copy tickets). See
+# server/ingest.py. The native lane composes with BOTH transports: the
+# async transport swaps its Python parser for the native framer, the
+# threaded transport keeps stdlib framing and routes predicate bodies
+# through the native decoder.
+INGESTS = ("python", "native")
+
+
+class _CallbackEvent:
+    """Event-shaped completion hook for `PredicateBatcher.submit_nowait`:
+    the dispatcher's `entry[1].set()` fires the registered callback exactly
+    once (set is idempotent under races between the dispatcher and
+    `stop()`), so the dispatcher code path is identical for blocking and
+    callback entries."""
+
+    __slots__ = ("_cb", "_fired", "_lock")
+
+    def __init__(self, cb):
+        self._cb = cb
+        self._fired = False
+        self._lock = threading.Lock()
+
+    def set(self) -> None:
+        with self._lock:
+            if self._fired:
+                return
+            self._fired = True
+            cb, self._cb = self._cb, None
+        try:
+            cb()
+        except Exception:
+            # A failing responder (e.g. a client that vanished) must never
+            # kill the dispatcher thread mid-window.
+            pass
+
+    def is_set(self) -> bool:
+        return self._fired
+
+    def wait(self, timeout=None) -> bool:  # Event-interface parity
+        return self._fired
 
 
 class PredicateBatcher:
@@ -167,11 +216,29 @@ class PredicateBatcher:
             raise entry[3]
         return entry[2]
 
+    def submit_nowait(self, args, done, trace_span=None):
+        """Callback-mode submission for event-loop transports: no thread
+        parks. `done(result, exc)` is invoked exactly once — from the
+        dispatcher thread on completion, or from the stopping thread at
+        shutdown. Returns the queue entry for use with `abandon`."""
+        entry = [args, None, None, None, trace_span]
+
+        def _fire():
+            done(entry[2], entry[3])
+
+        entry[1] = _CallbackEvent(_fire)
+        with self._cv:
+            if self._stopped:
+                raise RuntimeError("scheduler is shutting down")
+            self._queue.append(entry)
+            self._cv.notify()
+        return entry
+
     def abandon(self, entry) -> bool:
         """Remove a not-yet-claimed entry (client timed out / went away).
-        True when removed — its event will never fire. False when the
-        dispatcher already claimed it: the solve proceeds and its late
-        result is dropped."""
+        True when removed — its event/callback will never fire. False when
+        the dispatcher already claimed it: the solve proceeds and the
+        caller's completion hook must tolerate (or dedup) the late fire."""
         with self._cv:
             try:
                 self._queue.remove(entry)
@@ -194,7 +261,8 @@ class PredicateBatcher:
         # request timeout — covers a dispatcher STALLED in a decision pull
         # against a dead tunnel (join timed out) and one that DIED with a
         # batch's events unset. No-op on a clean exit (everything is set);
-        # a late set() by a stalled thread is harmless (set is idempotent).
+        # a late set() by a stalled thread is harmless (set is idempotent
+        # for both entry kinds).
         err = RuntimeError("scheduler is shutting down")
         with self._cv:
             leftovers = self._claimed + self._queue
@@ -442,13 +510,28 @@ def _build_transport(
     request_timeout_s,
     request_log,
     max_body_bytes,
+    max_connections,
     telemetry,
     name: str,
+    ingest_codec=None,
 ):
     if transport == "async":
-        raise NotImplementedError(
-            "server.transport: 'async' is not supported by the port "
-            "(ROADMAP A.3a); use 'threaded'"
+        from spark_scheduler_tpu_torch.server.transport_async import AsyncTransport
+
+        return AsyncTransport(
+            routes,
+            host,
+            port,
+            cert_file=cert_file,
+            key_file=key_file,
+            client_ca_files=client_ca_files,
+            request_timeout_s=request_timeout_s,
+            request_log=request_log,
+            max_body_bytes=max_body_bytes,
+            max_connections=max_connections,
+            telemetry=telemetry,
+            name=name,
+            ingest_codec=ingest_codec,
         )
     if transport != "threaded":
         raise ValueError(
@@ -483,7 +566,9 @@ class SchedulerHTTPServer:
         debug_routes: bool = False,
         request_log: bool = False,
         transport: str | None = None,
+        ingest: str | None = None,
         max_body_bytes: int | None = None,
+        max_connections: int | None = None,
         shed_queue_depth: int | None = None,
     ):
         from spark_scheduler_tpu_torch.observability import TransportTelemetry
@@ -504,10 +589,28 @@ class SchedulerHTTPServer:
         self.transport_name = transport or getattr(
             cfg, "server_transport", "threaded"
         )
+        # Ingest lane: `native` builds the port's native library or
+        # raises — never a quiet fall back to the python lane.
+        self.ingest_name = ingest or getattr(cfg, "server_ingest", "python")
+        if self.ingest_name not in INGESTS:
+            raise ValueError(
+                f"unknown server ingest {self.ingest_name!r}; "
+                f"expected one of {INGESTS}"
+            )
+        self.ingest_codec = None
+        if self.ingest_name == "native":
+            from spark_scheduler_tpu_torch.server.ingest import NativeIngestCodec
+
+            self.ingest_codec = NativeIngestCodec()
         self.max_body_bytes = (
             max_body_bytes
             if max_body_bytes is not None
             else getattr(cfg, "max_body_bytes", 16 * 1024 * 1024)
+        )
+        self.max_connections = (
+            max_connections
+            if max_connections is not None
+            else getattr(cfg, "max_connections", 512)
         )
         self.shed_queue_depth = (
             shed_queue_depth
@@ -524,7 +627,9 @@ class SchedulerHTTPServer:
             registry=registry,
             pipeline_depth=3,
         )
-        self.telemetry = TransportTelemetry(self.transport_name)
+        self.telemetry = TransportTelemetry(
+            self.transport_name, ingest=self.ingest_name
+        )
         self.routes = SchedulerRoutes(self)
         self._transport = _build_transport(
             self.transport_name,
@@ -537,8 +642,10 @@ class SchedulerHTTPServer:
             request_timeout_s=request_timeout_s,
             request_log=request_log,
             max_body_bytes=self.max_body_bytes,
+            max_connections=self.max_connections,
             telemetry=self.telemetry,
             name=f"scheduler-http-{self.transport_name}",
+            ingest_codec=self.ingest_codec,
         )
         self.tls = self._transport.tls
 
@@ -548,9 +655,12 @@ class SchedulerHTTPServer:
         return self.telemetry.stats()
 
     def ingest_stats(self) -> dict:
-        """`foundry.spark.scheduler.server.ingest.*` snapshot: the python
-        lane's marker, as the JAX package reports it."""
-        return {"ingest": "python", "degraded": 0}
+        """`foundry.spark.scheduler.server.ingest.*` snapshot: the codec's
+        live counters on the native lane, a plain lane marker on the
+        python lane."""
+        if self.ingest_codec is not None:
+            return self.ingest_codec.stats()
+        return {"ingest": self.ingest_name, "degraded": 0}
 
     def on_queue_shed(self) -> None:
         self.telemetry.on_queue_shed()

@@ -2,24 +2,28 @@
 
 The stack is layered:
 
-  transport  (server/transport_threaded.py)
+  transport  (server/transport_threaded.py, server/transport_async.py)
       owns sockets, framing (Content-Length validation, Transfer-Encoding
       rejection, max-body-bytes), keep-alive discipline, TLS, timeouts,
       and writes — and hands each framed request here;
   routing    (this module)
       owns the URL table and every handler body: the extender protocol,
       state-sync, metrics/debug surfaces, conversion. Handlers are plain
-      `Request -> Response` functions with no socket awareness.
+      `Request -> Response` functions with no socket awareness, so both
+      transports serve byte-identical routes.
 
-The predicate route blocks the calling thread on `PredicateBatcher.submit`
-(the threaded transport's model — one handler thread per connection).
+The predicate route has TWO entry points: `handle` blocks the calling
+thread on `PredicateBatcher.submit` (the threaded transport's model — one
+handler thread per connection), while `handle_nowait` registers a
+completion callback via `PredicateBatcher.submit_nowait` and returns
+immediately (the async transport's model — the event loop must never block
+on a device solve; the batcher's dispatcher thread was always the real
+serialization point, so parked handler threads bought nothing).
 
-The port's copy of spark_scheduler_tpu/server/routing.py for the threaded
-transport and the python ingest lane. Not here yet: the event-loop entry
-(`handle_nowait`, for the async transport) and the binary predicate
-protocol (server/ingest.py), both ROADMAP A.3a; the HA and fleet surfaces
-(A.9); the replay sweep counters of /debug/trace (the port has no trace
-sink). /debug/profile drives torch.profiler instead of the JAX profiler.
+The port's copy of spark_scheduler_tpu/server/routing.py. Not here yet:
+the HA and fleet surfaces (ROADMAP A.9); the replay sweep counters of
+/debug/trace (the port has no trace sink). /debug/profile drives
+torch.profiler instead of the JAX profiler.
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ class Request:
     """One framed HTTP request, transport-independent.
 
     `headers` is any case-insensitive mapping with `.get` (the stdlib
-    email.Message for the threaded transport). `body_error` carries a framing failure the transport
+    email.Message for the threaded transport, the async transport's
+    `Headers`). `body_error` carries a framing failure the transport
     deferred so the ROUTE decides the status (a Transfer-Encoding body on
     a 404 route must still 404 — pinned by the HTTP tests)."""
 
@@ -66,6 +71,13 @@ class Request:
     headers: object
     body: bytes = b""
     body_error: Exception | None = None
+    # Native-ingest hand-off: the transport already decoded the predicate
+    # body into a (pod, node_names) ticket — the route must not re-parse.
+    predicate_parsed: object = None
+    # The transport already TRIED the native decoder (hit or miss): on a
+    # miss the route must go straight to the Python parser instead of
+    # re-tokenizing the same ~200 KB body a second time.
+    native_decode_attempted: bool = False
 
     def json(self):
         if self.body_error is not None:
@@ -102,14 +114,10 @@ def text_response(status: int, text: str, content_type: str) -> Response:
 
 _NOT_FOUND = {"error": "not found"}
 
-# The binary predicate protocol's content type (served by the JAX package's
-# server/ingest.py; refused here).
-BINARY_CONTENT_TYPE = "application/x-spark-predicate"
-
 # Canned hot-path bodies: liveness/readiness probes and 404s are hit every
 # scrape interval (and 404 floods under misconfigured probes); re-running
 # json.dumps per request for a constant payload was pure GIL time. Bytes
-# are json.dumps-identical.
+# are json.dumps-identical (pinned by tests/test_torch_ingest.py).
 _NOT_FOUND_BODY = json.dumps(_NOT_FOUND).encode()
 _LIVENESS_BODY = json.dumps({"status": "up"}).encode()
 _READY_BODY = json.dumps({"ready": True}).encode()
@@ -127,8 +135,10 @@ def not_found_response() -> Response:
 # Serialized FailedNodes maps keyed by (candidate-names key, message): a
 # fleet's failure storms repeat the SAME uniform 10k-entry map per
 # candidate list, and json.dumps of that map (~ms at 10k nodes) dominated
-# the failure path. The key is a tuple of the names, so a colliding hash
-# cannot alias two lists.
+# the failure path. The key is the node_names object itself when it
+# carries a content digest (the native lane's NativeNodeNames — hash is
+# the digest, equality memcmps the blob) or a tuple of the names
+# otherwise; either way a colliding hash cannot alias two lists.
 _FAILED_MAP_CACHE_CAP = 32
 _failed_map_cache = None
 
@@ -149,7 +159,12 @@ def _encode_failed_nodes(failed: dict, node_names) -> bytes:
                 from spark_scheduler_tpu_torch.core.lru import LRUCache
 
                 _failed_map_cache = LRUCache(_FAILED_MAP_CACHE_CAP)
-            key = (tuple(node_names), first)
+            key_names = (
+                node_names
+                if getattr(node_names, "names_digest", None) is not None
+                else tuple(node_names)
+            )
+            key = (key_names, first)
             payload = _failed_map_cache.get(key)
             if payload is None:
                 payload = json.dumps(dict(failed)).encode()
@@ -184,11 +199,18 @@ def encode_filter_result(result, node_names=None) -> bytes:
 
 
 class SyncRoutes:
-    """Base routing contract the transport drives: `handle` answers one
-    framed request."""
+    """Base routing contract both transports drive. Synchronous-only route
+    tables implement `handle`; `handle_nowait` falls through to it."""
 
     def handle(self, req: Request) -> Response:
         raise NotImplementedError
+
+    def handle_nowait(self, req: Request, respond, schedule_timeout=None):
+        """CPS entry for event-loop transports: `respond(Response)` exactly
+        once, now or later from any thread. `schedule_timeout(delay_s, cb)`
+        (optional) arms a transport timer and returns a handle with
+        `.cancel()`."""
+        respond(self.handle(req))
 
 
 class ConversionRoutes(SyncRoutes):
@@ -231,6 +253,12 @@ class SchedulerRoutes(SyncRoutes):
         if req.method == "POST" and req.path == "/predicates":
             return self._predicate_blocking(req)
         return self._handle_common(req)
+
+    def handle_nowait(self, req: Request, respond, schedule_timeout=None):
+        if req.method == "POST" and req.path == "/predicates":
+            self._predicate_nowait(req, respond, schedule_timeout)
+            return
+        respond(self._handle_common(req))
 
     def _handle_common(self, req: Request) -> Response:
         try:
@@ -291,11 +319,16 @@ class SchedulerRoutes(SyncRoutes):
         if path == "/debug/state" and s.debug_routes:
             from spark_scheduler_tpu_torch.observability import debug_state_snapshot
 
-            return json_response(200, debug_state_snapshot(s.app))
+            return json_response(200, debug_state_snapshot(s.app, server=s))
         return not_found_response()
 
     def _metrics(self, req: Request) -> Response:
         s = self._s
+        # Compile gauges are pull-synced: the build counters of
+        # ops/_build.py feed process totals, the scrape publishes.
+        telemetry = getattr(s.app.solver, "telemetry", None)
+        if telemetry is not None:
+            telemetry.sync_compile_gauges()
         snap = s.registry.snapshot() if s.registry else {}
         fmt = req.q("format") or ""
         accept = req.headers.get("Accept", "") or ""
@@ -468,19 +501,37 @@ class SchedulerRoutes(SyncRoutes):
     # ----------------------------------------------------------- predicates
 
     def _parse_predicate(self, req: Request):
-        """(pod, node_names) for POST /predicates: a JSON body through the
-        python ingest lane. The binary predicate protocol needs the ingest
-        module (ROADMAP A.3a) and is refused with a 400."""
+        """(pod, node_names) for POST /predicates, by lane:
+
+          - the async transport's native framer may have decoded the body
+            already (`req.predicate_parsed` — the zero-copy ticket);
+          - a binary-protocol body decodes natively when the codec is
+            loaded, through the pure-Python decoder otherwise;
+          - a JSON body tries the native fast path on the native lane, and
+            ANY deviation falls back to the Python parser below —
+            identical decisions either way, the miss is telemetry.
+        """
+        parsed = req.predicate_parsed
+        if parsed is not None:
+            return parsed
         if req.body_error is not None:
             raise req.body_error
+        from spark_scheduler_tpu_torch.server import ingest
         from spark_scheduler_tpu_torch.server.kube_io import extender_args_from_k8s
 
-        ctype = (req.headers.get("Content-Type") or "").split(";", 1)[0]
-        if ctype.strip().lower() == BINARY_CONTENT_TYPE:
-            raise UnframeableBody(
-                f"{BINARY_CONTENT_TYPE} bodies need server.ingest, which the "
-                "port does not have yet (ROADMAP A.3a); send JSON"
-            )
+        codec = None
+        if not req.native_decode_attempted:
+            codec = getattr(self._s, "ingest_codec", None)
+        if ingest.is_binary_content_type(req.headers.get("Content-Type")):
+            if codec is not None:
+                parsed = codec.decode_predicate_body(req.body, binary=True)
+                if parsed is not None:
+                    return parsed
+            return ingest.decode_predicate_binary_py(req.body)
+        if codec is not None:
+            parsed = codec.decode_predicate_body(req.body, binary=False)
+            if parsed is not None:
+                return parsed
         return extender_args_from_k8s(req.json())
 
     def _shed_response(self) -> Response | None:
@@ -570,3 +621,93 @@ class SchedulerRoutes(SyncRoutes):
                 return self._predicate_err(pod, exc)
             root.tag("outcome", result.outcome)
             return self._predicate_ok(pod, result, node_names)
+
+    def _predicate_nowait(self, req: Request, respond, schedule_timeout):
+        """Event-loop path: no thread parks. The batcher invokes `done`
+        from its dispatcher thread when the window completes; a transport
+        timer sheds the entry at the request timeout. Exactly one respond
+        fires whichever side wins the race."""
+        from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
+        from spark_scheduler_tpu_torch.tracing import tracer
+
+        s = self._s
+        try:
+            pod, node_names = self._parse_predicate(req)
+        except Exception as exc:
+            respond(json_response(error_code(exc), {"Error": str(exc)}))
+            return
+        shed = self._shed_response()
+        if shed is not None:
+            respond(shed)
+            return
+        # Detached root span: the event loop's span stack cannot hold it
+        # open across interleaved requests, so it is begun/finished by
+        # hand and carried to the dispatcher via the batcher entry (the
+        # same trace-context slot the threaded path populates).
+        ctx = tracer().root_from_headers(
+            req.headers, "predicate", pod=f"{pod.namespace}/{pod.name}"
+        )
+        span = ctx.span
+        tracer().begin_detached(span)
+        lock = threading.Lock()
+        state = {"sent": False, "timer": None}
+
+        def claim() -> bool:
+            """First winner (completion vs timeout) responds; the loser's
+            late call is a no-op — the span, log line, and response are
+            all written exactly once."""
+            with lock:
+                if state["sent"]:
+                    return False
+                state["sent"] = True
+            timer = state["timer"]
+            if timer is not None:
+                try:
+                    timer.cancel()
+                except Exception:
+                    pass
+            return True
+
+        def done(result, exc):
+            if not claim():
+                return
+            # Attach the detached root while building the response so the
+            # svc1log line carries the caller's trace id, exactly like the
+            # threaded path's in-span logging.
+            with tracer().attach(span):
+                if exc is not None:
+                    span.tags["outcome"] = "failure-internal"
+                    resp = self._predicate_err(pod, exc)
+                else:
+                    span.tags["outcome"] = result.outcome
+                    resp = self._predicate_ok(pod, result, node_names)
+            tracer().finish_detached(span)
+            respond(resp)
+
+        try:
+            entry = s.batcher.submit_nowait(
+                ExtenderArgs(pod=pod, node_names=node_names),
+                done,
+                trace_span=span,
+            )
+        except Exception as exc:  # shutdown race
+            done(None, exc)
+            return
+        if schedule_timeout is not None and s.request_timeout_s:
+
+            def on_timeout():
+                # Shed the abandoned entry if the dispatcher has not
+                # claimed it; a claimed entry's solve proceeds and its
+                # late `done` loses the claim race harmlessly.
+                s.batcher.abandon(entry)
+                if not claim():
+                    return
+                span.tags["outcome"] = "failure-internal"
+                with tracer().attach(span):
+                    resp = self._predicate_err(
+                        pod, TimeoutError("predicate window timed out")
+                    )
+                tracer().finish_detached(span)
+                respond(resp)
+
+            state["timer"] = schedule_timeout(s.request_timeout_s, on_timeout)

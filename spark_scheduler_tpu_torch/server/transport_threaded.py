@@ -8,8 +8,13 @@ live here — byte-compatible with the pre-split server (the raw-socket HTTP
 tests pin every edge).
 
 The port's copy of spark_scheduler_tpu/server/transport_threaded.py, the
-port's only transport for now (the event-loop transport is ROADMAP A.3a).
-Predicate bodies reach the python ingest lane (routing._parse_predicate).
+default transport (`server.transport: threaded`). It keeps its stdlib
+socket framing on BOTH `server.ingest` lanes: the native lane plugs in
+downstream, where routing._parse_predicate hands predicate bodies to the
+C++ decoder (server/ingest.py) instead of json.loads. The async transport
+is the one that also swaps its framing for the native IngestConn. A
+response goes out in two sends (header, then body), exactly as the JAX
+package's threaded transport writes it.
 """
 
 from __future__ import annotations

@@ -545,3 +545,84 @@ def test_server_on_cuda_matches_cpu(cuda_device):
     finally:
         for s in servers:
             s.stop()
+
+
+def test_cli_serves_async_native_on_the_card(cuda_device):
+    """`python -m spark_scheduler_tpu_torch server --transport async
+    --ingest native` builds the native runtime and serves a binary
+    predicate body from the card."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+    from pathlib import Path
+
+    from spark_scheduler_tpu_torch.server.ingest import (
+        BINARY_CONTENT_TYPE,
+        encode_predicate_binary,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_scheduler_tpu_torch", "server",
+         "--host", "127.0.0.1", "--port", str(port),
+         "--transport", "async", "--ingest", "native"],
+        cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+    )
+    base = f"http://127.0.0.1:{port}"
+
+    def call(method, path, body=None, ctype="application/json"):
+        req = urllib.request.Request(base + path, data=body, method=method,
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            try:
+                assert call("GET", "/status/liveness")[0] == 200
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stderr.read()[-2000:]
+                assert time.monotonic() < deadline, "server never came up"
+                time.sleep(0.5)
+        node = {
+            "metadata": {"name": "n0", "labels": {"resource_channel": "batch"}},
+            "status": {"allocatable": {"cpu": "16", "memory": "32Gi"},
+                       "conditions": [{"type": "Ready", "status": "True"}]},
+        }
+        assert call("PUT", "/state/nodes", json.dumps(node).encode())[0] == 200
+        pod = {
+            "metadata": {
+                "name": "d0", "namespace": "ns", "uid": "uid-d0",
+                "labels": {"spark-role": "driver", "spark-app-id": "a0"},
+                "annotations": {
+                    "spark-driver-cpu": "1", "spark-driver-mem": "1Gi",
+                    "spark-executor-cpu": "1", "spark-executor-mem": "1Gi",
+                    "spark-executor-count": "2",
+                },
+                "creationTimestamp": "2026-07-29T12:00:00Z",
+            },
+            "spec": {"schedulerName": "spark-scheduler",
+                     "containers": [{"name": "main", "resources": {
+                         "requests": {"cpu": "1", "memory": "1Gi"}}}]},
+            "status": {"phase": "Pending"},
+        }
+        assert call("PUT", "/state/pods", json.dumps(pod).encode())[0] == 200
+        status, body = call("POST", "/predicates",
+                            encode_predicate_binary(pod, ["n0"]), BINARY_CONTENT_TYPE)
+        assert status == 200 and json.loads(body)["NodeNames"] == ["n0"], body
+        metrics = json.loads(call("GET", "/metrics")[1])
+        assert metrics["server_transport"]["transport"] == "async"
+        assert metrics["server_ingest"]["decode_hits"] == 1
+        dispatches = metrics["foundry.spark.scheduler.solver.window.dispatches"]
+        assert [e["tags"]["path"] for e in dispatches] == ["pallas"]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

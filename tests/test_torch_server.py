@@ -207,13 +207,17 @@ def test_gang_schedule_over_http_matches_jax(pair):
     assert not result["NodeNames"] and set(result["FailedNodes"]) == set(names)
 
     # Metrics are live numbers (times), so only their shape is compared.
+    # The series the two solvers name differently are the port's recorded
+    # deviations (tests/test_torch_telemetry.py checks them by count).
     snaps = [json.loads(s.call("GET", "/metrics")[1]) for s in pair]
     assert "foundry.spark.scheduler.requests" in snaps[1]
-    # The port's solver carries no telemetry yet: the JAX package's
-    # foundry.spark.scheduler.solver.* series are the only ones missing.
-    missing = set(snaps[0]) - set(snaps[1])
-    assert set(snaps[1]) <= set(snaps[0])
-    assert all(k.startswith("foundry.spark.scheduler.solver.") for k in missing)
+    solver = "foundry.spark.scheduler.solver."
+    assert set(snaps[0]) - set(snaps[1]) == {solver + "build.dirty.rows"}
+    assert set(snaps[1]) - set(snaps[0]) == {
+        solver + "build.rows.compared",
+        solver + "device.uploads",
+        solver + "device.inflight",
+    }
     assert snaps[1]["predicate_batcher"]["requests_served"] == 4
     prom = pair[1].call("GET", "/metrics?format=prometheus")
     assert prom[0] == 200 and b"predicate_batcher_requests_served" in prom[1]
@@ -586,8 +590,6 @@ def _unsupported_values():
         "solver_scale_tier": True,
         "solver_build_oracle": True,
         "solver_fuse_windows": 2,
-        "server_transport": "async",
-        "server_ingest": "native",
         "degraded_mode": "shed",
         "kube_api_url": "https://127.0.0.1:6443",
         "durable_store_path": "state.wal",
@@ -624,13 +626,13 @@ def test_unsupported_yaml_keys_raise_from_from_dict():
     from spark_scheduler_tpu_torch.server.config import InstallConfig
     from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
 
-    raw = {"solver": {"prune-top-k": 8}, "server": {"transport": "async"}}
+    raw = {"solver": {"prune-top-k": 8}, "server": {"degraded-mode": "shed"}}
     with pytest.raises(NotImplementedError) as err:
         build_scheduler_app(
             InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
         )
     assert "solver.prune-top-k" in str(err.value)
-    assert "server.transport" in str(err.value)
+    assert "server.degraded-mode" in str(err.value)
 
 
 def test_supported_defaults_build_and_match_jax_config():
@@ -653,21 +655,10 @@ def test_supported_defaults_build_and_match_jax_config():
     assert canon(port_cfg)[1] == canon(jax_cfg)[1]
     app = build_scheduler_app(InMemoryBackend(), port_cfg, device="cpu")
     assert app.solver.device.type == "cpu"
-    assert app.solver.telemetry is None
+    assert app.solver.telemetry is not None
     assert getattr(app.solver, "degraded", None) is None
     assert app.reservation_manager.usage_tracker is not None
     assert app.recorder is not None
-    app.stop()
-
-
-def test_server_refuses_async_transport():
-    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
-    from spark_scheduler_tpu_torch.server.http import SchedulerHTTPServer
-    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
-
-    app = build_scheduler_app(InMemoryBackend(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3a"):
-        SchedulerHTTPServer(app, port=0, transport="async")
     app.stop()
 
 
