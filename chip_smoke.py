@@ -115,6 +115,45 @@ Phases, in order; any failure exits non-zero and prints no result line:
      decode-ns p50, and the async transport's parse, queue and write
      means and keep-alive reuse.
 
+  9. Apiserver ingestion and the WAL store at full width: the port's
+     `FakeKubeAPIServer` holds phase 3's 10,000 nodes and one prior-usage
+     pod a node; `build_scheduler_app(DurableBackend(wal),
+     InstallConfig(kube_api_url=..., durable_store_path=wal, ...),
+     device="cuda")` behind `SchedulerHTTPServer` (threaded, recorder on)
+     answers readiness 503 until its reflectors have listed, then 200. 128
+     driver pods are created in the apiserver, and 32 clients post their
+     predicates (10,000 names each) once the watch has brought each pod in;
+     admitted drivers are bound by a pod update in the apiserver; a node
+     add and a pod delete land in the apiserver and reach the backend while
+     the third window is in flight; then half of each admitted app's
+     executors, each bound. The recorder wraps the backend's generic
+     create / update / delete, which the watch writes through. Then the
+     stop: a fresh `cuda` app on the same WAL and apiserver waits for the
+     sync, reconciles, and only then serves; its reservations must equal
+     those before the stop, and the other executors must land on their
+     apps' reserved nodes. Every response must equal a cpu replay byte for
+     byte (the restarted server's on a cpu app restarted from a copy of the
+     WAL, with the same reconcile summary); driver windows, over-commit and
+     launches as phase 7. Prints the sync time, the informer delay
+     (apiserver create to backend, host clock), the WAL's records and bytes,
+     the reconcile time and the driver and executor p50 / p99.
+ 10. HA failover on the card: replicas r0 and r1 from `build_replica(...,
+     device="cuda")`, each on `DurableBackend(wal, follow=True)` over phase
+     9's WAL with `FileLeaseStore(wal + ".lease")` (TTL 1 s) and ingestion
+     from phase 9's apiserver, each behind its own server. r0 wins the
+     election and serves 64 drivers; 64 more drivers are created, and r0 is
+     killed (`ReplicaRuntime.kill()`, its ingestion stopped) while the
+     first of their windows is in flight. r1 must take over within the TTL,
+     one heartbeat and its promotion; r0's answers after the kill are
+     dropped (a dead process's) and posted again to r1, which then serves
+     them and every admitted app's executors. Readiness and role per
+     replica, before and after, are the JAX package's; every admitted
+     driver has exactly one reservation in the WAL; no over-commit; r0's
+     and r1's responses equal cpu replicas promoted from copies of the WAL
+     (as phase 10 found it, and at the kill), with the same reconcile
+     summaries. Prints the promotion and reconcile times and the time from
+     the kill to r1's first 200.
+
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
 """
@@ -1582,9 +1621,18 @@ class RecordedServer:
     window dispatch and completion the batcher runs, land in `log` in the
     order they took effect. One lock orders the changes against each
     dispatch and each completion, so a replay of `log` on another app
-    sees, at each window, the state this server saw."""
+    sees, at each window, the state this server saw.
 
-    def __init__(self, device, config, transport="threaded", ingest="python"):
+    `backend` replaces the in-memory backend (phases 9-10: the durable
+    store). With `kinds`, the recorder wraps the backend's generic
+    `create` / `update` / `delete` for those kinds instead of the routes'
+    typed calls: watch ingestion writes through them. `app_factory(backend,
+    registry, metrics)` returns (app, HA runtime or None) in place of
+    `build_scheduler_app`. With `start=False` the HTTP server is built but
+    not started."""
+
+    def __init__(self, device, config, transport="threaded", ingest="python",
+                 *, backend=None, kinds=None, app_factory=None, start=True):
         import copy
         import threading
 
@@ -1601,14 +1649,21 @@ class RecordedServer:
             InMemoryBackend,
         )
 
-        self.backend = InMemoryBackend()
-        self.backend.register_crd(DEMAND_CRD)
+        if backend is None:
+            backend = InMemoryBackend()
+            backend.register_crd(DEMAND_CRD)
+        self.backend = backend
         self.registry = MetricRegistry()
-        self.app = build_scheduler_app(
-            self.backend, config,
-            metrics=SchedulerMetrics(self.registry, EXT_IG_LABEL),
-            clock=lambda: EXT_CLOCK, device=device,
-        )
+        metrics = SchedulerMetrics(self.registry, EXT_IG_LABEL)
+        self.runtime = None
+        if app_factory is None:
+            self.app = build_scheduler_app(
+                self.backend, config, metrics=metrics,
+                clock=lambda: EXT_CLOCK, device=device,
+            )
+        else:
+            self.app, self.runtime = app_factory(self.backend, self.registry,
+                                                 metrics)
         self.lock = threading.RLock()
         self.log: list = []
         self.solo_packs = {"batcher": 0, "other": 0, "d2h": 0}
@@ -1617,7 +1672,29 @@ class RecordedServer:
         # Called on the dispatcher thread, outside the lock, right after the
         # `trigger_at`-th dispatch: that window is in flight meanwhile.
         self.trigger_at, self.on_trigger = None, None
+        # Host clock at which each pod's create reached the backend, and at
+        # which the recorder's lock let it apply (phases 9-10).
+        self.seen: dict = {}
         backend, log, lock, counts = self.backend, self.log, self.lock, self.counts
+        seen = self.seen
+
+        def recorded_verb(name):
+            orig = getattr(backend, name)
+
+            def call(kind, *args):
+                if kind not in kinds:
+                    return orig(kind, *args)
+                reached = time.perf_counter()
+                with lock:
+                    out = orig(kind, *args)
+                    log.append(("change", name, copy.deepcopy((kind, *args)),
+                                counts["inflight"]))
+                    if name == "create" and kind == "pods":
+                        seen.setdefault(args[0].name,
+                                        (reached, time.perf_counter()))
+                return out
+
+            setattr(backend, name, call)
 
         def recorded(name):
             orig = getattr(backend, name)
@@ -1633,8 +1710,13 @@ class RecordedServer:
 
             setattr(backend, name, call)
 
-        for name in ("add_node", "update", "add_pod", "update_pod", "delete_pod"):
-            recorded(name)
+        if kinds is None:
+            for name in ("add_node", "update", "add_pod", "update_pod",
+                         "delete_pod"):
+                recorded(name)
+        else:
+            for name in ("create", "update", "delete"):
+                recorded_verb(name)
 
         ext = self.app.extender
         dispatch, complete = ext.predicate_window_dispatch, ext.predicate_window_complete
@@ -1719,6 +1801,7 @@ class RecordedServer:
         self.server = SchedulerHTTPServer(
             self.app, self.registry, port=0, debug_routes=True,
             request_timeout_s=300.0, transport=transport, ingest=ingest,
+            ha=self.runtime,
         )
         # Native decode times of the fast-path hits (the codec's own
         # telemetry keeps only their sum).
@@ -1733,7 +1816,8 @@ class RecordedServer:
                 return finish(slot, hit, binary)
 
             codec._finish = timed_finish
-        self.server.start()
+        if start:
+            self.server.start()
 
 
 def k8s_node_json(node):
@@ -2174,25 +2258,33 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     return launches, stats
 
 
-def replay_server_log(log, config, got):
+def replay_server_log(log, config, got, *, ref=None, backend=None,
+                      markers=None, label="phase 7", unfinished_ok=False):
     """Feed a `cpu` app of the port the recorded changes and windows in
     their order; every answer must equal, byte for byte, the body the
     server sent for that pod (`got`). Returns how many were compared.
     The recorded objects are private copies, so the replay consumes them
-    as they are."""
+    as they are. `ref` and `backend` replace the fresh in-memory app;
+    `markers` maps the other ops of the log (a reconcile, a promotion) to
+    the call that replays them; with `unfinished_ok` the log may end with
+    windows in flight (a leader killed mid-window), which are dropped."""
     from spark_scheduler_tpu_torch.core.solver import PipelineDrainRequired
     from spark_scheduler_tpu_torch.server.app import build_scheduler_app
     from spark_scheduler_tpu_torch.server.routing import encode_filter_result
     from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD, InMemoryBackend
 
-    backend = InMemoryBackend()
-    backend.register_crd(DEMAND_CRD)
-    ref = build_scheduler_app(backend, config, clock=lambda: EXT_CLOCK,
-                              device="cpu")
+    if ref is None:
+        backend = InMemoryBackend()
+        backend.register_crd(DEMAND_CRD)
+        ref = build_scheduler_app(backend, config, clock=lambda: EXT_CLOCK,
+                                  device="cpu")
     tickets, compared = {}, 0
     for e in log:
         if isinstance(e, tuple):
             getattr(backend, e[1])(*e[2])
+            continue
+        if e["op"] not in ("dispatch", "complete"):
+            markers[e["op"]](e)
             continue
         if e["op"] == "dispatch":
             try:
@@ -2210,12 +2302,782 @@ def replay_server_log(log, config, got):
                 status, body = got[a.pod.name]
                 want = encode_filter_result(r, a.node_names)
                 check(status == 200 and body == want,
-                      f"phase 7: {a.pod.name}: the server answered {body[:160]} "
+                      f"{label}: {a.pod.name}: the server answered {body[:160]} "
                       f"where the cpu replay answers {want[:160]}")
                 compared += 1
-    check(not tickets, f"{len(tickets)} windows never completed")
+    check(unfinished_ok or not tickets, f"{len(tickets)} windows never completed")
     ref.stop()
     return compared
+
+
+# ------------------------------------------------------------ phases 9-10
+
+P9_DRIVERS = 128
+P9_AFTER = 16  # drivers the restarted server admits beside the executors
+P10_DRIVERS = 64  # a stage: r0 serves the first, r1 the second
+P10_TTL_S = 1.0
+WATCH_WAIT_S = 120.0
+
+
+def wait_for(cond, what, timeout=WATCH_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(0.002)
+
+
+def apiserver_cluster(n_nodes):
+    """Phase 3's nodes (one instance group) and one running prior-usage pod
+    of another scheduler per node, as the k8s JSON an apiserver holds."""
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.server.kube_io import node_to_k8s, pod_to_k8s
+
+    nodes, usage = main_cluster(seed=7)
+    nodes, usage = nodes[:n_nodes], usage[:n_nodes]
+    born = EXT_CLOCK - 86_400.0
+    for node in nodes:
+        node.labels[EXT_IG_LABEL] = EXT_IG
+        node.creation_timestamp = born
+    base = [
+        pod_to_k8s(Pod(
+            name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+            scheduler_name="default-scheduler", node_name=node.name,
+            phase="Running", creation_timestamp=born,
+            containers=[Container(requests=Resources(*map(int, usage[i])))],
+        ))
+        for i, node in enumerate(nodes)
+    ]
+    return nodes, [node_to_k8s(n) for n in nodes], base
+
+
+def bound_json(raw, node):
+    import copy
+
+    out = copy.deepcopy(raw)
+    out["spec"]["nodeName"] = node
+    out["status"]["phase"] = "Running"
+    return out
+
+
+def wait_ingested(api, backend, what):
+    """Until the backend holds exactly the apiserver's nodes, and its pods
+    with the apiserver's bindings."""
+    def same():
+        with api._lock:
+            want_nodes = set(n for _, n in api.collections["nodes"].objects)
+            want_pods = {k: (o.get("spec") or {}).get("nodeName", "")
+                         for k, o in api.collections["pods"].objects.items()}
+        have_pods = {(p.namespace, p.name): p.node_name for p in backend.list("pods")}
+        return (set(n.name for n in backend.list("nodes")) == want_nodes
+                and have_pods == want_pods)
+
+    wait_for(same, f"{what}: the backend to hold the apiserver's objects")
+
+
+def reservations_of(backend):
+    """The reservations a backend holds, as wire JSON with the metadata cut
+    to what the model interprets: the resourceVersion is a process-local
+    counter the WAL replay renumbers, and a replayed record carries its
+    ownerReferences as uninterpreted metadata."""
+    from spark_scheduler_tpu_torch.server.conversion import rr_v1beta2_to_wire
+
+    out = []
+    for rr in backend.list("resourcereservations"):
+        wire = rr_v1beta2_to_wire(rr)
+        wire["metadata"] = {"name": rr.name, "namespace": rr.namespace,
+                            "labels": rr.labels, "annotations": rr.annotations,
+                            "owner": rr.owner_pod_uid}
+        out.append(json.dumps(wire, sort_keys=True))
+    return sorted(out)
+
+
+def post_jobs(api, srv, names, pods, *, bind, delays):
+    """One client job a pod list: create each pod in the apiserver, wait
+    until the server's backend has it (the host-clock delays until the
+    create reached the backend and until it applied, behind the recorder's
+    lock, land in `delays`), post its predicate with every node name, and
+    bind it through the apiserver when `bind` and the answer names a
+    node."""
+    def job(send):
+        for raw in pods:
+            name = raw["metadata"]["name"]
+            t0 = time.perf_counter()
+            api.create("pods", json.loads(json.dumps(raw)))
+            wait_for(lambda: name in srv.seen, f"pod {name} ingested")
+            reached, applied = srv.seen[name]
+            delays.append((reached - t0, applied - t0))
+            status, data = send("POST", "/predicates",
+                                {"Pod": raw, "NodeNames": names})
+            res = json.loads(data) if status == 200 else {}
+            if bind and res.get("NodeNames"):
+                api.update("pods", bound_json(raw, res["NodeNames"][0]))
+    return job
+
+
+def server_checks(srv, phase, on_card):
+    """Phase 7's checks on one recorded server: the driver windows equal
+    /debug/decisions' dispatch ids, no over-commit, no solo pack off the
+    batcher thread. Returns the log's (done windows, live segments, solo
+    packs)."""
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    status, body = http_get(srv.server.port,
+                            "/debug/decisions?role=driver&limit=100000")
+    check(status == 200, f"phase {phase}: /debug/decisions {status}")
+    by_id: dict = {}
+    for d in json.loads(body)["decisions"]:
+        if d.get("dispatch_id") is not None:
+            by_id.setdefault(d["dispatch_id"], set()).add(d["pod_name"])
+    done = [e for e in srv.log if isinstance(e, dict) and e["op"] == "dispatch"
+            and not e["drain"] and "ms" in e]
+    want = {e["dispatch_id"]: {a.pod.name for a in e["args"]
+                               if a.pod.labels.get("spark-role") == "driver"}
+            for e in done if e["dispatch_id"] is not None}
+    want = {k: v for k, v in want.items() if v}
+    check(by_id == want, f"phase {phase}: /debug/decisions windows differ from "
+                         "the dispatched ones")
+    violations = overcommit_violations(srv.app, srv.backend)
+    check(not violations, f"phase {phase} over-commit: {violations[:8]}")
+    check(srv.solo_packs["other"] == 0,
+          f"phase {phase}: solo packs off the batcher thread: {srv.solo_packs}")
+    segments = sum(e["segments"] for e in done)
+    return done, segments, srv.solo_packs["batcher"]
+
+
+def check_launches(phase, servers, launches, probes, on_card, serial=True):
+    """Row-walk launches = the live segments of every dispatched window +
+    every solo pack; one probe a solver. With `serial` (one server launches
+    at a time) every launch must also fall inside a recorded dispatch or
+    completion: a window's before/after reading of the shared count would
+    take in another server's launches when two serve at once."""
+    if not on_card:
+        return 0, 0
+    inside = sum(e["launches"] for s in servers for e in s.log
+                 if isinstance(e, dict) and "launches" in e)
+    segments = solo = 0
+    for s in servers:
+        segments += sum(e["segments"] for e in s.log if isinstance(e, dict)
+                        and e["op"] == "dispatch" and not e["drain"])
+        solo += s.solo_packs["batcher"]
+    check(not serial or inside == launches["window"],
+          f"phase {phase}: {launches['window']} launches, {inside} inside "
+          f"the recorded dispatches and completions")
+    check(launches["window"] == segments + solo,
+          f"phase {phase}: row-walk launches {launches['window']} != "
+          f"{segments} live segments + {solo} solo packs")
+    check(launches["probe"] == probes,
+          f"phase {phase}: probe launches {launches['probe']} != {probes}")
+    return segments, solo
+
+
+def pctl(xs, q):
+    return float(np.percentile(xs, q)) if xs else float("nan")
+
+
+def run_durable_phase(device, card, n_nodes=N_MAIN, n_drivers=P9_DRIVERS,
+                      n_clients=SRV_CLIENTS):
+    """Phase 9: the port's server fed by apiserver watch ingestion, with
+    the WAL as its store, then restarted on the same WAL (see the module
+    docstring). Returns the phase's row-walk and probe launches and what
+    phase 10 goes on from (the apiserver, the WAL, the node names)."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_scheduler_tpu_torch.kube.apiserver import FakeKubeAPIServer
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD
+    from spark_scheduler_tpu_torch.store.durable import DurableBackend
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-wal-")
+    wal = os.path.join(tmp, "state.jsonl")
+    api = FakeKubeAPIServer()  # listening; it serves once started below
+    nodes, node_json, base_json = apiserver_cluster(n_nodes)
+    api.create_many("nodes", node_json)
+    api.create_many("pods", base_json)
+    names = [n.name for n in nodes]
+    config = InstallConfig(
+        fifo=True, binpack_algo="tightly-pack",
+        instance_group_label=EXT_IG_LABEL, sync_writes=True,
+        debug_routes=True, kube_api_url=api.base_url, durable_store_path=wal,
+    )
+    replay_config = dataclasses.replace(config, kube_api_url=None,
+                                        durable_store_path=None)
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    backend = DurableBackend(wal)
+    backend.register_crd(DEMAND_CRD)
+    srv = RecordedServer(device, config, backend=backend,
+                         kinds=("nodes", "pods"))
+    port = srv.server.port
+    # The reflectors' LIST waits on the apiserver, which is not serving.
+    ready0 = http_get(port, "/status/readiness")
+    check(ready0[0] == 503, f"phase 9: readiness before the sync: {ready0}")
+    t0 = time.perf_counter()
+    api.start()
+    try:
+        wait_for(lambda: srv.app.ingestion.wait_synced(0.01), "the first sync")
+        sync_s = time.perf_counter() - t0
+        wait_for(srv.server.ready.is_set, "readiness after the sync")
+        ready1 = http_get(port, "/status/readiness")
+        check(ready1 == (200, b'{"ready": true}'),
+              f"phase 9: readiness after the sync: {ready1}")
+        check(len(backend.list_nodes()) == n_nodes,
+              f"phase 9: {len(backend.list_nodes())} nodes synced")
+        print(f"phase 9: server on port {port} ({srv.app.solver.device}, "
+              f"threaded transport, WAL store, apiserver ingestion); "
+              f"{n_nodes} nodes and {n_nodes} pods listed and applied in "
+              f"{sync_s:.3f} s ({card})", flush=True)
+
+        rng = np.random.default_rng(29)
+        apps = []
+        for i in range(n_drivers):
+            n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+            apps.append((f"wal-{i:03d}", n_exec, EXT_CLOCK - 500 + i))
+        drivers = {a: k8s_spark_pod_json(a, "driver", f"{a}-driver", n, c)
+                   for a, n, c in apps}
+        delays: list = []
+
+        # A node add and a pod delete land in the apiserver while the third
+        # window is in flight; both reach the backend before it completes.
+        extra = copy.deepcopy(nodes[0])
+        extra.name = f"node-{n_nodes:05d}"
+        from spark_scheduler_tpu_torch.server.kube_io import node_to_k8s
+
+        def mid_flight():
+            api.delete("pods", "other", "base-00001")
+            api.create("nodes", node_to_k8s(extra))
+            wait_for(lambda: backend.get_node(extra.name) is not None
+                     and backend.get("pods", "other", "base-00001") is None,
+                     "the mid-flight changes ingested")
+
+        srv.trigger_at, srv.on_trigger = 3, mid_flight
+        t0 = time.perf_counter()
+        got, lat_drv = run_clients(port, [post_jobs(
+            api, srv, names, [drivers[a]], bind=True, delays=delays)
+            for a, _, _ in apps], n_clients)
+        drv_s = time.perf_counter() - t0
+        names.append(extra.name)
+        admitted = []
+        for a, n, _ in apps:
+            st, data = got[f"{a}-driver"]
+            res = json.loads(data)
+            check(st == 200 and not res["Error"], f"driver {a}: {st} {data[:200]}")
+            if res["NodeNames"]:
+                admitted.append((a, n))
+        execs = {a: [k8s_spark_pod_json(a, "executor", f"{a}-exec-{k + 1}", n,
+                                        EXT_CLOCK - 500)
+                     for k in range(n)] for a, n in admitted}
+        first = {a: pods[: (len(pods) + 1) // 2] for a, pods in execs.items()}
+        rest = {a: pods[(len(pods) + 1) // 2:] for a, pods in execs.items()}
+        t0 = time.perf_counter()
+        got_exec, lat_exec = run_clients(port, [post_jobs(
+            api, srv, names, first[a], bind=True, delays=delays)
+            for a, _ in admitted], n_clients)
+        exec_s = time.perf_counter() - t0
+        got.update(got_exec)
+        wait_ingested(api, backend, "phase 9 before the stop")
+        done, segments, solo = server_checks(srv, 9, on_card)
+        mid = [(e[1], e[3]) for e in srv.log if isinstance(e, tuple)
+               and ((e[1] == "delete" and e[2][2] == "base-00001")
+                    or (e[1] == "create" and e[2][0] == "nodes"
+                        and e[2][1].name == extra.name))]
+        check(len(mid) == 2 and all(k >= 1 for _, k in mid),
+              f"phase 9: mid-flight changes {mid}")
+    except BaseException:
+        srv.server.stop()
+        api.stop()
+        raise
+
+    # The stop: a clean shutdown, then a fresh app on the same WAL and
+    # apiserver, which waits for the sync, reconciles, and only then serves.
+    srv.server.stop()
+    backend.close()
+    before = reservations_of(backend)
+    wal_bytes = os.path.getsize(wal)
+    with open(wal, "rb") as f:
+        wal_records = sum(1 for _ in f)
+    wal_copy = os.path.join(tmp, "restart-copy.jsonl")
+    shutil.copy(wal, wal_copy)
+    t0 = time.perf_counter()
+    backend2 = DurableBackend(wal)
+    backend2.register_crd(DEMAND_CRD)
+    srv2 = RecordedServer(device, config, backend=backend2,
+                          kinds=("nodes", "pods"), start=False)
+    try:
+        srv2.app.start_background()
+        wait_for(lambda: srv2.app.ingestion.wait_synced(0.01), "the restart sync")
+        restart_sync_s = time.perf_counter() - t0
+        with srv2.lock:
+            r0 = time.perf_counter()
+            summary = srv2.app.reconciler.sync_resource_reservations_and_demands()
+            reconcile_ms = (time.perf_counter() - r0) * 1e3
+            srv2.log.append({"op": "reconcile", "summary": summary})
+        after = reservations_of(backend2)
+        check(after == before, f"phase 9: {len(after)} reservations after the "
+                               f"restart, {len(before)} before, or they differ")
+        srv2.server.start()
+        reserved = {}
+        for rr in srv2.app.rr_cache.list():
+            reserved[rr.name] = {r.node for k, r in rr.spec.reservations.items()
+                                 if k != "driver"}
+        # The rest of the executors, and new drivers, which must see the
+        # restored reservations' usage.
+        late = [k8s_spark_pod_json(f"wal-r{i:02d}", "driver", f"wal-r{i:02d}-driver",
+                                   int(rng.integers(2, 9)), EXT_CLOCK - 300 + i)
+                for i in range(P9_AFTER)]
+        t0 = time.perf_counter()
+        got2, lat2 = run_clients(srv2.server.port, [post_jobs(
+            api, srv2, names, rest[a], bind=True, delays=delays)
+            for a, _ in admitted if rest[a]] + [post_jobs(
+                api, srv2, names, [raw], bind=True, delays=delays)
+                for raw in late], n_clients)
+        exec2_s = time.perf_counter() - t0
+        late_names = {raw["metadata"]["name"] for raw in late}
+        # `got2` takes each pod's answer as `lat2` takes its latency, under
+        # one lock: their orders agree.
+        lat_exec2 = [ms for ms, name in zip(lat2, got2) if name not in late_names]
+        late_admitted = sum(bool(json.loads(got2[n][1])["NodeNames"])
+                            for n in late_names)
+        for a, _ in admitted:
+            for raw in rest[a]:
+                st, data = got2[raw["metadata"]["name"]]
+                res = json.loads(data)
+                check(st == 200 and res["NodeNames"]
+                      and res["NodeNames"][0] in reserved[a],
+                      f"phase 9: executor {raw['metadata']['name']} after the "
+                      f"restart: {data[:200]} (reserved {sorted(reserved[a])})")
+        wait_ingested(api, backend2, "phase 9 after the restart")
+        done2, segments2, solo2 = server_checks(srv2, 9, on_card)
+    finally:
+        srv2.server.stop()
+        backend2.close()
+    launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    check_launches(9, (srv, srv2), launches, 2, on_card)
+
+    # The cpu replays: the first server's record on a fresh app; the
+    # restarted server's on a cpu app restarted from a copy of the WAL.
+    t0 = time.perf_counter()
+    compared = replay_server_log(srv.log, replay_config, got, label="phase 9")
+    check(compared == len(got), f"phase 9: compared {compared} of {len(got)}")
+    ref_backend = DurableBackend(wal_copy)
+    ref_backend.register_crd(DEMAND_CRD)
+    ref = build_scheduler_app(ref_backend, replay_config,
+                              clock=lambda: EXT_CLOCK, device="cpu")
+    ref_summary = {}
+
+    def replay_reconcile(e):
+        ref_summary.update(ref.reconciler.sync_resource_reservations_and_demands())
+        check(ref_summary == e["summary"],
+              f"phase 9: the cpu app reconciles to {ref_summary}, the "
+              f"restarted server to {e['summary']}")
+        check(reservations_of(ref_backend) == after,
+              "phase 9: the cpu app's reservations differ after the reconcile")
+
+    compared2 = replay_server_log(srv2.log, replay_config, got2, ref=ref,
+                                  backend=ref_backend, label="phase 9 restart",
+                                  markers={"reconcile": replay_reconcile})
+    check(ref_summary, "phase 9: the replay never reconciled")
+    check(compared2 == len(got2), f"phase 9: compared {compared2} of {len(got2)}")
+    ref_backend.close()
+    replay_s = time.perf_counter() - t0
+    serve_s = time.perf_counter() - t_phase
+    n_exec = len(lat_exec) + len(lat_exec2)
+    reach = [r for r, _ in delays]
+    applied = [a for _, a in delays]
+    print(f"phase 9: {n_drivers} driver pods created in the apiserver and "
+          f"their predicates posted by {n_clients} client threads "
+          f"({len(admitted)} admitted and bound through the apiserver), then "
+          f"{len(lat_exec)} executors; a node add and a pod delete with "
+          f"{mid[0][1]} and {mid[1][1]} windows in flight; stop, restart on "
+          f"the same WAL: {len(after)} reservations restored, equal to the "
+          f"{len(before)} before the stop; reconcile {summary}; then "
+          f"{len(lat_exec2)} executors, each on its app's reserved nodes, "
+          f"and {P9_AFTER} new drivers ({late_admitted} admitted); "
+          f"responses byte-identical to cpu replays ({compared} + {compared2} "
+          f"compared, the second on a cpu app restarted from a copy of the "
+          f"WAL, replays {replay_s:.1f} s); over-commit none", flush=True)
+    print(f"phase 9 ({card}): sync of {n_nodes} nodes + {n_nodes} pods "
+          f"{sync_s:.3f} s, restart (WAL replay + compaction + sync) "
+          f"{restart_sync_s:.3f} s; informer delay (apiserver create -> "
+          f"backend, host clock, {len(delays)} pods) p50 "
+          f"{pctl(reach, 50) * 1e3:.3f} ms p99 {pctl(reach, 99) * 1e3:.3f} ms, "
+          f"applied behind the recorder's lock p50 {pctl(applied, 50) * 1e3:.3f} "
+          f"ms p99 {pctl(applied, 99) * 1e3:.3f} ms; "
+          f"WAL at the stop {wal_records} records, {wal_bytes} bytes; "
+          f"reconcile {reconcile_ms:.3f} ms; driver /predicates p50 "
+          f"{pctl(lat_drv, 50):.3f} ms p99 {pctl(lat_drv, 99):.3f} ms "
+          f"({n_drivers / drv_s:.1f} decisions/s); executor p50 "
+          f"{pctl(lat_exec + lat_exec2, 50):.3f} ms p99 "
+          f"{pctl(lat_exec + lat_exec2, 99):.3f} ms ({n_exec} in "
+          f"{exec_s + exec2_s:.2f} s); row-walk launches {launches['window']} "
+          f"= {segments + segments2} live segments + {solo + solo2} solo "
+          f"packs; probe {launches['probe']}; {len(done) + len(done2)} "
+          f"windows; phase {serve_s:.1f} s", flush=True)
+    ctx = {"api": api, "wal": wal, "tmp": tmp, "names": names,
+           "apps": len(admitted)}
+    return launches, ctx
+
+
+def failover_clients(ports, jobs, n_clients, dead):
+    """Stage B of phase 10: job i on thread i % n_clients, each thread on
+    one keep-alive connection to r0 and one to r1. A job posts its
+    predicate to r0; an answer r0 gave after its kill (its pod is in
+    `dead`) is a dead process's answer, which a client never receives, so
+    the job posts again to r1. Returns r0's and r1's answers by pod name,
+    r1's latencies in ms, and the host clock of each r1 200."""
+    import http.client
+    import socket
+    import threading
+
+    r0_out, r1_out, lat, oks, errors = {}, {}, [], [], []
+    mu = threading.Lock()
+
+    def worker(k):
+        conns = {}
+        for role, port in ports.items():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            conns[role] = conn
+
+        def post(role, payload):
+            t0 = time.perf_counter()
+            conns[role].request("POST", "/predicates",
+                                body=json.dumps(payload).encode(),
+                                headers={"Content-Type": "application/json"})
+            resp = conns[role].getresponse()
+            data = resp.read()
+            return resp.status, data, t0, time.perf_counter()
+
+        try:
+            for job in jobs[k::n_clients]:
+                payload = job()
+                name = payload["Pod"]["metadata"]["name"]
+                answer = post("r0", payload)
+                with mu:
+                    r0_out[name] = answer[:2]
+                if name not in dead:
+                    continue
+                status, data, t0, t1 = post("r1", payload)
+                with mu:
+                    r1_out[name] = (status, data)
+                    lat.append((t1 - t0) * 1e3)
+                    if status == 200:
+                        oks.append(t1)
+        except Exception as exc:  # surfaced below
+            with mu:
+                errors.append(repr(exc))
+        finally:
+            for conn in conns.values():
+                conn.close()
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"phase 10 client errors: {errors[:4]}")
+    return r0_out, r1_out, lat, oks
+
+
+def run_failover_phase(device, card, ctx, n_drivers=P10_DRIVERS,
+                       n_clients=SRV_CLIENTS, ttl=P10_TTL_S):
+    """Phase 10: two HA replicas of the port on the card over phase 9's WAL
+    and apiserver; the leader is killed with a window in flight and the
+    standby takes over (see the module docstring). Returns the phase's
+    row-walk and probe launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from spark_scheduler_tpu_torch.ha import FileLeaseStore, LeaseManager
+    from spark_scheduler_tpu_torch.ha.replica import build_replica
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD
+    from spark_scheduler_tpu_torch.store.durable import DurableBackend
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    api, wal, tmp, names = ctx["api"], ctx["wal"], ctx["tmp"], ctx["names"]
+    heartbeat = ttl / 3.0
+    config = InstallConfig(
+        fifo=True, binpack_algo="tightly-pack",
+        instance_group_label=EXT_IG_LABEL, sync_writes=True,
+        debug_routes=True, kube_api_url=api.base_url, durable_store_path=wal,
+        ha_enabled=True, ha_lease_ttl_s=ttl, ha_heartbeat_s=heartbeat,
+    )
+    replay_config = dataclasses.replace(config, kube_api_url=None,
+                                        durable_store_path=None)
+    start_copy = os.path.join(tmp, "failover-start.jsonl")
+    kill_copy = os.path.join(tmp, "failover-kill.jsonl")
+    shutil.copy(wal, start_copy)
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    reps, summaries = {}, {}
+    for rid in ("r0", "r1"):
+        backend = DurableBackend(wal, follow=True)
+        backend.register_crd(DEMAND_CRD)
+        lease = LeaseManager(FileLeaseStore(wal + ".lease"), rid, ttl_s=ttl)
+
+        def factory(backend, registry, metrics, rid=rid, lease=lease):
+            runtime = build_replica(
+                backend, rid, config=dataclasses.replace(config, ha_replica_id=rid),
+                lease=lease, metrics=metrics, registry=registry,
+                clock=lambda: EXT_CLOCK, device=device,
+            )
+            return runtime.app, runtime
+
+        reps[rid] = RecordedServer(device, config, backend=backend,
+                                   kinds=("nodes", "pods"), app_factory=factory,
+                                   start=False)
+    r0, r1 = reps["r0"], reps["r1"]
+    for rid, srv in reps.items():
+        promote = srv.runtime.promote
+
+        def recorded_promote(srv=srv, promote=promote, rid=rid):
+            # The promotion reconciles; the replay repeats it at this point.
+            with srv.lock:
+                out = promote()
+                summaries[rid] = out
+                srv.log.append({"op": "promote", "summary": out})
+            return out
+
+        srv.runtime.promote = recorded_promote
+    try:
+        for srv in (r0, r1):
+            srv.app.start_background()
+        for srv in (r0, r1):
+            wait_for(lambda srv=srv: srv.app.ingestion.wait_synced(0.01),
+                     "a replica's sync")
+        # As the CLI does: after the sync, one election tick, then serve.
+        check(r0.runtime.run_election_once() == "leader", "r0 did not lead")
+        r0.server.start()
+        check(r1.runtime.run_election_once() == "standby", "r1 did not stand by")
+        r1.server.start()
+        ready = {rid: http_get(s.server.port, "/status/readiness")
+                 for rid, s in reps.items()}
+        check(ready == {"r0": (200, b'{"ready": true, "role": "leader"}'),
+                        "r1": (503, b'{"ready": false, "role": "standby"}')},
+              f"phase 10: readiness before the kill: {ready}")
+        print(f"phase 10: replicas r0 (leader) and r1 (standby) on ports "
+              f"{r0.server.port} and {r1.server.port} "
+              f"({r0.app.solver.device}), one WAL (follower mode until "
+              f"promoted), lease {wal}.lease with TTL {ttl} s, heartbeat "
+              f"{heartbeat:.3f} s ({card})", flush=True)
+
+        rng = np.random.default_rng(31)
+
+        def stage(tag, k):
+            out = []
+            for i in range(k):
+                n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+                a = f"{tag}-{i:03d}"
+                out.append((a, n_exec, k8s_spark_pod_json(
+                    a, "driver", f"{a}-driver", n_exec, EXT_CLOCK - 400 + i)))
+            return out
+
+        delays: list = []
+        stage_a = stage("ha-a", n_drivers)
+        t0 = time.perf_counter()
+        got_a, lat_a = run_clients(r0.server.port, [post_jobs(
+            api, r0, names, [raw], bind=True, delays=delays)
+            for _, _, raw in stage_a], n_clients)
+        a_s = time.perf_counter() - t0
+        for srv in (r0, r1):
+            wait_ingested(api, srv.backend, "phase 10 after stage A")
+        check(r1.runtime.role == "standby" and r0.runtime.role == "leader",
+              f"phase 10: roles moved during stage A: r0 {r0.runtime.role}, "
+              f"r1 {r1.runtime.role}")
+        admitted = [(a, n) for a, n, raw in stage_a
+                    if json.loads(got_a[raw["metadata"]["name"]][1])["NodeNames"]]
+
+        # Stage B: the drivers exist in the apiserver and in both replicas
+        # before the first is posted, so the WAL at the kill holds them.
+        stage_b = stage("ha-b", n_drivers)
+        for _, _, raw in stage_b:
+            api.create("pods", json.loads(json.dumps(raw)))
+        for srv in (r0, r1):
+            wait_ingested(api, srv.backend, "phase 10 before the kill")
+        dead: set = set()
+        kill = {}
+
+        def kill_r0():
+            # On r0's dispatcher thread, its first stage-B window in flight.
+            kill["at"] = time.perf_counter()
+            r0.runtime.kill()
+            r0.app.ingestion.stop()  # a dead process ingests nothing
+            with r0.lock:
+                kill["mark"] = len(r0.log)
+            shutil.copy(wal, kill_copy)
+            wait_for(lambda: r1.runtime.role == "leader", "r1's promotion",
+                     timeout=ttl + heartbeat + 60.0)
+            kill["leader_at"] = time.perf_counter()
+            kill["r1_state"] = sorted((p.namespace, p.name, p.node_name)
+                                      for p in r1.backend.list("pods"))
+            kill["ready"] = {rid: http_get(s.server.port, "/status/readiness")
+                             for rid, s in reps.items()}
+
+        r0.trigger_at, r0.on_trigger = r0.counts["dispatched"] + 1, kill_r0
+        complete = r0.app.extender.predicate_window_complete
+
+        def complete_marking(t):
+            out = complete(t)
+            if "at" in kill:
+                dead.update(a.pod.name for a in t.args_list)
+            return out
+
+        r0.app.extender.predicate_window_complete = complete_marking
+        t0 = time.perf_counter()
+        r0_b, got_b, lat_b, oks = failover_clients(
+            {"r0": r0.server.port, "r1": r1.server.port},
+            [lambda raw=raw: {"Pod": raw, "NodeNames": names}
+             for _, _, raw in stage_b], n_clients, dead)
+        b_s = time.perf_counter() - t0
+        check("at" in kill, "phase 10: the kill never ran")
+        check(set(r0_b) == dead == set(got_b),
+              f"phase 10: {len(r0_b)} stage-B answers from r0, {len(dead)} "
+              f"after the kill, {len(got_b)} posted again to r1")
+        takeover_s = kill["leader_at"] - kill["at"]
+        promotion_ms = r1.runtime.last_promotion_ms
+        check(takeover_s <= ttl + heartbeat + promotion_ms / 1e3 + 0.05,
+              f"phase 10: r1 led {takeover_s:.3f} s after the kill, beyond "
+              f"TTL + one heartbeat + its promotion")
+        check(kill["ready"] == {
+            "r0": (503, b'{"ready": false, "role": "leader"}'),
+            "r1": (200, b'{"ready": true, "role": "leader"}')},
+            f"phase 10: readiness after the takeover: {kill['ready']}")
+        status, body = http_get(r1.server.port, "/debug/ha")
+        ha_state = json.loads(body)
+        check(status == 200 and ha_state["role"] == "leader"
+              and ha_state["lease"]["lease_epoch"]
+              == r0.runtime.lease.acquired_epoch + 1,
+              f"phase 10: r1's /debug/ha {status} {body[:300]}")
+        fenced = r0.runtime.lease.fenced_rejects
+        for a, n, raw in stage_b:
+            res = json.loads(got_b[raw["metadata"]["name"]][1])
+            if res["NodeNames"]:
+                api.update("pods", bound_json(raw, res["NodeNames"][0]))
+                admitted.append((a, n))
+
+        # Every admitted app's executors, on r1.
+        jobs = [post_jobs(api, r1, names, [
+            k8s_spark_pod_json(a, "executor", f"{a}-exec-{k + 1}", n,
+                               EXT_CLOCK - 400) for k in range(n)],
+            bind=True, delays=delays) for a, n in admitted]
+        t0 = time.perf_counter()
+        got_x, lat_x = run_clients(r1.server.port, jobs, n_clients)
+        x_s = time.perf_counter() - t0
+        got_b.update(got_x)
+        wait_ingested(api, r1.backend, "phase 10 at the end")
+        done1, segments1, solo1 = server_checks(r1, 10, on_card)
+        violations = overcommit_violations(r1.app, r1.backend)
+        check(not violations, f"phase 10 over-commit: {violations[:8]}")
+    finally:
+        for srv in (r1, r0):
+            srv.server.stop()
+            srv.backend.close()
+        api.stop()
+    launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    # The killed leader's late windows run beside the new leader's.
+    segments, solo = check_launches(10, (r0, r1), launches, 2, on_card,
+                                    serial=False)
+
+    # Exactly one reservation in the WAL for every admitted driver.
+    final = DurableBackend(wal, compact_on_load=False)
+    by_app: dict = {}
+    for rr in final.list("resourcereservations"):
+        by_app.setdefault(rr.name, []).append(rr)
+    final.close()
+    for a, _ in admitted:
+        rrs = by_app.get(a, [])
+        check(len(rrs) == 1 and rrs[0].status.pods.get("driver") == f"{a}-driver",
+              f"phase 10: app {a} has {len(rrs)} reservations in the WAL")
+    ours = {a for a in by_app if a.startswith("ha-")}
+    check(ours == {a for a, _ in admitted},
+          f"phase 10: reservations {len(ours)} for {len(admitted)} admitted apps")
+
+    # The cpu replays: r0's term on a cpu replica promoted from the WAL as
+    # phase 10 found it, r1's on one promoted from the WAL at the kill.
+    def cpu_replica(path, rid):
+        backend = DurableBackend(path, follow=True)
+        backend.register_crd(DEMAND_CRD)
+        lease = LeaseManager(FileLeaseStore(path + ".lease"), rid, ttl_s=3600.0)
+        runtime = build_replica(backend, rid, config=replay_config, lease=lease,
+                                clock=lambda: EXT_CLOCK, device="cpu")
+        return backend, runtime
+
+    def promoted(runtime, rid):
+        def replay_promote(e):
+            check(runtime.lease.try_acquire(), f"the cpu {rid} lost the lease")
+            got_summary = runtime.promote()
+            check(got_summary == e["summary"],
+                  f"phase 10: the cpu replica of {rid} reconciles to "
+                  f"{got_summary}, {rid} on the card to {e['summary']}")
+        return replay_promote
+
+    t0 = time.perf_counter()
+    b0, rep0 = cpu_replica(start_copy, "r0")
+    compared0 = replay_server_log(
+        r0.log[: kill["mark"]], replay_config, got_a, ref=rep0.app, backend=b0,
+        label="phase 10 r0", markers={"promote": promoted(rep0, "r0")},
+        unfinished_ok=True)
+    check(compared0 == len(got_a), f"phase 10: compared {compared0} of "
+                                   f"{len(got_a)} r0 answers")
+    b0.close()
+    b1, rep1 = cpu_replica(kill_copy, "r1")
+    state = sorted((p.namespace, p.name, p.node_name) for p in b1.list("pods"))
+    check(state == kill["r1_state"],
+          "phase 10: r1's pods at its promotion differ from the WAL at the kill")
+    mark = next(i for i, e in enumerate(r1.log)
+                if isinstance(e, dict) and e["op"] == "promote")
+    compared1 = replay_server_log(
+        r1.log[mark:], replay_config, got_b, ref=rep1.app, backend=b1,
+        label="phase 10 r1", markers={"promote": promoted(rep1, "r1")})
+    check(compared1 == len(got_b), f"phase 10: compared {compared1} of "
+                                   f"{len(got_b)} r1 answers")
+    b1.close()
+    replay_s = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    serve_s = time.perf_counter() - t_phase
+    first_ok = min(oks) - kill["at"] if oks else float("nan")
+    print(f"phase 10: r0 served {n_drivers} drivers ({len(got_a)} answers); "
+          f"killed with a window in flight; r1 took over "
+          f"{takeover_s * 1e3:.3f} ms after the kill (TTL {ttl * 1e3:.0f} ms + "
+          f"heartbeat {heartbeat * 1e3:.0f} ms), reconciled "
+          f"{summaries['r1']}; r0's {len(dead)} answers after the kill "
+          f"dropped ({fenced} fenced write attempts) and posted again to "
+          f"r1; r1 then served {len(lat_b)} drivers and {len(lat_x)} "
+          f"executors; {len(admitted)} admitted apps, one reservation each in "
+          f"the WAL; readiness 200/503 by role before and after; responses "
+          f"byte-identical to cpu replicas promoted from copies of the WAL "
+          f"({compared0} + {compared1} compared, same reconcile summaries, "
+          f"replays {replay_s:.1f} s); over-commit none", flush=True)
+    print(f"phase 10 ({card}): promotion {promotion_ms:.3f} ms (reconcile "
+          f"{r1.runtime.last_reconcile_ms:.3f} ms); kill -> r1's first 200 "
+          f"{first_ok * 1e3:.3f} ms; r0 driver p50 {pctl(lat_a, 50):.3f} ms "
+          f"p99 {pctl(lat_a, 99):.3f} ms ({n_drivers / a_s:.1f}/s); r1 driver "
+          f"p50 {pctl(lat_b, 50):.3f} ms p99 {pctl(lat_b, 99):.3f} ms (stage "
+          f"{b_s:.2f} s); r1 executor p50 {pctl(lat_x, 50):.3f} ms p99 "
+          f"{pctl(lat_x, 99):.3f} ms ({len(lat_x)} in {x_s:.2f} s); row-walk "
+          f"launches {launches['window']} = {segments} live segments (r0's "
+          f"and r1's) + {solo} solo packs; probe {launches['probe']}; phase "
+          f"{serve_s:.1f} s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2303,11 +3165,21 @@ def main() -> int:
                                          transport="async", ingest="native",
                                          before=srv_stats)
     print(f"phase 8: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    wal_launches, ctx = run_durable_phase(device, card)
+    print(f"phase 9: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    ha_launches = run_failover_phase(device, card, ctx)
+    print(f"phase 10: passed in {time.perf_counter() - t0:.1f} s", flush=True)
     # The row walk and the probe serve the main path at each of its entry
-    # points: the solver's windows (phase 3), the extender's (phase 6) and
-    # the HTTP server's on both transports (phases 7 and 8).
+    # points: the solver's windows (phase 3), the extender's (phase 6), the
+    # HTTP server's on both transports (phases 7 and 8), fed by apiserver
+    # ingestion over the WAL store (phase 9) and as HA replicas (phase 10).
     for k in launches:
-        launches[k] += ext_launches[k] + srv_launches[k] + async_launches[k]
+        launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
+                        + wal_launches[k] + ha_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

@@ -2,6 +2,8 @@
 
   python -m spark_scheduler_tpu_torch server [--config install.yml] [--port N]
       [--transport threaded|async] [--ingest python|native]
+      [--kube-api-url URL|in-cluster] [--durable-store WAL]
+      [--ha-replica ID [--ha-lease-ttl SECONDS]]
   python -m spark_scheduler_tpu_torch print-crds [--conversion-webhook-url URL]
   python -m spark_scheduler_tpu_torch conversion-webhook [--port N]
   python -m spark_scheduler_tpu_torch version
@@ -9,12 +11,15 @@
 `conversion-webhook` is the standalone CRD-conversion service the reference
 ships as a second binary (spark-scheduler-conversion-webhook/main.go:27).
 
-The port's copy of spark_scheduler_tpu/__main__.py for the in-memory
-backend. The server solves on the current CUDA card and raises without one;
-an install key the port cannot serve yet raises NotImplementedError
-(server/app.py), and `--ingest native` builds the port's native library or
-raises. The JAX package's durable-store, apiserver, HA, fleet, autoscaler
-and multi-device flags are not ported.
+The port's copy of spark_scheduler_tpu/__main__.py: the in-memory, the
+durable (JSONL WAL) and the apiserver (KubeBackend) backends, list+watch
+ingestion, and lease-elected HA replicas. The server solves on the current
+CUDA card and raises without one; an install key the port cannot serve yet
+raises NotImplementedError (server/app.py), and `--ingest native` builds
+the port's native library or raises. With a durable store or an apiserver
+the server waits for the watch caches to sync, reconciles (or runs one
+election tick as an HA replica), and only then serves. The JAX package's
+fleet, autoscaler and multi-device flags are not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +38,18 @@ def main(argv=None) -> int:
     srv.add_argument("--config", help="install YAML (config/config.go:24-84 surface)")
     srv.add_argument("--host", default="0.0.0.0")
     srv.add_argument("--port", type=int, default=None)
+    srv.add_argument(
+        "--durable-store",
+        default=None,
+        help="JSONL write-ahead log path; state survives restarts "
+        "(the etcd/CRD persistence slot, SURVEY.md §5.4)",
+    )
+    srv.add_argument(
+        "--kube-api-url",
+        default=None,
+        help="apiserver base URL for list+watch ingestion (informer slot), "
+        "or 'in-cluster' for the pod's serviceaccount",
+    )
     srv.add_argument(
         "--transport",
         choices=("threaded", "async"),
@@ -59,6 +76,29 @@ def main(argv=None) -> int:
         help="disable delta STATIC uploads (solver.delta-statics): every "
         "statics change re-uploads the full node state and drains "
         "in-flight windows",
+    )
+    srv.add_argument(
+        "--ha-replica",
+        default=None,
+        metavar="REPLICA_ID",
+        help="run as one replica of a lease-elected HA group (enables the "
+        "ha: install block with this replica id): boot as a warm standby "
+        "tailing backend state, serve only after winning the leader lease "
+        "and running the failover reconcile; reservation writes carry the "
+        "lease's fencing epoch. With --durable-store the WAL is opened in "
+        "follower mode and the lease lives in an flock-guarded "
+        "<wal>.lease sidecar (the supported multi-process arbiter); "
+        "combining with --kube-api-url is refused — the apiserver backend "
+        "does not persist a lease kind yet, so each replica would elect "
+        "itself (split-brain)",
+    )
+    srv.add_argument(
+        "--ha-lease-ttl",
+        type=float,
+        default=None,
+        metavar="SECONDS",
+        help="leader lease TTL (default 3s; heartbeat renews at TTL/3); "
+        "overrides the install config's ha.lease-ttl",
     )
     pc = sub.add_parser(
         "print-crds",
@@ -148,6 +188,15 @@ def main(argv=None) -> int:
             config = InstallConfig.from_dict(yaml.safe_load(f) or {})
     if args.port is not None:
         config.port = args.port
+    if args.durable_store is not None:
+        config.durable_store_path = args.durable_store
+    if args.kube_api_url is not None:
+        config.kube_api_url = args.kube_api_url
+    if args.ha_replica is not None:
+        config.ha_enabled = True
+        config.ha_replica_id = args.ha_replica
+    if args.ha_lease_ttl is not None:
+        config.ha_lease_ttl_s = args.ha_lease_ttl
     if args.transport is not None:
         config.server_transport = args.transport
     if args.ingest is not None:
@@ -159,14 +208,107 @@ def main(argv=None) -> int:
     metrics = SchedulerMetrics(registry, config.instance_group_label)
     events = EventEmitter(instance_group_label=config.instance_group_label)
     waste = WasteReporter(registry, config.instance_group_label)
-    backend = InMemoryBackend()
-    # On a real cluster the Demand CRD belongs to the external autoscaler
-    # (demand_informer.go); locally we provide it so demand features are
-    # exercisable.
-    backend.register_crd(DEMAND_CRD)
-    app = build_scheduler_app(
-        backend, config, metrics=metrics, events=events, waste=waste
-    )
+    kube_backend = False
+    if config.durable_store_path:
+        from spark_scheduler_tpu_torch.store.durable import DurableBackend
+
+        # HA replicas open the shared WAL in FOLLOWER mode: read-only
+        # tailing until this replica wins the lease and promotes (the
+        # promotion flips it to the writer). A standalone (non-HA) server
+        # is the sole writer from the start.
+        backend = DurableBackend(
+            config.durable_store_path, follow=config.ha_enabled
+        )
+    elif config.kube_api_url:
+        # Reservations/demands persist as CRs in the apiserver — the
+        # reference's actual deployment mode (CRDs ARE the durable store,
+        # SURVEY.md §5.4). A durable-store path overrides this with a
+        # local WAL instead.
+        from spark_scheduler_tpu_torch.kube.backend import KubeBackend
+
+        if config.kube_api_url == "in-cluster":
+            from spark_scheduler_tpu_torch.kube.reflector import in_cluster_config
+
+            base_url, ca_file, token_file = in_cluster_config()
+        else:
+            base_url, ca_file, token_file = config.kube_api_url, None, None
+        backend = KubeBackend(
+            base_url,
+            qps=config.kube_api_qps,
+            burst=config.kube_api_burst,
+            ca_file=ca_file,
+            token_file=token_file,
+            insecure_skip_tls_verify=config.kube_api_insecure_skip_tls_verify,
+            metrics=registry,
+        )
+        backend.start()  # initial CR list + watch
+        kube_backend = True
+    else:
+        backend = InMemoryBackend()
+    if not kube_backend:
+        # On a real cluster the Demand CRD belongs to the external
+        # autoscaler (demand_informer.go); locally we provide it so demand
+        # features are exercisable.
+        backend.register_crd(DEMAND_CRD)
+    if config.fleet_enabled and (
+        config.ha_enabled or config.durable_store_path or kube_backend
+    ):
+        # Fleet mode boots F private in-memory cluster stacks; composing
+        # it with HA roles or a shared durable/apiserver backend (whose
+        # state would reach only cluster 0) needs per-cluster state
+        # ingestion — refusing beats serving a silently half-wired fleet.
+        raise SystemExit(
+            "fleet.enabled composes with the in-memory backend only for "
+            "now (not ha.enabled / --durable-store / --kube-api-url): "
+            "each cluster stack owns a private backend."
+        )
+    ha_runtime = None
+    if config.ha_enabled:
+        from spark_scheduler_tpu_torch.ha import (
+            BackendLeaseStore,
+            FileLeaseStore,
+            LeaseManager,
+        )
+        from spark_scheduler_tpu_torch.ha.replica import build_replica
+
+        # The lease arbiter must be shared across replicas: the WAL
+        # deployment uses the flock-guarded sidecar (the log itself has no
+        # cross-process CAS); the in-memory backend CASes through its
+        # optimistic concurrency.
+        if config.durable_store_path:
+            lease_store = FileLeaseStore(config.durable_store_path + ".lease")
+        elif kube_backend:
+            # KubeBackend round-trips only reservations/demands to the
+            # apiserver; a "leases" object would land in each process's
+            # PRIVATE local store — every replica would elect itself at
+            # epoch 1 and no write would ever be fenced. Refusing beats
+            # silent split-brain; a coordination.k8s.io Lease codec is the
+            # future fix.
+            raise SystemExit(
+                "--ha-replica with --kube-api-url is not supported: the "
+                "lease would be process-local (each replica elects itself "
+                "— split-brain). Use --durable-store for multi-process HA."
+            )
+        else:
+            lease_store = BackendLeaseStore(backend)
+        lease = LeaseManager(
+            lease_store, config.ha_replica_id, ttl_s=config.ha_lease_ttl_s
+        )
+        ha_runtime = build_replica(
+            backend,
+            config.ha_replica_id,
+            config=config,
+            lease=lease,
+            metrics=metrics,
+            events=events,
+            waste=waste,
+            registry=registry,
+        )
+        app = ha_runtime.app
+    else:
+        app = build_scheduler_app(
+            backend, config, metrics=metrics, events=events, waste=waste
+        )
 
     class _Cleanups:  # periodic state eviction + metric flush on the tick
         def report_once(self):
@@ -200,6 +342,7 @@ def main(argv=None) -> int:
         request_timeout_s=config.request_timeout_s,
         debug_routes=config.debug_routes,
         request_log=config.request_log,
+        ha=ha_runtime,
     )
     reporters.start()
     print(
@@ -208,6 +351,39 @@ def main(argv=None) -> int:
         file=sys.stderr,
     )
     try:
+        if config.durable_store_path or kube_backend:
+            # Restored state (WAL replay or apiserver CR list) must be
+            # reconciled against CURRENT cluster state BEFORE any
+            # /predicates request is served: wait for watch-ingestion cache
+            # sync (blocking until it succeeds — a half-populated cache
+            # would make reconciliation delete reservations for pods that
+            # merely haven't listed yet), then reconcile, then open the
+            # server (WaitForCacheSync precedes failover recovery:
+            # cmd/server.go:140-147 then failover.go:35-72 — a restart IS
+            # a leader change).
+            app.start_background()
+            if app.ingestion is not None:
+                while not app.ingestion.wait_synced(timeout=30.0):
+                    print(
+                        "waiting for apiserver cache sync before reconcile...",
+                        file=sys.stderr,
+                    )
+            if kube_backend:
+                while not backend.wait_synced(timeout=30.0):
+                    print(
+                        "waiting for reservation/demand cache sync...",
+                        file=sys.stderr,
+                    )
+            if ha_runtime is None:
+                app.reconciler.sync_resource_reservations_and_demands()
+            else:
+                # Election decides who reconciles: one immediate tick so a
+                # sole/first replica serves without waiting a heartbeat;
+                # losers stay warm standbys (readiness reports the role)
+                # until the heartbeat loop promotes them.
+                ha_runtime.run_election_once()
+        elif ha_runtime is not None:
+            ha_runtime.run_election_once()
         server.start()
         server.join()
     except KeyboardInterrupt:

@@ -9,8 +9,8 @@ explainability).
     to publish library-build counts/seconds, padding-bucket occupancy,
     pipeline drain/discard counters, build kinds and host<->device
     transfer bytes under `foundry.spark.scheduler.solver.*` — and
-    `RetryTelemetry` / `TransportTelemetry`, the retry ladder's and the
-    HTTP transport's series.
+    `RetryTelemetry` / `TransportTelemetry` / `HATelemetry`, the retry
+    ladder's, the HTTP transport's and an HA replica's series.
   - `exposition`: Prometheus text rendering of a MetricRegistry snapshot,
     giving the push-only JSON-line reporter a pull surface (GET /metrics).
   - `state`: the point-in-time GET /debug/state snapshot (hard/soft
@@ -22,6 +22,7 @@ from spark_scheduler_tpu_torch.observability.recorder import (  # noqa: F401
     FlightRecorder,
 )
 from spark_scheduler_tpu_torch.observability.telemetry import (  # noqa: F401
+    HATelemetry,
     RetryTelemetry,
     SolverTelemetry,
     TransportTelemetry,
@@ -38,6 +39,7 @@ from spark_scheduler_tpu_torch.observability.state import (  # noqa: F401
 __all__ = [
     "DecisionRecord",
     "FlightRecorder",
+    "HATelemetry",
     "RetryTelemetry",
     "SolverTelemetry",
     "TransportTelemetry",

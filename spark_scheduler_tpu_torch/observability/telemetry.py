@@ -1,16 +1,17 @@
-"""Serving-path telemetry: the solver, the retry ladder and the HTTP
-transport.
+"""Serving-path telemetry: the solver, the retry ladder, the HTTP
+transport and the HA replica runtime.
 
-The port's copy of `SolverTelemetry`, `RetryTelemetry` and
-`TransportTelemetry` from spark_scheduler_tpu/observability/telemetry.py.
+The port's copy of `SolverTelemetry`, `RetryTelemetry`,
+`TransportTelemetry` and `HATelemetry` from
+spark_scheduler_tpu/observability/telemetry.py.
 SolverTelemetry publishes the solver's internals as
 `foundry.spark.scheduler.solver.*` series: windows dispatched per path,
 padding-bucket occupancy, solo packs, pipelined builds and how they
 reached the device, pipeline drains and discards, host<->device bytes, and
 the host featurize split. The JAX package counts XLA compiles through a
 jax.monitoring listener; the port has none to count, and its compile
-gauges read the library builds of ops/_build.py instead. `HATelemetry`
-and `FleetTelemetry` are not ported yet (ROADMAP A.9).
+gauges read the library builds of ops/_build.py instead. `FleetTelemetry`
+is not ported yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -520,3 +521,55 @@ class TransportTelemetry:
             "bytes_in": self.bytes_in,
             "bytes_out": self.bytes_out,
         }
+
+
+# HA replica runtime (spark_scheduler_tpu_torch/ha/): role, fencing epoch, lease
+# age, promotion/reconcile wall times, and fenced-write rejects — the
+# series an operator's failover dashboard keys on.
+HA_ROLE = "foundry.spark.scheduler.ha.role"
+HA_EPOCH = "foundry.spark.scheduler.ha.epoch"
+HA_LEASE_AGE = "foundry.spark.scheduler.ha.lease.age.seconds"
+HA_PROMOTION_MS = "foundry.spark.scheduler.ha.promotion.ms"
+HA_RECONCILE_MS = "foundry.spark.scheduler.ha.reconcile.ms"
+HA_FENCED_REJECTS = "foundry.spark.scheduler.ha.fenced.write.rejects"
+HA_TAILED_EVENTS = "foundry.spark.scheduler.ha.standby.tailed.events"
+
+# Role gauge encoding (a label would fragment the series per role flip).
+HA_ROLE_VALUES = {"standby": 0, "leader": 1, "active": 2, "deposed": -1}
+
+
+class HATelemetry:
+    """`foundry.spark.scheduler.ha.*` — one replica's election state."""
+
+    def __init__(self, registry: MetricRegistry | None = None, replica: str = ""):
+        self.registry = registry or MetricRegistry()
+        self.replica = replica
+
+    def _tags(self) -> dict:
+        return {"replica": self.replica} if self.replica else {}
+
+    def on_role(self, role: str) -> None:
+        self.registry.gauge(HA_ROLE, **self._tags()).set(
+            HA_ROLE_VALUES.get(role, -1)
+        )
+
+    def on_lease(self, epoch: int, age_s) -> None:
+        tags = self._tags()
+        self.registry.gauge(HA_EPOCH, **tags).set(int(epoch))
+        if age_s is not None:
+            self.registry.gauge(HA_LEASE_AGE, **tags).set(round(age_s, 3))
+
+    def on_promotion(self, promotion_ms: float, reconcile_ms: float) -> None:
+        tags = self._tags()
+        self.registry.histogram(HA_PROMOTION_MS, **tags).update(
+            round(promotion_ms, 3)
+        )
+        self.registry.histogram(HA_RECONCILE_MS, **tags).update(
+            round(reconcile_ms, 3)
+        )
+
+    def on_fenced_reject(self) -> None:
+        self.registry.counter(HA_FENCED_REJECTS, **self._tags()).inc()
+
+    def on_tailed(self, applied: int) -> None:
+        self.registry.gauge(HA_TAILED_EVENTS, **self._tags()).set(applied)

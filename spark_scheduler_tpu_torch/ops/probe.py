@@ -10,6 +10,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -55,11 +56,13 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             "probe kernel launch failed: " + lib.probe_error(err).decode()
         )
-    probe_add_one.launches += 1
+    with _launches_lock:
+        probe_add_one.launches += 1
     return out
 
 
 probe_add_one.launches = 0
+_launches_lock = threading.Lock()  # solvers on several threads probe
 
 
 def probe(device="cuda") -> None:

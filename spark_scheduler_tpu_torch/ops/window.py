@@ -26,6 +26,7 @@ node indices, the contract of `window_pack_pallas`.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -427,7 +428,8 @@ def window_pack(
                 "window row-walk kernel launch failed: "
                 + lib.window_kernel_error(err).decode()
             )
-        window_pack.launches += 1
+        with _launches_lock:
+            window_pack.launches += 1
     if dead.size:
         idx = torch.as_tensor(dead, device=dev)
         meta.index_fill_(0, idx, 0)
@@ -436,3 +438,6 @@ def window_pack(
 
 
 window_pack.launches = 0
+# Several solvers (HA replicas, a standby beside its leader) launch from
+# their own threads: the count's read-modify-write takes a lock.
+_launches_lock = threading.Lock()

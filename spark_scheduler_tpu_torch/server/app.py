@@ -12,8 +12,11 @@ JAX package's, line for line, for every option the port supports. The
 solver runs on the card unless the caller passes `device="cpu"`. An
 install key the port cannot serve yet raises NotImplementedError up front,
 naming the key and the ROADMAP item that ports it (`unsupported_keys`):
-the app builder never degrades quietly. With the flight recorder on (the
-default) the solver carries SolverTelemetry, as in the JAX package. One
+`build_scheduler_app` never degrades quietly. With `kube_api_url` set the
+app carries a `KubeIngestion` (node and pod reflectors, or the in-cluster
+serviceaccount variant) that `start_background` starts first. With the
+flight recorder on (the default) the solver carries SolverTelemetry, as in
+the JAX package. One
 part of the JAX wiring is absent by design until its module is ported:
 the degraded-mode controller (`solver.degraded` is unset, so readiness
 answers as a healthy server does and a solve failure reaches the client
@@ -55,15 +58,9 @@ UNSUPPORTED_KEYS = {
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
     "solver_fuse_windows": ("solver.fuse-windows", "ROADMAP A.4"),
     "degraded_mode": ("server.degraded-mode", "ROADMAP A.5b"),
-    "kube_api_url": ("kube-api-url", "ROADMAP A.3d"),
-    "durable_store_path": ("durable-store-path", "ROADMAP A.3d"),
     "autoscaler_enabled": ("autoscaler.enabled", "ROADMAP A.9"),
     "policy_enabled": ("policy.enabled", "ROADMAP A.9"),
     "trace_path": ("trace.path", "ROADMAP A.9"),
-    "ha_enabled": ("ha.enabled", "ROADMAP A.9"),
-    "ha_replica_id": ("ha.replica-id", "ROADMAP A.9"),
-    "ha_lease_ttl_s": ("ha.lease-ttl", "ROADMAP A.9"),
-    "ha_heartbeat_s": ("ha.heartbeat-interval", "ROADMAP A.9"),
     "fleet_enabled": ("fleet.enabled", "ROADMAP A.9"),
     "fleet_clusters": ("fleet.clusters", "ROADMAP A.9"),
     "fleet_max_spillover_hops": ("fleet.max-spillover-hops", "ROADMAP A.9"),
@@ -111,14 +108,17 @@ class SchedulerApp:
     extender: SparkSchedulerExtender
     unschedulable_marker: UnschedulablePodMarker
     demand_crd_watcher: LazyDemandCRDWatcher
+    ingestion: object | None = None  # KubeIngestion when kube_api_url is set
     runtime_manager: object | None = None  # RuntimeConfigManager when configured
     recorder: object | None = None  # FlightRecorder when flight_recorder is on
     _background_started: bool = False
 
     def start_background(self) -> None:
         """Async write-back workers + background loops (cmd/server.go:239-247).
-        Idempotent: the CLI calls it before reconciliation and
-        SchedulerHTTPServer.start() calls it again."""
+        Ingestion reflectors start first so WaitForCacheSync-style readiness
+        can observe them (cmd/server.go:111-147). Idempotent: the CLI calls
+        it before reconciliation and SchedulerHTTPServer.start() calls it
+        again."""
         if self._background_started:
             return
         self._background_started = True
@@ -129,6 +129,8 @@ class SchedulerApp:
         from spark_scheduler_tpu_torch.server.runtime import freeze_boot_heap
 
         freeze_boot_heap()
+        if self.ingestion is not None:
+            self.ingestion.start()
         self.rr_cache.start()
         self.unschedulable_marker.start()
         self.demand_crd_watcher.start()
@@ -138,6 +140,8 @@ class SchedulerApp:
     def stop(self) -> None:
         if self.runtime_manager is not None:
             self.runtime_manager.stop()
+        if self.ingestion is not None:
+            self.ingestion.stop()
         self.demand_crd_watcher.stop()
         self.unschedulable_marker.stop()
         self.rr_cache.flush()
@@ -353,6 +357,29 @@ def build_scheduler_app(
         timeout_s=config.unschedulable_pod_timeout_s,
         clock=clock,
     )
+    ingestion = None
+    # The informer-delay histogram lands in the metric registry. The JAX
+    # package hands ingestion the SchedulerMetrics facade, which has no
+    # `histogram`: there every watched pod add with a creation timestamp
+    # raises AttributeError in the reflector, which relists.
+    registry = metrics.registry if metrics is not None else None
+    if config.kube_api_url == "in-cluster":
+        # Serviceaccount CA + rotating bearer token against
+        # https://kubernetes.default.svc (rest.InClusterConfig slot,
+        # cmd/server.go:57-75 "kube-config-type: in-cluster").
+        from spark_scheduler_tpu_torch.kube.reflector import in_cluster_ingestion
+
+        ingestion = in_cluster_ingestion(backend, metrics=registry, clock=clock)
+    elif config.kube_api_url:
+        from spark_scheduler_tpu_torch.kube.reflector import KubeIngestion
+
+        ingestion = KubeIngestion(
+            backend,
+            config.kube_api_url,
+            metrics=registry,
+            clock=clock,
+            insecure_skip_tls_verify=config.kube_api_insecure_skip_tls_verify,
+        )
     # A pre-existing Demand CRD (registered before the app was built)
     # activates demand features synchronously; otherwise the background
     # poll in start_background() picks it up.
@@ -372,6 +399,7 @@ def build_scheduler_app(
         extender=extender,
         unschedulable_marker=marker,
         demand_crd_watcher=demand_crd_watcher,
+        ingestion=ingestion,
         recorder=recorder,
     )
     if config.runtime_config_path:

@@ -47,7 +47,8 @@ The port's copy of spark_scheduler_tpu/server/http.py. `ingest="native"`
 builds the port's native library (spark_scheduler_tpu_torch/native) or
 raises: the JAX package's degrade of `native` to `python` is not copied.
 The batcher has no fused multi-window claim (`solver.fuse-windows`,
-ROADMAP A.4). The HA and fleet facades wait for ROADMAP A.9.
+ROADMAP A.4). `ha=` takes an HA replica runtime (ha/replica.py), as in
+the JAX package; the fleet facade waits for ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -570,6 +571,7 @@ class SchedulerHTTPServer:
         max_body_bytes: int | None = None,
         max_connections: int | None = None,
         shed_queue_depth: int | None = None,
+        ha=None,
     ):
         from spark_scheduler_tpu_torch.observability import TransportTelemetry
 
@@ -581,7 +583,13 @@ class SchedulerHTTPServer:
         # on the cluster-exposed extender port it would let any peer start
         # profiler writes to server-side paths.
         self.debug_routes = debug_routes
+        # HA replica runtime (ha/replica.ReplicaRuntime) when this server
+        # is one replica of an elected group: readiness then ALSO requires
+        # a serving role (leader/active), GET /debug/ha exposes the role /
+        # lease / tailer state, and start()/stop() run the heartbeat.
+        self.ha = ha
         self.ready = threading.Event()
+        self._shutdown = threading.Event()
         cfg = getattr(app, "config", None)
         # Transport + backpressure knobs resolve explicit args first, then
         # the install config, then defaults — so embedded uses (tests,
@@ -679,15 +687,38 @@ class SchedulerHTTPServer:
 
     def start(self) -> None:
         self.app.start_background()
+        if self.ha is not None:
+            self.ha.start()
         self._transport.start()
         # Ready only once cluster state exists; pre-seeded backends (tests,
         # embedded use) are ready at once, otherwise the first successful
-        # PUT /state/nodes flips it.
+        # PUT /state/nodes — or watch-ingestion cache sync
+        # (WaitForCacheSync, cmd/server.go:140-147) — flips it.
         if self.app.backend.list_nodes():
             self.ready.set()
+        elif getattr(self.app, "ingestion", None) is not None:
+            def _ready_on_sync():
+                # Wait as long as it takes (WaitForCacheSync blocks until
+                # sync or shutdown) — a slow apiserver must not leave the
+                # server permanently not-ready.
+                while not self.ready.is_set():
+                    if self.app.ingestion.wait_synced(timeout=30.0):
+                        self.ready.set()
+                        return
+                    if self._shutdown.is_set():
+                        return
+
+            threading.Thread(
+                target=_ready_on_sync, daemon=True, name="ingestion-sync-ready"
+            ).start()
 
     def stop(self) -> None:
+        self._shutdown.set()
         self.ready.clear()
+        if self.ha is not None:
+            # Release the lease FIRST: a clean shutdown lets the standby
+            # promote immediately instead of waiting out the TTL.
+            self.ha.stop()
         # Batcher first: pending entries fail fast while the transport is
         # still able to write the error responses.
         self.batcher.stop()

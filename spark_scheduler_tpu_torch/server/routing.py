@@ -20,8 +20,9 @@ immediately (the async transport's model — the event loop must never block
 on a device solve; the batcher's dispatcher thread was always the real
 serialization point, so parked handler threads bought nothing).
 
-The port's copy of spark_scheduler_tpu/server/routing.py. Not here yet:
-the HA and fleet surfaces (ROADMAP A.9); the replay sweep counters of
+The port's copy of spark_scheduler_tpu/server/routing.py, with the HA
+surfaces (readiness by role, GET /debug/ha). Not here yet: the fleet
+surface (ROADMAP A.9); the replay sweep counters of
 /debug/trace (the port has no trace sink). /debug/profile drives
 torch.profiler instead of the JAX profiler.
 """
@@ -285,6 +286,36 @@ class SchedulerRoutes(SyncRoutes):
         if path == "/status/readiness":
             degraded = getattr(s.app.solver, "degraded", None)
             deg_active = degraded is not None and degraded.active
+            ha = getattr(s, "ha", None)
+            if ha is not None and not s.ready.is_set() and s.app.backend.list_nodes():
+                # HA replicas receive cluster state by TAILING the shared
+                # backend (WAL poll / event bus), never through the
+                # PUT /state/nodes that flips `ready` on a standalone
+                # server — without this re-check a promoted standby would
+                # answer 503 forever and kube would never route to it.
+                s.ready.set()
+            if ha is not None:
+                # HA replica: ready = state synced AND a serving role
+                # (leader / active shard member). Standbys answer 503 with
+                # the role so kube routes traffic to the leader while the
+                # warm replica stays probeable. Degraded mode composes:
+                # a shedding leader must flip 503 too, or the load
+                # balancer never drains the replica that answers every
+                # predicate 503 — exactly the multi-replica topology
+                # where draining elsewhere is the point of shed.
+                up = (
+                    s.ready.is_set()
+                    and ha.is_serving()
+                    and not (deg_active and degraded.sheds)
+                )
+                body = {"ready": up, "role": ha.role}
+                if deg_active:
+                    body.update(
+                        degraded=True,
+                        policy=degraded.policy,
+                        reason=degraded.reason,
+                    )
+                return json_response(200 if up else 503, body)
             if deg_active:
                 # Degraded mode: with the greedy policy the
                 # replica still serves (host fallback) — stay ready but
@@ -307,6 +338,11 @@ class SchedulerRoutes(SyncRoutes):
             )
         if path == "/metrics":
             return self._metrics(req)
+        if path == "/debug/ha" and getattr(s, "ha", None) is not None:
+            # Operational surface (role, lease epoch/age, tailer counters):
+            # served whenever HA is wired — failover forensics must not
+            # depend on the debug-routes opt-in.
+            return json_response(200, s.ha.state())
         if path == "/debug/traces" and s.debug_routes:
             from spark_scheduler_tpu_torch.tracing import tracer
 

@@ -626,3 +626,159 @@ def test_cli_serves_async_native_on_the_card(cuda_device):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def test_cli_serves_from_apiserver_with_a_wal_and_restarts(cuda_device, tmp_path):
+    """`python -m spark_scheduler_tpu_torch server --kube-api-url ...
+    --durable-store ...` on the card: it does not answer ready before its
+    reflectors have listed, answers a driver and its first executor from
+    the watch stream, and after a SIGKILL and a restart on the same WAL the
+    second executor lands on a node its app reserved."""
+    import json
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from spark_scheduler_tpu_torch.kube.apiserver import FakeKubeAPIServer
+    from spark_scheduler_tpu_torch.store.durable import DurableBackend
+
+    repo = Path(__file__).resolve().parent.parent
+    wal = str(tmp_path / "state.jsonl")
+    api = FakeKubeAPIServer()  # listening, not serving yet
+    for i in range(4):
+        api.create("nodes", {
+            "metadata": {"name": f"n{i}", "labels": {"instance-group": "batch"},
+                         "creationTimestamp": 1.0},
+            "status": {"allocatable": {"cpu": "16", "memory": "32Gi"},
+                       "conditions": [{"type": "Ready", "status": "True"}]},
+        })
+
+    def pod(name, role):
+        return {
+            "metadata": {
+                "name": name, "namespace": "ns", "uid": f"uid-{name}",
+                "labels": {"spark-role": role, "spark-app-id": "a0"},
+                "annotations": {
+                    "spark-driver-cpu": "1", "spark-driver-mem": "1Gi",
+                    "spark-executor-cpu": "4", "spark-executor-mem": "8Gi",
+                    "spark-executor-count": "2",
+                },
+                "creationTimestamp": "2026-07-29T12:00:00Z",
+            },
+            "spec": {"schedulerName": "spark-scheduler",
+                     "nodeSelector": {"instance-group": "batch"},
+                     "containers": [{"name": "main", "resources": {"requests": (
+                         {"cpu": "1", "memory": "1Gi"} if role == "driver"
+                         else {"cpu": "4", "memory": "8Gi"})}}]},
+            "status": {"phase": "Pending"},
+        }
+
+    def bound(raw, node):
+        out = json.loads(json.dumps(raw))
+        out["spec"]["nodeName"] = node
+        out["status"]["phase"] = "Running"
+        return out
+
+    log = tmp_path / "server.log"
+
+    def start_cli():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        with open(log, "ab") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "spark_scheduler_tpu_torch", "server",
+                 "--host", "127.0.0.1", "--port", str(port),
+                 "--kube-api-url", api.base_url, "--durable-store", wal],
+                cwd=repo, stdout=subprocess.DEVNULL, stderr=err,
+            )
+        return proc, f"http://127.0.0.1:{port}"
+
+    def call(base, method, path, payload=None, timeout=120):
+        body = json.dumps(payload).encode() if payload is not None else None
+        req = urllib.request.Request(base + path, data=body, method=method,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    def wait_ready(proc, base):
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                if call(base, "GET", "/status/readiness", timeout=2)[0] == 200:
+                    return
+            except OSError:
+                pass
+            assert proc.poll() is None, log.read_text()[-2000:]
+            assert time.monotonic() < deadline, "server never became ready"
+            time.sleep(0.2)
+
+    names = [f"n{i}" for i in range(4)]
+    serving = False
+    proc, base = start_cli()
+    try:
+        # The apiserver does not answer yet: the server is never ready.
+        deadline = time.monotonic() + 5
+        while time.monotonic() < deadline:
+            try:
+                assert call(base, "GET", "/status/readiness", timeout=1)[0] != 200
+            except OSError:
+                pass
+            time.sleep(0.2)
+        api.start()
+        serving = True
+        wait_ready(proc, base)
+        driver = pod("a0-driver", "driver")
+        api.create("pods", json.loads(json.dumps(driver)))
+        time.sleep(1.0)  # the watch brings the pod in
+        status, body = call(base, "POST", "/predicates",
+                            {"Pod": driver, "NodeNames": names})
+        res = json.loads(body)
+        assert status == 200 and res["NodeNames"], body
+        api.update("pods", bound(driver, res["NodeNames"][0]))
+        ex1 = pod("a0-exec-1", "executor")
+        api.create("pods", json.loads(json.dumps(ex1)))
+        time.sleep(1.0)
+        status, body = call(base, "POST", "/predicates",
+                            {"Pod": ex1, "NodeNames": names})
+        res1 = json.loads(body)
+        assert status == 200 and res1["NodeNames"], body
+        api.update("pods", bound(ex1, res1["NodeNames"][0]))
+        dispatches = json.loads(call(base, "GET", "/metrics")[1])[
+            "foundry.spark.scheduler.solver.window.dispatches"]
+        assert [e["tags"]["path"] for e in dispatches] == ["pallas"]
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+
+        copy = DurableBackend(wal, compact_on_load=False, follow=True)
+        (rr,) = copy.list("resourcereservations")
+        reserved = {r.node for k, r in rr.spec.reservations.items() if k != "driver"}
+        assert res1["NodeNames"][0] in reserved
+
+        proc, base = start_cli()
+        wait_ready(proc, base)
+        ex2 = pod("a0-exec-2", "executor")
+        api.create("pods", json.loads(json.dumps(ex2)))
+        time.sleep(1.0)
+        status, body = call(base, "POST", "/predicates",
+                            {"Pod": ex2, "NodeNames": names})
+        res2 = json.loads(body)
+        assert status == 200 and res2["NodeNames"], body
+        assert res2["NodeNames"][0] in reserved
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait(timeout=30)
+        if serving:
+            api.stop()
+        else:
+            api._server.server_close()

@@ -62,6 +62,48 @@ def test_port_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= len(_port_modules())
 
 
+DURABLE_AND_FAILOVER = (
+    "spark_scheduler_tpu_torch.kube.apiserver",
+    "spark_scheduler_tpu_torch.kube.reflector",
+    "spark_scheduler_tpu_torch.kube.backend",
+    "spark_scheduler_tpu_torch.store.durable",
+    "spark_scheduler_tpu_torch.core.membership",
+    "spark_scheduler_tpu_torch.ha.lease",
+    "spark_scheduler_tpu_torch.ha.fencing",
+    "spark_scheduler_tpu_torch.ha.shard",
+    "spark_scheduler_tpu_torch.ha.standby",
+    "spark_scheduler_tpu_torch.ha.replica",
+)
+
+
+def test_durable_and_failover_modules_import_with_jax_blocked():
+    """The apiserver, WAL and HA modules are the port's own copies: each
+    imports, with its lazy imports run, while jax and the JAX package are
+    refused."""
+    assert set(DURABLE_AND_FAILOVER) <= set(_port_modules())
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import importlib\n"
+        f"for name in {DURABLE_AND_FAILOVER!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from spark_scheduler_tpu_torch.kube import FakeKubeAPIServer\n"
+        "from spark_scheduler_tpu_torch.store.durable import _lease_from_record\n"
+        "from spark_scheduler_tpu_torch.ha.replica import build_replica\n"
+        "api = FakeKubeAPIServer()\n"
+        "api._server.server_close()\n"
+        "_lease_from_record({'holder': 'a', 'epoch': 1})\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_blocker_does_not_refuse_the_port_prefix():
     """The finder matches `spark_scheduler_tpu` exactly or with a dot, so
     the port (which shares the prefix) still imports while the JAX

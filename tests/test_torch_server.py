@@ -591,15 +591,9 @@ def _unsupported_values():
         "solver_build_oracle": True,
         "solver_fuse_windows": 2,
         "degraded_mode": "shed",
-        "kube_api_url": "https://127.0.0.1:6443",
-        "durable_store_path": "state.wal",
         "autoscaler_enabled": True,
         "policy_enabled": True,
         "trace_path": "trace.jsonl",
-        "ha_enabled": True,
-        "ha_replica_id": "replica-1",
-        "ha_lease_ttl_s": 9.0,
-        "ha_heartbeat_s": 1.0,
         "fleet_enabled": True,
         "fleet_clusters": 3,
         "fleet_max_spillover_hops": 2,
@@ -619,6 +613,52 @@ def test_unsupported_key_raises_naming_it(field, value, key):
     config = dataclasses.replace(InstallConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         build_scheduler_app(InMemoryBackend(), config, device="cpu")
+
+
+SERVED_KEYS = {
+    "kube_api_url": "https://127.0.0.1:6443",
+    "durable_store_path": "state.wal",
+    "ha_enabled": True,
+    "ha_replica_id": "replica-1",
+    "ha_lease_ttl_s": 9.0,
+    "ha_heartbeat_s": 1.0,
+}
+
+
+def _wiring(app):
+    """What `build_scheduler_app` wired: the type of every component the
+    port's app has (the JAX app's autoscaler and trace writer are not
+    ported), the install config, and the ingestion's reflectors
+    (collection, base URL)."""
+    from spark_scheduler_tpu_torch.server.app import SchedulerApp
+
+    out = {f.name: type(getattr(app, f.name)).__name__
+           for f in dataclasses.fields(SchedulerApp) if not f.name.startswith("_")}
+    out["config"] = canon(app.config)[1]
+    ing = app.ingestion
+    if ing is not None:
+        out["reflectors"] = [(r.name, r._path, r._host, r._port, r._tls)
+                             for r in ing.reflectors]
+    return out
+
+
+@pytest.mark.parametrize("field", sorted(SERVED_KEYS))
+def test_served_key_builds_like_jax(field):
+    """The keys the port now serves (the apiserver URL, the durable store
+    and the ha.* block) build an app wired as the JAX package's is."""
+    config = {field: SERVED_KEYS[field], "instance_group_label": IG_LABEL}
+    wired = []
+    for root in (JAX, PORT):
+        kw = {"device": "cpu"} if root == PORT else {}
+        app = _mod(root, "server.app").build_scheduler_app(
+            _mod(root, "store.backend").InMemoryBackend(),
+            _mod(root, "server.config").InstallConfig(**config),
+            **kw,
+        )
+        wired.append(_wiring(app))
+        app.stop()
+    assert wired[1] == wired[0]
+    assert (wired[1]["ingestion"] == "KubeIngestion") == (field == "kube_api_url")
 
 
 def test_unsupported_yaml_keys_raise_from_from_dict():
