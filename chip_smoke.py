@@ -31,7 +31,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      10,000 and with gangs up to 2,048 wide. Tolerance: none.
   3. Main path at full width: a 10,000-node cluster (4 zones, heterogeneous
      nodes, ~10% with GPUs, 30-70% prior usage) built through
-     `PlacementSolver(device="cuda").build_tensors`; 8 windows of 32
+     `PlacementSolver(device="cuda").build_tensors`; 4 windows of 32
      requests with `pack_window("tightly-pack", ...)`, then one window per
      other strategy. Each request carries 0-63 FIFO-earlier pending drivers
      plus its own application; some gangs are 2-32 executors wide (emax 32).
@@ -154,6 +154,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
      summaries. Prints the promotion and reconcile times and the time from
      the kill to r1's first 200.
 
+ 11. Fused claims: phase 7's cluster, traffic and checks (every response
+     byte-identical to a cpu replay, driver windows as /debug/decisions
+     reports them, no over-commit, row-walk launches = live segments + solo
+     packs, /metrics against this script's count) with
+     `solver.fuse-windows: 4` and windows of 8, so the 32 clients back up
+     past one window and the batcher dispatches up to four windows as one
+     row-walk dispatch with one decision pull; at least one claim must
+     fuse. Prints the fused dispatches, the fused_k histogram, the
+     per-window amortized round trip and the latencies beside phase 7's.
+     Then, below the server: `pack_windows_dispatch` of four phase-3-style
+     windows on a `cuda` solver must equal four back-to-back
+     `pack_window_dispatch` calls on the same state and launch the row walk
+     once a segment; `batched_fifo_pack` (plain PyTorch on CUDA tensors)
+     must equal the row walk's `window_pack` on phase 3's last
+     tightly-pack window (window mode) and the queue kernel's `fifo_pack`
+     on a config-5 queue of 100 apps (queue mode), each call's time beside
+     the kernel's. These comparison launches count toward no kernel's
+     main-path launches.
+
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
 """
@@ -169,7 +188,7 @@ import time
 import numpy as np
 
 N_MAIN = 10_000
-WINDOWS = 8
+WINDOWS = 4
 REQUESTS = 32
 STRATEGIES = (
     "tightly-pack",
@@ -1772,7 +1791,55 @@ class RecordedServer:
                 e["launches"] = window_pack.launches - before
                 return out
 
+        fused_dispatch = ext.predicate_windows_dispatch
+
+        def recorded_fused(args_lists):
+            """A fused claim: one device dispatch for K windows. Each
+            window gets its own entry ("sub") for its completion; the
+            dispatch's launches, rows and decision bytes go to the first."""
+            from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
+
+            with lock:
+                e = {"op": "fused", "drain": False,
+                     "args_lists": [[ExtenderArgs(pod=copy.deepcopy(a.pod),
+                                                  node_names=(
+                                                      a.node_names
+                                                      if hasattr(a.node_names,
+                                                                 "names_digest")
+                                                      else list(a.node_names)))
+                                     for a in args] for args in args_lists]}
+                log.append(e)
+                before = window_pack.launches
+                t0 = time.perf_counter()
+                try:
+                    tickets = fused_dispatch(args_lists)
+                except PipelineDrainRequired:
+                    e["drain"] = True
+                    raise
+                e["ms"] = (time.perf_counter() - t0) * 1e3
+                counts["dispatched"] += 1
+                counts["inflight"] += len(tickets)
+                e["launches"] = window_pack.launches - before
+                e["subs"], owners = [], set()
+                for args, t in zip(e["args_lists"], tickets):
+                    h = t.handle
+                    owner = getattr(h, "owner", h)
+                    first = h is not None and id(owner) not in owners
+                    owners.add(id(owner))
+                    sub = {"op": "sub", "args": args, "fused_k": len(tickets),
+                           "segments": len(h.requests) if h is not None else 0,
+                           "dispatch_id": (h.info["dispatch_id"]
+                                           if h is not None else None),
+                           "rows": h.info["rows"] if first else 0,
+                           "d2h": owner.blob.nbytes if first else 0}
+                    e["subs"].append(sub)
+                    entries[id(t)] = sub
+            if counts["dispatched"] == self.trigger_at and self.on_trigger:
+                self.on_trigger()
+            return tickets
+
         ext.predicate_window_dispatch = recorded_dispatch
+        ext.predicate_windows_dispatch = recorded_fused
         ext.predicate_window_complete = recorded_complete
         pack, solo = self.app.solver.pack, self.solo_packs
         from spark_scheduler_tpu_torch.models.cluster import pad_bucket
@@ -1962,12 +2029,13 @@ def series(snapshot, name):
 
 def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
                      n_clients=SRV_CLIENTS, *, phase=7, transport="threaded",
-                     ingest="python", before=None):
-    """Phase 7 (threaded transport, python ingest), or phase 8 (async
-    transport, native ingest, half the clients on binary bodies): the
-    port's HTTP server on the card (see the module docstring). `before` is
-    phase 7's stats, printed beside phase 8's. Returns the row-walk and
-    probe launches of the phase and its stats."""
+                     ingest="python", before=None, fuse=1, max_window=32):
+    """Phase 7 (threaded transport, python ingest), phase 8 (async
+    transport, native ingest, half the clients on binary bodies), or phase
+    11 (phase 7's, with `solver.fuse-windows: fuse` and windows of
+    `max_window`): the port's HTTP server on the card (see the module
+    docstring). `before` is phase 7's stats, printed beside this phase's.
+    Returns the row-walk and probe launches of the phase and its stats."""
     import copy
     import threading
 
@@ -1985,7 +2053,8 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     config = InstallConfig(
         fifo=True, binpack_algo="tightly-pack",
         instance_group_label=EXT_IG_LABEL, sync_writes=True,
-        debug_routes=True,
+        debug_routes=True, solver_fuse_windows=fuse,
+        predicate_max_window=max_window,
     )
     native = ingest == "native"
     window_pack.launches = 0
@@ -2103,12 +2172,18 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
     serve_s = time.perf_counter() - t_phase
 
-    # What the log says: the windows, their segments and solo packs.
+    # What the log says: the windows, their segments and solo packs. A
+    # fused claim is one dispatch of several windows ("sub" entries).
     log = srv.log
-    dispatches = [e for e in log if isinstance(e, dict) and e["op"] == "dispatch"]
-    done = [e for e in dispatches if not e["drain"]]
-    drains = len(dispatches) - len(done)
+    dispatches = [e for e in log if isinstance(e, dict)
+                  and e["op"] in ("dispatch", "fused")]
+    drains = sum(e["drain"] for e in dispatches)
+    done = [w for e in dispatches if not e["drain"]
+            for w in (e["subs"] if e["op"] == "fused" else [e])]
     driver_windows = [e for e in done if e["dispatch_id"] is not None]
+    device_dispatches = len({e["dispatch_id"] for e in driver_windows})
+    fused_ks = [len(e["subs"]) for e in dispatches
+                if e["op"] == "fused" and not e["drain"]]
     segments = sum(e["segments"] for e in done)
     solo = srv.solo_packs
     check(solo["other"] == 0, f"solo packs off the batcher thread: {solo}")
@@ -2128,9 +2203,11 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     for d in recorded:
         if d.get("dispatch_id") is not None:
             by_id.setdefault(d["dispatch_id"], set()).add(d["pod_name"])
-    want_ids = {e["dispatch_id"]: {a.pod.name for a in e["args"]
-                                   if a.pod.labels.get("spark-role") == "driver"}
-                for e in driver_windows}
+    want_ids: dict = {}
+    for e in driver_windows:
+        want_ids.setdefault(e["dispatch_id"], set()).update(
+            a.pod.name for a in e["args"]
+            if a.pod.labels.get("spark-role") == "driver")
     want_ids = {k: v for k, v in want_ids.items() if v}
     check(by_id == want_ids, f"phase {phase}: /debug/decisions windows differ "
                              "from the dispatched ones")
@@ -2138,9 +2215,9 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     # The solver telemetry on /metrics against what this script counted.
     path = "pallas" if on_card else "xla"
     dispatches = series(snapshot, "foundry.spark.scheduler.solver.window.dispatches")
-    check(dispatches == {(("path", path),): len(driver_windows)},
+    check(dispatches == {(("path", path),): device_dispatches},
           f"phase {phase}: solver.window.dispatches {dispatches} != "
-          f"{len(driver_windows)} driver windows")
+          f"{device_dispatches} device dispatches of driver windows")
     uploads = series(snapshot, "foundry.spark.scheduler.solver.device.uploads")
     label = str(srv.app.solver.device)
     want_uploads = {(("device", label), ("kind", k)): v
@@ -2194,12 +2271,25 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     n_windows = batcher["windows_served"]
     p = np.percentile
     n_admitted = len(admitted)
+    # Dispatch -> decisions on the host, per window of each dispatch
+    # (solver telemetry): a fused dispatch's round trip divided by its K.
+    rtt = snapshot.get("foundry.spark.scheduler.solver.dispatch.amortized.rtt.ms", [])
+    rtt_n = sum(e["count"] for e in rtt)
+    rtt_mean = sum(e["sum"] for e in rtt) / rtt_n if rtt_n else float("nan")
+    rtt_by_k = {int(e["tags"]["fused"]): (e["count"], e["p50"]) for e in rtt}
+    if fuse > 1:
+        check(batcher["max_fused_k"] >= 2 and fused_ks and max(fused_ks) >= 2,
+              f"phase {phase}: no fused claim (max_fused_k "
+              f"{batcher['max_fused_k']}, fused dispatches {fused_ks})")
+        check(batcher["fused_dispatches"] == len(fused_ks),
+              f"phase {phase}: the batcher counts {batcher['fused_dispatches']} "
+              f"fused dispatches, the log {len(fused_ks)}")
     stats = {
         "drv_p50": p(lat_drv, 50), "drv_p99": p(lat_drv, 99),
         "drv_rate": n_drivers / drv_s,
         "exec_p50": p(lat_exec, 50), "exec_p99": p(lat_exec, 99),
         "exec_rate": len(lat_exec) / exec_s,
-        "drv_busy": drv_busy, "exec_busy": exec_busy,
+        "drv_busy": drv_busy, "exec_busy": exec_busy, "rtt_mean": rtt_mean,
     }
     print(f"phase {phase}: {n_drivers} driver predicates from {n_clients} client "
           f"threads ({n_admitted} admitted), then {len(lat_exec)} executor "
@@ -2224,9 +2314,19 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
           f"packs; probe {launches['probe']}; "
           f"served in {serve_s:.1f} s", flush=True)
     print(f"phase {phase}: /metrics solver.window.dispatches {path} "
-          f"{len(driver_windows)}, solver.device.uploads {srv.builds}, "
+          f"{device_dispatches}, solver.device.uploads {srv.builds}, "
           f"solver.transfer.bytes h2d {h2d} d2h {d2h}: equal to this "
           f"script's count", flush=True)
+    if fuse > 1:
+        hist = {k: fused_ks.count(k) for k in sorted(set(fused_ks))}
+        print(f"phase {phase} ({card}): windows of {max_window}, "
+              f"fuse-windows {fuse}: {len(fused_ks)} fused dispatches "
+              f"(fused_k histogram {hist}, largest {batcher['max_fused_k']}), "
+              f"{device_dispatches} device dispatches for "
+              f"{len(driver_windows)} driver windows; per-window amortized "
+              f"round trip mean {rtt_mean:.3f} ms against phase 7's "
+              f"{before['rtt_mean']:.3f} ms; by the solver's fused_k (the "
+              f"windows with drivers; count, p50 ms): {rtt_by_k}", flush=True)
     if before is not None:
         print(f"phase {phase} against phase 7 ({card}, same run): driver p50 "
               f"{stats['drv_p50']:.3f} / {before['drv_p50']:.3f} ms, p99 "
@@ -2283,10 +2383,21 @@ def replay_server_log(log, config, got, *, ref=None, backend=None,
         if isinstance(e, tuple):
             getattr(backend, e[1])(*e[2])
             continue
-        if e["op"] not in ("dispatch", "complete"):
+        if e["op"] not in ("dispatch", "fused", "complete"):
             markers[e["op"]](e)
             continue
-        if e["op"] == "dispatch":
+        if e["op"] == "fused":
+            try:
+                ts = ref.extender.predicate_windows_dispatch(e["args_lists"])
+            except PipelineDrainRequired:
+                check(e["drain"], "replay drained where the server did not")
+                continue
+            check(not e["drain"], "the server drained where the replay did not")
+            check(len(ts) == len(e["subs"]), "the replay's fused claim split "
+                                             "into other windows")
+            for sub, t in zip(e["subs"], ts):
+                tickets[id(sub)] = t
+        elif e["op"] == "dispatch":
             try:
                 t = ref.extender.predicate_window_dispatch(e["args"])
             except PipelineDrainRequired:
@@ -3080,6 +3191,150 @@ def run_failover_phase(device, card, ctx, n_drivers=P10_DRIVERS,
     return launches
 
 
+# --------------------------------------------------------------- phase 11
+
+FUSE_WINDOWS = 4
+FUSE_MAX_WINDOW = 8  # phase 7's 32 clients then back up past one window
+
+
+def segmented_to_app_batch(win):
+    """The flat window-mode AppBatch of a SegmentedWindow: each live
+    segment's rows in order, `reset` on its first row, `commit` on its
+    last, the segment's masks on every row. Returns (batch, [(s, r)])."""
+    from spark_scheduler_tpu_torch.ops.batched import make_app_batch
+
+    pos = [(s, r) for s in range(len(win.row_count))
+           for r in range(int(win.row_count[s]))]
+    si = np.asarray([s for s, _ in pos])
+    ri = np.asarray([r for _, r in pos])
+    reset = ri == 0
+    commit = ri == win.row_count[si] - 1
+    return make_app_batch(
+        win.driver_req[si, ri], win.exec_req[si, ri], win.exec_count[si, ri],
+        skippable=win.skippable[si, ri], driver_cand=win.driver_cand[si],
+        domain=win.domain[si], commit=commit, reset=reset,
+    ), (si, ri)
+
+
+def timed_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def run_engine_phase(device, card, last):
+    """Phase 11's checks below the server, on the card: the fused K = 4
+    dispatch against four back-to-back dispatches on the same state, and
+    the batched engine (`batched_fifo_pack`, plain PyTorch on CUDA tensors)
+    against the row walk on a phase-3 window and against the queue kernel
+    on a config-5 queue. The row-walk and queue-kernel launches here are
+    comparisons and count toward no kernel's main-path launches."""
+    import torch
+
+    from spark_scheduler_tpu_torch.core.solver import (
+        FusedWindowView,
+        PlacementSolver,
+    )
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import (
+        app_batch_to_device,
+        batched_fifo_pack,
+    )
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    saved = (window_pack.launches, fifo_pack.launches)
+    # The solver: K = 4 fused against four sequential dispatches.
+    nodes, usage = main_cluster(seed=7)
+    names = [nd.name for nd in nodes]
+    zone_names = [names[z::4] for z in range(4)]
+    rng = np.random.default_rng(31)
+    windows = [main_window(rng, names, zone_names) for _ in range(FUSE_WINDOWS)]
+    seq_solver = PlacementSolver(device=device)
+    fused_solver = PlacementSolver(device=device)
+
+    def sequential():
+        # Each dispatch's pipelined build threads the base the previous
+        # window left on the card (no change lands between them).
+        handles = [
+            seq_solver.pack_window_dispatch(
+                "tightly-pack",
+                seq_solver.build_tensors_pipelined(nodes, usage, {}), w)
+            for w in windows
+        ]
+        return [d for h in handles for d in seq_solver.pack_window_fetch(h)]
+
+    want, seq_ms = timed_ms(sequential)
+    tf = fused_solver.build_tensors_pipelined(nodes, usage, {})
+    before = window_pack.launches
+
+    def fused():
+        views = fused_solver.pack_windows_dispatch("tightly-pack", tf, windows)
+        check(all(isinstance(v, FusedWindowView) for v in views)
+              and len({v.dispatch_id for v in views}) == 1,
+              "phase 11: the fused dispatch returned no single-dispatch views")
+        return [d for v in views for d in fused_solver.pack_window_fetch(v)]
+
+    got, fused_ms = timed_ms(fused)
+    fused_launches = window_pack.launches - before
+    segments = sum(len(w) for w in windows)
+    check(got == want, "phase 11: the fused K = 4 dispatch differs from four "
+                       "sequential dispatches")
+    check(fused_launches == segments or torch.device(device).type != "cuda",
+          f"phase 11: fused dispatch launched {fused_launches} row walks for "
+          f"{segments} segments")
+    admitted = sum(d.admitted for d in got)
+    print(f"phase 11: pack_windows_dispatch of K = {FUSE_WINDOWS} windows "
+          f"({segments} segments) on the card equals {FUSE_WINDOWS} "
+          f"back-to-back pack_window_dispatch calls ({admitted} admitted); "
+          f"{fused_launches} row-walk launches; fused {fused_ms:.2f} ms, "
+          f"sequential {seq_ms:.2f} ms, host clock ({card})", flush=True)
+
+    # The engine against the row walk: one phase-3 window, window mode.
+    cluster, batch = last
+    apps, (si, ri) = segmented_to_app_batch(batch.win)
+    kw = dict(fill="tightly-pack", emax=batch.emax, num_zones=batch.num_zones)
+    (meta, execs, base), walk_ms = timed_ms(
+        lambda: window_pack(cluster, batch.win, **kw))
+    eng, eng_ms = timed_ms(lambda: batched_fifo_pack(
+        cluster, app_batch_to_device(apps, device), **kw))
+    meta, execs = meta.cpu().numpy(), execs.cpu().numpy()
+    rows = len(si)
+    same = (
+        np.array_equal(eng.driver_node.cpu().numpy(), meta[si, ri, 0])
+        and np.array_equal(eng.admitted.cpu().numpy()[:rows], meta[si, ri, 1] == 1)
+        and np.array_equal(eng.packed.cpu().numpy()[:rows], meta[si, ri, 2] == 1)
+        and np.array_equal(eng.executor_nodes.cpu().numpy(), execs[si, ri])
+        and torch.equal(eng.available_after, base)
+    )
+    check(same, "phase 11: batched_fifo_pack (window mode) on the card differs "
+                "from the row walk's window_pack")
+    print(f"phase 11: batched_fifo_pack, window mode, on a phase-3 window "
+          f"({int((batch.win.row_count > 0).sum())} segments, {rows} rows, "
+          f"N {cluster.num_nodes}) equals window_pack: {eng_ms:.1f} ms against "
+          f"the row walk's {walk_ms:.1f} ms, host clock ({card})", flush=True)
+
+    # The engine against the queue kernel: one config-5 queue, queue mode.
+    rng = np.random.default_rng(CONFIG_SEEDS["config5"])
+    c5 = cluster_from_numpy(baseline_cluster(rng, 10_000), device=device)
+    q = app_batch_to_device(baseline_batches(rng, 100, 100, 8)[0], device)
+    kw = dict(fill="tightly-pack", emax=8, num_zones=4)
+    want_q, kernel_ms = timed_ms(lambda: fifo_pack(c5, q, **kw))
+    got_q, eng_q_ms = timed_ms(lambda: batched_fifo_pack(c5, q, **kw))
+    err = packing_diff(got_q, want_q)
+    check(err == 0, "phase 11: batched_fifo_pack (queue mode) on the card "
+                    "differs from fifo_pack")
+    print(f"phase 11: batched_fifo_pack, queue mode, on a config-5 queue "
+          f"(10,000 nodes, 100 apps, {int(got_q.admitted.sum())} admitted) "
+          f"equals fifo_pack: {eng_q_ms:.1f} ms against the queue kernel's "
+          f"{kernel_ms:.2f} ms, host clock ({card})", flush=True)
+    window_pack.launches, fifo_pack.launches = saved
+
+
 def main() -> int:
     try:
         import torch
@@ -3173,13 +3428,21 @@ def main() -> int:
     t0 = time.perf_counter()
     ha_launches = run_failover_phase(device, card, ctx)
     print(f"phase 10: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    fused_launches, _ = run_server_phase(
+        device, card, phase=11, fuse=FUSE_WINDOWS, max_window=FUSE_MAX_WINDOW,
+        before=srv_stats)
+    run_engine_phase(device, card, last)
+    print(f"phase 11: passed in {time.perf_counter() - t0:.1f} s", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
-    # ingestion over the WAL store (phase 9) and as HA replicas (phase 10).
+    # ingestion over the WAL store (phase 9), as HA replicas (phase 10) and
+    # with fused claims (phase 11).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
-                        + wal_launches[k] + ha_launches[k])
+                        + wal_launches[k] + ha_launches[k] + fused_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

@@ -70,6 +70,17 @@ def main(argv=None) -> int:
         "server.ingest",
     )
     srv.add_argument(
+        "--fuse-windows",
+        type=int,
+        default=None,
+        help="fused multi-window dispatch: when the predicate backlog "
+        "exceeds one window, claim up to K windows and solve them in ONE "
+        "dispatch of the row walk, carrying the committed state on the "
+        "device between windows (K windows share one decision pull); "
+        "overrides the install config's solver.fuse-windows (default 1 = "
+        "unfused)",
+    )
+    srv.add_argument(
         "--no-delta-statics",
         action="store_true",
         default=None,
@@ -203,6 +214,8 @@ def main(argv=None) -> int:
         config.server_ingest = args.ingest
     if args.no_delta_statics:
         config.solver_delta_statics = False
+    if args.fuse_windows is not None:
+        config.solver_fuse_windows = args.fuse_windows
 
     registry = MetricRegistry()
     metrics = SchedulerMetrics(registry, config.instance_group_label)

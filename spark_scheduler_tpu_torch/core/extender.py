@@ -557,15 +557,6 @@ class SparkSchedulerExtender:
         retries the whole claim."""
         if len(args_lists) == 1:
             return [self.predicate_window_dispatch(args_lists[0])]
-        if not hasattr(self._solver, "pack_windows_dispatch"):
-            # The fused dispatch is not ported yet. Serving the claim as K
-            # sequential windows would hide that, so the claim is refused.
-            raise NotImplementedError(
-                "fused multi-window dispatch needs "
-                "PlacementSolver.pack_windows_dispatch, which the port's "
-                "solver does not have yet; dispatch one window at a time "
-                "(predicate_window_dispatch)"
-            )
         tickets = [WindowTicket(a) for a in args_lists]
         can_window = (
             self._config.batched_admission

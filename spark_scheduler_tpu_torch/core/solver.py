@@ -11,8 +11,11 @@ maps the decisions back to node names.
 Pipelined serving (`build_tensors_pipelined` -> `pack_window_dispatch` ->
 `pack_window_fetch`) keeps the availability resident on the device and
 threads it from window to window: window k+1 may be dispatched before
-window k is fetched. The solo solve `pack` is one live row of the same
-window solve.
+window k is fetched. `pack_windows_dispatch` serves K queued windows as ONE
+dispatch (one segmented window of all their requests, one decision pull),
+fetched through one `FusedWindowView` per window. The solo solve `pack` is
+one live row of the same window solve; `preemption_search` probes candidate
+eviction sets with the batched fit of ops/packing.py.
 
 The solver runs on `device="cuda"` unless the caller asks for the CPU; with
 no card and no explicit CPU request it raises, and it never moves work to
@@ -26,6 +29,7 @@ import dataclasses
 import itertools
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence
 
@@ -43,7 +47,11 @@ from spark_scheduler_tpu_torch.models.cluster import (
 from spark_scheduler_tpu_torch.models.kube import Node
 from spark_scheduler_tpu_torch.models.resources import Resources
 from spark_scheduler_tpu_torch.ops.efficiency import avg_packing_efficiency_np
-from spark_scheduler_tpu_torch.ops.packing import BINPACK_STRATEGIES
+from spark_scheduler_tpu_torch.ops.packing import (
+    BINPACK_STRATEGIES,
+    PREEMPTION_FILL,
+    preemption_batched_fit,
+)
 from spark_scheduler_tpu_torch.ops.probe import probe
 from spark_scheduler_tpu_torch.ops.window import (
     SegmentedWindow,
@@ -162,7 +170,8 @@ class WindowHandle:
         "strategy", "blob", "ready", "requests", "host_avail",
         "host_schedulable", "priors", "placement_rows", "placement_vals",
         "row_driver_req", "row_exec_req", "row_skippable", "seg_map", "info",
-        "request_device", "dispatched_at",
+        "request_device", "dispatched_at", "released", "fused_decisions",
+        "fused_bounds", "applied", "__weakref__",
     )
 
     def __init__(self, *, strategy, blob, requests, host_avail,
@@ -197,6 +206,27 @@ class WindowHandle:
         self.request_device = None
         # Host clock at dispatch (the dispatch -> decisions telemetry).
         self.dispatched_at = 0.0
+        # close()/discard_pipeline() dropped the decision buffer.
+        self.released = False
+        # A fused umbrella's memoised fetch, ("ok", [(decisions, rows,
+        # amounts) per window]) or ("err", exception), shared by its
+        # FusedWindowViews; its windows' request ranges; and which windows'
+        # placements the pipeline mirror has taken (one per fetched view).
+        self.fused_decisions = None
+        self.fused_bounds = None
+        self.applied: set = set()
+
+    @property
+    def dispatch_id(self):
+        return (self.info or {}).get("dispatch_id")
+
+    def release_buffers(self) -> None:
+        """Drop the decision buffer (close()/discard_pipeline()): a
+        discarded fused batch must not keep its blob alive through views
+        parked in the serving loop. A later fetch fails fast."""
+        self.released = True
+        self.blob = None
+        self.ready = None
 
     def fetch_blob(self) -> np.ndarray:
         """The decision blob on the host, waiting for the device if the
@@ -204,6 +234,43 @@ class WindowHandle:
         if self.ready is not None:
             self.ready.synchronize()
         return self.blob.numpy()
+
+
+class FusedWindowView:
+    """One window of a fused K-window dispatch
+    (PlacementSolver.pack_windows_dispatch): a slice of the umbrella
+    WindowHandle that solved the K windows' requests in one dispatch. It
+    has the handle surface the serving loop and the extender read
+    (requests, request_device, info, dispatch_id); pack_window_fetch of a
+    view fetches the umbrella ONCE (memoised on the owner, a failure
+    included) and returns the view's slice, so the first view fetched pays
+    the single decision pull and the rest are free."""
+
+    __slots__ = ("owner", "lo", "hi", "index", "fused_k", "info")
+
+    def __init__(self, owner: WindowHandle, lo: int, hi: int, index: int,
+                 fused_k: int):
+        self.owner = owner
+        self.lo = lo
+        self.hi = hi
+        self.index = index
+        self.fused_k = fused_k
+        # Per-view copy: a decision record names the view's position in the
+        # fused batch without touching the shared owner info.
+        self.info = {**(owner.info or {}), "fused_index": index}
+
+    @property
+    def dispatch_id(self):
+        return self.owner.dispatch_id
+
+    @property
+    def requests(self):
+        return self.owner.requests[self.lo:self.hi]
+
+    @property
+    def request_device(self):
+        rd = self.owner.request_device
+        return rd[self.lo:self.hi] if rd is not None else None
 
 
 class PlacementSolver:
@@ -257,6 +324,9 @@ class PlacementSolver:
         # the serialization point).
         self._pipe: dict | None = None
         self._dispatch_seq = itertools.count(1)
+        # Umbrella handles of fused dispatches, released by close() and
+        # discard_pipeline() (weak: a fetched batch needs no release).
+        self._fused_owners: "weakref.WeakSet[WindowHandle]" = weakref.WeakSet()
         # How the LAST pipelined build reached the device
         # ("full" | "delta" | "reuse").
         self.last_state_upload: str | None = None
@@ -318,6 +388,7 @@ class PlacementSolver:
         queued on the card's stream, so there is no queued work to
         cancel."""
         self._pipe = None
+        self._release_fused()
         self._note_inflight()
 
     def discard_pipeline(self) -> None:
@@ -325,11 +396,18 @@ class PlacementSolver:
         does a full upload from the host view. Used when in-flight window
         decisions are being discarded (capacity changed under them) — the
         host view is the durable truth once every surviving window has
-        applied."""
+        applied. Fused batches in flight release their decision buffers:
+        their decisions are discarded with the pipeline."""
         self._pipe = None
+        self._release_fused()
         self._note_inflight()
         if self.telemetry is not None:
             self.telemetry.on_pipeline_event("discard")
+
+    def _release_fused(self) -> None:
+        for h in list(self._fused_owners):
+            h.release_buffers()
+        self._fused_owners.clear()
 
     def _note_inflight(self) -> None:
         """Publish the dispatched-but-unfetched pipelined windows."""
@@ -717,6 +795,56 @@ class PlacementSolver:
     def can_batch(self, strategy: str) -> bool:
         return strategy in BINPACK_STRATEGIES
 
+    def preemption_search(
+        self,
+        strategy: str,
+        tensors: ClusterTensors,
+        driver_resources: Resources,
+        executor_resources: Resources,
+        executor_count: int,
+        driver_candidate_names: Sequence[str],
+        freed_cum: np.ndarray,  # [C, rows, 3] int — per-candidate freed capacity
+        domain_mask: np.ndarray | None = None,
+    ) -> tuple[int, dict]:
+        """Masked-fit probe over candidate eviction sets (policy subsystem):
+        candidate c's availability is the cluster plus `freed_cum[c]` (in
+        registry index space), all solved by ops/packing.py
+        `preemption_batched_fit` on the solver's device. With nested
+        prefixes the first feasible index is the minimal eviction set.
+        Returns (first feasible candidate index or -1, solve info)."""
+        self._check_device(tensors)
+        n = tensors.num_nodes
+        host = host_view(tensors)
+        driver_mask = self.candidate_mask(tensors, driver_candidate_names)
+        if domain_mask is None:
+            domain_mask = np.asarray(host.valid)
+        emax = pad_bucket(max(executor_count, 1), 8)
+        c = freed_cum.shape[0]
+        freed = np.zeros((c, n, freed_cum.shape[2]), dtype=np.int32)
+        rows = min(freed_cum.shape[1], n)
+        freed[:, :rows, :] = freed_cum[:, :rows, :]
+        fill = PREEMPTION_FILL.get(strategy, "tightly-pack")
+        dev = self.device
+
+        def up(a, dtype=torch.int32):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        ok, _drv, _execs = preemption_batched_fit(
+            tensors, up(freed), up(driver_resources.as_array()),
+            up(executor_resources.as_array()), executor_count,
+            up(driver_mask, torch.bool), up(domain_mask, torch.bool),
+            fill=fill, emax=emax, num_zones=self._num_zones_bucket(),
+        )
+        ok_host = ok.cpu().numpy()
+        idx = int(np.argmax(ok_host)) if bool(ok_host.any()) else -1
+        return idx, {
+            "path": "batched-preemption",
+            "candidates": c,
+            "nodes": n,
+            "emax": emax,
+            "fill": fill,
+        }
+
     def _check_device(self, tensors: ClusterTensors) -> None:
         if tensors.device != self.device:
             raise ValueError(
@@ -784,6 +912,7 @@ class PlacementSolver:
             "emax": batch.emax,
             "state_upload": self.last_state_upload if pipelined else None,
             "dispatch_id": next(self._dispatch_seq),
+            "fused_k": 1,
         }
         self.last_solve_info = info
         if tel is not None:
@@ -820,11 +949,96 @@ class PlacementSolver:
             self._note_inflight()
         return handle
 
-    def pack_window_fetch(self, handle: WindowHandle) -> list[WindowDecision]:
+    def pack_windows_dispatch(
+        self,
+        strategy: str,
+        tensors: ClusterTensors,
+        request_windows: Sequence[Sequence[WindowRequest]],
+    ) -> list[FusedWindowView]:
+        """FUSED K-window dispatch: the K windows' requests concatenate into
+        ONE segmented window, so the row walk serves every segment of all K
+        windows in one dispatch and the decisions come back in one pull. A
+        window boundary is an ordinary segment boundary: the committed base
+        carries on the device from one window to the next exactly as it is
+        threaded between K sequential dispatches, so the decisions equal
+        dispatching the K windows one after another. The caller claimed all
+        K windows at one instant, before any of them completed (the
+        predicate batcher's fused claim).
+
+        Returns one FusedWindowView per window; fetch them IN DISPATCH
+        ORDER with pack_window_fetch."""
+        windows = [list(w) for w in request_windows]
+        p = self._pipe
+        occupancy = 1.0 if p is not None and p["unfetched"] else 0.0
+        flat = [r for w in windows for r in w]
+        owner = self.pack_window_dispatch(strategy, tensors, flat)
+        k = len(windows)
+        if owner.info is not None:
+            owner.info["fused_k"] = k
+        bounds, lo = [], 0
+        for w in windows:
+            bounds.append((lo, lo + len(w)))
+            lo += len(w)
+        owner.fused_bounds = bounds
+        self._fused_owners.add(owner)
+        if self.telemetry is not None:
+            self.telemetry.on_fused_dispatch(k, occupancy)
+        return [FusedWindowView(owner, lo, hi, i, k)
+                for i, (lo, hi) in enumerate(bounds)]
+
+    def pack_window_fetch(self, handle) -> list[WindowDecision]:
         """Wait for a dispatched window's decisions and reconstruct the
-        per-request outcomes (the second half of pack_window)."""
+        per-request outcomes (the second half of pack_window). A
+        FusedWindowView fetches its umbrella ONCE (memoised, a failure
+        included: every window of the batch raises the same error, and no
+        view retries the pull on its own) and returns its own window's
+        decisions.
+
+        Pipeline accounting: the device base embodies every committed gang
+        of a window from its dispatch on; its placements are debited from
+        the mirror when the window is fetched, so the next build's
+        host-vs-mirror delta ships only EXTERNAL changes, and a gang whose
+        reservation the host then failed to create gets its capacity back
+        with the next delta. The caller creates a window's reservations
+        right after fetching it, so a fused batch debits each window when
+        ITS view is fetched, not all K at the first: a build between two
+        views' fetches must not hand the later windows' capacity back to
+        the device before their reservations exist. The umbrella leaves
+        the in-flight set when its last view is fetched."""
+        if isinstance(handle, FusedWindowView):
+            owner = handle.owner
+            res = owner.fused_decisions
+            if res is None:
+                try:
+                    res = ("ok", self._fetch_windows(owner, owner.fused_bounds))
+                except Exception as exc:
+                    res = ("err", exc)
+                owner.fused_decisions = res
+            kind, val = res
+            if kind == "err":
+                raise val
+            decisions, rows, amounts = val[handle.index]
+            self._debit_mirror(owner, handle.index, rows, amounts)
+            return decisions
         if not handle.requests:
             return []
+        ((decisions, rows, amounts),) = self._fetch_windows(
+            handle, [(0, len(handle.requests))]
+        )
+        self._debit_mirror(handle, 0, rows, amounts)
+        return decisions
+
+    def _fetch_windows(self, handle: WindowHandle, bounds) -> list:
+        """Pull a dispatch's decision blob and reconstruct each window's
+        requests (`bounds`: their [lo, hi) ranges, in order; the committed
+        base threads from one window to the next). Returns [(decisions,
+        placement rows, int64 amounts at those rows)] per window and sets
+        the handle's placements (all windows) for later dispatches'
+        `_dense_base`."""
+        if handle.released:
+            # close()/discard_pipeline() dropped this dispatch's buffer; its
+            # decisions are gone by design.
+            raise RuntimeError("window dispatch was discarded")
         full = handle.fetch_blob()
         self._note_transfer("d2h", full.nbytes)
         blob = full[handle.seg_map[0], handle.seg_map[1]]
@@ -833,35 +1047,49 @@ class PlacementSolver:
         packed = blob[:, 2].astype(bool)
         execs = blob[:, 3:]
         base = self._dense_base(handle)
-        placements = np.zeros_like(base)
-        decisions = self._reconstruct_requests(
-            handle.requests, drivers, admitted, packed, execs,
-            handle.row_driver_req, handle.row_exec_req,
-            handle.row_skippable, base, placements,
-            handle.host_schedulable,
+        total = np.zeros_like(base)
+        starts = np.concatenate(
+            [[0], np.cumsum([len(req.rows) for req in handle.requests])]
         )
-        prows = self._commit_rows(handle.requests, drivers, admitted, execs)
-        handle.placement_rows = prows
-        handle.placement_vals = placements[prows]
-        # Pipeline accounting: the device base now embodies this window's
-        # committed gangs; debit them from the mirror so the next build's
-        # host-vs-mirror delta ships only EXTERNAL changes. When the host
-        # then fails to create one of these reservations, its usage never
-        # reaches the host view and the next delta restores the gang's
-        # capacity on the device.
-        p = self._pipe
-        if p is not None and handle in p["unfetched"]:
-            p["unfetched"].remove(handle)
-            if prows.size:
-                p["mirror"][prows] -= placements[prows]
-            self._note_inflight()
-        if self.telemetry is not None:
-            # Dispatch -> decisions on the host; one window a dispatch (no
-            # fused claims in the port).
-            self.telemetry.on_dispatch_complete(
-                (time.perf_counter() - handle.dispatched_at) * 1e3, 1
+        out = []
+        for lo, hi in bounds:
+            rs = slice(int(starts[lo]), int(starts[hi]))
+            requests = handle.requests[lo:hi]
+            placements = np.zeros_like(base)
+            decisions = self._reconstruct_requests(
+                requests, drivers[rs], admitted[rs], packed[rs], execs[rs],
+                handle.row_driver_req[rs], handle.row_exec_req[rs],
+                handle.row_skippable[rs], base, placements,
+                handle.host_schedulable,
             )
-        return decisions
+            rows = self._commit_rows(requests, drivers[rs], admitted[rs], execs[rs])
+            out.append((decisions, rows, placements[rows]))
+            total += placements
+        rows = np.unique(np.concatenate([r for _, r, _ in out]))
+        handle.placement_rows = rows
+        handle.placement_vals = total[rows]
+        if self.telemetry is not None:
+            # Dispatch -> decisions on the host, per window of the dispatch
+            # (a fused batch divides one round trip by its K windows).
+            k = max(1, (handle.info or {}).get("fused_k", 1))
+            self.telemetry.on_dispatch_complete(
+                (time.perf_counter() - handle.dispatched_at) * 1e3 / k, k
+            )
+        return out
+
+    def _debit_mirror(self, handle: WindowHandle, index: int, rows, amounts) -> None:
+        """Debit one fetched window's placements from the pipeline mirror
+        (pack_window_fetch); the dispatch leaves the in-flight set with its
+        last window."""
+        p = self._pipe
+        if p is None or handle not in p["unfetched"] or index in handle.applied:
+            return
+        handle.applied.add(index)
+        if rows.size:
+            p["mirror"][rows] -= amounts
+        if len(handle.applied) == len(handle.fused_bounds or (None,)):
+            p["unfetched"].remove(handle)
+            self._note_inflight()
 
     @staticmethod
     def _commit_rows(requests, drivers, admitted, execs) -> np.ndarray:

@@ -122,11 +122,10 @@ class SolverTelemetry:
     JIT-compiles nothing, so the compile gauges and `compile_count()`
     report the libraries this process compiled (the CUDA kernels and the
     native runtime, ops/_build.py) under the JAX package's series names.
-    `on_fused_dispatch`, the `on_prune_*`,
-    `on_device_mirror` / `on_device_age` / `on_device_window`,
-    `on_slot_event`, `on_quarantine_count` and `on_degraded` have no
-    caller until the fused dispatch, the pruned solve, the device pool and
-    degraded mode are ported (ROADMAP A.4-A.6, A.5b)."""
+    The `on_prune_*`, `on_device_mirror` / `on_device_age` /
+    `on_device_window`, `on_slot_event`, `on_quarantine_count` and
+    `on_degraded` have no caller until the pruned solve, the device pool
+    and degraded mode are ported (ROADMAP A.5, A.5b, A.6)."""
 
     def __init__(self, registry: MetricRegistry | None = None):
         self.registry = registry or MetricRegistry()

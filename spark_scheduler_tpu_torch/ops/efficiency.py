@@ -1,6 +1,7 @@
 """Packing efficiency (binpack/efficiency.go:23-156) for host-side reporting,
 copied from spark_scheduler_tpu/ops/efficiency.py (`avg_packing_efficiency_np`
-is numpy on both sides, so the two packages report identical floats).
+is numpy on both sides, so the two packages report identical floats), and
+`zone_score`, the single-AZ zone score on tensors.
 
 Per-node efficiency = (already-reserved + newly-reserved) / schedulable per
 dim; GPU only counts on nodes with schedulable GPU. The average runs over a
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from spark_scheduler_tpu_torch.models.resources import (
     CPU_DIM,
@@ -79,3 +81,41 @@ def avg_packing_efficiency_np(
     )
     max_mean = float(np.where(valid, node_max_u[pos], 0.0).sum() / cnt)
     return AvgEfficiency(cpu=cpu_mean, memory=mem_mean, gpu=gpu_mean, max=max_mean)
+
+
+def zone_score(
+    count,  # executors in the gang (int or 0-d tensor)
+    is_drv: torch.Tensor,  # [N] i32, 1 on the driver's node
+    counts: torch.Tensor,  # [N] i32 executors placed per node
+    sched: torch.Tensor,  # [N,3] i32
+    avail: torch.Tensor,  # [N,3] i32 — availability the gang packed against
+    dreq: torch.Tensor,  # [3] i32
+    ereq: torch.Tensor,  # [3] i32
+    include_exec_in_reserved: bool,
+) -> torch.Tensor:  # 0-d float32
+    """Single-AZ zone score (single_az.go:23-97): the float32 mean over the
+    packing's entries (driver + one per executor) of the per-node max
+    dimension efficiency with the tentative reservation applied
+    (efficiency.go:85-144). minimalFragmentation leaves its executors out
+    of the reservation (`include_exec_in_reserved=False`). Each node's term
+    is its float32 efficiency times its entry count, rounded to float32;
+    the terms are summed in float64 and rounded once, so the score does not
+    depend on summation order (the CUDA row walk reproduces it exactly).
+    The JAX package sums in float32 instead: the two can differ in the last
+    ulp, which only matters for a cross-zone tie closer than that. Stays on
+    the tensors' device: no host synchronisation."""
+    new_res = is_drv[:, None] * dreq[None, :]
+    if include_exec_in_reserved:
+        new_res = new_res + counts[:, None] * ereq[None, :]
+    reserved = (sched - avail) + new_res
+    eff = reserved.to(torch.float32) / torch.clamp(sched, min=1).to(torch.float32)
+    eff_gpu = torch.where(sched[:, GPU_DIM] != 0, eff[:, GPU_DIM], 0.0)
+    node_max = torch.maximum(
+        eff_gpu, torch.maximum(eff[:, CPU_DIM], eff[:, MEM_DIM])
+    )
+    w = (counts + is_drv).to(torch.float32)
+    total = (node_max * w).to(torch.float64).sum().to(torch.float32)
+    # A tensor divisor on the device: a scalar one may be applied as a
+    # multiplication by its reciprocal, which rounds differently.
+    entries = torch.as_tensor(count, device=total.device) + 1
+    return total / entries.to(torch.float32)

@@ -12,19 +12,15 @@ Nodes are keyed by the segment's priority RANKS: `drank`/`erank` are
 permutations of 0..N-1 (rank of each node in the driver/executor priority
 order) and `d_order`/`e_order` their inverses, so "the first node in
 priority order among a mask" is the minimum rank over the mask, and its node
-is `order[rank]`. Fill derivations (pallas_fifo.py:26-40):
-
-  tightly-pack: every slot goes to the open node of smallest executor rank.
-      A node keeps winning until its remaining capacity is spent, so one
-      round places min(remaining, slots left) slots at once.
-  distribute-evenly: every slot goes to the open node of smallest
-      (slots already placed there, executor rank) -> key placed * N + rank,
-      int32 (`_check_cumsum_bound` keeps N * emax below 2^31).
-  minimal-fragmentation: branch A, the smallest single node fitting the
-      whole gang (capacity asc, rank asc); else branch B, consume nodes in
-      (clamped capacity desc, rank asc) order while the running total stays
-      <= count, the remainder on the smallest unconsumed node fitting it.
-      Branch A overwrites branch B.
+is `order[rank]`. The card kernels place executors slot by slot
+(pallas_fifo.py:26-40): tightly-pack gives each slot to the open node of
+smallest executor rank, distribute-evenly to the open node of smallest
+(slots already placed there, executor rank), minimal-fragmentation to the
+smallest single node fitting the whole gang, else consumes nodes in
+(clamped capacity desc, rank asc) order and puts the remainder on the
+smallest unconsumed node fitting it. Their plain version here is the
+closed form of the same greedy outcome, shared with the batched engine
+(ops/packing.py `_FILLS`).
 
 Single-AZ wrappers: the inner fill runs per zone; a zone's score is the
 float32 mean, over entries (driver + one per executor), of the per-node max
@@ -46,6 +42,8 @@ import torch
 
 from spark_scheduler_tpu_torch.models.resources import INT32_INF
 from spark_scheduler_tpu_torch.ops.capacity import fits, node_capacities
+from spark_scheduler_tpu_torch.ops.efficiency import zone_score
+from spark_scheduler_tpu_torch.ops.packing import _FILLS
 
 PALLAS_FILLS = ("tightly-pack", "distribute-evenly", "minimal-fragmentation")
 
@@ -102,110 +100,40 @@ def select_driver(count, cap_e, cap_wd, fit_d, elig_d, drank, d_order, zmask):
     return True, drv, caps_fill
 
 
-def run_fill(inner_fill, emax, count, ok, caps_fill, elig_mask, erank, e_order):
+def run_fill(inner_fill, emax, count, ok, caps_fill, erank, e_order):
     """Executor placement for one gang: ([emax] node per slot, -1 padded;
-    [N] int32 executors per node)."""
+    [N] int32 executors per node). The closed-form fills of ops/packing.py
+    over the capacities in executor priority order; `caps_fill` is zero on
+    every node the gang may not use."""
     n = caps_fill.shape[0]
-    execs = [-1] * emax
     counts = torch.zeros(n, dtype=torch.int32, device=caps_fill.device)
     if not ok:
-        return execs, counts
-    if inner_fill == "tightly-pack":
-        j = 0
-        while j < count:
-            k_sel = _masked_min(counts < caps_fill, erank)
-            if k_sel >= INF:  # no open node: the slot reads node 0
-                execs[j:count] = [0] * (count - j)
-                break
-            node = int(e_order[k_sel])
-            take = min(int(caps_fill[node] - counts[node]), count - j)
-            execs[j:j + take] = [node] * take
-            counts[node] += take
-            j += take
-    elif inner_fill == "distribute-evenly":
-        for j in range(count):
-            open_ = elig_mask & (counts < caps_fill)
-            if not bool(open_.any()):  # no open node: the slot reads node 0
-                execs[j] = 0
-                continue
-            k_min = _masked_min(open_, counts * n + erank)
-            node = int(e_order[k_min % n])
-            execs[j] = node
-            counts[node] += 1
-    elif inner_fill == "minimal-fragmentation":
-        _fill_minimal_fragmentation(
-            emax, count, caps_fill, erank, e_order, execs, counts
-        )
-    else:
+        return [-1] * emax, counts
+    if inner_fill not in _FILLS:
         raise ValueError(f"unsupported fill: {inner_fill}")
-    return execs, counts
-
-
-def _lex_min(mask, primary, erank, e_order) -> int:
-    """Node with the smallest (primary, erank) among `mask`, or -1.
-    `primary` may itself hold INF (a capacity no dimension bounds)."""
-    if not bool(mask.any()):
-        return -1
-    p = _masked_min(mask, primary)
-    return int(e_order[_masked_min(mask & (primary == p), erank)])
-
-
-def _fill_minimal_fragmentation(emax, count, caps_fill, erank, e_order,
-                                execs, counts):
-    cap_ok = caps_fill > 0
-    caps_c = torch.clamp(caps_fill, max=count)
-    node_a = _lex_min(cap_ok & (caps_fill >= count), caps_fill, erank, e_order)
-    if node_a >= 0:  # branch A: one node holds the whole gang
-        execs[:count] = [node_a] * count
-        counts[node_a] = count
-        return
-    consumed = torch.zeros_like(cap_ok)
-    placed = 0
-    for _ in range(emax):
-        open_b = cap_ok & ~consumed
-        c_max = int(torch.where(open_b, caps_c, -1).max())
-        if c_max <= 0 or placed + c_max > count:
-            break  # the state is unchanged, so every later round stops too
-        node = int(e_order[_masked_min(open_b & (caps_c == c_max), erank)])
-        execs[placed:placed + c_max] = [node] * c_max
-        counts[node] += c_max
-        consumed[node] = True
-        placed += c_max
-    remainder = count - placed
-    if remainder <= 0:
-        return
-    node_f = _lex_min(
-        cap_ok & ~consumed & (caps_fill >= remainder), caps_fill, erank,
-        e_order,
+    nodes, _ = _FILLS[inner_fill](
+        caps_fill[e_order.long()], e_order, count, emax
     )
-    if node_f < 0:  # no node fits the remainder: the slots read node 0
-        execs[placed:count] = [0] * remainder
-        return
-    execs[placed:count] = [node_f] * remainder
-    counts[node_f] += remainder
+    counts.index_add_(
+        0, torch.clamp(nodes, min=0).long(), (nodes >= 0).to(torch.int32)
+    )
+    return nodes.tolist(), counts
 
 
 def zone_efficiency(count, drv, counts, sched, avail, dreq, ereq,
                     include_exec_in_reserved) -> np.float32:
-    """Single-AZ zone score: float32 mean over entries of the per-node max
-    dimension efficiency with the tentative reservation applied
-    (efficiency.go:85-144), summed in float64 and rounded once."""
+    """Single-AZ zone score on the host (`ops/efficiency.zone_score`)."""
     is_drv = torch.zeros_like(counts)
     if drv >= 0:
         is_drv[drv] = 1
-    effs = []
-    for d in range(3):
-        new_res = is_drv * int(dreq[d])
-        if include_exec_in_reserved:
-            new_res = new_res + counts * int(ereq[d])
-        reserved = (sched[:, d] - avail[:, d]) + new_res
-        denom = torch.clamp(sched[:, d], min=1).to(torch.float32)
-        effs.append(reserved.to(torch.float32) / denom)
-    eff_gpu = torch.where(sched[:, 2] != 0, effs[2], 0.0)
-    node_max = torch.maximum(eff_gpu, torch.maximum(effs[0], effs[1]))
-    w = (counts + is_drv).to(torch.float32)
-    total = np.float32(float((node_max * w).to(torch.float64).sum()))
-    return total / np.float32(count + 1)
+    dev = counts.device
+    score = zone_score(
+        count, is_drv, counts, sched, avail,
+        torch.as_tensor(dreq, dtype=torch.int32, device=dev),
+        torch.as_tensor(ereq, dtype=torch.int32, device=dev),
+        include_exec_in_reserved,
+    )
+    return np.float32(float(score))
 
 
 def gang_solve(
@@ -235,17 +163,15 @@ def gang_solve(
     inner, single_az, az_fallback, include_exec = strategy_params(fill)
     all_nodes = torch.ones_like(elig_e)
 
-    def solve_in(zmask, elig_mask):
+    def solve_in(zmask):
         found, drv, caps = select_driver(
             count, cap_e, cap_wd, fit_d, elig_d, drank, d_order, zmask
         )
-        execs, counts = run_fill(
-            inner, emax, count, found, caps, elig_mask, erank, e_order
-        )
+        execs, counts = run_fill(inner, emax, count, found, caps, erank, e_order)
         return found, drv, execs, counts
 
     if not single_az:
-        return solve_in(all_nodes, elig_e)
+        return solve_in(all_nodes)
 
     best = None
     best_eff = np.float32(-1.0)
@@ -255,7 +181,7 @@ def gang_solve(
         zmask = zone == z
         zone_first = _masked_min(elig_d & zmask, drank)
         zone_has_exec = bool((elig_e & zmask).any())
-        found, drv, execs, counts = solve_in(zmask, elig_e & zmask)
+        found, drv, execs, counts = solve_in(zmask)
         valid_z = found and zone_first < INF and zone_has_exec
         if not valid_z:
             continue
@@ -272,7 +198,7 @@ def gang_solve(
     if az_fallback:
         # az-aware: the plain pack when no single zone fits
         # (az_aware_pack_tightly.go:27-38).
-        return solve_in(all_nodes, elig_e)
+        return solve_in(all_nodes)
     return False, -1, [-1] * emax, torch.zeros_like(cap_e)
 
 

@@ -21,7 +21,14 @@ import torch
 
 from spark_scheduler_tpu_torch.models.cluster import ClusterTensors
 from spark_scheduler_tpu_torch.models.resources import CPU_DIM, MEM_DIM
-from spark_scheduler_tpu_torch.ops.packing import _rank_of_position
+
+
+def _rank_of_position(order: torch.Tensor) -> torch.Tensor:
+    """rank[node] = position of node in `order` (int32)."""
+    n = order.shape[0]
+    rank = torch.zeros(n, dtype=torch.int32, device=order.device)
+    rank[order.long()] = torch.arange(n, dtype=torch.int32, device=order.device)
+    return rank
 
 
 def lexsort_torch(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -33,12 +40,14 @@ def lexsort_torch(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return order
 
 
-def _zone_sum_chunks(vals, mask, zone_id, num_zones: int) -> list:
+def _zone_sum_chunks(vals, mask, zone_id, num_zones: int, base=None) -> list:
     """Exact int32 per-zone sums without int64: each value splits into four
     8-bit chunks (the top chunk keeps the sign via arithmetic shift), each
     chunk is segment-summed, then carries normalize upward. Low-chunk sums
     are <= n*255, exact for n < 2^23 nodes. Chunks most-significant first,
-    comparable lexicographically."""
+    comparable lexicographically. `base` = (hi, lo) int32 limbs of per-zone
+    offsets (S >> 24, S & 0xFFFFFF), added into the chunks before the
+    carries normalize."""
     v = torch.where(mask, vals, 0)
     zone = zone_id.long()
 
@@ -50,6 +59,12 @@ def _zone_sum_chunks(vals, mask, zone_id, num_zones: int) -> list:
     s2 = seg((v >> 16) & 0xFF)
     s1 = seg((v >> 8) & 0xFF)
     s0 = seg(v & 0xFF)
+    if base is not None:
+        hi, lo = base
+        s3 = s3 + hi
+        s2 = s2 + ((lo >> 16) & 0xFF)
+        s1 = s1 + ((lo >> 8) & 0xFF)
+        s0 = s0 + (lo & 0xFF)
     s1 = s1 + (s0 >> 8)
     s0 = s0 & 0xFF
     s2 = s2 + (s1 >> 8)
@@ -64,26 +79,40 @@ def zone_ranks(
     domain_mask: torch.Tensor,  # [N] bool — nodes in the metadata domain
     num_zones: int,  # upper bound on the zone-id space
     available: torch.Tensor | None = None,  # [N,3] override
+    zone_base: tuple | None = None,  # pruned-solve zone-sum offsets
 ) -> torch.Tensor:  # [num_zones] i32: rank of each zone (0 = highest priority)
     """Zones ordered ascending by (total available memory, total CPU)
     (nodesorting.go:101-104, 124-134). Zones with no domain nodes rank last;
-    ties between zones are pinned by zone id."""
+    ties between zones are pinned by zone id.
+
+    `zone_base` = (mem_hi, mem_lo, cpu_hi, cpu_lo, present), [num_zones]
+    tensors: the per-zone sums of rows left out of a gathered sub-cluster
+    (candidate pruning), as int32 limbs hi = S >> 24, lo = S & 0xFFFFFF, and
+    which zones those rows populate. The sub-cluster then ranks its zones
+    exactly as the full domain does."""
     if available is None:
         available = cluster.available
     mask = domain_mask & cluster.valid
+    mem_base = cpu_base = base_present = None
+    if zone_base is not None:
+        mem_hi, mem_lo, cpu_hi, cpu_lo, base_present = zone_base
+        mem_base, cpu_base = (mem_hi, mem_lo), (cpu_hi, cpu_lo)
     mem_k = _zone_sum_chunks(
-        available[:, MEM_DIM], mask, cluster.zone_id, num_zones
+        available[:, MEM_DIM], mask, cluster.zone_id, num_zones, mem_base
     )
     cpu_k = _zone_sum_chunks(
-        available[:, CPU_DIM], mask, cluster.zone_id, num_zones
+        available[:, CPU_DIM], mask, cluster.zone_id, num_zones, cpu_base
     )
     members = torch.zeros(num_zones, dtype=torch.int32, device=mask.device)
     members.index_add_(0, cluster.zone_id.long(), mask.to(torch.int32))
+    present = members > 0
+    if base_present is not None:
+        present = present | base_present
     keys = (
         [torch.arange(num_zones, device=mask.device)]
         + list(reversed(cpu_k))
         + list(reversed(mem_k))
-        + [(members == 0).to(torch.int32)]
+        + [(~present).to(torch.int32)]
     )
     order = lexsort_torch(keys)
     return _rank_of_position(order)

@@ -56,7 +56,6 @@ UNSUPPORTED_KEYS = {
     "solver_prune_top_k": ("solver.prune-top-k", "ROADMAP A.6"),
     "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.7"),
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
-    "solver_fuse_windows": ("solver.fuse-windows", "ROADMAP A.4"),
     "degraded_mode": ("server.degraded-mode", "ROADMAP A.5b"),
     "autoscaler_enabled": ("autoscaler.enabled", "ROADMAP A.9"),
     "policy_enabled": ("policy.enabled", "ROADMAP A.9"),

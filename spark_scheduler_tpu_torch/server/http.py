@@ -46,8 +46,7 @@ selected by the `server.transport` install knob:
 The port's copy of spark_scheduler_tpu/server/http.py. `ingest="native"`
 builds the port's native library (spark_scheduler_tpu_torch/native) or
 raises: the JAX package's degrade of `native` to `python` is not copied.
-The batcher has no fused multi-window claim (`solver.fuse-windows`,
-ROADMAP A.4). `ha=` takes an HA replica runtime (ha/replica.py), as in
+`ha=` takes an HA replica runtime (ha/replica.py), as in
 the JAX package; the fleet facade waits for ROADMAP A.9.
 """
 
@@ -136,15 +135,24 @@ class PredicateBatcher:
 
     def __init__(
         self, extender, max_window: int = 32, hold_ms: float = 25.0,
-        registry=None, pipeline_depth: int = 3,
+        registry=None, pipeline_depth: int = 3, fuse_windows: int = 1,
     ):
         self._extender = extender
         self._max_window = max_window
         # How many dispatched windows may be awaiting their decision pull
         # at once: a window dispatched while the previous one is in flight
         # queues its kernels behind it on the card, so the host builds the
-        # next window while the card solves this one.
+        # next window while the card solves this one. With fusion, depth
+        # counts DISPATCHES (a fused batch of K windows is one round trip),
+        # see _run's inflight_dispatches.
         self._pipeline_depth = max(1, pipeline_depth)
+        # Fused multi-window dispatch (`solver.fuse-windows`): when the
+        # backlog holds more than one window's worth of requests, claim up
+        # to fuse_windows x max_window of them and dispatch the sub-windows
+        # as ONE fused device program (extender.predicate_windows_dispatch):
+        # K windows share one dispatch and one decision pull. 1 = one window
+        # a dispatch.
+        self._fuse_windows = max(1, fuse_windows)
         # Window-size histogram + wait time in the tagged registry (the
         # reference's metric discipline for every serving subsystem,
         # metrics/metrics.go:29-76).
@@ -189,6 +197,9 @@ class PredicateBatcher:
         # Windows dispatched while another window was still in flight (the
         # dispatch-before-fetch overlap actually engaging).
         self.pipelined_windows = 0
+        # Fused claims dispatched, and the largest K among them.
+        self.fused_dispatches = 0
+        self.max_fused_k = 1
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="predicate-batcher"
         )
@@ -282,12 +293,14 @@ class PredicateBatcher:
         in-flight windows (build_tensors_pipelined), an app whose admission
         is still in flight is deferred to its own window's post-apply solo
         loop (extender in-flight set), and a ticket with no dispatched
-        solve (the solo path) drains the pipeline before serving.
+        solve (the solo path) drains the pipeline before serving. A fused
+        claim (`fuse_windows` > 1) dispatches its sub-windows as one
+        device program and occupies one depth slot.
 
-        The JAX package's fused multi-window claim (`solver.fuse-windows`,
-        refused by the port's app builder) and its eager decision-pull
-        futures are not here: a window completes when the depth bound or
-        an empty queue asks for it, waiting on the card's copy event."""
+        The JAX package's eager decision-pull futures are not here: a
+        window completes when the depth bound or an empty queue asks for it
+        (or, inside a fused batch, once the batch's one pull has landed),
+        waiting on the card's copy event."""
         import time as _time
         from collections import deque
 
@@ -310,6 +323,21 @@ class PredicateBatcher:
         def complete_all():
             while pending:
                 complete_head()
+
+        def head_ready() -> bool:
+            """A later window of a fused batch whose one pull has landed
+            completes at no cost."""
+            owner = getattr(pending[0][0].handle, "owner", None)
+            return owner is not None and owner.fused_decisions is not None
+
+        def inflight_dispatches() -> int:
+            """Pipeline depth in DEVICE ROUND TRIPS: the windows of one
+            fused dispatch share its dispatch_id and count once."""
+            ids = set()
+            for t, _ in pending:
+                did = getattr(t.handle, "dispatch_id", None)
+                ids.add(did if did is not None else id(t))
+            return len(ids)
 
         while True:
             with self._cv:
@@ -362,8 +390,12 @@ class PredicateBatcher:
                         entry[1].set()
                     self._queue.clear()
                     return
-                batch = self._queue[: self._max_window]
-                del self._queue[: self._max_window]
+                # Fused claim: up to fuse-windows x max-window of the
+                # backlog; past one window's worth it splits into
+                # sub-windows dispatched as ONE fused device program.
+                claim = self._max_window * self._fuse_windows
+                batch = self._queue[:claim]
+                del self._queue[:claim]
                 if batch and len(self.claim_log) < self.CLAIM_LOG_CAP:
                     self.claim_log.append((
                         len(batch), len(self._queue), len(pending),
@@ -379,39 +411,79 @@ class PredicateBatcher:
                         self._busy_until = (
                             _time.monotonic() + self._busy_ttl_s
                         )
-            ticket = None
+            dispatched: list = []
             if batch:
+                sub_batches = [
+                    batch[i : i + self._max_window]
+                    for i in range(0, len(batch), self._max_window)
+                ]
                 try:
-                    ticket = self._dispatch_window(batch)
+                    dispatched = self._dispatch_batches(sub_batches)
                 except PipelineDrainRequired:
                     # Topology changed under in-flight windows: apply them
                     # first, then the fresh full upload is safe.
                     complete_all()
                     try:
-                        ticket = self._dispatch_window(batch)
+                        dispatched = self._dispatch_batches(sub_batches)
                     except Exception as exc:
                         self._fail_batch(batch, exc)
                 except Exception as exc:
                     self._fail_batch(batch, exc)
-            if ticket is not None:
-                self._last_had_solve = ticket.handle is not None
+            if dispatched:
+                self._last_had_solve = any(
+                    t.handle is not None for t, _ in dispatched
+                )
+            for ticket, sub in dispatched:
                 if ticket.handle is None:
                     # No dispatched device solve (lone request -> solo path,
                     # or a batch that didn't window): its serve must observe
                     # every earlier window's reservations, and there is no
-                    # fetch to overlap — drain, then serve now.
+                    # fetch to overlap — drain, then serve now. (Inside a
+                    # fused claim this drains the batch's earlier windows —
+                    # one pull — before the solo serve.)
                     complete_all()
-                    self._complete_window((ticket, batch))
+                    self._complete_window((ticket, sub))
                 else:
                     if pending:
                         self.pipelined_windows += 1
-                    pending.append((ticket, batch))
-            # The depth bound backpressures (blocking complete) when the
+                    pending.append((ticket, sub))
+            # Heads whose fused pull already landed complete at no cost; the
+            # depth bound backpressures (blocking complete) when the
             # pipeline is full; with nothing queued, the head completes now.
-            while pending and len(pending) >= self._pipeline_depth:
+            while pending and head_ready():
+                complete_head()
+            while pending and inflight_dispatches() >= self._pipeline_depth:
                 complete_head()
             if not batch and pending and not self._queue:
                 complete_head()
+
+    def _dispatch_batches(self, sub_batches):
+        """Dispatch one claim: a single window, or a FUSED group of K
+        sub-windows solved by one device dispatch
+        (extender.predicate_windows_dispatch). Returns [(ticket, batch)] in
+        dispatch order; completions stay strictly FIFO."""
+        if len(sub_batches) == 1:
+            return [(self._dispatch_window(sub_batches[0]), sub_batches[0])]
+        from spark_scheduler_tpu_torch.tracing import tracer
+
+        with tracer().span(
+            "predicate-window-fused",
+            windows=len(sub_batches),
+            requests=sum(len(s) for s in sub_batches),
+        ):
+            tickets = self._extender.predicate_windows_dispatch(
+                [[e[0] for e in sub] for sub in sub_batches]
+            )
+        # Counted AFTER the dispatch landed: a PipelineDrainRequired retry
+        # re-enters for the same claim and must not count the aborted
+        # attempt.
+        self.fused_dispatches += 1
+        self.max_fused_k = max(self.max_fused_k, len(sub_batches))
+        if self._registry is not None:
+            self._registry.histogram(
+                "foundry.spark.scheduler.predicate.fused.windows"
+            ).update(len(sub_batches))
+        return list(zip(tickets, sub_batches))
 
     def _dispatch_window(self, batch):
         from spark_scheduler_tpu_torch.tracing import tracer
@@ -488,6 +560,9 @@ class PredicateBatcher:
             "requests_served": self.requests_served,
             "max_window_seen": self.max_window_seen,
             "pipelined_windows": self.pipelined_windows,
+            "fuse_windows": self._fuse_windows,
+            "fused_dispatches": self.fused_dispatches,
+            "max_fused_k": self.max_fused_k,
             "queue_depth": self.queue_depth(),
             "mean_window": (
                 round(self.requests_served / self.windows_served, 2)
@@ -634,6 +709,10 @@ class SchedulerHTTPServer:
             hold_ms=getattr(cfg, "predicate_hold_ms", 25.0),
             registry=registry,
             pipeline_depth=3,
+            # Fused multi-window dispatch (`solver.fuse-windows` /
+            # --fuse-windows): a deep backlog rides one device round trip
+            # per K windows instead of one each.
+            fuse_windows=getattr(cfg, "solver_fuse_windows", 1),
         )
         self.telemetry = TransportTelemetry(
             self.transport_name, ingest=self.ingest_name

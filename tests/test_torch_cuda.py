@@ -782,3 +782,108 @@ def test_cli_serves_from_apiserver_with_a_wal_and_restarts(cuda_device, tmp_path
             api.stop()
         else:
             api._server.server_close()
+
+
+# ------------------------------------------ fused dispatch, batched engine
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_fused_dispatch_on_cuda_matches_sequential(cuda_device, k):
+    """`pack_windows_dispatch` of K windows on a `cuda` solver equals K
+    back-to-back dispatches, and launches the row walk once a segment."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+    from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL, Node
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    rng = np.random.default_rng(100 + k)
+    nodes = [
+        Node(name=f"n{i:03d}", allocatable=Resources.from_quantities("8", "8Gi", "1"),
+             labels={ZONE_LABEL: f"z{i % 2}"})
+        for i in range(300)
+    ]
+    names = [n.name for n in nodes]
+    one, two = Resources.from_quantities("1", "1Gi"), Resources.from_quantities("2", "2Gi")
+
+    def request():
+        rows = [(one, one, int(rng.integers(1, 3)), bool(rng.random() < 0.5))
+                for _ in range(int(rng.integers(0, 3)))]
+        rows.append((two if rng.random() < 0.3 else one, one,
+                     int(rng.integers(1, 4)), False))
+        return WindowRequest(rows=rows, driver_candidate_names=names)
+
+    windows = [[request() for _ in range(3)] for _ in range(k)]
+    usage = {n.name: Resources.from_quantities(str(int(rng.integers(1, 4))), "1Gi")
+             for n in nodes if rng.random() < 0.3}
+    seq, fused = (PlacementSolver(device=cuda_device) for _ in range(2))
+    handles = [
+        seq.pack_window_dispatch(
+            "tightly-pack", seq.build_tensors_pipelined(nodes, usage, {}), w)
+        for w in windows
+    ]
+    want = [d for h in handles for d in seq.pack_window_fetch(h)]
+    t = fused.build_tensors_pipelined(nodes, usage, {})
+    before = window_pack.launches
+    views = fused.pack_windows_dispatch("tightly-pack", t, windows)
+    got = [d for v in views for d in fused.pack_window_fetch(v)]
+    assert window_pack.launches - before == k * 3
+    assert got == want
+    assert any(d.admitted for d in got)
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
+def test_batched_engine_on_cuda_matches_window_pack(cuda_device, fill):
+    """`batched_fifo_pack` in window mode on CUDA tensors (plain PyTorch)
+    against the row-walk kernel on the same window."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+    from spark_scheduler_tpu_torch.ops.batched import batched_fifo_pack
+    from spark_scheduler_tpu_torch.ops.window import make_segmented_window, window_pack
+    from chip_smoke import segmented_to_app_batch
+
+    rng = np.random.default_rng(9)
+    n, emax = 300, 8
+    avail = rng.integers(0, 24, size=(n, 3)).astype(np.int32)
+    avail[:, 2] = rng.integers(0, 3, size=n)
+    cluster = cluster_from_numpy(
+        [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+         rng.permutation(n).astype(np.int32),
+         np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+         rng.random(n) < 0.1, rng.random(n) > 0.05, np.ones(n, bool)],
+        device=cuda_device,
+    )
+    requests = [
+        [(rng.integers(0, 5, 3).astype(np.int32) * [1, 1, 0],
+          rng.integers(1, 4, 3).astype(np.int32),
+          int(rng.integers(0, emax + 1)), bool(rng.random() < 0.3))
+         for _ in range(int(rng.integers(1, 6)))]
+        for _ in range(6)
+    ]
+    win = make_segmented_window(
+        requests, [rng.random(n) < 0.9 for _ in requests], [np.ones(n, bool)] * 6
+    )
+    meta, execs, base = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4)
+    apps, (si, ri) = segmented_to_app_batch(win)
+    got = batched_fifo_pack(cluster, apps, fill=fill, emax=emax, num_zones=4)
+    assert got.driver_node.is_cuda
+    meta, execs = meta.cpu().numpy(), execs.cpu().numpy()
+    np.testing.assert_array_equal(got.driver_node.cpu().numpy(), meta[si, ri, 0])
+    np.testing.assert_array_equal(got.admitted.cpu().numpy(), meta[si, ri, 1] == 1)
+    np.testing.assert_array_equal(got.packed.cpu().numpy(), meta[si, ri, 2] == 1)
+    np.testing.assert_array_equal(got.executor_nodes.cpu().numpy(), execs[si, ri])
+    assert torch.equal(got.available_after, base)
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
+@pytest.mark.parametrize("n", [37, 10000])
+def test_batched_engine_on_cuda_matches_fifo_pack(cuda_device, fill, n):
+    """`batched_fifo_pack` in queue mode on CUDA tensors against the queue
+    kernel on the same queue."""
+    from spark_scheduler_tpu_torch.ops.batched import batched_fifo_pack
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+
+    cluster, apps = _queue_case(np.random.default_rng(3), n, 9, cuda_device)
+    want = fifo_pack(cluster, apps, fill=fill, emax=8, num_zones=4)
+    got = batched_fifo_pack(cluster, apps, fill=fill, emax=8, num_zones=4)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w), (fill, n)

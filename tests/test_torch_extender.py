@@ -556,16 +556,3 @@ def test_predicate_batch_mixed_roles_matches_jax():
     run_both(scenario, binpack="tightly-pack")
 
 
-def test_fused_multi_window_dispatch_raises_instead_of_serialising():
-    """The fused K-window dispatch is not ported: the port refuses it with
-    an error naming the missing solver method."""
-    h = Side(PORT, binpack="tightly-pack")
-    names = ["n1"]
-    h.add_nodes(h.node("n1"))
-    a, b = h.spark_pods("f-0", 1)[0], h.spark_pods("f-1", 1)[0]
-    h.add_pods(a, b)
-    with pytest.raises(NotImplementedError, match="pack_windows_dispatch"):
-        h.extender.predicate_windows_dispatch(
-            [[h.args(a, names)], [h.args(b, names)]]
-        )
-    assert h.state()["reservations"] == []

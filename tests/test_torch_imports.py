@@ -104,6 +104,67 @@ def test_durable_and_failover_modules_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+FUSED_AND_BATCHED = (
+    "spark_scheduler_tpu_torch.ops.packing",
+    "spark_scheduler_tpu_torch.ops.batched",
+    "spark_scheduler_tpu_torch.ops.efficiency",
+    "spark_scheduler_tpu_torch.core.solver",
+    "spark_scheduler_tpu_torch.server.http",
+)
+
+
+def test_fused_and_batched_modules_run_with_jax_blocked():
+    """The closed-form packing, the batched engine and the fused dispatch
+    import and run (a window-mode batch, a preemption fit, a K = 2 fused
+    dispatch on the CPU) while jax and the JAX package are refused."""
+    assert set(FUSED_AND_BATCHED) <= set(_port_modules())
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import importlib\n"
+        f"for name in {FUSED_AND_BATCHED!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import numpy as np, torch\n"
+        "from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest\n"
+        "from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy\n"
+        "from spark_scheduler_tpu_torch.models.kube import Node\n"
+        "from spark_scheduler_tpu_torch.models.resources import INT32_INF, Resources\n"
+        "from spark_scheduler_tpu_torch.ops.batched import batched_fifo_pack, make_app_batch\n"
+        "from spark_scheduler_tpu_torch.ops.packing import preemption_batched_fit\n"
+        "n = 6\n"
+        "avail = np.full((n, 3), 8, np.int32)\n"
+        "c = cluster_from_numpy([avail, avail.copy(), (np.arange(n) % 2).astype(np.int32),\n"
+        "    np.arange(n, dtype=np.int32), np.full(n, INT32_INF, np.int32),\n"
+        "    np.full(n, INT32_INF, np.int32), np.zeros(n, bool), np.ones(n, bool),\n"
+        "    np.ones(n, bool)], device='cpu')\n"
+        "one = [[1, 1, 0]]\n"
+        "out = batched_fifo_pack(c, make_app_batch(one, one, [3], commit=[True], reset=[True]),\n"
+        "    fill='single-az-tightly-pack', emax=8, num_zones=2)\n"
+        "assert bool(out.admitted[0])\n"
+        "t = lambda a, d=torch.int32: torch.tensor(a, dtype=d)\n"
+        "ok, _, _ = preemption_batched_fit(c, t(np.zeros((2, n, 3))), t([1, 1, 0]),\n"
+        "    t([1, 1, 0]), 2, t(np.ones(n), torch.bool), t(np.ones(n), torch.bool),\n"
+        "    fill='tightly-pack', emax=8, num_zones=2)\n"
+        "assert ok.tolist() == [True, True]\n"
+        "solver = PlacementSolver(device='cpu')\n"
+        "nodes = [Node(name=f'n{i}', allocatable=Resources.from_quantities('8', '8Gi'))\n"
+        "         for i in range(n)]\n"
+        "r = Resources.from_quantities('1', '1Gi')\n"
+        "req = WindowRequest(rows=[(r, r, 2, False)], driver_candidate_names=[x.name for x in nodes])\n"
+        "views = solver.pack_windows_dispatch('tightly-pack',\n"
+        "    solver.build_tensors_pipelined(nodes, {}, {}), [[req], [req]])\n"
+        "assert [d.admitted for v in views for d in solver.pack_window_fetch(v)] == [True, True]\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_blocker_does_not_refuse_the_port_prefix():
     """The finder matches `spark_scheduler_tpu` exactly or with a dot, so
     the port (which shares the prefix) still imports while the JAX

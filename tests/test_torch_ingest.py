@@ -17,7 +17,7 @@ import pytest
 
 from spark_scheduler_tpu.server import ingest as jax_ingest
 from spark_scheduler_tpu_torch.server import ingest as port_ingest
-from tests.test_torch_native import load_jax_native
+from tests.test_torch_native import check_native_lane, load_jax_native
 from tests.test_torch_server import JAX, PORT, Served, k8s_node, k8s_spark_pod, same
 
 INGESTS = (jax_ingest, port_ingest)
@@ -206,6 +206,9 @@ def threaded_pair(request):
         Served(JAX, server_ingest=request.param),
         Served(PORT, server_ingest=request.param),
     ]
+    if request.param == "native":
+        for s in sides:
+            check_native_lane(s)
     yield request.param, sides
     for s in sides:
         s.stop()

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_extender import canon
+from tests.test_torch_native import load_jax_native
 
 JAX = "spark_scheduler_tpu"
 PORT = "spark_scheduler_tpu_torch"
@@ -48,6 +49,10 @@ def pkg(root):
     def mod(name):
         return importlib.import_module(f"{root}.{name}")
 
+    if root == JAX:
+        # The JAX app uses the JAX package's native runtime when it loads:
+        # load it the same way in every worker.
+        load_jax_native()
     m = types.SimpleNamespace(root=root)
     for attr, name in (
         ("apiserver", "kube.apiserver"),
@@ -856,8 +861,12 @@ def cross_ingestion(server_root, client_root, seed):
             api.create("pods", driver)
             api.update("pods", bound(driver, "n3"))
             api.delete("nodes", "", "n0")
+            # The nodes and the pods arrive on two watches: wait for the
+            # exact node set (a count of 7 is also passed on the way up,
+            # with one create still to come) and the bound driver.
+            want_nodes = {f"n{i}" for i in range(1, 8)}
             assert wait_until(
-                lambda: len(backend.list_nodes()) == 7
+                lambda: {n.name for n in backend.list_nodes()} == want_nodes
                 and getattr(backend.get("pods", "ns", "x-driver"), "node_name", "") == "n3"
             )
             return backend_state(backend)

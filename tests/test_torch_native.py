@@ -16,8 +16,10 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import gc
+import hashlib
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -34,15 +36,69 @@ SIDES = (jax_native, port_native)
 
 
 def load_jax_native():
-    """The JAX package's runtime, loaded with its build serialized across
-    test workers (it compiles straight to its final path)."""
+    """The JAX package's runtime, built from its own source into a file no
+    other process writes, and loaded from there.
+
+    The JAX package compiles straight to its final path
+    (`native/build/libsched_runtime.so`) and loads whatever file it finds
+    there; its own native test modules call `native.available()` at
+    collection, so every test worker builds that path at once on a fresh
+    tree. The linker unlinks the old file and writes a new one, so a worker
+    that loads it meanwhile gets a partial library: "file too short", a
+    failed build that the package then never retries, or a library that
+    loads and frames requests wrongly. Here the build is serialized across
+    workers by a lock, compiled with the JAX package's own command to a
+    temporary name and renamed atomically to a name keyed by the source's
+    digest; then the JAX package's loader is pointed at that finished file,
+    whatever it loaded (or failed to load) before. The finished file also
+    fills the shared path when that is missing."""
     lock = Path(os.environ.get("TMPDIR", "/tmp")) / "spark-scheduler-jax-native.lock"
     with open(lock, "a") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
+            src = Path(jax_native._SRC)
+            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+            shared = Path(jax_native._SO).parent
+            built = shared / f"libsched_runtime-{digest}.so"
+            if jax_native._SO != str(built) or jax_native._lib is None:
+                if not built.exists():
+                    shared.mkdir(parents=True, exist_ok=True)
+                    tmp = built.with_name(f"{built.name}.{os.getpid()}.tmp")
+                    subprocess.run(
+                        [os.environ.get("CXX", "g++"), "-O2", "-std=c++17",
+                         "-fPIC", "-shared", "-o", str(tmp), str(src)],
+                        check=True, capture_output=True, timeout=120,
+                    )
+                    os.replace(tmp, built)
+                final = shared / "libsched_runtime.so"
+                if not final.exists():
+                    tmp = final.with_name(f"{final.name}.{os.getpid()}.tmp")
+                    shutil.copyfile(built, tmp)
+                    os.replace(tmp, final)
+                # Re-point the loader: drop what an earlier load in this
+                # process left behind (a library read while another worker
+                # wrote it, or a failed build it would never retry).
+                jax_native._SO = str(built)
+                jax_native._lib = None
+                jax_native._load_failed = False
+                jax_native._load_error = None
             assert jax_native.available(), jax_native.load_error()
         finally:
             fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def check_native_lane(served) -> None:
+    """Raise unless `served` (either package's server on the native ingest
+    lane) really serves on it: a JAX server whose runtime failed to load
+    serves on the python lane instead, and must fail with that cause, not
+    as a framing mismatch. Stops the server before raising."""
+    stats = served.server.ingest_stats()
+    if stats.get("degraded") or stats.get("ingest") != "native":
+        served.stop()
+        raise AssertionError(
+            f"{served.root} server is not on the native lane ({stats}): "
+            f"{jax_native.load_error()}"
+        )
 
 
 @pytest.fixture(autouse=True)

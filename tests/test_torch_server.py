@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_extender import NOW, STRATEGIES, Side, canon, mixed_workload
+from tests.test_torch_native import load_jax_native
 
 JAX = "spark_scheduler_tpu"
 PORT = "spark_scheduler_tpu_torch"
@@ -70,6 +71,11 @@ class Served:
         )
         config.update(cfg)
         kw = {"device": "cpu"} if root == PORT else {}
+        if root == JAX:
+            # The JAX app's solver and feature store use the JAX package's
+            # native runtime when it loads: load it the same way in every
+            # worker (tests/test_torch_native.py `load_jax_native`).
+            load_jax_native()
         self.app = _mod(root, "server.app").build_scheduler_app(
             self.backend,
             _mod(root, "server.config").InstallConfig(**config),
@@ -589,7 +595,6 @@ def _unsupported_values():
         "solver_prune_top_k": 4,
         "solver_scale_tier": True,
         "solver_build_oracle": True,
-        "solver_fuse_windows": 2,
         "degraded_mode": "shed",
         "autoscaler_enabled": True,
         "policy_enabled": True,
@@ -622,6 +627,7 @@ SERVED_KEYS = {
     "ha_replica_id": "replica-1",
     "ha_lease_ttl_s": 9.0,
     "ha_heartbeat_s": 1.0,
+    "solver_fuse_windows": 4,
 }
 
 
@@ -644,10 +650,12 @@ def _wiring(app):
 
 @pytest.mark.parametrize("field", sorted(SERVED_KEYS))
 def test_served_key_builds_like_jax(field):
-    """The keys the port now serves (the apiserver URL, the durable store
-    and the ha.* block) build an app wired as the JAX package's is."""
+    """The keys the port now serves (the apiserver URL, the durable store,
+    the ha.* block and solver.fuse-windows) build an app wired as the JAX
+    package's is."""
     config = {field: SERVED_KEYS[field], "instance_group_label": IG_LABEL}
     wired = []
+    load_jax_native()
     for root in (JAX, PORT):
         kw = {"device": "cpu"} if root == PORT else {}
         app = _mod(root, "server.app").build_scheduler_app(

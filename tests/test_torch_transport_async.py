@@ -25,7 +25,7 @@ import time
 
 import pytest
 
-from tests.test_torch_native import load_jax_native
+from tests.test_torch_native import check_native_lane, load_jax_native
 from tests.test_torch_server import (
     JAX,
     PORT,
@@ -42,7 +42,10 @@ SOCKET_TIMEOUT = 10.0
 def _served(root, lane, **cfg):
     if lane == "native":
         load_jax_native()
-    return Served(root, server_transport="async", server_ingest=lane, **cfg)
+    s = Served(root, server_transport="async", server_ingest=lane, **cfg)
+    if lane == "native":
+        check_native_lane(s)
+    return s
 
 
 @pytest.fixture(params=LANES)
