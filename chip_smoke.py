@@ -172,6 +172,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
      on a config-5 queue of 100 apps (queue mode), each call's time beside
      the kernel's. These comparison launches count toward no kernel's
      main-path launches.
+ 12. The pruned two-tier solve (`solver.prune-top-k`) on the card. (a)
+     Phase 3's cluster and prior usage: 16 pipelined windows of 8
+     tightly-pack requests shaped as phase 7's apps (gangs of 2-8
+     executors, ~15% 32 wide, 0-1 FIFO-earlier drivers each), dispatched
+     two at a time before either is fetched, with churn between pairs
+     (64 nodes' usage, a node added, a node's zone label moved); then the
+     same with one fused K = 2 dispatch a pair; then a tight arm (top-k 8,
+     slack 0.25, 4 windows) that must escalate. Each arm runs, in
+     lockstep, a `cuda` solver with `prune_top_k=64, prune_slack=2.0`, a
+     `cuda` solver without pruning and a `cpu` solver with pruning: every
+     WindowDecision must be equal, and so must the two pruned solvers'
+     prune_stats; at least 12 of the 16 windows must be dispatched pruned;
+     the pruned solver's row-walk launches must equal the live segments of
+     every dispatch (pruned, declined, and again for each full re-solve
+     after an escalation). (b) Phase 7's server with `solver.prune-top-k:
+     64`, 4 client threads, 128 drivers (each request carries the other
+     clients' pending drivers as FIFO-earlier rows), a pod DELETE and a
+     node PUT mid-window, then the executors: every response equal to a
+     cpu replay on an UNPRUNED app, at least half the driver-window
+     dispatches pruned (/debug/state's prune block), no over-commit. (c)
+     100,000 nodes: 20 windows of 32 requests, pruned against unpruned on
+     `cuda`, decisions equal. Prints per arm the pruned dispatches, kept
+     rows, escalations by reason, launches, the host planning means
+     (plan, gather, offset) and planner rows, the window p50 pruned
+     against unpruned (host clock ending in a synchronise; pair 0 warms
+     up and the profiled pair is not timed) and, on one profiled pair,
+     the row walk's device ms a window and µs a row, the other device
+     work and the device idle share. The launch counts are the pruned
+     solvers' and the server's, never the comparison solvers'.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -583,20 +612,20 @@ def wide_queue(device):
 # ---------------------------------------------------------------- phase 3
 
 
-def main_cluster(seed):
-    """10,000 nodes over 4 zones: 8-64 CPU, 32-256 Gi, ~10% with 1-8 GPUs,
-    and a dense prior usage of 30-70% per dimension (registry-row order)."""
+def main_cluster(seed, n=N_MAIN):
+    """n (10,000) nodes over 4 zones: 8-64 CPU, 32-256 Gi, ~10% with 1-8
+    GPUs, and a dense prior usage of 30-70% per dimension (registry-row
+    order)."""
     from spark_scheduler_tpu_torch.models.kube import Node, ZONE_LABEL
     from spark_scheduler_tpu_torch.models.resources import Resources
 
     rng = np.random.default_rng(seed)
-    n = N_MAIN
     cpu = rng.choice([8, 16, 32, 48, 64], n)
     mem = rng.choice([32, 64, 128, 192, 256], n)
     gpu = np.where(rng.random(n) < 0.1, rng.integers(1, 9, n), 0)
     nodes = [
         Node(
-            name=f"node-{i:05d}",
+            name=f"node-{i:05d}" if n <= N_MAIN else f"node-{i:06d}",
             allocatable=Resources(
                 int(cpu[i]) * 1000, int(mem[i]) << 20, int(gpu[i]) * 1000
             ),
@@ -1740,6 +1769,7 @@ class RecordedServer:
         ext = self.app.extender
         dispatch, complete = ext.predicate_window_dispatch, ext.predicate_window_complete
         entries = {}
+        resolved_owners: set = set()
 
         def recorded_dispatch(args_list):
             from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
@@ -1789,6 +1819,15 @@ class RecordedServer:
                 out = complete(t)
                 e["ms"] = (time.perf_counter() - t0) * 1e3
                 e["launches"] = window_pack.launches - before
+                # A pruned window whose certificate failed (or a window
+                # dispatched on its carry) re-solves in full at its
+                # completion, once per dispatch.
+                h = t.handle
+                owner = getattr(h, "owner", h)
+                resolved = (owner.info or {}).get("resolved") if owner else None
+                if resolved is not None and owner not in resolved_owners:
+                    resolved_owners.add(owner)
+                    e["resolved"] = resolved
                 return out
 
         fused_dispatch = ext.predicate_windows_dispatch
@@ -2029,14 +2068,18 @@ def series(snapshot, name):
 
 def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
                      n_clients=SRV_CLIENTS, *, phase=7, transport="threaded",
-                     ingest="python", before=None, fuse=1, max_window=32):
+                     ingest="python", before=None, fuse=1, max_window=32,
+                     prune=0):
     """Phase 7 (threaded transport, python ingest), phase 8 (async
-    transport, native ingest, half the clients on binary bodies), or phase
+    transport, native ingest, half the clients on binary bodies), phase
     11 (phase 7's, with `solver.fuse-windows: fuse` and windows of
-    `max_window`): the port's HTTP server on the card (see the module
-    docstring). `before` is phase 7's stats, printed beside this phase's.
-    Returns the row-walk and probe launches of the phase and its stats."""
+    `max_window`) or phase 12b (`solver.prune-top-k: prune`, replayed on
+    an unpruned cpu app): the port's HTTP server on the card (see the
+    module docstring). `before` is phase 7's stats, printed beside this
+    phase's. Returns the row-walk and probe launches of the phase and its
+    stats."""
     import copy
+    import dataclasses
     import threading
 
     import torch
@@ -2054,7 +2097,7 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         fifo=True, binpack_algo="tightly-pack",
         instance_group_label=EXT_IG_LABEL, sync_writes=True,
         debug_routes=True, solver_fuse_windows=fuse,
-        predicate_max_window=max_window,
+        predicate_max_window=max_window, solver_prune_top_k=prune,
     )
     native = ingest == "native"
     window_pack.launches = 0
@@ -2165,6 +2208,9 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         check(ready2 == (200, b'{"ready": true}'), f"readiness at the end: {ready2}")
         snapshot = json.loads(metrics[1])
         batcher = snapshot["predicate_batcher"]
+        state = http_get(port, "/debug/state")
+        check(state[0] == 200, f"/debug/state: {state[0]}")
+        prune_block = json.loads(state[1]).get("prune", {})
         violations = overcommit_violations(srv.app, srv.backend)
         check(not violations, f"phase {phase} over-commit: {violations[:8]}")
     finally:
@@ -2185,6 +2231,9 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     fused_ks = [len(e["subs"]) for e in dispatches
                 if e["op"] == "fused" and not e["drain"]]
     segments = sum(e["segments"] for e in done)
+    resolved = [e["resolved"] for e in log
+                if isinstance(e, dict) and "resolved" in e]
+    resolved_segments = sum(r["segments"] for r in resolved)
     solo = srv.solo_packs
     check(solo["other"] == 0, f"solo packs off the batcher thread: {solo}")
     if on_card:
@@ -2193,9 +2242,10 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         check(window_launches == launches["window"],
               f"launches outside dispatch/complete: {launches['window']} vs "
               f"{window_launches}")
-        check(launches["window"] == segments + solo["batcher"],
+        check(launches["window"] == segments + resolved_segments + solo["batcher"],
               f"row-walk launches {launches['window']} != {segments} live "
-              f"segments + {solo['batcher']} solo packs")
+              f"segments + {resolved_segments} re-solved + "
+              f"{solo['batcher']} solo packs")
         check(launches["probe"] == 1, f"probe launches {launches['probe']}")
     # The driver windows the server formed, as /debug/decisions reports
     # them (dispatch_id), equal the recorded ones.
@@ -2215,7 +2265,12 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     # The solver telemetry on /metrics against what this script counted.
     path = "pallas" if on_card else "xla"
     dispatches = series(snapshot, "foundry.spark.scheduler.solver.window.dispatches")
-    check(dispatches == {(("path", path),): device_dispatches},
+    pruned_windows = dispatches.get((("path", path + "-pruned"),), 0)
+    check(pruned_windows == prune_block.get("windows", 0),
+          f"phase {phase}: {pruned_windows} pruned dispatches on /metrics, "
+          f"{prune_block.get('windows', 0)} on /debug/state")
+    check(set(dispatches) <= {(("path", path),), (("path", path + "-pruned"),)}
+          and sum(dispatches.values()) == device_dispatches,
           f"phase {phase}: solver.window.dispatches {dispatches} != "
           f"{device_dispatches} device dispatches of driver windows")
     uploads = series(snapshot, "foundry.spark.scheduler.solver.device.uploads")
@@ -2225,7 +2280,8 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     check(uploads == want_uploads, f"phase {phase}: solver.device.uploads "
                                    f"{uploads} != builds {srv.builds}")
     transfer = series(snapshot, "foundry.spark.scheduler.solver.transfer.bytes")
-    d2h = sum(e.get("d2h", 0) for e in done) + solo["d2h"]
+    d2h = (sum(e.get("d2h", 0) for e in done) + solo["d2h"]
+           + sum(r["d2h"] for r in resolved))
     check(transfer.get((("direction", "d2h"),)) == d2h,
           f"phase {phase}: d2h solver.transfer.bytes {transfer} != {d2h} "
           f"decision bytes")
@@ -2246,7 +2302,9 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
     # Replay: a cpu app of the port fed the same changes and windows in the
     # same order must answer every predicate with the same bytes.
     t0 = time.perf_counter()
-    compared = replay_server_log(log, config, got)
+    compared = replay_server_log(
+        log, dataclasses.replace(config, solver_prune_top_k=0), got,
+        skip_drains=bool(prune))
     check(compared == len(got), f"compared {compared} of {len(got)} responses")
     mid = [(e[1], e[3]) for e in log if isinstance(e, tuple)
            and (e[1] == "delete_pod" or (e[1] == "add_node"
@@ -2290,6 +2348,8 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         "exec_p50": p(lat_exec, 50), "exec_p99": p(lat_exec, 99),
         "exec_rate": len(lat_exec) / exec_s,
         "drv_busy": drv_busy, "exec_busy": exec_busy, "rtt_mean": rtt_mean,
+        "driver_windows": len(driver_windows), "prune": prune_block,
+        "resolved": len(resolved), "device_dispatches": device_dispatches,
     }
     print(f"phase {phase}: {n_drivers} driver predicates from {n_clients} client "
           f"threads ({n_admitted} admitted), then {len(lat_exec)} executor "
@@ -2310,11 +2370,11 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
           f"driver stage's {drv_s:.2f} s and {exec_busy:.2f} s of the "
           f"executor stage's {exec_s:.2f} s; "
           f"row-walk launches {launches['window']} = {segments} live segments "
-          f"({sum(e['rows'] for e in done)} rows) + {solo['batcher']} solo "
-          f"packs; probe {launches['probe']}; "
+          f"({sum(e['rows'] for e in done)} rows) + {resolved_segments} "
+          f"re-solved + {solo['batcher']} solo packs; probe {launches['probe']}; "
           f"served in {serve_s:.1f} s", flush=True)
-    print(f"phase {phase}: /metrics solver.window.dispatches {path} "
-          f"{device_dispatches}, solver.device.uploads {srv.builds}, "
+    print(f"phase {phase}: /metrics solver.window.dispatches {dispatches}, "
+          f"solver.device.uploads {srv.builds}, "
           f"solver.transfer.bytes h2d {h2d} d2h {d2h}: equal to this "
           f"script's count", flush=True)
     if fuse > 1:
@@ -2359,7 +2419,8 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
 
 
 def replay_server_log(log, config, got, *, ref=None, backend=None,
-                      markers=None, label="phase 7", unfinished_ok=False):
+                      markers=None, label="phase 7", unfinished_ok=False,
+                      skip_drains=False):
     """Feed a `cpu` app of the port the recorded changes and windows in
     their order; every answer must equal, byte for byte, the body the
     server sent for that pod (`got`). Returns how many were compared.
@@ -2367,7 +2428,11 @@ def replay_server_log(log, config, got, *, ref=None, backend=None,
     as they are. `ref` and `backend` replace the fresh in-memory app;
     `markers` maps the other ops of the log (a reconcile, a promotion) to
     the call that replays them; with `unfinished_ok` the log may end with
-    windows in flight (a leader killed mid-window), which are dropped."""
+    windows in flight (a leader killed mid-window), which are dropped.
+    With `skip_drains` the replay skips every dispatch the server had to
+    drain before (a pruned server drains after an escalation, which an
+    unpruned app never does) instead of asking the replay to drain there
+    too: the server dispatched nothing at that point either."""
     from spark_scheduler_tpu_torch.core.solver import PipelineDrainRequired
     from spark_scheduler_tpu_torch.server.app import build_scheduler_app
     from spark_scheduler_tpu_torch.server.routing import encode_filter_result
@@ -2385,6 +2450,8 @@ def replay_server_log(log, config, got, *, ref=None, backend=None,
             continue
         if e["op"] not in ("dispatch", "fused", "complete"):
             markers[e["op"]](e)
+            continue
+        if skip_drains and e["op"] in ("dispatch", "fused") and e["drain"]:
             continue
         if e["op"] == "fused":
             try:
@@ -3335,6 +3402,324 @@ def run_engine_phase(device, card, last):
     window_pack.launches, fifo_pack.launches = saved
 
 
+# --------------------------------------------------------------- phase 12
+
+PRUNE_TOP_K = 64
+PRUNE_SLACK = 2.0
+PRUNE_WINDOWS = 16
+PRUNE_WINDOW = 8  # requests a window: phase 11's predicate-max-window
+PRUNE_MIN_PRUNED = 12  # of the 16 solver-level windows, on the card
+PRUNE_TIGHT = (8, 0.25, 4)  # top-k, slack, windows of the tight arm
+PRUNE_CLIENTS = 4  # a server window then holds ~16 rows: it prunes
+PRUNE_DRIVERS = 128
+PRUNE_BIG_NODES = 100_000
+# A warm-up pair and a profiled pair, then 8 timed pairs for the median.
+PRUNE_BIG_WINDOWS = 20
+PRUNE_BIG_WINDOW = 32
+
+
+def prune_window(rng, names, n_requests):
+    """`n_requests` tightly-pack requests shaped as phase 7's apps (a
+    1 CPU / 2 Gi driver, executors of 2 CPU / 4 Gi, gangs of 2-8 executors,
+    ~15% 32 wide, every node a driver candidate), each with 0-1
+    FIFO-earlier pending drivers."""
+    from spark_scheduler_tpu_torch.core.solver import WindowRequest
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    driver = Resources.from_quantities("1", "2Gi")
+    executor = Resources.from_quantities("2", "4Gi")
+
+    def app(skippable):
+        count = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+        return (driver, executor, count, skippable)
+
+    requests = []
+    for _ in range(n_requests):
+        rows = [app(bool(rng.random() < 0.3))
+                for _ in range(int(rng.integers(0, 2)))]
+        rows.append(app(False))
+        requests.append(WindowRequest(rows=rows, driver_candidate_names=names))
+    return requests
+
+
+def prune_churn(rng, nodes, usage, step):
+    """The churn between two pairs of windows: 64 nodes' usage changes,
+    one node is added, and one node's zone label moves (an availability
+    delta and a static row delta of the pipelined build). Returns the new
+    (nodes, usage)."""
+    import copy
+
+    from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL
+
+    n = len(nodes)
+    usage = usage.copy()
+    rows = rng.choice(n, size=64, replace=False)
+    usage[rows, 0] = np.maximum(usage[rows, 0] + rng.integers(-4000, 4000, 64), 0)
+    usage[rows, 1] = np.maximum(
+        usage[rows, 1] + (rng.integers(-8, 8, 64) << 20), 0)
+    added = copy.deepcopy(nodes[int(rng.integers(0, n))])
+    added.name = f"node-add-{step:03d}"
+    added.labels = {**added.labels, ZONE_LABEL: f"zone-{step % 4}"}
+    i = int(rng.integers(0, n))
+    moved = copy.deepcopy(nodes[i])
+    zone = int(moved.labels[ZONE_LABEL].rsplit("-", 1)[1])
+    moved.labels = {**moved.labels, ZONE_LABEL: f"zone-{(zone + 1) % 4}"}
+    nodes = nodes[:i] + [moved] + nodes[i + 1:] + [added]
+    usage = np.vstack([usage, np.zeros((1, 3), usage.dtype)])
+    return nodes, usage
+
+
+def prune_pair(solver, nodes, usage, windows, fused):
+    """Two windows: two pipelined dispatches back to back (the second's
+    build sees the first in flight, so it has a prior) or one fused K = 2
+    dispatch; then both fetched. Returns (decisions per window, the
+    dispatches' handles)."""
+    if fused:
+        t = solver.build_tensors_pipelined(nodes, usage, {})
+        views = solver.pack_windows_dispatch("tightly-pack", t, windows)
+        return [solver.pack_window_fetch(v) for v in views], [views[0].owner]
+    handles = []
+    for w in windows:
+        t = solver.build_tensors_pipelined(nodes, usage, {})
+        handles.append(solver.pack_window_dispatch("tightly-pack", t, w))
+    return [solver.pack_window_fetch(h) for h in handles], handles
+
+
+def profiled(fn):
+    """(fn's result, wall ms ending in a synchronise, row-walk device ms,
+    other device ms) of one call under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel = other = 0.0
+    for evt in prof.events():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = evt.time_range.elapsed_us()
+            if "window_row_walk" in evt.name:
+                kernel += us
+            else:
+                other += us
+    return out, wall, kernel / 1e3, other / 1e3
+
+
+def dispatch_segments(handle) -> int:
+    """Row-walk launches a dispatch makes on the card: one a live segment,
+    and again for each live segment of a full re-solve."""
+    live = len(handle.requests)
+    resolved = (handle.info or {}).get("resolved")
+    return live + (resolved["segments"] if resolved else 0)
+
+
+def run_prune_arm(device, card, label, nodes, usage, windows, *, fused,
+                  top_k, slack, churn_seed, with_cpu=True, profile_pair=1):
+    """One arm of phase 12 at the solver level: a `cuda` solver with
+    pruning, a `cuda` solver without, and (`with_cpu`) a `cpu` solver
+    with pruning, fed the same windows in pairs with churn between pairs,
+    in lockstep; every WindowDecision must be equal across them. Pair 0
+    warms up (the planner's cold sync, each solver's first full upload and
+    probe) and pair `profile_pair` (None: none) runs under torch.profiler;
+    neither is timed. Returns the arm's figures; the pruned cuda solver's
+    row-walk and probe launches are the main path's, the unpruned
+    solver's a comparison."""
+    import torch
+
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    on_card = torch.device(device).type == "cuda"
+    solvers = {
+        "pruned": PlacementSolver(device=device, prune_top_k=top_k,
+                                  prune_slack=slack),
+        "full": PlacementSolver(device=device),
+    }
+    if with_cpu:
+        solvers["cpu"] = PlacementSolver(device="cpu", prune_top_k=top_k,
+                                         prune_slack=slack)
+    rng = np.random.default_rng(churn_seed)
+    usage = usage.copy()
+    times = {"pruned": [], "full": []}
+    launches = {"pruned": 0, "full": 0}
+    probes = {"pruned": 0, "full": 0}
+    prof, handles, rows = {}, [], []
+    for i in range(0, len(windows), 2):
+        pair = i // 2
+        if pair:
+            nodes, usage = prune_churn(rng, nodes, usage, pair)
+        wins = windows[i:i + 2]
+        got = {}
+        for name, solver in solvers.items():
+            def go(solver=solver):
+                return prune_pair(solver, nodes, usage, wins, fused)
+
+            before = window_pack.launches
+            probes_before = probe_add_one.launches
+            if on_card and name != "cpu" and pair == profile_pair:
+                out, ms, kern, other = profiled(go)
+                prof[name] = (ms, kern, other)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = go()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if name != "cpu" and pair > 0:
+                    times[name].append(ms / len(wins))
+            if name != "cpu":
+                launches[name] += window_pack.launches - before
+                probes[name] += probe_add_one.launches - probes_before
+            got[name] = out
+        decisions, pair_handles = got["pruned"]
+        for name in solvers:
+            check(got[name][0] == decisions,
+                  f"phase 12 {label}: window pair {pair}: the {name} solver's "
+                  f"decisions differ from the pruned cuda solver's")
+        handles += pair_handles
+        rows.append(sum(sum(len(r.rows) for r in w) for w in wins))
+        for w, d in zip(wins, decisions):
+            commit(usage, solvers["pruned"].registry, w, d)
+    pruned = solvers["pruned"]
+    st = pruned.prune_stats
+    if with_cpu:
+        want = {k: solvers["cpu"].prune_stats[k]
+                for k in ("windows", "kept_rows", "escalations", "reasons")}
+        check({k: st[k] for k in want} == want,
+              f"phase 12 {label}: the cpu solver's prune_stats {want} differ "
+              f"from the card's {st}")
+    want_launches = sum(dispatch_segments(h) for h in handles)
+    if on_card:
+        check(launches["pruned"] == want_launches,
+              f"phase 12 {label}: {launches['pruned']} row-walk launches on the "
+              f"pruned solver for {want_launches} live segments (pruned, "
+              f"declined and re-solved)")
+    n_pruned = sum(h.prune is not None for h in handles)
+    resolved = [h for h in handles if (h.info or {}).get("resolved")]
+    out = dict(
+        label=label, windows=len(windows), dispatches=len(handles),
+        pruned_dispatches=n_pruned, prune_windows=st["windows"],
+        kept_rows=st["kept_rows"], candidate_rows=st["candidate_rows"],
+        escalations=st["escalations"], reasons=dict(st["reasons"]),
+        resolved=len(resolved), launches=launches, want_launches=want_launches,
+        probes=probes, times=times, prof=prof, rows=rows,
+        n=pruned.registry.capacity,
+    )
+    kept = st["kept_rows"] / max(st["windows"], 1)
+    cand = st["candidate_rows"] / max(st["windows"], 1)
+    print(f"phase 12 {label} ({card}): {len(windows)} windows of "
+          f"{len(windows[0])} requests in {len(handles)} dispatches "
+          f"({'fused K = 2' if fused else 'pipelined pairs'}), {n_pruned} "
+          f"pruned, {len(handles) - n_pruned} declined by the planner; kept "
+          f"rows {kept:.1f} a pruned dispatch of {cand:.1f} candidate rows; "
+          f"escalations {st['escalations']} {dict(st['reasons'])}, "
+          f"{len(resolved)} dispatches re-solved in full; row-walk launches "
+          f"{launches['pruned']} = {want_launches} live segments (unpruned "
+          f"solver: {launches['full']}); decisions equal across "
+          f"{', '.join(solvers)}; host planning means plan "
+          f"{st['plan_ms'] / max(st['windows'], 1):.4f} / gather "
+          f"{st['gather_ms'] / max(st['windows'], 1):.4f} / offset "
+          f"{st['offset_ms'] / max(st['windows'], 1):.4f} ms a pruned "
+          f"dispatch, planner rows cold {st['planner_cold_rows']} scanned "
+          f"{st['planner_rows_scanned']}", flush=True)
+    if times["pruned"]:
+        p50 = {k: float(np.percentile(v, 50)) for k, v in times.items()}
+        line = (f"phase 12 {label} ({card}): window p50 pruned "
+                f"{p50['pruned']:.3f} ms against unpruned {p50['full']:.3f} ms "
+                f"(host clock ending in a synchronise, {len(times['pruned'])} "
+                f"timed pairs after a warm-up pair, the profiled pair "
+                f"untimed)")
+        for name in ("pruned", "full"):
+            if name in prof:
+                ms, kern, other = prof[name]
+                walked = rows[profile_pair]
+                idle = max(0.0, 1.0 - (kern + other) / ms)
+                line += (f"; {name}, profiled pair {profile_pair}: row walk "
+                         f"{kern / 2:.3f} ms a window, {kern * 1e3 / walked:.2f} "
+                         f"us a row ({walked} rows), other device work "
+                         f"{other / 2:.3f} ms a window, device idle share "
+                         f"{idle:.3f} of {ms:.1f} ms")
+        print(line, flush=True)
+    return out
+
+
+def run_prune_phase(device, card):
+    """Phase 12: the pruned two-tier solve on the card (see the module
+    docstring). Returns the main path's row-walk and probe launches: the
+    pruned solvers' and the server's, not the unpruned comparisons'."""
+    import torch
+
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+
+    on_card = torch.device(device).type == "cuda"
+    nodes, usage = main_cluster(seed=7)
+    names = [nd.name for nd in nodes]
+    rng = np.random.default_rng(41)
+    windows = [prune_window(rng, names, PRUNE_WINDOW)
+               for _ in range(PRUNE_WINDOWS)]
+    # Each arm counts the pruned solver's launches only: the unpruned and
+    # cpu solvers beside it are comparisons.
+    probe_add_one.launches = 0
+    seq = run_prune_arm(device, card, "(a) sequential", nodes, usage, windows,
+                        fused=False, top_k=PRUNE_TOP_K, slack=PRUNE_SLACK,
+                        churn_seed=43)
+    check(not on_card or seq["pruned_dispatches"] >= PRUNE_MIN_PRUNED,
+          f"phase 12 (a): {seq['pruned_dispatches']} of {PRUNE_WINDOWS} "
+          f"windows took the pruned path (at least {PRUNE_MIN_PRUNED})")
+    fused = run_prune_arm(device, card, "(a) fused", nodes, usage, windows,
+                          fused=True, top_k=PRUNE_TOP_K, slack=PRUNE_SLACK,
+                          churn_seed=43)
+    top_k, slack, n_tight = PRUNE_TIGHT
+    tight = run_prune_arm(device, card, "(a) tight", nodes, usage,
+                          windows[:n_tight], fused=False, top_k=top_k,
+                          slack=slack, churn_seed=43, profile_pair=None)
+    check(tight["escalations"] > 0,
+          f"phase 12 (a) tight: no escalation at top-k {top_k}, slack {slack}")
+    window_launches = sum(a["launches"]["pruned"] for a in (seq, fused, tight))
+    probes = sum(a["probes"]["pruned"] for a in (seq, fused, tight))
+
+    # (b) Through the server: phase 7's cluster with solver.prune-top-k.
+    srv_launches, srv = run_server_phase(
+        device, card, n_drivers=PRUNE_DRIVERS, n_clients=PRUNE_CLIENTS,
+        phase=12, prune=PRUNE_TOP_K)
+    block = srv["prune"]
+    check(block.get("windows", 0) * 2 >= srv["device_dispatches"],
+          f"phase 12 (b): {block.get('windows', 0)} of "
+          f"{srv['device_dispatches']} driver-window dispatches pruned "
+          f"(at least half)")
+    print(f"phase 12 (b) ({card}): {block.get('windows', 0)} of "
+          f"{srv['device_dispatches']} driver-window dispatches pruned, kept "
+          f"rows {block.get('kept_rows', 0)} of {block.get('candidate_rows', 0)} "
+          f"candidate rows in all, escalations {block.get('escalations', 0)} "
+          f"{block.get('reasons', {})}, {srv['resolved']} dispatches re-solved; "
+          f"plan / gather / offset means {block.get('plan_ms_mean')} / "
+          f"{block.get('gather_ms_mean')} / {block.get('offset_ms_mean')} ms; "
+          f"driver p50 {srv['drv_p50']:.3f} ms p99 {srv['drv_p99']:.3f} ms "
+          f"(client host clock)", flush=True)
+
+    # (c) The JAX package's own pruning tier: 100,000 nodes.
+    t0 = time.perf_counter()
+    big_nodes, big_usage = main_cluster(seed=7, n=PRUNE_BIG_NODES)
+    big_names = [nd.name for nd in big_nodes]
+    rng = np.random.default_rng(47)
+    big_windows = [prune_window(rng, big_names, PRUNE_BIG_WINDOW)
+                   for _ in range(PRUNE_BIG_WINDOWS)]
+    big = run_prune_arm(device, card, "(c) 100,000 nodes", big_nodes, big_usage,
+                        big_windows, fused=False, top_k=PRUNE_TOP_K,
+                        slack=PRUNE_SLACK, churn_seed=53, with_cpu=False)
+    check(big["pruned_dispatches"] > 0 or not on_card,
+          "phase 12 (c): no window pruned at 100,000 nodes")
+    print(f"phase 12 (c): ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    window_launches += big["launches"]["pruned"]
+    probes += big["probes"]["pruned"]
+    return {"window": window_launches + srv_launches["window"],
+            "probe": probes + srv_launches["probe"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -3435,14 +3820,19 @@ def main() -> int:
         before=srv_stats)
     run_engine_phase(device, card, last)
     print(f"phase 11: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    prune_launches = run_prune_phase(device, card)
+    print(f"phase 12: passed in {time.perf_counter() - t0:.1f} s", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
-    # ingestion over the WAL store (phase 9), as HA replicas (phase 10) and
-    # with fused claims (phase 11).
+    # ingestion over the WAL store (phase 9), as HA replicas (phase 10),
+    # with fused claims (phase 11) and over pruned windows (phase 12).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
-                        + wal_launches[k] + ha_launches[k] + fused_launches[k])
+                        + wal_launches[k] + ha_launches[k] + fused_launches[k]
+                        + prune_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

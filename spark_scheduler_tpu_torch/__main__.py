@@ -81,6 +81,25 @@ def main(argv=None) -> int:
         "unfused)",
     )
     srv.add_argument(
+        "--prune-top-k",
+        type=int,
+        default=None,
+        help="sound top-K candidate pruning (the two-tier solve): serve "
+        "eligible windows over a gathered top-K sub-cluster sized from "
+        "the window's demand x --prune-slack, on the row walk, with a "
+        "post-solve certificate that re-solves any window a pruned row "
+        "could have changed (decisions stay byte-identical); overrides the "
+        "install config's solver.prune-top-k (default 0 = off)",
+    )
+    srv.add_argument(
+        "--prune-slack",
+        type=float,
+        default=None,
+        help="candidate-pruning slack factor: kept rows per zone = "
+        "max(prune-top-k, ceil(window aggregate demand x slack)); "
+        "overrides solver.prune-slack (default 2.0)",
+    )
+    srv.add_argument(
         "--no-delta-statics",
         action="store_true",
         default=None,
@@ -216,6 +235,10 @@ def main(argv=None) -> int:
         config.solver_delta_statics = False
     if args.fuse_windows is not None:
         config.solver_fuse_windows = args.fuse_windows
+    if args.prune_top_k is not None:
+        config.solver_prune_top_k = args.prune_top_k
+    if args.prune_slack is not None:
+        config.solver_prune_slack = args.prune_slack
 
     registry = MetricRegistry()
     metrics = SchedulerMetrics(registry, config.instance_group_label)

@@ -1174,9 +1174,11 @@ class SparkSchedulerExtender:
         snapshot, shared with the pipelined window cache: one
         device-resident copy of cluster state, and solo solves see the
         gangs of still-in-flight windows (the threaded base) instead of a
-        stale host-only view. If topology changed while windows are in
-        flight, fall back to an uncached host-truth build for this one
-        solve."""
+        stale host-only view. If the pipelined build is refused (topology
+        changed while windows are in flight, or a pruned window's
+        escalation dropped the carry), fall back to an uncached host-truth
+        build for this one solve that still debits the windows dispatched
+        on a dropped carry (solver.build_tensors_solo)."""
         from spark_scheduler_tpu_torch.core.solver import PipelineDrainRequired
 
         try:
@@ -1190,7 +1192,7 @@ class SparkSchedulerExtender:
                 avail_journal=snap.avail_journal,
             )
         except PipelineDrainRequired:
-            return self._solver.build_tensors(
+            return self._solver.build_tensors_solo(
                 snap.nodes, snap.usage, snap.overhead,
                 full_node_list=True, topo_version=snap.nodes_version,
                 roster_rows=snap.roster_rows,

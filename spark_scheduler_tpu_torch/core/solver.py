@@ -36,16 +36,24 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_scheduler_tpu_torch.core.prune import (
+    PLAIN_FILLS,
+    PrunePlanner,
+    certify_window,
+)
 from spark_scheduler_tpu_torch.models.cluster import (
+    FIELD_DTYPES,
     ClusterTensors,
     NodeRegistry,
     build_host_tensors,
     cluster_from_numpy,
+    cluster_from_statics,
+    cluster_statics,
     host_view,
     pad_bucket,
 )
 from spark_scheduler_tpu_torch.models.kube import Node
-from spark_scheduler_tpu_torch.models.resources import Resources
+from spark_scheduler_tpu_torch.models.resources import NUM_DIMS, Resources
 from spark_scheduler_tpu_torch.ops.efficiency import avg_packing_efficiency_np
 from spark_scheduler_tpu_torch.ops.packing import (
     BINPACK_STRATEGIES,
@@ -91,6 +99,28 @@ class WindowBatch(NamedTuple):
     driver_req: np.ndarray  # [B, 3] flat rows, request-major
     exec_req: np.ndarray  # [B, 3]
     skippable: np.ndarray  # [B] bool
+    # Per request, the identity of its affinity domain: ("digest", d) for
+    # a digest ticket, the names tuple for a list of at most 4,096 names,
+    # ("id", id(names)) for a longer one, None for no names (the valid
+    # mask) or a precomputed mask.
+    dom_keys: tuple = ()
+
+
+class _WindowRows(NamedTuple):
+    """A window's requests before the segmented layout: the flat row
+    arrays (request-major) and each request's [N] candidate and domain
+    masks. The full and the pruned dispatch lay them out differently."""
+
+    requests: tuple
+    drv_arr: np.ndarray  # [B, 3]
+    exc_arr: np.ndarray  # [B, 3]
+    counts: np.ndarray  # [B] int32
+    skip_arr: np.ndarray  # [B] bool
+    cand_per_req: list  # [N] bool per request
+    dom_per_req: list  # [N] bool per request (domain & valid)
+    dom_keys: tuple
+    emax: int
+    num_zones: int
 
 
 class HostPacking(NamedTuple):
@@ -162,20 +192,34 @@ def _window_nbytes(win: SegmentedWindow) -> int:
     return sum(np.asarray(a).nbytes for a in win)
 
 
+def _gather_statics_host(host, keep: np.ndarray, k_real: int) -> tuple:
+    """Host-side gather of the static cluster fields onto a (padded) kept
+    row set for the pruned sub-cluster upload. Padding repeats keep[0];
+    the padded rows' `valid` is forced False so they are transparent to
+    the row walk (eligibility, zone sums, capacity all mask on valid)."""
+    fields = [np.asarray(f)[keep] for f in cluster_statics(host)]
+    valid = fields[-1].copy()  # cluster_statics order ends with `valid`
+    valid[k_real:] = False
+    fields[-1] = valid
+    return tuple(fields)
+
+
 class WindowHandle:
     """A dispatched-but-not-yet-fetched window solve
     (PlacementSolver.pack_window_dispatch -> pack_window_fetch)."""
 
     __slots__ = (
         "strategy", "blob", "ready", "requests", "host_avail",
-        "host_schedulable", "priors", "placement_rows", "placement_vals",
-        "row_driver_req", "row_exec_req", "row_skippable", "seg_map", "info",
-        "request_device", "dispatched_at", "released", "fused_decisions",
-        "fused_bounds", "applied", "__weakref__",
+        "host_schedulable", "host_tensors", "priors", "prior_debited",
+        "window_placements", "row_driver_req", "row_exec_req",
+        "row_skippable", "seg_map", "window_rows", "info", "request_device",
+        "dispatched_at", "released", "fused_decisions", "fused_bounds",
+        "applied", "prune", "base_kept", "use_fallback", "resolved",
+        "__weakref__",
     )
 
     def __init__(self, *, strategy, blob, requests, host_avail,
-                 host_schedulable, priors=()):
+                 host_schedulable, priors=(), prior_debited=None):
         self.strategy = strategy
         # Decision blob [S, R, 3 + emax] int32: (driver, admitted, packed,
         # executor slots...) per segment row; seg_map flattens the real
@@ -185,20 +229,35 @@ class WindowHandle:
         self.blob = blob
         self.ready = None
         self.requests = requests
-        # Host availability at dispatch (int64 [N,3]); the device base
-        # additionally lacks the placements of `priors` (windows dispatched
-        # earlier but un-fetched at this dispatch).
+        # Host availability at dispatch ([N,3]: an int64 copy, or for a
+        # pruned dispatch the int32 host array itself, read only on an
+        # escalation); the device base additionally lacks the placements
+        # of `priors` (windows dispatched earlier but un-fetched at this
+        # dispatch).
         self.host_avail = host_avail
         self.host_schedulable = host_schedulable
+        self.host_tensors = None  # the host ClusterTensors view at dispatch
         self.priors = priors  # tuple[WindowHandle] — fetched before this one
-        # Committed placements, filled at fetch: the rows they touched
-        # (sorted) and the int64 [P,3] amounts at those rows.
-        self.placement_rows = None
-        self.placement_vals = None
+        # Per prior, the windows the pipeline mirror had already debited
+        # when the dispatched tensors were built (a fused umbrella's views
+        # fetched by then): the host view held their reservations, so the
+        # device base lacked only the others.
+        self.prior_debited = (
+            tuple(prior_debited)
+            if prior_debited is not None
+            else tuple(frozenset() for _ in priors)
+        )
+        # Committed placements, filled at fetch: per window of the dispatch
+        # (one, or K for a fused umbrella), the rows they touched (sorted)
+        # and the int64 [P,3] amounts at those rows.
+        self.window_placements = None
         self.row_driver_req = None  # int64 [B,3]
         self.row_exec_req = None
         self.row_skippable = None
         self.seg_map = None  # (seg_idx, row_idx)
+        # The window's rows and masks (_WindowRows): a full re-solve after a
+        # pruned window's escalation lays the window out again from them.
+        self.window_rows = None
         # Dispatch info ({"path", "nodes", "rows", "row_bucket", "emax",
         # "state_upload", "dispatch_id"}) for the decision records.
         self.info = None
@@ -215,6 +274,16 @@ class WindowHandle:
         self.fused_decisions = None
         self.fused_bounds = None
         self.applied: set = set()
+        # Pruned dispatch (core/prune.py): the plan, and the [k_real, 3]
+        # int64 host availability on the kept rows at dispatch.
+        self.prune = None
+        self.base_kept = None
+        # Dispatched on a carry that a pruned window's escalation poisoned:
+        # the fetch re-solves the window in full ("prune-escalation"), or
+        # a solo build did so first (build_tensors_solo) and kept the
+        # windows' results here for the fetch.
+        self.use_fallback = False
+        self.resolved = None
 
     @property
     def dispatch_id(self):
@@ -280,6 +349,8 @@ class PlacementSolver:
         executor_label_priority: tuple[str, list[str]] | None = None,
         device="cuda",
         delta_statics: bool = True,
+        prune_top_k: int = 0,
+        prune_slack: float = 2.0,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -339,6 +410,55 @@ class PlacementSolver:
         # attribute test. There is no degraded mode: a build or launch
         # failure raises.
         self.telemetry = None
+        # Candidate pruning (`solver.prune-top-k` / `solver.prune-slack`,
+        # core/prune.py): when top-k > 0, an eligible pipelined window
+        # solves a gathered top-K sub-cluster on the row walk, and its
+        # decisions are certified against the full solve at fetch (a
+        # failed certificate re-solves the dispatch in full). 0 = off.
+        self._prune_top_k = int(prune_top_k)
+        self._prune_slack = float(prune_slack)
+        self._planner: PrunePlanner | None = None  # lazy
+        # Gathered statics of a plan's kept rows, keyed by the keep
+        # array's identity (the planner re-serves the same object while
+        # the kept set stands; the entry pins it, so the id cannot
+        # recycle), with their device copies; an entry drops when a
+        # static row delta touches its rows, on full uploads and close().
+        self._prune_gather_cache: dict = {}
+        # (domain key, registry epoch, statics epoch, N) -> "is the full
+        # valid mask" memo for named domains.
+        self._full_dom_memo: dict = {}
+        # Statics epoch: moves on every full upload and every static row
+        # delta (the content the full-domain memo compared).
+        self._static_epoch = 0
+        # Dispatches whose carry an escalation dropped (the escalated one
+        # and those dispatched on it), with the views fetched so far: until
+        # their last view is fetched, their gangs are neither on the card
+        # nor in the host view, so a pipelined build must drain first.
+        self._poisoned: dict = {}
+        self.prune_stats = {
+            "windows": 0,
+            "escalations": 0,
+            "kept_rows": 0,
+            "window_rows": 0,
+            "candidate_rows": 0,
+            "reasons": {},
+            # O(K + changed) planning: rows the planner examined, the
+            # cold-build rows, subset-domain sweeps, resync compares,
+            # cache activity, and the per-phase wall-time sums.
+            "planner_rows_scanned": 0,
+            "planner_cold_rows": 0,
+            "planner_sweep_rows": 0,
+            "planner_resync_rows": 0,
+            "planner_zone_rescans": 0,
+            "planner_zone_refreshes": 0,
+            "planner_merges": 0,
+            "planner_boundary_inserts": 0,
+            "plan_reuse": 0,
+            "gather_reuse": 0,
+            "plan_ms": 0.0,
+            "gather_ms": 0.0,
+            "offset_ms": 0.0,
+        }
 
     def _build_host(self, nodes: Sequence[Node], usage, overhead):
         for n in nodes:
@@ -388,6 +508,8 @@ class PlacementSolver:
         queued on the card's stream, so there is no queued work to
         cancel."""
         self._pipe = None
+        self._poisoned.clear()
+        self._prune_gather_cache.clear()  # release the gathered statics
         self._release_fused()
         self._note_inflight()
 
@@ -399,6 +521,8 @@ class PlacementSolver:
         applied. Fused batches in flight release their decision buffers:
         their decisions are discarded with the pipeline."""
         self._pipe = None
+        self._poisoned.clear()
+        self._prune_gather_cache.clear()  # release the gathered statics
         self._release_fused()
         self._note_inflight()
         if self.telemetry is not None:
@@ -416,6 +540,35 @@ class PlacementSolver:
             self.telemetry.on_device_inflight(
                 str(self.device), len(p["unfetched"]) if p is not None else 0
             )
+
+    def build_tensors_solo(
+        self, nodes: Sequence[Node], usage, overhead, **hints
+    ) -> ClusterTensors:
+        """Tensors for a solo solve while the pipelined build raises
+        PipelineDrainRequired: the host view (build_tensors), minus the
+        gangs of the windows dispatched on a carry that a pruned window's
+        escalation dropped and not fetched yet. Those windows re-solve
+        here, in dispatch order, and their fetches return these decisions,
+        so a solo solve sees their gangs as the threaded base would have
+        shown them. Windows in flight across a topology change are still
+        not seen (ROADMAP §C.6). The keyword arguments are those of
+        build_tensors, read by neither."""
+        host = self._build_host(nodes, usage, overhead)
+        if self._poisoned:
+            avail = host.available.astype(np.int64)
+            for h, fetched in list(self._poisoned.items()):
+                if h.use_fallback and h.resolved is None and h.requests:
+                    h.resolved = self._resolve_full(
+                        h, h.fused_bounds or [(0, len(h.requests))]
+                    )
+                for i, (rows, amounts) in enumerate(h.window_placements or ()):
+                    if i not in fetched and rows.size:
+                        avail[rows] -= amounts
+            host = dataclasses.replace(
+                host,
+                available=np.clip(avail, _INT32.min, _INT32.max).astype(np.int32),
+            )
+        return self._upload(host)
 
     def build_tensors_pipelined(
         self,
@@ -472,7 +625,21 @@ class PlacementSolver:
         which raises PipelineDrainRequired while a window is in flight —
         fetch it first, then retry. So does an availability delta beyond
         int32. `counts` receives the rows compared and found dirty.
-        Single-threaded by contract."""
+        Single-threaded by contract.
+
+        After a pruned window's escalation dropped the pipeline, the build
+        raises PipelineDrainRequired until every window dispatched on the
+        dropped carry has been fetched: their gangs are on no device base
+        and in no host view yet, and a window dispatched on a fresh upload
+        would not see them (the JAX package does not wait, and such a
+        window can over-commit)."""
+        if self._pipe is None and self._poisoned:
+            if self.telemetry is not None:
+                self.telemetry.on_pipeline_event("drain")
+            raise PipelineDrainRequired(
+                "windows dispatched on a carry a pruned window's escalation "
+                "dropped are still in flight"
+            )
         host = self._build_host(nodes, usage, overhead)
         p = self._pipe
         static_plan = None
@@ -513,6 +680,9 @@ class PlacementSolver:
                     static_fields = self._apply_static_delta(p, static_plan, host)
                 avail = p["avail"]
                 if dirty.size:
+                    # The prune planner's O(changed) sync rides exactly
+                    # this dirty set (and the fetched placement rows).
+                    self._prune_note_rows(dirty)
                     # Out of place: the base a caller still holds (through
                     # an earlier build's tensors) is never written.
                     rows32 = delta_rows.astype(np.int32)
@@ -530,7 +700,12 @@ class PlacementSolver:
                     p["tensors"], available=avail, **static_fields
                 )
                 tensors.host = host
-                p.update(host=host, tensors=tensors, avail=avail)
+                # Which views of each in-flight window the mirror has
+                # debited as of THIS build: the host view holds their
+                # reservations, the device base lacks only the rest.
+                debited = {h: frozenset(h.applied) for h in p["unfetched"]}
+                p.update(host=host, tensors=tensors, avail=avail,
+                         debited=debited)
                 return tensors
         if p is not None and p["unfetched"]:
             if self.telemetry is not None:
@@ -541,12 +716,17 @@ class PlacementSolver:
         tensors = self._upload(host)
         self._note_transfer("h2d", _host_nbytes(host))
         self.last_state_upload = "full"
+        # The statics may have changed: the planner's resident state and
+        # the gathered statics start again from this host view.
+        self._static_epoch += 1
+        self._prune_invalidate()
         self._pipe = {
             "host": host,
             "tensors": tensors,
             "avail": tensors.available,
             "mirror": host.available.astype(np.int64),
             "unfetched": [],
+            "debited": {},
         }
         return tensors
 
@@ -586,6 +766,16 @@ class PlacementSolver:
             out[f] = cur.index_copy(0, idx, vals)
         self.device_state_stats["static_delta_uploads"] += 1
         self._note_transfer("h2d", nbytes)
+        self._static_epoch += 1
+        if self._planner is not None:
+            # Static dirt: a kept row's zone or validity flip re-scans its
+            # zone; a new valid row merges exactly.
+            self._planner.note_static(rows)
+        for ck, ent in list(self._prune_gather_cache.items()):
+            # A gathered statics entry whose rows just changed is stale;
+            # entries the delta missed keep serving.
+            if np.isin(rows, ent["keep"]).any():
+                self._prune_gather_cache.pop(ck, None)
         return out
 
     def _note_transfer(self, direction: str, nbytes: int) -> None:
@@ -665,24 +855,48 @@ class PlacementSolver:
     ) -> "WindowBatch":
         """The segment-major window `pack_window_dispatch` solves for
         `requests`: candidate and domain masks per request, the flat row
-        arrays, the emax bucket and the [S, R] layout."""
+        arrays, the emax bucket, the [S, R] layout and each request's
+        domain key."""
+        return self._layout(self._window_rows(tensors, requests))
+
+    def _window_rows(
+        self, tensors: ClusterTensors, requests: Sequence[WindowRequest]
+    ) -> _WindowRows:
+        """Candidate and domain masks per request and the flat row arrays.
+
+        Domain identity key per request: a digest ticket (the extender's
+        domain names, a native-ingest ticket) keys in O(1); a list of at
+        most 4,096 names keys by its content; a longer plain list by its
+        object identity (building and hashing a huge tuple per request is
+        a host cost, and identity keying only costs the pruned path an
+        equal-content window it does not recognise as shared)."""
         valid_np = np.asarray(host_view(tensors).valid)
         flat_rows: list[tuple] = []
         cand_per_req: list[np.ndarray] = []
         dom_per_req: list[np.ndarray] = []
+        dom_keys: list = []
         dom_memo: dict = {}
         for req in requests:
             cand = self.candidate_mask(tensors, req.driver_candidate_names)
+            key = None
             if req.domain_mask is not None:
                 dom = np.asarray(req.domain_mask) & valid_np
             elif req.domain_node_names is not None:
-                key = tuple(req.domain_node_names)
+                dom_names = req.domain_node_names
+                digest = getattr(dom_names, "names_digest", None)
+                if digest is not None:
+                    key = ("digest", digest)
+                elif len(dom_names) <= 4096:
+                    key = tuple(dom_names)
+                else:
+                    key = ("id", id(dom_names))
                 dom = dom_memo.get(key)
                 if dom is None:
-                    dom = self.candidate_mask(tensors, key) & valid_np
+                    dom = self.candidate_mask(tensors, dom_names) & valid_np
                     dom_memo[key] = dom
             else:
                 dom = valid_np
+            dom_keys.append(key)
             cand_per_req.append(cand)
             dom_per_req.append(dom)
             flat_rows.extend(req.rows)
@@ -698,24 +912,40 @@ class PlacementSolver:
                 arr_memo[id(res)] = a
             return a
 
-        drv_arr = np.stack([as_arr(r[0]) for r in flat_rows])
-        exc_arr = np.stack([as_arr(r[1]) for r in flat_rows])
         counts = np.asarray([r[2] for r in flat_rows], np.int32)
-        skip_arr = np.asarray([bool(r[3]) for r in flat_rows])
+        return _WindowRows(
+            requests=tuple(requests),
+            drv_arr=np.stack([as_arr(r[0]) for r in flat_rows]),
+            exc_arr=np.stack([as_arr(r[1]) for r in flat_rows]),
+            counts=counts,
+            skip_arr=np.asarray([bool(r[3]) for r in flat_rows]),
+            cand_per_req=cand_per_req,
+            dom_per_req=dom_per_req,
+            dom_keys=tuple(dom_keys),
+            emax=pad_bucket(max(int(counts.max()), 1), 8),
+            num_zones=self._num_zones_bucket(),
+        )
+
+    @staticmethod
+    def _layout(rows: _WindowRows, cand=None, dom=None) -> WindowBatch:
+        """The [S, R] window of `rows`; `cand` / `dom` replace the [N]
+        masks per request (a pruned window's masks over its kept rows)."""
         win, seg_idx, row_idx = _build_segmented_window(
-            requests, drv_arr, exc_arr, counts, skip_arr,
-            cand_per_req, dom_per_req,
+            rows.requests, rows.drv_arr, rows.exc_arr, rows.counts,
+            rows.skip_arr,
+            rows.cand_per_req if cand is None else cand,
+            rows.dom_per_req if dom is None else dom,
         )
         return WindowBatch(
             win=win,
-            emax=pad_bucket(max(int(counts.max()), 1), 8),
-            num_zones=self._num_zones_bucket(),
+            emax=rows.emax,
+            num_zones=rows.num_zones,
             seg_map=(seg_idx, row_idx),
-            driver_req=drv_arr,
-            exec_req=exc_arr,
-            skippable=skip_arr,
+            driver_req=rows.drv_arr,
+            exec_req=rows.exc_arr,
+            skippable=rows.skip_arr,
+            dom_keys=rows.dom_keys,
         )
-
 
     def pack(
         self,
@@ -865,7 +1095,12 @@ class PlacementSolver:
         base of the NEXT pipelined build, and the handle notes which
         earlier windows were still un-fetched — their placements are
         subtracted from this window's host-side base at fetch time, so the
-        host reconstruction sees exactly the availability the device saw."""
+        host reconstruction sees exactly the availability the device saw.
+
+        With `prune_top_k` set, a pipelined window of a plain fill, with
+        no label priorities and one domain shared by its requests, solves
+        the planner's top-K rows instead (`_dispatch_pruned`), unless the
+        planner declines it."""
         if strategy not in BINPACK_STRATEGIES:
             raise ValueError(f"strategy {strategy!r} is not batchable")
         self._check_device(tensors)
@@ -874,8 +1109,21 @@ class PlacementSolver:
                 strategy=strategy, blob=None, requests=(), host_avail=None,
                 host_schedulable=None,
             )
+        rows = self._window_rows(tensors, requests)
+        p = self._pipe
+        pipelined = p is not None and tensors is p["tensors"]
+        if pipelined and self._prune_eligible(strategy):
+            dom_shared, dom_key = self._shared_prune_domain(
+                requests, rows.dom_keys, rows.dom_per_req
+            )
+            if dom_shared is not None:
+                handle = self._dispatch_pruned(
+                    strategy, tensors, rows, p, dom_shared, dom_key
+                )
+                if handle is not None:
+                    return handle
         n = tensors.num_nodes
-        batch = self.window_batch(tensors, requests)
+        batch = self._layout(rows)
         tel = self.telemetry
         compiles_before = tel.compile_count() if tel is not None else None
         self._ensure_probed()
@@ -884,24 +1132,15 @@ class PlacementSolver:
             tensors, batch.win, fill=strategy, emax=batch.emax,
             num_zones=batch.num_zones,
         )
-        blob = torch.cat([meta[:, :, :3], execs], dim=2)
-        ready = None
-        if blob.is_cuda:
-            # Queue the decision pull right behind this window's kernels,
-            # so a fetch never waits for windows dispatched after it.
-            host_blob = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
-            host_blob.copy_(blob, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            blob = host_blob
+        blob, ready = self._stage_blob(meta, execs)
         self.window_path_counts[path] = (
             self.window_path_counts.get(path, 0) + 1
         )
-        p = self._pipe
-        pipelined = p is not None and tensors is p["tensors"]
         priors: tuple = ()
+        debited = None
         if pipelined:
             priors = tuple(p["unfetched"])
+            debited = [p["debited"].get(h, frozenset()) for h in priors]
             p["avail"] = base_after  # the next pipelined build extends this
         s_pad, r_pad = batch.win.exec_count.shape
         info = {
@@ -930,10 +1169,11 @@ class PlacementSolver:
         handle = WindowHandle(
             strategy=strategy,
             blob=blob,
-            requests=tuple(requests),
+            requests=rows.requests,
             host_avail=np.array(host.available, dtype=np.int64),
             host_schedulable=np.asarray(host.schedulable),
             priors=priors,
+            prior_debited=debited,
         )
         handle.ready = ready
         handle.dispatched_at = time.perf_counter()
@@ -945,8 +1185,368 @@ class PlacementSolver:
         handle.seg_map = batch.seg_map
         handle.info = info
         if pipelined:
+            if self._prune_top_k > 0:
+                # Read only by a full re-solve, after a pruned window's
+                # escalation poisoned the carry this dispatch rides.
+                handle.host_tensors = host
+                handle.window_rows = rows
             p["unfetched"].append(handle)
             self._note_inflight()
+        return handle
+
+    def _stage_blob(self, meta, execs):
+        """The decision blob [S, R, 3 + emax] of a window solve, and the
+        event its host copy records on the card (None on the CPU). On the
+        card the pull is queued right behind the window's kernels into a
+        pinned buffer, so a fetch never waits for windows dispatched after
+        it."""
+        blob = torch.cat([meta[:, :, :3], execs], dim=2)
+        if not blob.is_cuda:
+            return blob, None
+        host_blob = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
+        host_blob.copy_(blob, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return host_blob, ready
+
+    # -- candidate pruning (core/prune.py) --------------------------------
+
+    def _prune_eligible(self, strategy: str) -> bool:
+        """Static gate for the two-tier solve: plain fills only (single-AZ
+        wrappers score zones by subset-dependent efficiencies) and no
+        configured label priorities (the prefilter/certificate keys assume
+        a uniform label rank)."""
+        return (
+            self._prune_top_k > 0
+            and strategy in PLAIN_FILLS
+            and self._driver_label_priority is None
+            and self._executor_label_priority is None
+        )
+
+    def _prune_planner(self) -> PrunePlanner:
+        """The lazy PrunePlanner (resident per-zone rank index, zone
+        aggregates and plan cache, core/prune.py)."""
+        if self._planner is None:
+            self._planner = PrunePlanner(self.prune_stats)
+        return self._planner
+
+    def _prune_invalidate(self) -> None:
+        """Drop every resident prefilter artifact (planner state and the
+        gathered statics): the full-upload contract. The port keeps no
+        resident host build that could name a full upload's changed rows,
+        so there is no warm restart of the planner."""
+        if self._planner is not None:
+            self._planner.invalidate()
+        self._prune_gather_cache.clear()
+
+    def _prune_note_rows(self, rows) -> None:
+        """Feed EXACT changed rows to the planner (O(changed) sync)."""
+        if self._planner is not None and len(rows):
+            self._planner.note_dirty(rows)
+
+    def _prune_gather_entry(self, host, plan) -> dict:
+        """Gathered-statics cache entry for a plan's kept rows, keyed by
+        the keep array's IDENTITY (the planner re-serves the same object;
+        the entry pins it, so the id cannot recycle). The device copies
+        join the entry at its first dispatch."""
+        cache = self._prune_gather_cache
+        ent = cache.get(id(plan.keep))
+        if ent is not None and ent["keep"] is plan.keep:
+            return ent
+        while len(cache) >= 17:
+            # Evict the oldest entry only: a rotation over many domains
+            # must not wipe every warm gather on each new keep set.
+            cache.pop(next(iter(cache)))
+        ent = {
+            "keep": plan.keep,
+            "statics_np": _gather_statics_host(host, plan.keep, plan.k_real),
+        }
+        cache[id(plan.keep)] = ent
+        return ent
+
+    def _plan_prune(
+        self, host, dom_mask, cand_per_req, drv_arr, exc_arr, counts,
+        dom_key=None, dom_ref=None,
+    ):
+        """Build a PrunePlan for one window, or None.
+
+        A full-valid-mask domain — by identity (no names pinned) or by
+        memoized content equality (a named domain enumerating the whole
+        roster) — takes the O(K + changed) resident-aggregate path;
+        genuine subset domains take the counted sweep."""
+        planner = self._prune_planner()
+        planner.sync(host, self._num_zones_bucket())
+        if self._is_full_domain(
+            dom_mask, np.asarray(host.valid), dom_key, dom_ref
+        ):
+            plan = planner.plan_full_domain(
+                host,
+                cand_per_req=cand_per_req,
+                drv_arr=drv_arr,
+                exc_arr=exc_arr,
+                counts=counts,
+                num_zones=self._num_zones_bucket(),
+                top_k=self._prune_top_k,
+                slack=self._prune_slack,
+            )
+        else:
+            plan = planner.plan_with_masks(
+                host,
+                dom_mask=np.asarray(dom_mask, bool),
+                cand_per_req=cand_per_req,
+                drv_arr=drv_arr,
+                exc_arr=exc_arr,
+                counts=counts,
+                num_zones=self._num_zones_bucket(),
+                top_k=self._prune_top_k,
+                slack=self._prune_slack,
+                dom_key=dom_key,
+            )
+        if plan is not None:
+            st = self.prune_stats
+            st["plan_ms"] += plan.plan_ms
+            st["offset_ms"] += plan.offset_ms
+        return plan
+
+    @staticmethod
+    def _shared_prune_domain(requests, dom_keys, dom_per_req):
+        """(domain mask, domain key) of the single shared window domain,
+        or (None, None) when requests pin distinct domains or a
+        precomputed mask (such a window solves in full)."""
+        if any(r.domain_mask is not None for r in requests):
+            return None, None
+        keys = set(dom_keys)
+        if len(keys) != 1:
+            return None, None
+        return dom_per_req[0], dom_keys[0]
+
+    def _is_full_domain(self, dom, valid_np, dom_key, dom_ref) -> bool:
+        """Whether a window's shared domain covers the ENTIRE valid mask —
+        the gate for the planner's resident-aggregate path. The default
+        (no names pinned) is the valid mask by identity; a named domain
+        that enumerates the whole roster is detected by ONE content
+        compare memoized on (domain key, registry epoch, statics epoch,
+        N), so the O(N) compare runs once per roster generation. `dom_ref`
+        (the names object behind the key) is held ALIVE by the memo entry:
+        an identity-derived key must never match a recycled id."""
+        if dom is valid_np:
+            return True
+        if dom_key is None:
+            return False
+        memo_key = (
+            dom_key, self.registry.epoch, self._static_epoch,
+            valid_np.shape[0],
+        )
+        hit = self._full_dom_memo.get(memo_key)
+        if hit is None:
+            if len(self._full_dom_memo) > 16:
+                self._full_dom_memo.clear()
+            hit = (dom_ref, bool(np.array_equal(dom, valid_np)))
+            self._full_dom_memo[memo_key] = hit
+        return hit[1]
+
+    def _note_prune_dispatch(self, plan, window_rows: int) -> None:
+        st = self.prune_stats
+        st["windows"] += 1
+        st["kept_rows"] += plan.k_real
+        st["window_rows"] += window_rows
+        st["candidate_rows"] += plan.dom_rows
+        if self.telemetry is not None:
+            self.telemetry.on_prune_dispatch(plan.k_real, plan.dom_rows)
+
+    def _note_prune_escalation(self, handle, reason: str) -> None:
+        """A failed certificate. The carry embodies the pruned (now
+        discarded) placements: every window dispatched on it re-solves in
+        full at its fetch, and the next build does a full upload."""
+        st = self.prune_stats
+        st["escalations"] += 1
+        st["reasons"][reason] = st["reasons"].get(reason, 0) + 1
+        if self._planner is not None:
+            # Re-scan to exactness: the failed certificate may trace to
+            # conservative drift in a cached entry, and an escalation must
+            # never loop on the same stale summaries.
+            self._planner.reset_plan_entries()
+        if handle.info is not None:
+            handle.info["prune_escalated"] = reason
+        if self.telemetry is not None:
+            self.telemetry.on_prune_escalation(reason)
+            self.telemetry.on_pipeline_event("prune-escalation")
+        p = self._pipe
+        if p is not None:
+            if handle in p["unfetched"]:
+                p["unfetched"].remove(handle)
+                self._poisoned[handle] = set()
+            for h in p["unfetched"]:
+                h.use_fallback = True
+                self._poisoned[h] = set()
+            self._pipe = None
+            self._note_inflight()
+
+    @staticmethod
+    def _prior_windows(handle):
+        """(window index, rows, amounts) of every window of every prior
+        that this dispatch's device base lacked: the windows the mirror had
+        not debited when the dispatched tensors were built. A prior whose
+        fetch never ran yields (None, None, None)."""
+        for prior, debited in zip(handle.priors, handle.prior_debited):
+            wp = prior.window_placements
+            if wp is None:
+                yield None, None, None
+                continue
+            for i, (rows, amounts) in enumerate(wp):
+                if i not in debited:
+                    yield i, rows, amounts
+
+    def _collect_priors(self, handle, strict: bool):
+        """Sparse union (rows, summed deltas) of the in-flight priors'
+        committed placements that the device base lacked, O(placed).
+        `strict` (the certificate's contract): a prior whose placements
+        are UNKNOWN (its fetch never ran) returns None, and the caller
+        escalates. Lenient: an unknown prior contributes nothing."""
+        rows_list: list[np.ndarray] = []
+        deltas_list: list[np.ndarray] = []
+        for i, rows, amounts in self._prior_windows(handle):
+            if i is None:
+                if strict:
+                    return None
+                continue
+            rows_list.append(rows)
+            deltas_list.append(amounts)
+        if not rows_list:
+            return (
+                np.empty(0, np.int64),
+                np.empty((0, NUM_DIMS), np.int64),
+            )
+        rows = np.concatenate(rows_list)
+        deltas = np.concatenate(deltas_list)
+        uniq, inv = np.unique(rows, return_inverse=True)
+        out = np.zeros((uniq.size, deltas.shape[1]), np.int64)
+        np.add.at(out, inv, deltas)
+        return uniq.astype(np.int64), out
+
+    def _dispatch_pruned(
+        self, strategy, tensors, rows: _WindowRows, p, dom_shared, dom_key
+    ) -> "WindowHandle | None":
+        """Tier 1 of the two-tier solve: the planner's kept rows gather out
+        of the resident device carry (a [K] index_select; the [N,3] base
+        never moves), their statics gather host-side into a small upload
+        (reused while the kept set stands), and the row walk solves the
+        [K,3] sub-cluster with the excluded rows' zone sums as offsets.
+        Its committed base scatters back into the carry out of place, as a
+        delta (padded rows add zero). Returns None when the planner
+        declines: the caller solves the window in full."""
+        host = host_view(tensors)
+        requests = rows.requests
+        plan = self._plan_prune(
+            host, dom_shared, rows.cand_per_req, rows.drv_arr, rows.exc_arr,
+            rows.counts, dom_key=dom_key,
+            dom_ref=requests[0].domain_node_names,
+        )
+        if plan is None:
+            return None
+        n = tensors.num_nodes
+        b = len(rows.drv_arr)
+        dev = self.device
+        tel = self.telemetry
+        compiles_before = tel.compile_count() if tel is not None else None
+        self._ensure_probed()
+        keep = plan.keep
+        t_gather = time.perf_counter()
+        ent = self._prune_gather_entry(host, plan)
+        gather_reused = "statics_dev" in ent
+        if gather_reused:
+            self.prune_stats["gather_reuse"] += 1
+        else:
+            ent["idx_dev"] = torch.as_tensor(keep.astype(np.int64), device=dev)
+            ent["statics_dev"] = tuple(
+                torch.tensor(f, dtype=dt, device=dev)
+                for f, dt in zip(ent["statics_np"], FIELD_DTYPES[1:])
+            )
+        idx_dev = ent["idx_dev"]
+        sub_avail = p["avail"].index_select(0, idx_dev)
+        sub = cluster_from_statics(sub_avail, ent["statics_dev"])
+        dom_sub = np.asarray(dom_shared)[keep]
+        batch = self._layout(
+            rows, cand=plan.cand_kept, dom=[dom_sub] * len(requests)
+        )
+        zone_base = tuple(torch.as_tensor(a, device=dev) for a in plan.zone_base)
+        gather_ms = (time.perf_counter() - t_gather) * 1e3
+        self.prune_stats["gather_ms"] += gather_ms
+        meta, execs, base_after = window_pack(
+            sub, batch.win, fill=strategy, emax=batch.emax,
+            num_zones=batch.num_zones, zone_base=zone_base,
+        )
+        blob, ready = self._stage_blob(meta, execs)
+        p["avail"] = p["avail"].index_add(0, idx_dev, base_after - sub_avail)
+        priors = tuple(p["unfetched"])
+        debited = [p["debited"].get(h, frozenset()) for h in priors]
+        path = "cuda-pruned" if dev.type == "cuda" else "reference-pruned"
+        self.window_path_counts[path] = self.window_path_counts.get(path, 0) + 1
+        s_pad, r_pad = batch.win.exec_count.shape
+        info = {
+            "path": path,
+            "nodes": n,
+            "rows": b,
+            "row_bucket": s_pad * r_pad,
+            "emax": batch.emax,
+            "state_upload": self.last_state_upload,
+            "dispatch_id": next(self._dispatch_seq),
+            "fused_k": 1,
+            "pruned": True,
+            "kept_rows": plan.k_real,
+            "candidate_rows": plan.dom_rows,
+            "gather_reused": gather_reused,
+        }
+        self.last_solve_info = info
+        self._note_prune_dispatch(plan, b)
+        if tel is not None:
+            info["compile_cache_hit"] = tel.compile_count() == compiles_before
+            tel.on_window_dispatch(
+                "pallas-pruned" if dev.type == "cuda" else "xla-pruned",
+                nodes=n, rows=b, row_bucket=r_pad, segment_bucket=s_pad,
+            )
+            tel.on_prune_phases(plan.plan_ms, gather_ms, plan.offset_ms)
+            if gather_reused:
+                tel.on_prune_gather_reuse()
+            # What the pruned dispatch ships: the gathered statics and the
+            # kept-row index (unless reused), the [S, R] window over the
+            # kept rows, and the zone offsets; no [N] array leaves the host.
+            tel.on_transfer(
+                "h2d",
+                (
+                    0
+                    if gather_reused
+                    else sum(f.nbytes for f in ent["statics_np"])
+                    + keep.astype(np.int64).nbytes
+                )
+                + _window_nbytes(batch.win)
+                + sum(np.asarray(a).nbytes for a in plan.zone_base),
+            )
+        handle = WindowHandle(
+            strategy=strategy,
+            blob=blob,
+            requests=requests,
+            host_avail=np.asarray(host.available),
+            host_schedulable=np.asarray(host.schedulable),
+            priors=priors,
+            prior_debited=debited,
+        )
+        handle.ready = ready
+        # The certificate's base, gathered on the kept rows now.
+        handle.base_kept = handle.host_avail[keep[: plan.k_real]].astype(
+            np.int64
+        )
+        handle.host_tensors = host
+        handle.window_rows = rows
+        handle.row_driver_req = rows.drv_arr.astype(np.int64)
+        handle.row_exec_req = rows.exc_arr.astype(np.int64)
+        handle.row_skippable = rows.skip_arr
+        handle.seg_map = batch.seg_map
+        handle.prune = plan
+        handle.info = info
+        handle.dispatched_at = time.perf_counter()
+        p["unfetched"].append(handle)
+        self._note_inflight()
         return handle
 
     def pack_windows_dispatch(
@@ -1010,44 +1610,76 @@ class PlacementSolver:
             res = owner.fused_decisions
             if res is None:
                 try:
-                    res = ("ok", self._fetch_windows(owner, owner.fused_bounds))
+                    res = ("ok", self._fetch_dispatch(owner, owner.fused_bounds))
                 except Exception as exc:
                     res = ("err", exc)
                 owner.fused_decisions = res
             kind, val = res
             if kind == "err":
+                self._settle_poisoned(owner, handle.index)
                 raise val
             decisions, rows, amounts = val[handle.index]
             self._debit_mirror(owner, handle.index, rows, amounts)
+            self._settle_poisoned(owner, handle.index)
             return decisions
         if not handle.requests:
             return []
-        ((decisions, rows, amounts),) = self._fetch_windows(
-            handle, [(0, len(handle.requests))]
-        )
+        try:
+            ((decisions, rows, amounts),) = self._fetch_dispatch(
+                handle, [(0, len(handle.requests))]
+            )
+        finally:
+            self._settle_poisoned(handle, 0)
         self._debit_mirror(handle, 0, rows, amounts)
         return decisions
 
-    def _fetch_windows(self, handle: WindowHandle, bounds) -> list:
-        """Pull a dispatch's decision blob and reconstruct each window's
-        requests (`bounds`: their [lo, hi) ranges, in order; the committed
-        base threads from one window to the next). Returns [(decisions,
-        placement rows, int64 amounts at those rows)] per window and sets
-        the handle's placements (all windows) for later dispatches'
-        `_dense_base`."""
+    def _settle_poisoned(self, handle: WindowHandle, index: int) -> None:
+        """A view of a dispatch on a dropped carry was fetched (or failed);
+        the dispatch stops holding builds back with its last view."""
+        views = self._poisoned.get(handle)
+        if views is not None:
+            views.add(index)
+            if len(views) == len(handle.fused_bounds or (None,)):
+                del self._poisoned[handle]
+
+    def _fetch_dispatch(self, handle: WindowHandle, bounds) -> list:
+        """The decisions of a dispatch's windows (`bounds`: their [lo, hi)
+        request ranges, in order; the committed base threads from one
+        window to the next): [(decisions, placement rows, int64 amounts at
+        those rows)] per window, also kept on the handle for later
+        dispatches' priors. A window dispatched on a carry that a pruned
+        window's escalation poisoned re-solves in full; a pruned window is
+        certified first."""
         if handle.released:
             # close()/discard_pipeline() dropped this dispatch's buffer; its
             # decisions are gone by design.
             raise RuntimeError("window dispatch was discarded")
+        if handle.use_fallback:
+            if handle.resolved is None:
+                handle.resolved = self._resolve_full(handle, bounds)
+            return handle.resolved
+        if handle.prune is not None:
+            return self._fetch_pruned(handle, bounds)
         full = handle.fetch_blob()
         self._note_transfer("d2h", full.nbytes)
         blob = full[handle.seg_map[0], handle.seg_map[1]]
+        return self._windows_from_blob(
+            handle, bounds, blob, self._dense_base(handle),
+            handle.host_schedulable,
+        )
+
+    def _windows_from_blob(
+        self, handle, bounds, blob, base, host_schedulable, row_map=None
+    ) -> list:
+        """Reconstruct each window of a flat decision blob [B, 3 + emax]
+        over `base` (mutated: committed placements thread through it).
+        `row_map` (a pruned fetch): decision indices, `base` and the
+        placements live in kept-local space, and row_map maps a local
+        index to its registry row."""
         drivers = blob[:, 0]
         admitted = blob[:, 1].astype(bool)
         packed = blob[:, 2].astype(bool)
         execs = blob[:, 3:]
-        base = self._dense_base(handle)
-        total = np.zeros_like(base)
         starts = np.concatenate(
             [[0], np.cumsum([len(req.rows) for req in handle.requests])]
         )
@@ -1059,15 +1691,21 @@ class PlacementSolver:
             decisions = self._reconstruct_requests(
                 requests, drivers[rs], admitted[rs], packed[rs], execs[rs],
                 handle.row_driver_req[rs], handle.row_exec_req[rs],
-                handle.row_skippable[rs], base, placements,
-                handle.host_schedulable,
+                handle.row_skippable[rs], base, placements, host_schedulable,
+                row_map=row_map,
             )
-            rows = self._commit_rows(requests, drivers[rs], admitted[rs], execs[rs])
-            out.append((decisions, rows, placements[rows]))
-            total += placements
-        rows = np.unique(np.concatenate([r for _, r, _ in out]))
-        handle.placement_rows = rows
-        handle.placement_vals = total[rows]
+            if row_map is None:
+                rows = self._commit_rows(
+                    requests, drivers[rs], admitted[rs], execs[rs]
+                )
+                out.append((decisions, rows, placements[rows]))
+            else:
+                loc = np.flatnonzero(placements.any(axis=1))
+                out.append((decisions, row_map[loc], placements[loc]))
+        handle.window_placements = [(r, a) for _, r, a in out]
+        # The placed rows are availability churn the planner absorbs.
+        for _, rows, _ in out:
+            self._prune_note_rows(rows)
         if self.telemetry is not None:
             # Dispatch -> decisions on the host, per window of the dispatch
             # (a fused batch divides one round trip by its K windows).
@@ -1076,6 +1714,103 @@ class PlacementSolver:
                 (time.perf_counter() - handle.dispatched_at) * 1e3 / k, k
             )
         return out
+
+    def _fetch_pruned(self, handle: WindowHandle, bounds) -> list:
+        """Tier 2 of the two-tier solve: certify the pruned decisions
+        against the exact dispatch base on the kept rows (the host view
+        minus the priors' placements) and reconstruct them in kept-local
+        space, or escalate the dispatch to a full re-solve. O(K + rows):
+        nothing here touches an [N]-wide array."""
+        plan = handle.prune
+        full = handle.fetch_blob()
+        self._note_transfer("d2h", full.nbytes)
+        blob = full[handle.seg_map[0], handle.seg_map[1]].astype(np.int64)
+        gmap = plan.keep.astype(np.int64)
+        keep_real = plan.keep[: plan.k_real]
+        drivers_l = blob[:, 0]
+        execs_l = blob[:, 3:]
+        drivers = np.where(drivers_l >= 0, gmap[np.clip(drivers_l, 0, None)], -1)
+        execs = np.where(execs_l >= 0, gmap[np.clip(execs_l, 0, None)], -1)
+        ps = self._collect_priors(handle, strict=True)
+        if ps is None:
+            ok, reason = False, "prior-unknown"
+        else:
+            prior_rows, prior_deltas = ps
+            base_kept = handle.base_kept.copy()
+            if prior_rows.size:
+                loc = np.searchsorted(keep_real, prior_rows)
+                locc = np.clip(loc, 0, keep_real.size - 1)
+                on_kept = keep_real[locc] == prior_rows
+                if on_kept.any():
+                    base_kept[locc[on_kept]] -= prior_deltas[on_kept]
+            ok, reason = certify_window(
+                plan,
+                strategy=handle.strategy,
+                requests=handle.requests,
+                drivers=drivers,
+                admitted=blob[:, 1].astype(bool),
+                packed=blob[:, 2].astype(bool),
+                execs=execs,
+                drv64=handle.row_driver_req,
+                exc64=handle.row_exec_req,
+                base_kept=base_kept.copy(),  # certify threads commits
+                host=handle.host_tensors,
+                prior_rows=prior_rows,
+                prior_deltas=prior_deltas,
+            )
+        if not ok:
+            return self._escalate_pruned(handle, bounds, reason)
+        base_loc = np.zeros((plan.keep.shape[0], NUM_DIMS), np.int64)
+        base_loc[: plan.k_real] = base_kept
+        return self._windows_from_blob(
+            handle, bounds, blob, base_loc,
+            np.asarray(handle.host_schedulable)[plan.keep], row_map=gmap,
+        )
+
+    def _escalate_pruned(self, handle: WindowHandle, bounds, reason) -> list:
+        """A failed certificate: re-solve the whole dispatch (every window
+        of a fused umbrella) in full, then poison the carry, which
+        embodies the discarded pruned placements."""
+        out = self._resolve_full(handle, bounds)
+        self._note_prune_escalation(handle, reason)
+        return out
+
+    def _resolve_full(self, handle: WindowHandle, bounds) -> list:
+        """Re-solve a dispatch from the exact host reconstruction: the row
+        walk over the full [N,3] `_dense_base` (the host view at dispatch
+        minus the placements of windows in flight then) and the dispatch's
+        own statics and masks, on the solver's device. The same solve an
+        unpruned dispatch on that base runs, so the decisions are those
+        of the unpruned path."""
+        base = self._dense_base(handle)
+        host = handle.host_tensors
+        batch = self._layout(handle.window_rows)
+        avail32 = np.clip(base, _INT32.min, _INT32.max).astype(np.int32)
+        cluster = cluster_from_numpy(
+            (avail32,) + tuple(cluster_statics(host)), device=self.device
+        )
+        self._note_transfer("h2d", _host_nbytes(host) + _window_nbytes(batch.win))
+        self._ensure_probed()
+        meta, execs, _ = window_pack(
+            cluster, batch.win, fill=handle.strategy, emax=batch.emax,
+            num_zones=batch.num_zones,
+        )
+        full = torch.cat([meta[:, :, :3], execs], dim=2).cpu().numpy()
+        self._note_transfer("d2h", full.nbytes)
+        if handle.info is not None:
+            # The re-solve's reason, its live segments (row-walk launches
+            # on the card) and its decision bytes, for the records.
+            handle.info["resolved"] = {
+                "reason": (
+                    "prune-escalation" if handle.use_fallback else "certificate"
+                ),
+                "segments": int((batch.win.row_count > 0).sum()),
+                "d2h": full.nbytes,
+            }
+        return self._windows_from_blob(
+            handle, bounds, full[batch.seg_map[0], batch.seg_map[1]], base,
+            handle.host_schedulable,
+        )
 
     def _debit_mirror(self, handle: WindowHandle, index: int, rows, amounts) -> None:
         """Debit one fetched window's placements from the pipeline mirror
@@ -1111,26 +1846,38 @@ class PlacementSolver:
 
     def _dense_base(self, handle) -> np.ndarray:
         """The [N,3] int64 fetch-side base: the host view at dispatch minus
-        the placements of the windows still in flight then (the device had
-        them threaded). A prior whose fetch never ran contributes nothing:
-        its capacity returns with the next full upload."""
-        base = handle.host_avail.copy()
-        for prior in handle.priors:
-            if prior.placement_rows is not None and prior.placement_rows.size:
-                base[prior.placement_rows] -= prior.placement_vals
+        the placements the device base lacked then — those of the windows
+        in flight whose views the mirror had not yet debited when the
+        dispatched tensors were built (a fused umbrella's fetched views
+        were in the host view already). A prior whose fetch never ran
+        contributes nothing: its capacity returns with the next full
+        upload."""
+        base = np.array(handle.host_avail, dtype=np.int64)
+        for i, rows, amounts in self._prior_windows(handle):
+            if i is not None and rows.size:
+                base[rows] -= amounts
         return base
 
     def _reconstruct_requests(
         self, requests, drivers, admitted, packed, execs,
         drv64, exc64, skip, base, placements, host_schedulable,
+        row_map=None,
     ) -> list[WindowDecision]:
         """Host-side reconstruction for per-request packing efficiency: the
         availability each admitted request's final pack saw = the host view
         at dispatch, minus the committed placements of windows in flight
         then, minus committed placements of earlier segments, minus
         in-segment admitted hypothetical placements. Mutates `base` and
-        `placements` (the window's committed gangs, added in place)."""
+        `placements` (the window's committed gangs, added in place).
+        `row_map` (a pruned fetch): indices, `base` and `placements` are
+        kept-local, and row_map maps a local index to its registry row."""
         name_of = self.registry.name_of
+        if row_map is not None:
+            registry_name = name_of
+
+            def name_of(i):
+                return registry_name(int(row_map[i]))
+
         decisions: list[WindowDecision] = []
         row = 0
         for req in requests:

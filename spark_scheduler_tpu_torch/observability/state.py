@@ -9,10 +9,11 @@ ledger, and the node fleet. Point-in-time, not transactional: each section
 lists its own store, the same consistency every reporter tick has.
 
 The port's copy of spark_scheduler_tpu/observability/state.py. It reports
-what the port's app has: no autoscaler, trace sink, device pool, pruned
-solve or degraded-mode controller sections, since the port has none of
-them yet; the solver section names the device and how each window was
-served, and the server section the transport and the ingest lane.
+what the port's app has: no autoscaler, trace sink, device pool or
+degraded-mode controller sections, since the port has none of them yet;
+the solver section names the device and how each window was served, the
+prune section the two-tier solve's ledger, and the server section the
+transport and the ingest lane.
 """
 
 from __future__ import annotations
@@ -128,6 +129,24 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
             "window_paths": dict(solver.window_path_counts),
             "last_state_upload": solver.last_state_upload,
         }
+        prune = getattr(solver, "prune_stats", None)
+        if prune is not None and prune.get("windows"):
+            # Two-tier solve: pruned-window volume, kept-row ratio, the
+            # certificate-escalation ledger by reason, and the O(K +
+            # changed) planner evidence (phase-time means, reuse hits,
+            # rows scanned). The nested reasons ledger is copied: a
+            # concurrent escalation must not resize it under this
+            # snapshot's JSON serialization.
+            windows = max(int(prune.get("windows", 0)), 1)
+            block = {**prune, "reasons": dict(prune["reasons"])}
+            for phase in ("plan", "gather", "offset"):
+                block[f"{phase}_ms_mean"] = round(
+                    prune.get(f"{phase}_ms", 0.0) / windows, 4
+                )
+            planner = getattr(solver, "_planner", None)
+            if planner is not None:
+                block["planner"] = planner.index_stats()
+            out["prune"] = block
         # Device-state upload mix (static row deltas shipped).
         dev_state = getattr(solver, "device_state_stats", None)
         if dev_state is not None:

@@ -122,10 +122,12 @@ class SolverTelemetry:
     JIT-compiles nothing, so the compile gauges and `compile_count()`
     report the libraries this process compiled (the CUDA kernels and the
     native runtime, ops/_build.py) under the JAX package's series names.
-    The `on_prune_*`, `on_device_mirror` / `on_device_age` /
-    `on_device_window`, `on_slot_event`, `on_quarantine_count` and
-    `on_degraded` have no caller until the pruned solve, the device pool
-    and degraded mode are ported (ROADMAP A.5, A.5b, A.6)."""
+    The pruned solve's window path is "pallas-pruned" on the card (the
+    row walk over the gathered rows) and "xla-pruned" on the CPU, the
+    JAX package's name for its pruned path. `on_device_mirror` /
+    `on_device_age` / `on_device_window`, `on_slot_event`,
+    `on_quarantine_count` and `on_degraded` have no caller until the
+    device pool and degraded mode are ported (ROADMAP A.4, A.5)."""
 
     def __init__(self, registry: MetricRegistry | None = None):
         self.registry = registry or MetricRegistry()

@@ -150,23 +150,34 @@ def make_segmented_window(
     return win
 
 
-def _check_fill(fill: str) -> None:
+def _check_fill(fill: str, zone_base=None) -> None:
     if fill not in PALLAS_FILLS and fill not in PALLAS_SINGLE_AZ:
         raise ValueError(
             f"window path supports {PALLAS_FILLS + tuple(PALLAS_SINGLE_AZ)}, "
             f"got {fill!r}"
         )
+    if zone_base is not None and fill in PALLAS_SINGLE_AZ:
+        raise ValueError(
+            "zone_base offsets are only sound for plain fills; "
+            f"got single-AZ strategy {fill!r}"
+        )
 
 
-def _segment_orders(cluster: ClusterTensors, base, cand, domain, num_zones):
+def _segment_orders(
+    cluster: ClusterTensors, base, cand, domain, num_zones, zone_base=None
+):
     """Per-segment eligibility + priority orders from the committed base
     (ops/batched.py masked mode, resource.go:299). Returns
     (elig_e, elig_d, drank, d_order, erank, e_order), ranks and orders
-    int32 permutations of 0..N-1."""
+    int32 permutations of 0..N-1. `zone_base` (a pruned window over a
+    gathered sub-cluster): the excluded rows' per-zone sums, so the zone
+    ranks are the full cluster's (ops/sorting.zone_ranks)."""
     dom = domain & cluster.valid
     driver_elig = dom & cand
     exec_elig = dom & ~cluster.unschedulable & cluster.ready
-    zrank = zone_ranks(cluster, dom, num_zones, available=base)
+    zrank = zone_ranks(
+        cluster, dom, num_zones, available=base, zone_base=zone_base
+    )
     d_order, _ = priority_order(
         cluster, driver_elig, zrank, cluster.label_rank_driver, available=base
     )
@@ -199,11 +210,12 @@ def window_pack_reference(
     fill: str,
     emax: int,
     num_zones: int,
+    zone_base: tuple | None = None,
 ):
     """The plain PyTorch version of `window_pack`: the same sorts, then the
     row walk as a Python loop over rows (`ops/gang.walk_rows`, one
     `gang_solve` per gang). Runs on whatever device `cluster` lives on."""
-    _check_fill(fill)
+    _check_fill(fill, zone_base)
     n = cluster.num_nodes
     _check_cumsum_bound(n, emax)
     dev = cluster.device
@@ -218,7 +230,7 @@ def window_pack_reference(
         if rc == 0:  # padding segment: no sorts, no rows
             continue
         elig_e, elig_d, drank, d_order, erank, e_order = _segment_orders(
-            cluster, base, cand[s], dom[s], num_zones
+            cluster, base, cand[s], dom[s], num_zones, zone_base
         )
         meta[s], execs[s] = walk_rows(
             fill, num_zones=num_zones, emax=emax, cluster=cluster,
@@ -352,6 +364,7 @@ def window_pack(
     emax: int,
     num_zones: int,
     layout: WalkLayout | None = None,
+    zone_base: tuple | None = None,
 ):
     """Serve a segmented window. CUDA tensors: per live segment, the sorts
     in PyTorch, then one launch of the CUDA row-walk kernel on one
@@ -359,13 +372,31 @@ def window_pack(
     base) — no host synchronisation inside the segment loop. CPU tensors:
     `window_pack_reference`. Any other device raises. `layout` defaults to
     `walk_layout(n)`; tests pass another to drive the global-state layout
-    at a small n."""
-    _check_fill(fill)
+    at a small n.
+
+    `zone_base` = (mem_hi, mem_lo, cpu_hi, cpu_lo) int32 and `present` bool
+    [num_zones] tensors on the cluster's device: the per-zone sums of the
+    rows a pruned window left out of its gathered sub-cluster
+    (core/prune.py). The zone ranks then come out as the full cluster's;
+    the kernel itself computes no zone sum for a plain fill, so only its
+    orders change. Plain fills only."""
+    _check_fill(fill, zone_base)
     check_cluster(cluster)
     dev = cluster.device
+    if zone_base is not None:
+        want = (torch.int32,) * 4 + (torch.bool,)
+        if len(zone_base) != 5 or any(
+            t.device != dev or tuple(t.shape) != (num_zones,) or t.dtype != d
+            for t, d in zip(zone_base, want)
+        ):
+            raise ValueError(
+                f"zone_base must be four int32 limbs and a bool present "
+                f"mask, each [{num_zones}] on {dev}"
+            )
     if dev.type == "cpu":
         return window_pack_reference(
-            cluster, win, fill=fill, emax=emax, num_zones=num_zones
+            cluster, win, fill=fill, emax=emax, num_zones=num_zones,
+            zone_base=zone_base,
         )
     if dev.type != "cuda":
         raise ValueError(f"window_pack runs on cuda or cpu, got {dev}")
@@ -406,7 +437,7 @@ def window_pack(
         if rc == 0:
             continue
         elig_e, elig_d, drank, d_order, erank, e_order = _segment_orders(
-            cluster, base, cand[s], dom[s], num_zones
+            cluster, base, cand[s], dom[s], num_zones, zone_base
         )
         err = lib.window_row_walk(
             dev.index, dreq[s].data_ptr(), ereq[s].data_ptr(), cnt[s].data_ptr(),

@@ -50,20 +50,19 @@ from spark_scheduler_tpu_torch.store.crd import (
 # Install keys the port cannot serve yet: field -> (YAML key, where it is
 # ported). A field that differs from InstallConfig's default raises.
 UNSUPPORTED_KEYS = {
-    "solver_device_pool": ("solver.device-pool", "ROADMAP A.5"),
-    "solver_mesh_groups": ("solver.mesh.groups", "ROADMAP A.5"),
-    "solver_mesh_node_shards": ("solver.mesh.node-shards", "ROADMAP A.7"),
-    "solver_prune_top_k": ("solver.prune-top-k", "ROADMAP A.6"),
-    "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.7"),
+    "solver_device_pool": ("solver.device-pool", "ROADMAP A.4"),
+    "solver_mesh_groups": ("solver.mesh.groups", "ROADMAP A.4"),
+    "solver_mesh_node_shards": ("solver.mesh.node-shards", "ROADMAP A.6"),
+    "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.6"),
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
-    "degraded_mode": ("server.degraded-mode", "ROADMAP A.5b"),
-    "autoscaler_enabled": ("autoscaler.enabled", "ROADMAP A.9"),
-    "policy_enabled": ("policy.enabled", "ROADMAP A.9"),
-    "trace_path": ("trace.path", "ROADMAP A.9"),
-    "fleet_enabled": ("fleet.enabled", "ROADMAP A.9"),
-    "fleet_clusters": ("fleet.clusters", "ROADMAP A.9"),
-    "fleet_max_spillover_hops": ("fleet.max-spillover-hops", "ROADMAP A.9"),
-    "fleet_stack_window_ms": ("fleet.stack-window-ms", "ROADMAP A.9"),
+    "degraded_mode": ("server.degraded-mode", "ROADMAP A.5"),
+    "autoscaler_enabled": ("autoscaler.enabled", "ROADMAP A.3"),
+    "policy_enabled": ("policy.enabled", "ROADMAP A.2"),
+    "trace_path": ("trace.path", "ROADMAP A.7"),
+    "fleet_enabled": ("fleet.enabled", "ROADMAP A.7"),
+    "fleet_clusters": ("fleet.clusters", "ROADMAP A.7"),
+    "fleet_max_spillover_hops": ("fleet.max-spillover-hops", "ROADMAP A.7"),
+    "fleet_stack_window_ms": ("fleet.stack-window-ms", "ROADMAP A.7"),
     "jax_compilation_cache_dir": (
         "jax-compilation-cache-dir",
         "none: the port's kernels build into spark_scheduler_tpu_torch/_build/",
@@ -288,6 +287,8 @@ def build_scheduler_app(
             else None
         ),
         device=device,
+        prune_top_k=config.solver_prune_top_k,
+        prune_slack=config.solver_prune_slack,
         delta_statics=config.solver_delta_statics,
     )
     recorder = None

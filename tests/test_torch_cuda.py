@@ -831,6 +831,74 @@ def test_fused_dispatch_on_cuda_matches_sequential(cuda_device, k):
     assert any(d.admitted for d in got)
 
 
+@pytest.mark.parametrize("top_k,slack", [(4, 0.5), (1, 0.01)])
+def test_pruned_window_on_cuda_matches_cpu(cuda_device, top_k, slack):
+    """The pruned two-tier solve on the card against its `cpu` twin and an
+    unpruned `cuda` solver: pipelined pairs of windows with usage churn
+    between them. Decisions and prune_stats equal the cpu twin's; the row
+    walk launches once a live segment of every dispatch, pruned or
+    declined, and again for each segment a full re-solve walks; the tight
+    K escalates."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+    from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL, Node
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    rng = np.random.default_rng(7)
+    nodes = [
+        Node(name=f"n{i:03d}", allocatable=Resources.from_quantities("8", "8Gi", "1"),
+             labels={ZONE_LABEL: f"z{i % 3}"})
+        for i in range(300)
+    ]
+    names = [n.name for n in nodes]
+    one, two = Resources.from_quantities("1", "1Gi"), Resources.from_quantities("2", "2Gi")
+
+    def request():
+        rows = [(one, one, int(rng.integers(1, 3)), bool(rng.random() < 0.5))
+                for _ in range(int(rng.integers(0, 3)))]
+        rows.append((two if rng.random() < 0.3 else one, one,
+                     int(rng.integers(1, 4)), False))
+        return WindowRequest(rows=rows, driver_candidate_names=names)
+
+    batches = [[[request() for _ in range(3)] for _ in range(2)] for _ in range(3)]
+    usages = [{}] + [
+        {n.name: Resources.from_quantities(str(int(rng.integers(1, 4))), "1Gi")
+         for n in nodes if rng.random() < 0.3}
+        for _ in range(2)
+    ]
+    solvers = {
+        "cuda": PlacementSolver(device=cuda_device, prune_top_k=top_k,
+                                prune_slack=slack),
+        "cpu": PlacementSolver(device="cpu", prune_top_k=top_k, prune_slack=slack),
+        "full": PlacementSolver(device=cuda_device),
+    }
+    got, launches, handles = {}, 0, []
+    for name, solver in solvers.items():
+        out = []
+        before = window_pack.launches
+        for usage, wins in zip(usages, batches):
+            hs = [solver.pack_window_dispatch(
+                "tightly-pack", solver.build_tensors_pipelined(nodes, usage, {}), w)
+                for w in wins]
+            out += [d for h in hs for d in solver.pack_window_fetch(h)]
+            if name == "cuda":
+                handles += hs
+        if name == "cuda":
+            launches = window_pack.launches - before
+        got[name] = out
+    assert got["cuda"] == got["cpu"] == got["full"]
+    keys = ("windows", "kept_rows", "escalations", "reasons")
+    st = solvers["cuda"].prune_stats
+    assert {k: st[k] for k in keys} == {k: solvers["cpu"].prune_stats[k] for k in keys}
+    assert st["windows"] > 0
+    assert solvers["cuda"].window_path_counts.get("cuda-pruned", 0) > 0
+    want = sum(len(h.requests) + (h.info.get("resolved") or {}).get("segments", 0)
+               for h in handles)
+    assert launches == want
+    if top_k == 1:
+        assert st["escalations"] > 0, st
+
+
 @pytest.mark.parametrize("fill", STRATEGIES)
 def test_batched_engine_on_cuda_matches_window_pack(cuda_device, fill):
     """`batched_fifo_pack` in window mode on CUDA tensors (plain PyTorch)

@@ -228,6 +228,72 @@ def test_dispatch_between_fused_fetches_sees_the_later_windows():
         _interleaved(JAX, fused=True)
 
 
+def _third_between_fetches(root, fused, fetch_first):
+    """ROADMAP §C.5's case: 4 nodes of 64 CPU / 64 Gi, three one-request
+    tightly-pack windows (a 2 CPU / 2 Gi driver and 3 executors of
+    3 CPU / 3 Gi). Windows 1 and 2 are dispatched together (fused or back
+    to back); the third is built and dispatched after window 1's fetch
+    and commit (`fetch_first`) or before any fetch. Returns every
+    decision, in dispatch order."""
+    kube = _mod(root, "models.kube")
+    res = _mod(root, "models.resources").Resources
+    request = _mod(root, "core.solver").WindowRequest
+    nodes = [
+        kube.Node(
+            name=f"n{i}",
+            allocatable=res.from_quantities("64", "64Gi"),
+            labels={kube.ZONE_LABEL: "z0"},
+        )
+        for i in range(4)
+    ]
+    names = [n.name for n in nodes]
+    drv = res.from_quantities("2", "2Gi")
+    exe = res.from_quantities("3", "3Gi")
+    w1, w2, w3 = (
+        [request(rows=[(drv, exe, 3, False)], driver_candidate_names=names)]
+        for _ in range(3)
+    )
+    solver, usage = _solver(root), {}
+
+    def build():
+        return solver.build_tensors_pipelined(nodes, usage, {})
+
+    if fused:
+        h1, h2 = solver.pack_windows_dispatch("tightly-pack", build(), [w1, w2])
+    else:
+        h1 = solver.pack_window_dispatch("tightly-pack", build(), w1)
+        h2 = solver.pack_window_dispatch("tightly-pack", build(), w2)
+    out = []
+    if fetch_first:
+        out += solver.pack_window_fetch(h1)
+        _commit(res, usage, w1, out[-1:])
+    h3 = solver.pack_window_dispatch("tightly-pack", build(), w3)
+    for h, w in ((h1, w1), (h2, w2), (h3, w3))[1 if fetch_first else 0:]:
+        out += solver.pack_window_fetch(h)
+        _commit(res, usage, w, out[-1:])
+    return out
+
+
+@pytest.mark.parametrize("fetch_first", [True, False])
+def test_dispatch_between_fused_fetches_reconstructs_on_the_device_base(
+    fetch_first,
+):
+    """A dispatch between two fused views' fetches: the host view it was
+    built on already holds window 1's reservations, so its fetch-side base
+    subtracts only window 2's placements, and the third window's
+    efficiency is the sequential one (33 of 64 CPU: 0.515625). Dispatched
+    before any view is fetched, the base still subtracts both windows."""
+    seq = _third_between_fetches(PORT, fused=False, fetch_first=fetch_first)
+    fused = _third_between_fetches(PORT, fused=True, fetch_first=fetch_first)
+    want = _third_between_fetches(JAX, fused=False, fetch_first=fetch_first)
+    assert [tuple(d) for d in seq] == [tuple(d) for d in want]
+    assert fused == seq
+    assert all(d.admitted for d in fused)
+    assert fused[2].packing.driver_node == fused[0].packing.driver_node
+    assert fused[2].packing.efficiency_max == 0.515625
+    assert fused[2].packing.efficiency_cpu == 0.515625
+
+
 def _dispatched(seed, k):
     rng = np.random.default_rng(seed)
     nodes, _, _ = _env(PORT, 8)

@@ -592,7 +592,6 @@ def _unsupported_values():
         "solver_device_pool": 2,
         "solver_mesh_groups": 2,
         "solver_mesh_node_shards": 2,
-        "solver_prune_top_k": 4,
         "solver_scale_tier": True,
         "solver_build_oracle": True,
         "degraded_mode": "shed",
@@ -628,6 +627,8 @@ SERVED_KEYS = {
     "ha_lease_ttl_s": 9.0,
     "ha_heartbeat_s": 1.0,
     "solver_fuse_windows": 4,
+    "solver_prune_top_k": 4,
+    "solver_prune_slack": 0.5,
 }
 
 
@@ -651,8 +652,8 @@ def _wiring(app):
 @pytest.mark.parametrize("field", sorted(SERVED_KEYS))
 def test_served_key_builds_like_jax(field):
     """The keys the port now serves (the apiserver URL, the durable store,
-    the ha.* block and solver.fuse-windows) build an app wired as the JAX
-    package's is."""
+    the ha.* block, solver.fuse-windows and solver.prune-top-k / -slack)
+    build an app wired as the JAX package's is."""
     config = {field: SERVED_KEYS[field], "instance_group_label": IG_LABEL}
     wired = []
     load_jax_native()
@@ -674,12 +675,13 @@ def test_unsupported_yaml_keys_raise_from_from_dict():
     from spark_scheduler_tpu_torch.server.config import InstallConfig
     from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
 
-    raw = {"solver": {"prune-top-k": 8}, "server": {"degraded-mode": "shed"}}
+    raw = {"solver": {"scale-tier": True}, "server": {"degraded-mode": "shed"}}
     with pytest.raises(NotImplementedError) as err:
         build_scheduler_app(
             InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
         )
-    assert "solver.prune-top-k" in str(err.value)
+    assert "solver.scale-tier" in str(err.value)
+    assert "ROADMAP A.6" in str(err.value)
     assert "server.degraded-mode" in str(err.value)
 
 
