@@ -201,6 +201,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the row walk's device ms a window and µs a row, the other device
      work and the device idle share. The launch counts are the pruned
      solvers' and the server's, never the comparison solvers'.
+ 13. The policy engine and the elastic autoscaler through the server on
+     the card, each on phase 3's cluster behind `build_scheduler_app(...,
+     device="cuda")` (threaded transport, python ingest) with an injected
+     clock that moves only through marked log entries, so a `cpu` app
+     replays the record (every predicate's answers in order, byte for
+     byte; every marked step returns the same on it). (a) `policy.enabled`
+     with priority ordering, preemption (8 evictions at most, `system`
+     protected) and defrag (budget 4); the clients offer a 512-node
+     instance group of its own: a `system` gang, 4 small low gangs with
+     dynamic allocation and all their executors (the soft extras), then
+     low gangs of 64 executors until the group is full; then 6 high gangs
+     twice that size, each denied with an eviction (one
+     `preemption_search` on the card over up to 8 nested eviction sets)
+     and admitted on its retry; a high gang no eviction admits stays
+     pending; the highs end, the low drivers without a reservation queue
+     behind the pending high one, the clock passes two promotion
+     intervals and they admit; one forced defrag pass. Checks: the
+     replay, the same eviction sets and reservations, the `system` gang
+     never evicted, no over-commit after every stage, a preemption and a
+     promotion-driven admission, fragmentation not above its value before
+     the pass, `preemption_search` on the card with 0 search failures.
+     Prints the preemptions, evictions, the search's p50 (host clock),
+     the last `preemption_batched_fit` call's time on the card (CUDA
+     events) beside the cpu's, the fragmentation before and after, and
+     row-walk launches = live segments + segments solved at completion +
+     solo packs. (b) `autoscaler.enabled` (phase 3's zones, a template
+     node of phase 3's largest, max-cluster-size 10,400, idle-ttl 60 s)
+     with `solver.delta-statics: false`, so a node added mid-window drains
+     the pipeline: 8 running dynamic-allocation apps; 16 drivers of a full
+     64-node instance group are denied with demands; they retry while the
+     running apps' extra executors arrive, and one `autoscaler.run_once()`
+     runs right after a dispatch that leaves a window with extra
+     executors in flight behind it: the solo solve of those executors
+     builds across the topology change and debits the windows in flight;
+     the retried drivers admit on the new nodes; the apps end but one,
+     the clock passes the idle TTL, and the drainer cordons, then removes,
+     the idle provisioned nodes. Checks: the replay, every demand
+     fulfilled and gone, the drained nodes exactly the provisioned nodes
+     no reservation names (no static node), no over-commit. Prints the
+     nodes added and drained, denial-to-admission latency (client host
+     clock), the pipeline drains and the solo builds that debited
+     in-flight windows.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -1677,10 +1719,17 @@ class RecordedServer:
     typed calls: watch ingestion writes through them. `app_factory(backend,
     registry, metrics)` returns (app, HA runtime or None) in place of
     `build_scheduler_app`. With `start=False` the HTTP server is built but
-    not started."""
+    not started. `clock` replaces the fixed clock (phase 13's injected
+    clock). With `quiet_ops`, the backend changes made inside a window's
+    dispatch or completion (a preemption's evictions) are not logged: the
+    replay's own dispatch and completion make them. `marked(fn)` runs
+    `fn(app)` under the lock as one log entry, its own changes unlogged,
+    for the replay to run on its app (phase 13's autoscaler passes, clock
+    advances and teardowns)."""
 
     def __init__(self, device, config, transport="threaded", ingest="python",
-                 *, backend=None, kinds=None, app_factory=None, start=True):
+                 *, backend=None, kinds=None, app_factory=None, start=True,
+                 clock=None, quiet_ops=False):
         import copy
         import threading
 
@@ -1707,7 +1756,7 @@ class RecordedServer:
         if app_factory is None:
             self.app = build_scheduler_app(
                 self.backend, config, metrics=metrics,
-                clock=lambda: EXT_CLOCK, device=device,
+                clock=clock or (lambda: EXT_CLOCK), device=device,
             )
         else:
             self.app, self.runtime = app_factory(self.backend, self.registry,
@@ -1720,6 +1769,12 @@ class RecordedServer:
         # Called on the dispatcher thread, outside the lock, right after the
         # `trigger_at`-th dispatch: that window is in flight meanwhile.
         self.trigger_at, self.on_trigger = None, None
+        # Or, with `trigger_when(entry, in-flight entries)`, right after the
+        # first dispatch for which it holds.
+        self.trigger_when = None
+        # Set on a thread while its changes are not to be logged.
+        self.quiet = threading.local()
+        quiet = self.quiet
         # Host clock at which each pod's create reached the backend, and at
         # which the recorder's lock let it apply (phases 9-10).
         self.seen: dict = {}
@@ -1730,7 +1785,7 @@ class RecordedServer:
             orig = getattr(backend, name)
 
             def call(kind, *args):
-                if kind not in kinds:
+                if kind not in kinds or getattr(quiet, "on", False):
                     return orig(kind, *args)
                 reached = time.perf_counter()
                 with lock:
@@ -1748,7 +1803,8 @@ class RecordedServer:
             orig = getattr(backend, name)
 
             def call(*args):
-                if name == "update" and args[0] != "nodes":
+                if (name == "update" and args[0] != "nodes") or getattr(
+                        quiet, "on", False):
                     return orig(*args)
                 with lock:
                     out = orig(*args)
@@ -1788,11 +1844,14 @@ class RecordedServer:
                 log.append(e)
                 before = window_pack.launches
                 t0 = time.perf_counter()
+                quiet.on = quiet_ops
                 try:
                     t = dispatch(args_list)
                 except PipelineDrainRequired:
                     e["drain"] = True
                     raise
+                finally:
+                    quiet.on = False
                 e["ms"] = (time.perf_counter() - t0) * 1e3
                 counts["dispatched"] += 1
                 counts["inflight"] += 1
@@ -1805,6 +1864,11 @@ class RecordedServer:
                 # The decision blob each window's fetch copies to the host.
                 e["d2h"] = t.handle.blob.nbytes if t.handle is not None else 0
                 entries[id(t)] = e
+                fire = self.trigger_when is not None and self.trigger_when(
+                    e, list(entries.values()))
+            if fire:
+                self.trigger_when = None
+                self.on_trigger()
             if counts["dispatched"] == self.trigger_at and self.on_trigger:
                 self.on_trigger()
             return t
@@ -1816,7 +1880,11 @@ class RecordedServer:
                 counts["inflight"] -= 1
                 before = window_pack.launches
                 t0 = time.perf_counter()
-                out = complete(t)
+                quiet.on = quiet_ops
+                try:
+                    out = complete(t)
+                finally:
+                    quiet.on = False
                 e["ms"] = (time.perf_counter() - t0) * 1e3
                 e["launches"] = window_pack.launches - before
                 # A pruned window whose certificate failed (or a window
@@ -1925,6 +1993,20 @@ class RecordedServer:
         if start:
             self.server.start()
 
+    def marked(self, fn, label=""):
+        """Run `fn(app)` under the lock as one log entry ({"op": "marked"}),
+        with the changes it makes unlogged; returns its result, which the
+        replay's run of `fn` on its app must equal."""
+        with self.lock:
+            e = {"op": "marked", "fn": fn, "label": label}
+            self.log.append(e)
+            self.quiet.on = True
+            try:
+                e["result"] = fn(self.app)
+            finally:
+                self.quiet.on = False
+        return e["result"]
+
 
 def k8s_node_json(node):
     a = node.allocatable
@@ -1981,14 +2063,15 @@ def binary_predicate(pod, names, _frames={}):
     return b"SPRD\x01" + struct.pack("<I", len(raw)) + raw + frame
 
 
-def run_clients(port, jobs, n_clients, binary=False):
+def run_clients(port, jobs, n_clients, binary=False, keep_all=False):
     """Run `jobs` on `n_clients` threads (job i on thread i % n_clients),
     each thread on one keep-alive connection. A job is a list of
     (method, path, payload) requests, or a function that makes its
     requests through the `send(method, path, payload)` it is given (and
     may look at the answers). With `binary`, the odd-numbered threads post
     their predicates as binary bodies. Returns {pod name: (status, body)}
-    for the predicates and their client-side latencies in ms."""
+    for the predicates (with `keep_all`, {pod name: [(status, body), ...]}
+    in the order sent) and their client-side latencies in ms."""
     import http.client
     import socket
     import threading
@@ -2020,7 +2103,11 @@ def run_clients(port, jobs, n_clients, binary=False):
             ms = (time.perf_counter() - t0) * 1e3
             with mu:
                 if path == "/predicates":
-                    out[payload["Pod"]["metadata"]["name"]] = (resp.status, data)
+                    name = payload["Pod"]["metadata"]["name"]
+                    if keep_all:
+                        out.setdefault(name, []).append((resp.status, data))
+                    else:
+                        out[name] = (resp.status, data)
                     lat.append(ms)
                 elif resp.status != 200:
                     errors.append((method, path, resp.status, data[:200]))
@@ -3720,6 +3807,719 @@ def run_prune_phase(device, card):
             "probe": probes + srv_launches["probe"]}
 
 
+# ------------------------------------------------------------ phase 13
+
+P13_CLIENTS = 16
+P13_GROUP = "policy-group"
+P13_GROUP_NODES = 512  # the instance group the policy clients offer
+P13_EXECS = 64  # executors of a policy gang (8 CPU / 32 Gi each)
+P13_HIGHS = 6
+P13_DA = 4  # small low gangs with dynamic allocation: the soft extras
+P13_TRIES = 40  # posts of one driver before a client gives up
+P13_ELASTIC = "elastic-group"
+P13_ELASTIC_NODES = 64  # a full instance group
+P13_ELASTIC_APPS = 16
+P13_STATIC_DA = 8  # running apps whose extra executors mix into (b)'s windows
+P13_SAMPLE = 256  # candidate names of a main-group app (a scored sample)
+P13_POLICY_YAML = {
+    "enabled": True, "ordering": "priority", "preemption": True,
+    "max-evictions": 8, "protected-class": "system",
+    "defrag": {"enabled": True, "budget": 4},
+}
+
+
+class ManualClock:
+    """The injected clock of phase 13: it moves only when told, so the
+    `cpu` replay sees the same times (through a marked log entry)."""
+
+    def __init__(self, t):
+        self.t = float(t)
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+        return self.t
+
+
+def p13_config(raw):
+    """`raw` (a YAML install block) on phase 7's serving settings. The
+    injected clock jumps: the request-gap resync and the unschedulable
+    marker (whose solo pack would run on its own thread) stay out of the
+    way, as in the JAX package's policy soak."""
+    import dataclasses
+
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+
+    return dataclasses.replace(
+        InstallConfig.from_dict(raw), fifo=True, binpack_algo="tightly-pack",
+        instance_group_label=EXT_IG_LABEL, sync_writes=True, debug_routes=True,
+        resync_gap_seconds=1e12, unschedulable_pod_timeout_s=86_400.0,
+    )
+
+
+def p13_pod(app_id, role, name, *, group, created, execs=0, cpu=8, mem=32,
+            pclass=None, da=None):
+    """k8s JSON of a Spark pod in `group`; `da` = (min, max) executors for
+    dynamic allocation, `pclass` the priority class annotation."""
+    pod = k8s_spark_pod_json(app_id, role, name, execs, created)
+    ann = pod["metadata"]["annotations"]
+    ann.update({"spark-executor-cpu": str(cpu),
+                "spark-executor-mem": f"{mem}Gi"})
+    if da is not None:
+        del ann["spark-executor-count"]
+        ann.update({"spark-dynamic-allocation-enabled": "true",
+                    "spark-dynamic-allocation-min-executor-count": str(da[0]),
+                    "spark-dynamic-allocation-max-executor-count": str(da[1])})
+    if pclass is not None:
+        ann["spark-priority-class"] = pclass
+    pod["spec"]["nodeSelector"] = {EXT_IG_LABEL: group}
+    if role == "executor":
+        pod["spec"]["containers"][0]["resources"]["requests"] = {
+            "cpu": str(cpu), "memory": f"{mem}Gi"}
+    return pod
+
+
+def p13_server(device, config, clock, groups, n_nodes):
+    """A recorded server on phase 3's cluster: `groups` maps an instance
+    group to (node indices, use): those nodes carry its label (the rest
+    phase 7's group), and with `use` "full" their prior usage is all they
+    hold, with "none" they have none (a node pool of its own)."""
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    srv = RecordedServer(device, config, clock=clock, quiet_ops=True)
+    srv.app.smoke_clock = clock
+    nodes, usage = main_cluster(seed=7)
+    nodes, usage = nodes[:n_nodes], usage[:n_nodes].copy()
+    member = {}
+    for group, (idx, use) in groups.items():
+        for i in idx:
+            member[int(i)] = group
+            a = nodes[i].allocatable
+            usage[i] = ((a.cpu_milli, a.mem_kib, a.gpu_milli) if use == "full"
+                        else (0, 0, 0))
+    for i, node in enumerate(nodes):
+        node.labels[EXT_IG_LABEL] = member.get(i, EXT_IG)
+        srv.backend.add_node(node)
+        if not usage[i].any():
+            continue
+        srv.backend.add_pod(Pod(
+            name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+            scheduler_name="default-scheduler", node_name=node.name,
+            phase="Running",
+            containers=[Container(requests=Resources(*map(int, usage[i])))],
+        ))
+    return srv, nodes, usage
+
+
+class Answers(dict):
+    """{pod name: [(status, body), ...]} whose lookup hands out a pod's
+    answers in the order the server sent them (the replay compares each
+    of a pod's predicates with the matching answer)."""
+
+    def __getitem__(self, name):
+        return dict.__getitem__(self, name).pop(0)
+
+
+def p13_replay(srv, config, got, label):
+    """Replay the log on a `cpu` app of the same config with its own
+    injected clock; marked entries run on it and must return what they
+    returned on the server. Returns the predicates compared."""
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD, InMemoryBackend
+
+    backend = InMemoryBackend()
+    backend.register_crd(DEMAND_CRD)
+    clock = ManualClock(EXT_CLOCK)
+    ref = build_scheduler_app(backend, config, clock=clock, device="cpu")
+    ref.smoke_clock = clock
+
+    def marked(e):
+        want = json.dumps(e["result"], sort_keys=True, default=str)
+        have = json.dumps(e["fn"](ref), sort_keys=True, default=str)
+        check(have == want, f"{label}: the cpu replay's {e['label']} gave "
+                            f"{have[:300]} where the server's gave {want[:300]}")
+
+    answers = Answers({k: list(v) for k, v in got.items()})
+    n = sum(len(v) for v in got.values())
+    compared = replay_server_log(srv.log, config, answers, ref=ref,
+                                 backend=backend, markers={"marked": marked},
+                                 label=label)
+    check(compared == n, f"{label}: compared {compared} of {n} responses")
+    return compared
+
+
+def p13_teardown(app_ids):
+    """A marked op: the apps end (their pods and reservations go)."""
+    def teardown(app):
+        for a in app_ids:
+            for pod in app.pod_lister.list_app_pods(a, EXT_NS):
+                cur = app.backend.get("pods", pod.namespace, pod.name)
+                if cur is not None:
+                    app.backend.delete_pod(cur)
+            if app.rr_cache.get(EXT_NS, a) is not None:
+                app.rr_cache.delete(EXT_NS, a)
+        return sorted(app_ids)
+    return teardown
+
+
+def p13_advance(dt):
+    return lambda app: app.smoke_clock.advance(dt)
+
+
+def p13_state(app):
+    """What the replay must reproduce: every reservation (v1beta2 wire),
+    the soft reservations, every preemption record and the over-commit
+    check."""
+    from spark_scheduler_tpu_torch.server.conversion import rr_v1beta2_to_wire
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    return {
+        "reservations": sorted(json.dumps(rr_v1beta2_to_wire(rr), sort_keys=True)
+                               for rr in app.rr_cache.list()),
+        "soft": sorted((a, sorted((p, r.node) for p, r in sr.reservations.items()))
+                       for a, sr in app.soft_store.get_all_copy().items()),
+        "preemptions": [rec["preemption"] for rec in
+                        reversed(app.recorder.query(limit=1_000_000))
+                        if rec.get("preemption")],
+        "overcommit": overcommit_violations(app, app.backend),
+    }
+
+
+def p13_driver_job(pod, names, *, bind=True, tries=1, on_answer=None):
+    """A client job: PUT the driver pod, POST its predicate up to `tries`
+    times until admitted, then bind it. `on_answer(status, body)` sees each
+    answer."""
+    def job(send):
+        send("PUT", "/state/pods", pod)
+        for k in range(tries):
+            status, data = send("POST", "/predicates",
+                                {"Pod": pod, "NodeNames": names})
+            res = json.loads(data) if status == 200 else {}
+            if on_answer is not None:
+                on_answer(status, res)
+            if res.get("NodeNames"):
+                if bind:
+                    bound = json.loads(json.dumps(pod))
+                    bound["spec"]["nodeName"] = res["NodeNames"][0]
+                    bound["status"]["phase"] = "Running"
+                    send("PUT", "/state/pods", bound)
+                return
+            if k + 1 < tries:
+                time.sleep(0.02)
+    return job
+
+
+def p13_executor_job(pods, names):
+    """PUT and POST each executor pod; bind the admitted ones."""
+    def job(send):
+        for pod in pods:
+            send("PUT", "/state/pods", pod)
+            status, data = send("POST", "/predicates",
+                                {"Pod": pod, "NodeNames": names})
+            res = json.loads(data) if status == 200 else {}
+            if res.get("NodeNames"):
+                bound = json.loads(json.dumps(pod))
+                bound["spec"]["nodeName"] = res["NodeNames"][0]
+                bound["status"]["phase"] = "Running"
+                send("PUT", "/state/pods", bound)
+    return job
+
+
+def p13_clients(srv, jobs, n_clients, got, lat):
+    out, lats = run_clients(srv.server.port, jobs, n_clients, keep_all=True)
+    for k, v in out.items():
+        got.setdefault(k, []).extend(v)
+    lat.extend(lats)
+    return out
+
+
+def p13_outcome(body):
+    res = json.loads(body)
+    if res.get("NodeNames"):
+        return "success"
+    msgs = " ".join(res.get("FailedNodes", {}).values())
+    if "earlier drivers" in msgs:
+        return "earlier"
+    return "preempted" if "preempted" in msgs else "fit"
+
+
+def p13_launches(phase, srv, launches, on_card, solved):
+    """Row-walk launches = the live segments of every window solve the
+    solver dispatched (`solved`: the batcher's windows, the re-solves of
+    windows a capacity change made stale, and the windows a completion
+    solves: executor stragglers, lone drivers) + every solo pack; one
+    probe. Every launch falls inside a recorded dispatch or completion.
+    Returns (the batcher's window segments, the segments solved at
+    completion, the solo packs)."""
+    log = srv.log
+    segments = sum(e["segments"] for e in log if isinstance(e, dict)
+                   and e["op"] == "dispatch" and not e["drain"])
+    solo = srv.solo_packs
+    check(solo["other"] == 0, f"phase {phase}: solo packs off the batcher "
+                              f"thread: {solo}")
+    if on_card:
+        inside = sum(e["launches"] for e in log
+                     if isinstance(e, dict) and "launches" in e)
+        check(inside == launches["window"],
+              f"phase {phase}: {launches['window']} launches, {inside} "
+              f"inside the recorded dispatches and completions")
+        check(launches["window"] == solved[0] + solo["batcher"],
+              f"phase {phase}: row-walk launches {launches['window']} != "
+              f"{solved[0]} live segments solved + {solo['batcher']} solo "
+              f"packs")
+        check(launches["probe"] == 1, f"phase {phase}: probe launches "
+                                      f"{launches['probe']}")
+    check(solved[0] >= segments, f"phase {phase}: {solved[0]} segments "
+                                 f"solved, {segments} dispatched")
+    return segments, solved[0] - segments, solo["batcher"]
+
+
+def p13_count_segments(srv):
+    """Count the segments (requests) of every `pack_window_dispatch` call
+    of the server's solver; `pack_window` reaches it too."""
+    counted = [0]
+    dispatch = srv.app.solver.pack_window_dispatch
+
+    def counting(strategy, tensors, requests):
+        counted[0] += len(requests)
+        return dispatch(strategy, tensors, requests)
+
+    srv.app.solver.pack_window_dispatch = counting
+    return counted
+
+
+def run_policy_phase(device, card, n_nodes=N_MAIN, group_nodes=P13_GROUP_NODES,
+                     n_clients=P13_CLIENTS, highs=P13_HIGHS, execs=P13_EXECS):
+    """Phase 13(a): the policy engine through the server (see the module
+    docstring). Returns the row-walk and probe launches and the stats."""
+    import torch
+
+    import spark_scheduler_tpu_torch.core.solver as solver_mod
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy, host_view
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.policy.engine import PREEMPTION_SEARCH_FAILURES
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    config = p13_config({"policy": P13_POLICY_YAML})
+    clock = ManualClock(EXT_CLOCK)
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    group_idx = np.arange(group_nodes) * (n_nodes // group_nodes)
+    srv, nodes, usage = p13_server(device, config, clock,
+                                   {P13_GROUP: (group_idx, "none")}, n_nodes)
+    solved = p13_count_segments(srv)
+    solver = srv.app.solver
+    engine = srv.app.extender._policy
+    # The preemption searches' wall time (host clock: the injected clock
+    # reads 0 ms for each), and the last batched fit's inputs.
+    search_ms, fit_args = [], []
+    search = solver.preemption_search
+
+    def timed_search(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return search(*a, **kw)
+        finally:
+            search_ms.append((time.perf_counter() - t0) * 1e3)
+
+    solver.preemption_search = timed_search
+    batched_fit = solver_mod.preemption_batched_fit
+
+    def captured_fit(*a, **kw):
+        fit_args[:] = [(a, kw)]
+        return batched_fit(*a, **kw)
+
+    solver_mod.preemption_batched_fit = captured_fit
+    got, lat = {}, []
+    names = [nodes[i].name for i in group_idx]
+    free = np.stack([[nodes[i].allocatable.cpu_milli, nodes[i].allocatable.mem_kib]
+                     for i in group_idx]) - usage[group_idx, :2]
+    gang = np.array([8000 * execs + 1000, (32 * execs + 2) << 20])
+    n_lows = int((free.sum(axis=0) // gang).min()) + 4
+    created = iter(range(int(EXT_CLOCK) - 400, int(EXT_CLOCK)))
+    try:
+        def violations(stage):
+            with srv.lock:
+                v = overcommit_violations(srv.app, srv.backend)
+            check(not v, f"phase 13a: over-commit after {stage}: {v[:8]}")
+
+        # 1. The system gang, then the low gangs: the small dynamic-
+        # allocation ones with all their executors, then the rest at once.
+        sys_pod = p13_pod("sys-0", "driver", "sys-0-driver", group=P13_GROUP,
+                          created=next(created), execs=execs // 2,
+                          pclass="system")
+        p13_clients(srv, [p13_driver_job(sys_pod, names)], 1, got, lat)
+        lows = {}
+        for k in range(P13_DA):
+            a = f"da-{k}"
+            ts = next(created)
+            lows[a] = (p13_pod(a, "driver", f"{a}-driver", group=P13_GROUP,
+                               created=ts, pclass="low", da=(2, 6)), ts)
+        p13_clients(srv, [p13_driver_job(pod, names) for pod, _ in lows.values()],
+                    n_clients, got, lat)
+        da_execs = [[p13_pod(a, "executor", f"{a}-exec-{j + 1}", group=P13_GROUP,
+                             created=ts, da=(2, 6)) for j in range(6)]
+                    for a, (_, ts) in lows.items()]
+        p13_clients(srv, [p13_executor_job(p, names) for p in da_execs],
+                    n_clients, got, lat)
+        for k in range(n_lows):
+            a = f"low-{k:02d}"
+            ts = next(created)
+            lows[a] = (p13_pod(a, "driver", f"{a}-driver", group=P13_GROUP,
+                               created=ts, execs=execs, pclass="low"), ts)
+        p13_clients(srv, [p13_driver_job(lows[f"low-{k:02d}"][0], names)
+                          for k in range(n_lows)], n_clients, got, lat)
+        fill = {a: p13_outcome(got[f"{a}-driver"][-1][1]) for a in lows}
+        check(list(fill.values()).count("success") >= 2,
+              f"phase 13a: the low gangs did not fill the group: {fill}")
+        violations("the fill")
+
+        # 2. High gangs twice a low gang's size that fit only after
+        # evictions; each client retries.
+        high_ids = [f"high-{k}" for k in range(highs)]
+        high_pods = [p13_pod(a, "driver", f"{a}-driver", group=P13_GROUP,
+                             created=next(created), execs=2 * execs,
+                             pclass="high")
+                     for a in high_ids]
+        p13_clients(srv, [p13_driver_job(p, names, tries=P13_TRIES)
+                          for p in high_pods], n_clients, got, lat)
+        high_out = [[p13_outcome(b) for _, b in got[f"{a}-driver"]] for a in high_ids]
+        check(all(o[-1] == "success" for o in high_out),
+              f"phase 13a: high gangs not admitted: {high_out}")
+        check(any("preempted" in o for o in high_out),
+              f"phase 13a: no high gang was denied with an eviction: {high_out}")
+        # A high gang no eviction set admits: an executor larger than any
+        # node. It stays pending, ahead of every low driver.
+        big = p13_pod("high-big", "driver", "high-big-driver", group=P13_GROUP,
+                      created=next(created), execs=2, cpu=128, mem=32,
+                      pclass="high")
+        p13_clients(srv, [p13_driver_job(big, names)], 1, got, lat)
+        check(p13_outcome(got["high-big-driver"][-1][1]) == "fit",
+              "phase 13a: the too-big high gang was not denied for fit")
+        violations("the preemptions")
+
+        # 3. The high apps end. The low gangs without a reservation queue
+        # behind the pending high gang; past two promotion intervals they
+        # rank with it and, older, ahead of it, and admit.
+        srv.marked(p13_teardown(high_ids), "teardown")
+        pending = [a for a in lows if srv.app.rr_cache.get(EXT_NS, a) is None]
+        check(pending, "phase 13a: no low gang is waiting")
+        retry = [p13_pod(a, "driver", f"{a}-driver", group=P13_GROUP,
+                         created=lows[a][1], pclass="low",
+                         **({"da": (2, 6)} if a.startswith("da-")
+                            else {"execs": execs}))
+                 for a in pending]
+        p13_clients(srv, [p13_driver_job(p, names) for p in retry], n_clients,
+                    got, lat)
+        queued = [a for a in pending
+                  if p13_outcome(got[f"{a}-driver"][-1][1]) == "earlier"]
+        check(queued, f"phase 13a: no low driver queued behind the high one "
+                      f"({[p13_outcome(got[f'{a}-driver'][-1][1]) for a in pending]})")
+        srv.marked(p13_advance(2 * config.policy_promote_after_s + 1), "clock")
+        p13_clients(srv, [p13_driver_job(p, names, tries=3) for p in retry],
+                    n_clients, got, lat)
+        promoted = [a for a in queued
+                    if p13_outcome(got[f"{a}-driver"][-1][1]) == "success"]
+        check(promoted, "phase 13a: no queued low driver admitted after "
+                        "the promotion")
+        violations("the promotion")
+
+        # 4. One forced defragmentation pass.
+        frag = srv.marked(
+            lambda app: app.extender._policy.defrag.run_once(force=True),
+            "defrag")
+        check(frag["fragmentation_after"] <= frag["fragmentation_before"],
+              f"phase 13a: fragmentation rose: {frag}")
+        violations("the defrag pass")
+        state = srv.marked(p13_state, "state")
+        status, body = http_get(srv.server.port, "/metrics")
+        check(status == 200, f"/metrics: {status}")
+        snapshot = json.loads(body)
+    finally:
+        srv.server.stop()
+        solver.preemption_search = search
+        solver_mod.preemption_batched_fit = batched_fit
+    launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    serve_s = time.perf_counter() - t_phase
+
+    pre = state["preemptions"]
+    evicted = [a for p in pre for a in p["evicted"]]
+    check(pre and evicted, "phase 13a: no preemption")
+    check("sys-0" not in evicted and any(
+        '"name": "sys-0"' in r for r in state["reservations"]),
+        "phase 13a: the system gang was evicted")
+    check(state["overcommit"] == [], f"phase 13a: over-commit {state['overcommit']}")
+    check(engine.search_failures == 0
+          and not series(snapshot, PREEMPTION_SEARCH_FAILURES),
+          f"phase 13a: {engine.search_failures} preemption search failures")
+    kind = torch.device(device).type
+    check(solver.preemption_searches.get(kind, 0) >= 1,
+          f"phase 13a: preemption_search never ran on {kind}: "
+          f"{solver.preemption_searches}")
+    segments, redone, solo = p13_launches("13a", srv, launches, on_card, solved)
+
+    # The last search's batched fit again, on the card and on the cpu.
+    (a, kw), = fit_args
+    c = int(a[1].shape[0])
+    want = batched_fit(*a, **kw)
+    cpu_cluster = cluster_from_numpy(host_view(a[0]).fields(), device="cpu")
+    cpu_args = (cpu_cluster,) + tuple(x.cpu() if torch.is_tensor(x) else x
+                                      for x in a[1:])
+    t0 = time.perf_counter()
+    got_cpu = batched_fit(*cpu_args, **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for g, w in zip(got_cpu, want):
+        check(torch.equal(g, w.cpu()), "phase 13a: the batched fit on the cpu "
+                                       "differs from the card's")
+    if on_card:
+        card_ms = cuda_time_ms(lambda: batched_fit(*a, **kw), 5)
+        fit_line = f"{card_ms:.3f} ms a call on the card (CUDA events)"
+    else:
+        fit_line = "not measured on the card"
+    t0 = time.perf_counter()
+    compared = p13_replay(srv, config, got, "phase 13a")
+    replay_s = time.perf_counter() - t0
+    drains = sum(1 for e in srv.log if isinstance(e, dict) and e.get("drain"))
+    stats = {"preemptions": len(pre), "evictions": len(evicted),
+             "search_ms_p50": pctl(search_ms, 50), "fit_cpu_ms": cpu_ms,
+             "frag": frag, "promoted": len(promoted)}
+    print(f"phase 13a ({card}): {len(got)} pods, {compared} predicates "
+          f"byte-identical to a cpu replay (replay {replay_s:.1f} s); "
+          f"{n_lows} low gangs + {P13_DA} dynamic-allocation ones on a "
+          f"{group_nodes}-node instance group: {list(fill.values()).count('success')} "
+          f"admitted; {highs} high gangs: {len(pre)} preemptions evicted "
+          f"{len(evicted)} gangs ({sorted(set(evicted))}), the system gang "
+          f"never; preemption_search {solver.preemption_searches} "
+          f"p50 {pctl(search_ms, 50):.3f} ms (host clock), 0 failures; "
+          f"preemption_batched_fit at C = {c}: {fit_line}, {cpu_ms:.3f} ms on "
+          f"the cpu (host clock); {len(queued)} low drivers queued behind the "
+          f"pending high one, {len(promoted)} admitted after the promotion; "
+          f"defrag {frag['migrations']} migrations, fragmentation "
+          f"{frag['fragmentation_before']:.6f} -> {frag['fragmentation_after']:.6f}; "
+          f"{drains} pipeline drains; row-walk launches {launches['window']} = "
+          f"{segments} live segments of the batcher's windows + {redone} "
+          f"solved at completion + {solo} solo packs; probe "
+          f"{launches['probe']}; client p50 "
+          f"{pctl(lat, 50):.3f} ms p99 {pctl(lat, 99):.3f} ms; served in "
+          f"{serve_s:.1f} s; over-commit none", flush=True)
+    return launches, stats
+
+
+def run_autoscaler_phase(device, card, n_nodes=N_MAIN,
+                         elastic_nodes=P13_ELASTIC_NODES,
+                         n_apps=P13_ELASTIC_APPS, n_da=P13_STATIC_DA,
+                         n_clients=P13_CLIENTS):
+    """Phase 13(b): the elastic autoscaler through the server (see the
+    module docstring). Returns the row-walk and probe launches."""
+    import torch
+
+    from spark_scheduler_tpu_torch.autoscaler import (
+        PROVISIONED_BY_LABEL,
+        PROVISIONER_NAME,
+    )
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    nodes0, _ = main_cluster(seed=7)
+    big = max(nodes0[:n_nodes], key=lambda n: (n.allocatable.cpu_milli,
+                                               n.allocatable.mem_kib,
+                                               n.allocatable.gpu_milli))
+    a = big.allocatable
+    # Static row deltas off: a node added mid-window then drains the
+    # pipeline (with them on it rides a row scatter inside the padding
+    # bucket), so a solo solve in that gap builds through the fallback.
+    config = p13_config({
+        "autoscaler": {
+            "enabled": True, "zones": [f"zone-{z}" for z in range(4)],
+            "node-cpu": str(a.cpu_milli // 1000),
+            "node-memory": f"{a.mem_kib >> 20}Gi",
+            "node-gpu": str(a.gpu_milli // 1000),
+            "max-cluster-size": n_nodes + 400, "idle-ttl": 60.0,
+            "poll-interval": 3600.0,
+        },
+        "solver": {"delta-statics": False},
+    })
+    clock = ManualClock(EXT_CLOCK)
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    step = n_nodes // elastic_nodes
+    elastic_idx = np.arange(elastic_nodes) * step + 1
+    srv, nodes, _ = p13_server(device, config, clock,
+                               {P13_ELASTIC: (elastic_idx, "full")}, n_nodes)
+    # The server started the autoscaler's loop; this phase runs its passes.
+    srv.app.autoscaler.stop()
+    solved = p13_count_segments(srv)
+    solver = srv.app.solver
+    got, lat = {}, []
+    elastic = [nodes[i].name for i in elastic_idx]
+    grown = elastic + [f"autoscaled-{k}" for k in range(64)]
+    rng = np.random.default_rng(31)
+    main = [n.name for i, n in enumerate(nodes) if i not in set(elastic_idx)]
+    sample = sorted(rng.choice(main, min(P13_SAMPLE, len(main)), replace=False))
+    created = iter(range(int(EXT_CLOCK) - 400, int(EXT_CLOCK)))
+    try:
+        def violations(stage):
+            with srv.lock:
+                v = overcommit_violations(srv.app, srv.backend)
+            check(not v, f"phase 13b: over-commit after {stage}: {v[:8]}")
+
+        # 0. Running dynamic-allocation apps in phase 7's group, with their
+        # minimum executors.
+        das = {}
+        for k in range(n_da):
+            ap = f"dyn-{k}"
+            ts = next(created)
+            das[ap] = (p13_pod(ap, "driver", f"{ap}-driver", group=EXT_IG,
+                               created=ts, cpu=2, mem=4, da=(2, 8)), ts)
+        p13_clients(srv, [p13_driver_job(p, sample) for p, _ in das.values()],
+                    n_clients, got, lat)
+        p13_clients(srv, [p13_executor_job(
+            [p13_pod(ap, "executor", f"{ap}-exec-{j + 1}", group=EXT_IG,
+                     created=ts, cpu=2, mem=4, da=(2, 8)) for j in range(2)],
+            sample) for ap, (_, ts) in das.items()], n_clients, got, lat)
+
+        # 1. Drivers of the full group: denied, each with a demand.
+        apps = {}
+        for k in range(n_apps):
+            ap = f"elastic-{k:02d}"
+            apps[ap] = p13_pod(ap, "driver", f"{ap}-driver", group=P13_ELASTIC,
+                               created=next(created), execs=8, cpu=2, mem=4)
+        first_denied = {}
+
+        def note(ap):
+            def on_answer(status, res):
+                if not res.get("NodeNames"):
+                    first_denied.setdefault(ap, time.perf_counter())
+                else:
+                    admitted_at[ap] = time.perf_counter()
+            return on_answer
+
+        admitted_at = {}
+        p13_clients(srv, [p13_driver_job(p, grown, on_answer=note(ap))
+                          for ap, p in apps.items()], n_clients, got, lat)
+        demands = srv.backend.list("demands")
+        check(len(first_denied) == n_apps and len(
+            [d for d in demands if d.spec.instance_group == P13_ELASTIC]) == n_apps,
+            f"phase 13b: {len(first_denied)} denials, demands {len(demands)}")
+        violations("the denials")
+
+        # 2. The drivers retry while the running apps' extra executors
+        # arrive; the autoscaler runs right after a dispatch that leaves a
+        # window with extra executors in flight behind it (or, failing
+        # that, once every extra executor has been answered), so the node
+        # adds land mid-window.
+        passes, extras_done = [], []
+
+        def autoscale():
+            passes.append(srv.marked(lambda app: app.autoscaler.run_once(),
+                                     "autoscaler pass"))
+
+        def ready(e, inflight):
+            prev = [x for x in inflight if x is not e]
+            mixed = any(
+                any(a.pod.labels.get("spark-role") == "executor" for a in x["args"])
+                for x in prev)
+            return (mixed and e["dispatch_id"] is not None) or (
+                len(extras_done) == len(extras))
+
+        srv.trigger_when, srv.on_trigger = ready, autoscale
+        extras = [[p13_pod(ap, "executor", f"{ap}-exec-{j + 1}", group=EXT_IG,
+                           created=ts, cpu=2, mem=4, da=(2, 8))
+                   for j in range(2, 8)] for ap, (_, ts) in das.items()]
+        def extras_job(pods):
+            job = p13_executor_job(pods, sample)
+
+            def run(send):
+                job(send)
+                extras_done.append(1)
+            return run
+
+        jobs = []
+        for k, (ap, p) in enumerate(apps.items()):
+            jobs.append(p13_driver_job(p, grown, tries=P13_TRIES * 3,
+                                       on_answer=note(ap)))
+            if k < len(extras):
+                jobs.append(extras_job(extras[k]))
+        p13_clients(srv, jobs, n_clients, got, lat)
+        check(len(passes) == 1, f"phase 13b: {len(passes)} autoscaler passes")
+        summary = passes[0]
+        check(summary["fulfilled"] == n_apps and summary["nodes_added"] >= 1,
+              f"phase 13b: autoscaler pass {summary}")
+        on_new = {ap: json.loads(got[f"{ap}-driver"][-1][1])["NodeNames"]
+                  for ap in apps}
+        check(all(v and v[0].startswith("autoscaled-") for v in on_new.values()),
+              f"phase 13b: drivers not admitted on the new nodes: {on_new}")
+        check(not [d for d in srv.backend.list("demands")
+                   if d.spec.instance_group == P13_ELASTIC],
+              "phase 13b: demands left after the admissions")
+        violations("the scale-up")
+
+        # 3. The apps end but one; past the idle TTL the drainer cordons,
+        # then removes, the provisioned nodes no reservation names.
+        keep = next(iter(apps))
+        srv.marked(p13_teardown([ap for ap in apps if ap != keep]), "teardown")
+        srv.marked(lambda app: app.autoscaler.run_once(), "autoscaler pass")
+        srv.marked(p13_advance(config.autoscaler_idle_ttl_s + 1), "clock")
+        srv.marked(lambda app: app.autoscaler.run_once(), "autoscaler pass")
+        last = srv.marked(lambda app: app.autoscaler.run_once(),
+                          "autoscaler pass")
+        drained = set(last["drained"])
+        provisioned = {n.name for n in srv.backend.list_nodes()
+                       if n.labels.get(PROVISIONED_BY_LABEL) == PROVISIONER_NAME}
+        added = {f"autoscaled-{k}" for k in range(summary["nodes_added"])}
+        kept_rr = srv.app.rr_cache.get(EXT_NS, keep)
+        reserved = {r.node for r in kept_rr.spec.reservations.values()}
+        check(drained and drained == added - reserved
+              and provisioned == added & reserved,
+              f"phase 13b: drained {sorted(drained)}, added {sorted(added)}, "
+              f"reserved {sorted(reserved)}")
+        violations("the drain")
+        state = srv.marked(p13_state, "state")
+        counts = srv.app.autoscaler.metrics.counts()
+    finally:
+        srv.server.stop()
+    launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    serve_s = time.perf_counter() - t_phase
+    check(state["overcommit"] == [], f"phase 13b: over-commit {state['overcommit']}")
+    check(counts["demands_fulfilled"] == n_apps
+          and counts["nodes_drained"] == len(drained),
+          f"phase 13b: autoscaler counts {counts}")
+    segments, redone, solo = p13_launches("13b", srv, launches, on_card, solved)
+    t0 = time.perf_counter()
+    compared = p13_replay(srv, config, got, "phase 13b")
+    replay_s = time.perf_counter() - t0
+    drains = sum(1 for e in srv.log if isinstance(e, dict) and e.get("drain"))
+    waits = [(admitted_at[ap] - first_denied[ap]) * 1e3 for ap in apps]
+    print(f"phase 13b ({card}): {compared} predicates byte-identical to a cpu "
+          f"replay (replay {replay_s:.1f} s); {n_apps} drivers of a full "
+          f"{elastic_nodes}-node group denied with demands; the autoscaler "
+          f"pass with windows in flight added {summary['nodes_added']} nodes "
+          f"(template {a.cpu_milli // 1000} CPU / {a.mem_kib >> 20} Gi / "
+          f"{a.gpu_milli // 1000} GPU) and fulfilled {summary['fulfilled']} "
+          f"demands; every retried driver admitted on them; denial to "
+          f"admission p50 {pctl(waits, 50):.3f} ms max {max(waits):.3f} ms "
+          f"(client host clock); {drains} pipeline drains, "
+          f"{solver.solo_inflight_debits} solo builds debited in-flight "
+          f"windows; drained {len(drained)} idle provisioned nodes, kept "
+          f"{len(provisioned)} reserved, no static node; row-walk launches "
+          f"{launches['window']} = {segments} live segments of the batcher's "
+          f"windows + {redone} solved at completion + {solo} solo packs; "
+          f"probe {launches['probe']}; "
+          f"served in {serve_s:.1f} s; over-commit none", flush=True)
+    return launches, {"drains": drains, "debits": solver.solo_inflight_debits,
+                      "waits": waits, "summary": summary}
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3824,15 +4624,22 @@ def main() -> int:
     t0 = time.perf_counter()
     prune_launches = run_prune_phase(device, card)
     print(f"phase 12: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    policy_launches, _ = run_policy_phase(device, card)
+    elastic_launches, _ = run_autoscaler_phase(device, card)
+    print(f"phase 13: passed in {time.perf_counter() - t0:.1f} s", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
     # ingestion over the WAL store (phase 9), as HA replicas (phase 10),
-    # with fused claims (phase 11) and over pruned windows (phase 12).
+    # with fused claims (phase 11), over pruned windows (phase 12), and
+    # under the policy engine and the autoscaler (phase 13).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
                         + wal_launches[k] + ha_launches[k] + fused_launches[k]
-                        + prune_launches[k])
+                        + prune_launches[k] + policy_launches[k]
+                        + elastic_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

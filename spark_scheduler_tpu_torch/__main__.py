@@ -3,7 +3,7 @@
   python -m spark_scheduler_tpu_torch server [--config install.yml] [--port N]
       [--transport threaded|async] [--ingest python|native]
       [--kube-api-url URL|in-cluster] [--durable-store WAL]
-      [--ha-replica ID [--ha-lease-ttl SECONDS]]
+      [--ha-replica ID [--ha-lease-ttl SECONDS]] [--autoscaler]
   python -m spark_scheduler_tpu_torch print-crds [--conversion-webhook-url URL]
   python -m spark_scheduler_tpu_torch conversion-webhook [--port N]
   python -m spark_scheduler_tpu_torch version
@@ -13,13 +13,14 @@ ships as a second binary (spark-scheduler-conversion-webhook/main.go:27).
 
 The port's copy of spark_scheduler_tpu/__main__.py: the in-memory, the
 durable (JSONL WAL) and the apiserver (KubeBackend) backends, list+watch
-ingestion, and lease-elected HA replicas. The server solves on the current
+ingestion, lease-elected HA replicas, and the in-process elastic
+autoscaler (`--autoscaler`). The server solves on the current
 CUDA card and raises without one; an install key the port cannot serve yet
 raises NotImplementedError (server/app.py), and `--ingest native` builds
 the port's native library or raises. With a durable store or an apiserver
 the server waits for the watch caches to sync, reconciles (or runs one
 election tick as an HA replica), and only then serves. The JAX package's
-fleet, autoscaler and multi-device flags are not ported.
+fleet and multi-device flags are not ported.
 """
 
 from __future__ import annotations
@@ -130,6 +131,13 @@ def main(argv=None) -> int:
         help="leader lease TTL (default 3s; heartbeat renews at TTL/3); "
         "overrides the install config's ha.lease-ttl",
     )
+    srv.add_argument(
+        "--autoscaler",
+        action="store_true",
+        help="enable the in-process elastic autoscaler: consume pending "
+        "Demand CRDs, provision simulated nodes, drain idle ones "
+        "(see the install config's `autoscaler:` block for knobs)",
+    )
     pc = sub.add_parser(
         "print-crds",
         help="emit the CustomResourceDefinition manifests as YAML "
@@ -222,6 +230,8 @@ def main(argv=None) -> int:
         config.durable_store_path = args.durable_store
     if args.kube_api_url is not None:
         config.kube_api_url = args.kube_api_url
+    if args.autoscaler:
+        config.autoscaler_enabled = True
     if args.ha_replica is not None:
         config.ha_enabled = True
         config.ha_replica_id = args.ha_replica

@@ -1213,7 +1213,9 @@ class SparkSchedulerExtender:
         batched masked-fit pass over candidate eviction sets, then evict
         the minimal feasible set through the normal teardown path and bump
         the capacity epoch. Best-effort — any failure leaves the denial as
-        is. Returns the recorder payload (eviction set + costs) or None."""
+        is, and is counted (`policy.preemption.search.failures`), so that a
+        failed launch on the card does not pass for an ordinary denial.
+        Returns the recorder payload (eviction set + costs) or None."""
         if self._policy is None or self._policy.preemption is None:
             return None
         try:
@@ -1237,6 +1239,7 @@ class SparkSchedulerExtender:
         except Exception as exc:
             from spark_scheduler_tpu_torch.tracing import svc1log
 
+            self._policy.note_search_failure()
             svc1log().warn(
                 "preemption search failed; keeping fit denial",
                 pod=f"{pod.namespace}/{pod.name}",

@@ -435,6 +435,11 @@ class PlacementSolver:
         # their last view is fetched, their gangs are neither on the card
         # nor in the host view, so a pipelined build must drain first.
         self._poisoned: dict = {}
+        # Solo builds that debited the live pipeline's in-flight windows
+        # (build_tensors_solo after a topology change), and preemption
+        # searches by the device type they ran on.
+        self.solo_inflight_debits = 0
+        self.preemption_searches: dict[str, int] = {}
         self.prune_stats = {
             "windows": 0,
             "escalations": 0,
@@ -546,14 +551,33 @@ class PlacementSolver:
     ) -> ClusterTensors:
         """Tensors for a solo solve while the pipelined build raises
         PipelineDrainRequired: the host view (build_tensors), minus the
-        gangs of the windows dispatched on a carry that a pruned window's
-        escalation dropped and not fetched yet. Those windows re-solve
-        here, in dispatch order, and their fetches return these decisions,
-        so a solo solve sees their gangs as the threaded base would have
-        shown them. Windows in flight across a topology change are still
-        not seen (ROADMAP §C.6). The keyword arguments are those of
-        build_tensors, read by neither."""
+        gangs of every window in flight, as the threaded base would have
+        shown them.
+
+        - Windows dispatched on a carry that a pruned window's escalation
+          dropped and not fetched yet re-solve here, in dispatch order, and
+          their fetches return these decisions.
+        - Windows in flight on the live pipeline (a topology change or an
+          int32 swing refused the pipelined build) are read from their
+          decision blobs (`_inflight_placements`), and only the views the
+          mirror has not debited yet. The blob stays on the handle: the
+          fetch reads the same bytes.
+
+        The keyword arguments are those of build_tensors, read by
+        neither."""
         host = self._build_host(nodes, usage, overhead)
+        p = self._pipe
+        if p is not None and p["unfetched"]:
+            avail = host.available.astype(np.int64)
+            for name, amounts in self._inflight_placements(p["unfetched"]):
+                row = self.registry.index_of(name)
+                if row is not None and host.valid[row]:
+                    avail[row] -= amounts
+            host = dataclasses.replace(
+                host,
+                available=np.clip(avail, _INT32.min, _INT32.max).astype(np.int32),
+            )
+            self.solo_inflight_debits += 1
         if self._poisoned:
             avail = host.available.astype(np.int64)
             for h, fetched in list(self._poisoned.items()):
@@ -569,6 +593,47 @@ class PlacementSolver:
                 available=np.clip(avail, _INT32.min, _INT32.max).astype(np.int32),
             )
         return self._upload(host)
+
+    def _inflight_placements(self, handles):
+        """(node name, int64 [3] amount) of every committed placement of
+        the windows of `handles` (dispatched, not fetched) whose views the
+        mirror has not debited, read from each dispatch's decision blob
+        (waiting for its copy to land, as its fetch would). Keyed by name:
+        a build after a topology change maps them onto its own rows. A
+        pruned dispatch's blob is in kept-local rows (the plan maps them);
+        its certificate is not run here: the blob is what the device's
+        carry embodies."""
+        name_of = self.registry.name_of
+        for h in handles:
+            bounds = h.fused_bounds or [(0, len(h.requests))]
+            if h.window_placements is not None:
+                for i, (rows, amounts) in enumerate(h.window_placements):
+                    if i not in h.applied:
+                        for r, a in zip(rows, amounts):
+                            yield name_of(int(r)), a
+                continue
+            blob = h.fetch_blob()[h.seg_map[0], h.seg_map[1]].astype(np.int64)
+            gmap = (
+                h.prune.keep.astype(np.int64) if h.prune is not None else None
+            )
+            drivers, admitted, execs = blob[:, 0], blob[:, 1], blob[:, 3:]
+            starts = np.concatenate(
+                [[0], np.cumsum([len(req.rows) for req in h.requests])]
+            )
+            for i, (lo, hi) in enumerate(bounds):
+                if i in h.applied:
+                    continue
+                for k in range(lo, hi):
+                    real = int(starts[k + 1]) - 1
+                    if not admitted[real]:
+                        continue
+                    slots = [(drivers[real], h.row_driver_req[real])]
+                    slots += [(e, h.row_exec_req[real]) for e in execs[real]]
+                    for row, amount in slots:
+                        if row >= 0:
+                            if gmap is not None:
+                                row = gmap[row]
+                            yield name_of(int(row)), amount
 
     def build_tensors_pipelined(
         self,
@@ -1066,6 +1131,8 @@ class PlacementSolver:
             fill=fill, emax=emax, num_zones=self._num_zones_bucket(),
         )
         ok_host = ok.cpu().numpy()
+        kind = dev.type
+        self.preemption_searches[kind] = self.preemption_searches.get(kind, 0) + 1
         idx = int(np.argmax(ok_host)) if bool(ok_host.any()) else -1
         return idx, {
             "path": "batched-preemption",

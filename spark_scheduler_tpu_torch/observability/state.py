@@ -5,11 +5,13 @@ The reference's operators reconstruct this by joining four kubectl queries
 endpoint: hard reservations (driver + executor slots with bound pods), soft
 reservations, the FIFO queue in enforcement order with per-driver queue
 positions, the unschedulable set (PodExceedsClusterCapacity), the demand
-ledger, and the node fleet. Point-in-time, not transactional: each section
-lists its own store, the same consistency every reporter tick has.
+ledger, and the node fleet (with the autoscaler's view when it runs
+in-process). Point-in-time, not transactional: each section lists its own
+store, the same consistency every reporter tick has.
 
 The port's copy of spark_scheduler_tpu/observability/state.py. It reports
-what the port's app has: no autoscaler, trace sink, device pool or
+what the port's app has: the autoscaler's fleet view and its `census`
+block as in the JAX package, but no trace sink, device pool or
 degraded-mode controller sections, since the port has none of them yet;
 the solver section names the device and how each window was served, the
 prune section the two-tier solve's ledger, and the server section the
@@ -100,6 +102,11 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
         "schedulable": schedulable,
         "by_zone": by_zone,
     }
+    if app.autoscaler is not None:
+        fleet["autoscaler"] = {
+            "enabled": True,
+            "max_cluster_size": app.autoscaler.max_cluster_size,
+        }
 
     out = {
         "time": now,
@@ -151,6 +158,12 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
         dev_state = getattr(solver, "device_state_stats", None)
         if dev_state is not None:
             out["device_state"] = dict(dev_state)
+    autoscaler = getattr(app, "autoscaler", None)
+    census = getattr(autoscaler, "_census", None)
+    if census is not None:
+        # Control-loop census: the resident node/busy/reserved mirrors the
+        # autoscaler and drainer read instead of per-pass full walks.
+        out["census"] = census.stats()
     if server is not None:
         # The serving front end: which transport frames requests and which
         # ingest lane decodes predicate bodies (the native lane's decode

@@ -16,7 +16,11 @@ naming the key and the ROADMAP item that ports it (`unsupported_keys`):
 app carries a `KubeIngestion` (node and pod reflectors, or the in-cluster
 serviceaccount variant) that `start_background` starts first. With the
 flight recorder on (the default) the solver carries SolverTelemetry, as in
-the JAX package. One
+the JAX package. With `policy.enabled` the extender carries a PolicyEngine
+(priority or DRF ordering, the preemption search on the solver's device,
+the defragmenter); with `autoscaler.enabled` the app carries an
+ElasticAutoscaler over a ClusterCensus, started and stopped with the app.
+One
 part of the JAX wiring is absent by design until its module is ported:
 the degraded-mode controller (`solver.degraded` is unset, so readiness
 answers as a healthy server does and a solve failure reaches the client
@@ -56,8 +60,6 @@ UNSUPPORTED_KEYS = {
     "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.6"),
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
     "degraded_mode": ("server.degraded-mode", "ROADMAP A.5"),
-    "autoscaler_enabled": ("autoscaler.enabled", "ROADMAP A.3"),
-    "policy_enabled": ("policy.enabled", "ROADMAP A.2"),
     "trace_path": ("trace.path", "ROADMAP A.7"),
     "fleet_enabled": ("fleet.enabled", "ROADMAP A.7"),
     "fleet_clusters": ("fleet.clusters", "ROADMAP A.7"),
@@ -108,6 +110,7 @@ class SchedulerApp:
     demand_crd_watcher: LazyDemandCRDWatcher
     ingestion: object | None = None  # KubeIngestion when kube_api_url is set
     runtime_manager: object | None = None  # RuntimeConfigManager when configured
+    autoscaler: object | None = None  # ElasticAutoscaler when enabled
     recorder: object | None = None  # FlightRecorder when flight_recorder is on
     _background_started: bool = False
 
@@ -132,12 +135,16 @@ class SchedulerApp:
         self.rr_cache.start()
         self.unschedulable_marker.start()
         self.demand_crd_watcher.start()
+        if self.autoscaler is not None:
+            self.autoscaler.start()
         if self.runtime_manager is not None:
             self.runtime_manager.start()
 
     def stop(self) -> None:
         if self.runtime_manager is not None:
             self.runtime_manager.stop()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         if self.ingestion is not None:
             self.ingestion.stop()
         self.demand_crd_watcher.stop()
@@ -324,6 +331,35 @@ def build_scheduler_app(
         overhead_computer,
         config.instance_group_label,
     )
+    # Policy engine: constructed ONLY when enabled — with policy=None every
+    # extender hook takes the exact pre-policy branch, keeping the default
+    # FIFO path byte-identical.
+    policy = None
+    if config.policy_enabled:
+        from spark_scheduler_tpu_torch.policy import PolicyConfig, PolicyEngine
+
+        policy = PolicyEngine(
+            PolicyConfig(
+                ordering=config.policy_ordering,
+                preemption=config.policy_preemption,
+                max_evictions=config.policy_max_evictions,
+                promote_after_s=config.policy_promote_after_s,
+                defrag=config.policy_defrag,
+                defrag_interval_s=config.policy_defrag_interval_s,
+                defrag_budget=config.policy_defrag_budget,
+                protected_class=config.policy_protected_class,
+            ),
+            backend=backend,
+            rr_cache=rr_cache,
+            pod_lister=pod_lister,
+            soft_store=soft_store,
+            reservation_manager=reservation_manager,
+            solver=solver,
+            clock=clock,
+            metrics_registry=(
+                metrics.registry if metrics is not None else None
+            ),
+        )
     extender = SparkSchedulerExtender(
         backend,
         pod_lister,
@@ -348,6 +384,7 @@ def build_scheduler_app(
         waste=waste,
         recorder=recorder,
         clock=clock,
+        policy=policy,
     )
     marker = UnschedulablePodMarker(
         backend,
@@ -380,6 +417,66 @@ def build_scheduler_app(
             clock=clock,
             insecure_skip_tls_verify=config.kube_api_insecure_skip_tls_verify,
         )
+    autoscaler = None
+    if config.autoscaler_enabled:
+        # In-process elastic autoscaler: consumes the pending demands this
+        # scheduler emits, provisions simulated nodes through the same
+        # backend, and drains idle ones — replacing the external cluster
+        # autoscaler.
+        from spark_scheduler_tpu_torch.autoscaler import (
+            AutoscalerMetrics,
+            ElasticAutoscaler,
+            NodeProvisioner,
+            ScaleDownDrainer,
+        )
+        from spark_scheduler_tpu_torch.autoscaler.provisioner import (
+            PROVISIONED_BY_LABEL,
+            PROVISIONER_NAME,
+        )
+        from spark_scheduler_tpu_torch.core.census import ClusterCensus
+        from spark_scheduler_tpu_torch.models.resources import Resources
+
+        # Event-maintained control-loop census: the autoscaler's cluster
+        # size and the drainer's busy/never-drain sets are resident
+        # O(changed) state instead of per-pass full walks.
+        census = ClusterCensus(
+            backend,
+            rr_cache,
+            soft_store,
+            eligible_label=(PROVISIONED_BY_LABEL, PROVISIONER_NAME),
+        )
+        autoscaler = ElasticAutoscaler(
+            backend,
+            provisioner=NodeProvisioner(
+                backend,
+                config.instance_group_label,
+                Resources.from_quantities(
+                    config.autoscaler_node_cpu,
+                    config.autoscaler_node_memory,
+                    config.autoscaler_node_gpu,
+                    round_up=False,
+                ),
+                zones=config.autoscaler_zones,
+                clock=clock,
+            ),
+            drainer=ScaleDownDrainer(
+                backend,
+                rr_cache,
+                soft_store,
+                idle_ttl_s=config.autoscaler_idle_ttl_s,
+                clock=clock,
+                census=census,
+            ),
+            census=census,
+            max_cluster_size=config.autoscaler_max_cluster_size,
+            poll_interval_s=config.autoscaler_poll_interval_s,
+            metrics=AutoscalerMetrics(registry),
+            recorder=recorder,
+            clock=clock,
+        )
+        # The demand-add wakeup waits for the Demand CRD like every other
+        # demand consumer.
+        demand_crd_watcher.on_ready(autoscaler.attach)
     # A pre-existing Demand CRD (registered before the app was built)
     # activates demand features synchronously; otherwise the background
     # poll in start_background() picks it up.
@@ -400,6 +497,7 @@ def build_scheduler_app(
         unschedulable_marker=marker,
         demand_crd_watcher=demand_crd_watcher,
         ingestion=ingestion,
+        autoscaler=autoscaler,
         recorder=recorder,
     )
     if config.runtime_config_path:

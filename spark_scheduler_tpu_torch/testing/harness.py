@@ -218,6 +218,11 @@ class Harness:
     def demands(self):
         return self.app.demand_cache.list()
 
+    @property
+    def autoscaler(self):
+        """The ElasticAutoscaler when built with autoscaler_enabled=True."""
+        return self.app.autoscaler
+
 
 def overcommit_violations(app, backend) -> list[tuple[str, str]]:
     """[(node_name, dimension)] wherever hard+soft reservations + overhead

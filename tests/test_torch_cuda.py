@@ -955,3 +955,47 @@ def test_batched_engine_on_cuda_matches_fifo_pack(cuda_device, fill, n):
     got = batched_fifo_pack(cluster, apps, fill=fill, emax=8, num_zones=4)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w), (fill, n)
+
+
+@pytest.mark.parametrize("strategy", ["tightly-pack", "single-az-tightly-pack",
+                                      "distribute-evenly"])
+def test_preemption_search_on_cuda_matches_cpu(cuda_device, strategy):
+    """`PlacementSolver.preemption_search` (the policy engine's search,
+    ops/packing.py `preemption_batched_fit`) on a `cuda` solver against a
+    `cpu` solver at 10,000 nodes with 8 nested candidate eviction sets:
+    the same first feasible set, and the same per-candidate fits."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL, Node
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    rng = np.random.default_rng(12)
+    n = 10_000
+    nodes = [
+        Node(name=f"node-{i:05d}",
+             allocatable=Resources.from_quantities(
+                 str(int(rng.integers(8, 65))), f"{int(rng.integers(32, 257))}Gi",
+                 str(int(rng.integers(0, 2)))),
+             labels={ZONE_LABEL: f"zone{i % 4}"})
+        for i in range(n)
+    ]
+    # Full nodes: only the evictions free whole executor slots.
+    usage = {nd.name: Resources(nd.allocatable.cpu_milli, nd.allocatable.mem_kib, 0)
+             for nd in nodes}
+    names = [nd.name for nd in nodes]
+    solvers = [PlacementSolver(device=d) for d in (cuda_device, "cpu")]
+    tensors = [s.build_tensors(nodes, usage, {}) for s in solvers]
+    cap = solvers[0].registry.capacity
+    assert cap == solvers[1].registry.capacity
+    steps = np.zeros((8, cap, 3), np.int64)
+    for c in range(8):
+        rows = rng.choice(n, 24, replace=False)
+        steps[c, rows, 0] = 4000
+        steps[c, rows, 1] = 16 * 1024 * 1024
+    freed = np.cumsum(steps, axis=0)
+    drv = Resources.from_quantities("2", "8Gi")
+    exe = Resources.from_quantities("4", "16Gi")
+    got = [s.preemption_search(strategy, t, drv, exe, 160, names, freed)
+           for s, t in zip(solvers, tensors)]
+    assert got[0] == got[1]
+    assert got[0][0] >= 1  # the first sets do not fit; a later one does
+    assert solvers[0].preemption_searches == {"cuda": 1}

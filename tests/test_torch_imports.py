@@ -165,6 +165,61 @@ def test_fused_and_batched_modules_run_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+POLICY_AND_AUTOSCALER = (
+    "spark_scheduler_tpu_torch.policy.priority",
+    "spark_scheduler_tpu_torch.policy.ordering",
+    "spark_scheduler_tpu_torch.policy.preemption",
+    "spark_scheduler_tpu_torch.policy.defrag",
+    "spark_scheduler_tpu_torch.policy.engine",
+    "spark_scheduler_tpu_torch.core.census",
+    "spark_scheduler_tpu_torch.autoscaler.provisioner",
+    "spark_scheduler_tpu_torch.autoscaler.drainer",
+    "spark_scheduler_tpu_torch.autoscaler.metrics",
+    "spark_scheduler_tpu_torch.autoscaler.controller",
+    "spark_scheduler_tpu_torch.testing.soak",
+)
+
+
+def test_policy_and_autoscaler_modules_run_with_jax_blocked():
+    """The policy engine, the census, the autoscaler and the policy soak
+    are the port's own copies: each imports, and an app built with
+    `policy.enabled` and `autoscaler.enabled` serves a preemption and a
+    scale-up on the CPU, while jax and the JAX package are refused."""
+    assert set(POLICY_AND_AUTOSCALER) <= set(_port_modules())
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import importlib\n"
+        f"for name in {POLICY_AND_AUTOSCALER!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from spark_scheduler_tpu_torch.testing.harness import Harness, new_node, static_allocation_spark_pods\n"
+        "from spark_scheduler_tpu_torch.policy import PRIORITY_CLASS_ANNOTATION\n"
+        "h = Harness(device='cpu', policy_enabled=True, policy_ordering='priority',\n"
+        "            policy_preemption=True, policy_promote_after_s=0.0,\n"
+        "            autoscaler_enabled=True,\n"
+        "            resync_gap_seconds=1e12, clock=lambda: 1000.0)\n"
+        "h.add_nodes(new_node('n1'))\n"
+        "low = static_allocation_spark_pods('low', 5)\n"
+        "low[0].annotations[PRIORITY_CLASS_ANNOTATION] = 'low'\n"
+        "assert all(h.schedule(p, ['n1']).ok for p in low)\n"
+        "high = static_allocation_spark_pods('high', 4)\n"
+        "high[0].annotations[PRIORITY_CLASS_ANNOTATION] = 'high'\n"
+        "assert h.schedule(high[0], ['n1']).ok\n"
+        "assert h.get_reservation('namespace', 'low') is None\n"
+        "big = static_allocation_spark_pods('big', 20)\n"
+        "assert not h.schedule(big[0], ['n1']).ok\n"
+        "assert h.autoscaler.run_once()['fulfilled'] == 1\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_blocker_does_not_refuse_the_port_prefix():
     """The finder matches `spark_scheduler_tpu` exactly or with a dot, so
     the port (which shares the prefix) still imports while the JAX

@@ -214,6 +214,111 @@ def test_int32_delta_overflow_drains_only_while_in_flight():
     assert solver.last_state_upload == "full"
 
 
+def _solo_across_topology_change(change, order, count=None):
+    """Window W dispatched on the pipelined build of 16 nodes, then a
+    topology change (`change`: a node added past the padding bucket, or,
+    with static row deltas off, a node added or one cordoned), then a solo
+    pack of a 1-CPU driver and `count` 1-CPU executors over every
+    schedulable node. `order` "solo-first" runs the solo pack while W is in
+    flight, built as the extender builds a solo solve (the pipelined
+    build, and build_tensors_solo when that raises
+    PipelineDrainRequired); "fetch-first" fetches W and commits its gangs
+    first. Returns (W's decisions and the solo packing, the nodes
+    over-committed, the CPUs the host view shows free at the solo pack, the
+    solver)."""
+    import dataclasses
+
+    solver_mod = importlib.import_module(f"{PORT}.core.solver")
+    kube = importlib.import_module(f"{PORT}.models.kube")
+    res = importlib.import_module(f"{PORT}.models.resources").Resources
+    solver = solver_mod.PlacementSolver(
+        device="cpu", delta_statics=change == "add-past-bucket")
+    nodes = [
+        kube.Node(name=f"node-{i:02d}",
+                  allocatable=res.from_quantities("8", "8Gi", "1"),
+                  labels={kube.ZONE_LABEL: f"zone{i % 2}"})
+        for i in range(16)
+    ]
+    names = [n.name for n in nodes]
+    one = res.from_quantities("1", "1Gi")
+    window = [
+        solver_mod.WindowRequest(rows=[(one, one, k, False)],
+                                 driver_candidate_names=names)
+        for k in (5, 9, 3)
+    ]
+    usage: dict = {}
+
+    def commit(name, amount):
+        usage[name] = usage.get(name, res.zero()).add(amount)
+
+    def fetch(h):
+        got = solver.pack_window_fetch(h)
+        for d in got:
+            if d.admitted:
+                commit(d.packing.driver_node, one)
+                for name in d.packing.executor_nodes:
+                    commit(name, one)
+        return [tuple(d) for d in got]
+
+    h = solver.pack_window_dispatch(
+        "tightly-pack", solver.build_tensors_pipelined(nodes, usage, {}), window)
+    after = list(nodes)
+    if change == "cordon":
+        after[3] = dataclasses.replace(after[3], unschedulable=True)
+    else:
+        after.append(kube.Node(name="node-16",
+                               allocatable=res.from_quantities("8", "8Gi", "1"),
+                               labels={kube.ZONE_LABEL: "zone0"}))
+    out = fetch(h) if order == "fetch-first" else []
+    try:
+        t = solver.build_tensors_pipelined(after, usage, {})
+        assert order == "fetch-first"
+    except solver_mod.PipelineDrainRequired:
+        assert order == "solo-first"
+        t = solver.build_tensors_solo(after, usage, {})
+    live = [n for n in after if not n.unschedulable]
+    free = sum(n.allocatable.cpu_milli - usage.get(n.name, res.zero()).cpu_milli
+               for n in live) // 1000
+    if count is None:
+        count = free - 1
+    solo = solver.pack("tightly-pack", t, one, one, count,
+                       [n.name for n in live])
+    if solo.has_capacity:
+        commit(solo.driver_node, one)
+        for name in solo.executor_nodes:
+            commit(name, one)
+    out.append((solo.has_capacity, solo.driver_node, tuple(solo.executor_nodes)))
+    if order == "solo-first":
+        out = fetch(h) + out
+    over = [n.name for n in after
+            if usage.get(n.name, res.zero()).cpu_milli > n.allocatable.cpu_milli]
+    return out, over, free, solver
+
+
+@pytest.mark.parametrize("change", ["add-past-bucket", "add", "cordon"])
+def test_solo_pack_across_a_topology_change_sees_the_inflight_window(change):
+    """A solo solve while a window is in flight across a topology change
+    (ROADMAP §C.6): the pipelined build is refused, and the solo build
+    debits the in-flight window's gangs, read from its decision blob and
+    keyed by node name, so the solo pack asking for every CPU left (the
+    fetch-first run's count) decides as it does after the window's fetch,
+    and nothing is over-committed. The window's fetch still returns its
+    own decisions. Without the debit the host view lacks the window's
+    gangs, and the same pack over-commits."""
+    want, want_over, free_after, _ = _solo_across_topology_change(
+        change, "fetch-first")
+    count = free_after - 1
+    want, want_over, _, _ = _solo_across_topology_change(
+        change, "fetch-first", count)
+    got, over, free_before, solver = _solo_across_topology_change(
+        change, "solo-first", count)
+    assert free_before > free_after  # the host view lacked W's gangs
+    assert want[-1][0]  # the count fills exactly what is left
+    assert want_over == [] and over == []
+    assert got == want
+    assert solver.solo_inflight_debits == 1
+
+
 # --------------------------------------------------------------- extender
 
 

@@ -56,7 +56,8 @@ def same(port_bytes: bytes, jax_bytes: bytes) -> bool:
 class Served:
     """One package's app behind its HTTP server on an ephemeral port."""
 
-    def __init__(self, root, *, clock=lambda: NOW, debug_routes=True, **cfg):
+    def __init__(self, root, *, clock=lambda: NOW, debug_routes=True, raw=None,
+                 **cfg):
         self.root = root
         backend_mod = _mod(root, "store.backend")
         metrics = _mod(root, "metrics")
@@ -76,9 +77,15 @@ class Served:
             # native runtime when it loads: load it the same way in every
             # worker (tests/test_torch_native.py `load_jax_native`).
             load_jax_native()
+        install = _mod(root, "server.config").InstallConfig
+        if raw is not None:
+            # Synchronous write-back has no YAML key: the test setting.
+            config = dataclasses.replace(install.from_dict(raw), sync_writes=True)
+        else:
+            config = install(**config)
         self.app = _mod(root, "server.app").build_scheduler_app(
             self.backend,
-            _mod(root, "server.config").InstallConfig(**config),
+            config,
             metrics=metrics.SchedulerMetrics(self.registry, IG_LABEL),
             clock=clock,
             **kw,
@@ -595,8 +602,6 @@ def _unsupported_values():
         "solver_scale_tier": True,
         "solver_build_oracle": True,
         "degraded_mode": "shed",
-        "autoscaler_enabled": True,
-        "policy_enabled": True,
         "trace_path": "trace.jsonl",
         "fleet_enabled": True,
         "fleet_clusters": 3,
@@ -617,6 +622,85 @@ def test_unsupported_key_raises_naming_it(field, value, key):
     config = dataclasses.replace(InstallConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         build_scheduler_app(InMemoryBackend(), config, device="cpu")
+
+
+ENABLED_YAML = {
+    "policy": {
+        "policy": {"enabled": True, "ordering": "priority", "preemption": True,
+                   "max-evictions": 8, "protected-class": "system",
+                   "promote-after": 0, "defrag": {"enabled": True, "budget": 4}},
+    },
+    "autoscaler": {
+        "autoscaler": {"enabled": True, "max-cluster-size": 6,
+                       "idle-ttl": "1m", "zones": ["zone1", "zone2"]},
+    },
+}
+
+
+@pytest.mark.parametrize("block", sorted(ENABLED_YAML))
+def test_enabled_policy_and_autoscaler_yaml_serve_like_jax(block):
+    """`policy.enabled: true` and `autoscaler.enabled: true` (the keys the
+    port refused before it had the engine and the autoscaler) build from
+    YAML on both packages and serve alike: with the policy, a low gang
+    admits, then a high driver that fits only after an eviction is denied
+    with the eviction named; with the autoscaler, a gang too big for the
+    cluster is denied with a demand, the autoscaler provisions, and the
+    driver's retry admits on the new nodes. Every /predicates body and the
+    /debug/state fleet and census blocks are equal across the packages."""
+    raw = {"fifo": True, "binpack-algo": "tightly-pack",
+           "instance-group-label": IG_LABEL, **ENABLED_YAML[block]}
+    sides = [Served(JAX, raw=raw), Served(PORT, raw=raw)]
+    try:
+        for s in sides:
+            assert (s.app.extender._policy is not None) == (block == "policy")
+            assert (s.app.autoscaler is not None) == (block == "autoscaler")
+            if s.app.autoscaler is not None:
+                # The server started the autoscaler's loop; the test drives
+                # its passes itself, on both sides at the same point.
+                s.app.autoscaler.stop()
+        names = ["n0", "n1"]
+        for i, n in enumerate(names):
+            both(sides, "PUT", "/state/nodes", k8s_node(n, zone=f"zone{i + 1}"))
+        bodies = []
+
+        def predicate(pod, node_names):
+            both(sides, "PUT", "/state/pods", pod)
+            status, body = both(sides, "POST", "/predicates",
+                                {"Pod": pod, "NodeNames": node_names})
+            assert status == 200
+            bodies.append(body)
+            return body
+
+        if block == "policy":
+            low = k8s_spark_pod("low", "driver", "low-driver", executors=12)
+            low["metadata"]["annotations"]["spark-priority-class"] = "low"
+            assert predicate(low, names)["NodeNames"]
+            high = k8s_spark_pod("high", "driver", "high-driver", executors=6,
+                                 created="2026-07-29T12:00:05Z")
+            high["metadata"]["annotations"]["spark-priority-class"] = "high"
+            denied = predicate(high, names)
+            assert not denied["NodeNames"]
+            assert "preempted 1" in json.dumps(denied["FailedNodes"])
+            assert predicate(high, names)["NodeNames"]
+        else:
+            big = k8s_spark_pod("big", "driver", "big-driver", executors=24)
+            assert not predicate(big, names)["NodeNames"]
+            summaries = [s.app.autoscaler.run_once() for s in sides]
+            assert summaries[1] == summaries[0]
+            assert summaries[0]["fulfilled"] == 1
+            grown = sorted(n.name for n in sides[0].backend.list_nodes())
+            assert grown == sorted(n.name for n in sides[1].backend.list_nodes())
+            assert len(grown) > len(names)
+            assert predicate(big, grown)["NodeNames"]
+        (_, js), (_, ps) = (s.call("GET", "/debug/state") for s in sides)
+        jstate, pstate = json.loads(js), json.loads(ps)
+        assert pstate["nodes"] == jstate["nodes"]
+        assert pstate.get("census") == jstate.get("census")
+        assert ("census" in pstate) == (block == "autoscaler")
+        assert len(bodies) == (3 if block == "policy" else 2)
+    finally:
+        for s in sides:
+            s.stop()
 
 
 SERVED_KEYS = {
