@@ -243,6 +243,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      nodes added and drained, denial-to-admission latency (client host
      clock), the pipeline drains and the solo builds that debited
      in-flight windows.
+ 14. Device-fault tolerance on the card: phase 3's cluster labelled into 4
+     instance groups of 2,500 nodes; requests cycle the groups (each
+     pinned to its group's nodes), so every window partitions. (a) A pool
+     of two slots on cuda:0 (`pool_devices=[cuda:0] * 2`, each slot on
+     its own stream): 16 windows of 32 requests in pipelined pairs against
+     a pool-less `cuda` solver and a `cpu` solver; every decision equal,
+     every window partitioned, row-walk launches = the live segments of
+     all parts; prints the per-slot statics uploads, the slots a dispatch
+     keeps busy and the window p50 pooled against pool-less (host clock
+     ending in a synchronise, pair 0 untimed). (b) The same windows on a
+     fresh pool; `FaultInjector` kills slot 1's third part solve
+     (`device.dispatch.slot1`): one quarantine, the part re-dispatched on
+     slot 0, decisions equal to (a)'s cpu solver's; after the probe
+     interval on an injected clock the probe kernel reinstates slot 1,
+     which serves again; prints the host time from the quarantine to the
+     reinstatement. (c) Both slots
+     killed for windows 3-4: the host greedy serves them (`greedy`
+     degraded mode), 64 fallback decisions equal to the cpu solver's, one
+     engagement cleared when the probe reinstates the slots; prints the
+     greedy ms a window beside the card's. (d) A pool-less `cuda` solver:
+     one injected h2d fault serves one window on the greedy, the next
+     window on the card clears degraded mode. (e) Phase 7's app on
+     `solver.device-pool: 2` (two slots of cuda:0), 4 clients: 32 drivers
+     on the pool, 32 with every slot killed, 8 after a forced probe; under
+     `server.degraded-mode: shed` every killed-pool driver answers 503
+     with Retry-After 7 and readiness 503, and /debug/state carries the
+     `faults` block; under `greedy` readiness stays 200 but degraded and
+     every body equals a cpu replay. Phases 3-13 fail if degraded mode
+     ever engaged, a slot was quarantined, a fallback decision was made
+     or a part was re-dispatched there.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -286,6 +316,24 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def fault_free(solver, phase):
+    """On a healthy card no device-fault machinery may engage: no degraded
+    engagement, no host-greedy (fallback) decision and no shed, no slot
+    quarantined, no part re-dispatched (phases 3-13)."""
+    d = getattr(solver, "degraded", None)
+    seen = {
+        "engagements": d.engagements if d is not None else 0,
+        "fallback_decisions": d.fallback_decisions if d is not None else 0,
+        "shed_requests": d.shed_requests if d is not None else 0,
+        "quarantined": len(solver.device_health()["quarantined"]),
+        "redispatches": solver.redispatch_count,
+        "greedy_windows": solver.window_path_counts.get("greedy-fallback", 0),
+    }
+    check(not any(seen.values()),
+          f"phase {phase}: device-fault machinery engaged on a healthy card: "
+          f"{seen}")
 
 
 def card_line() -> str:
@@ -790,6 +838,7 @@ def run_main_path(device):
             last = (t_gpu, batch)
         commit(usage, gpu.registry, requests, got)
     launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
+    fault_free(gpu, 3)
     check(launches["window"] > 0, "the window kernel never launched")
     check(launches["probe"] > 0, "the probe kernel never launched")
     path = "cuda" if gpu.device.type == "cuda" else "reference"
@@ -1695,6 +1744,7 @@ def run_extender_phase(device, card):
           f"{len(complete_ms)} windows; solo pack p50 {p(pack_ms, 50):.3f} ms "
           f"p99 {p(pack_ms, 99):.3f} ms over {len(pack_ms)} calls "
           f"(host clock, ending in torch.cuda.synchronize)", flush=True)
+    fault_free(gpu.solver, 6)
     return launches
 
 
@@ -1862,7 +1912,8 @@ class RecordedServer:
                 )
                 e["rows"] = t.handle.info["rows"] if t.handle is not None else 0
                 # The decision blob each window's fetch copies to the host.
-                e["d2h"] = t.handle.blob.nbytes if t.handle is not None else 0
+                e["d2h"] = (getattr(t.handle.blob, "nbytes", 0)
+                            if t.handle is not None else 0)
                 entries[id(t)] = e
                 fire = self.trigger_when is not None and self.trigger_when(
                     e, list(entries.values()))
@@ -1938,7 +1989,8 @@ class RecordedServer:
                            "dispatch_id": (h.info["dispatch_id"]
                                            if h is not None else None),
                            "rows": h.info["rows"] if first else 0,
-                           "d2h": owner.blob.nbytes if first else 0}
+                           "d2h": (getattr(owner.blob, "nbytes", 0)
+                                   if first else 0)}
                     e["subs"].append(sub)
                     entries[id(t)] = sub
             if counts["dispatched"] == self.trigger_at and self.on_trigger:
@@ -2300,6 +2352,7 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         prune_block = json.loads(state[1]).get("prune", {})
         violations = overcommit_violations(srv.app, srv.backend)
         check(not violations, f"phase {phase} over-commit: {violations[:8]}")
+        fault_free(srv.app.solver, phase)
     finally:
         srv.server.stop()
     launches = {"window": window_pack.launches, "probe": probe_add_one.launches}
@@ -2681,11 +2734,11 @@ def post_jobs(api, srv, names, pods, *, bind, delays):
     return job
 
 
-def server_checks(srv, phase, on_card):
+def server_checks(srv, phase, on_card, healthy=True):
     """Phase 7's checks on one recorded server: the driver windows equal
     /debug/decisions' dispatch ids, no over-commit, no solo pack off the
-    batcher thread. Returns the log's (done windows, live segments, solo
-    packs)."""
+    batcher thread, and (`healthy`) no device-fault machinery engaged.
+    Returns the log's (done windows, live segments, solo packs)."""
     from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
 
     status, body = http_get(srv.server.port,
@@ -2707,6 +2760,8 @@ def server_checks(srv, phase, on_card):
     check(not violations, f"phase {phase} over-commit: {violations[:8]}")
     check(srv.solo_packs["other"] == 0,
           f"phase {phase}: solo packs off the batcher thread: {srv.solo_packs}")
+    if healthy:
+        fault_free(srv.app.solver, phase)
     segments = sum(e["segments"] for e in done)
     return done, segments, srv.solo_packs["batcher"]
 
@@ -2717,6 +2772,8 @@ def check_launches(phase, servers, launches, probes, on_card, serial=True):
     at a time) every launch must also fall inside a recorded dispatch or
     completion: a window's before/after reading of the shared count would
     take in another server's launches when two serve at once."""
+    for s in servers:
+        fault_free(s.app.solver, phase)
     if not on_card:
         return 0, 0
     inside = sum(e["launches"] for s in servers for e in s.log
@@ -3487,6 +3544,8 @@ def run_engine_phase(device, card, last):
           f"equals fifo_pack: {eng_q_ms:.1f} ms against the queue kernel's "
           f"{kernel_ms:.2f} ms, host clock ({card})", flush=True)
     window_pack.launches, fifo_pack.launches = saved
+    fault_free(seq_solver, 11)
+    fault_free(fused_solver, 11)
 
 
 # --------------------------------------------------------------- phase 12
@@ -3671,6 +3730,8 @@ def run_prune_arm(device, card, label, nodes, usage, windows, *, fused,
         rows.append(sum(sum(len(r.rows) for r in w) for w in wins))
         for w, d in zip(wins, decisions):
             commit(usage, solvers["pruned"].registry, w, d)
+    for solver in solvers.values():
+        fault_free(solver, 12)
     pruned = solvers["pruned"]
     st = pruned.prune_stats
     if with_cpu:
@@ -4060,6 +4121,7 @@ def p13_launches(phase, srv, launches, on_card, solved):
     solo = srv.solo_packs
     check(solo["other"] == 0, f"phase {phase}: solo packs off the batcher "
                               f"thread: {solo}")
+    fault_free(srv.app.solver, phase)
     if on_card:
         inside = sum(e["launches"] for e in log
                      if isinstance(e, dict) and "launches" in e)
@@ -4520,6 +4582,526 @@ def run_autoscaler_phase(device, card, n_nodes=N_MAIN,
 
 
 
+# --------------------------------------------------------------- phase 14
+
+P14_GROUPS = 4  # instance groups of 2,500 nodes
+P14_WINDOWS = 16
+P14_WINDOW = 32
+P14_KILL_AT = 2  # slot 1's third part solve dies in (b)
+P14_DRIVERS = 64
+P14_CLIENTS = 4
+
+
+def p14_groups(names, groups=P14_GROUPS):
+    """The node names of each instance group: contiguous blocks."""
+    size = len(names) // groups
+    return [names[g * size:(g + 1) * size] for g in range(groups)]
+
+
+def p14_window(rng, groups, n_requests):
+    """`n_requests` tightly-pack requests shaped as phase 7's apps, each
+    pinned to an instance group (candidates and domain: the group's
+    nodes), the groups cycled so that every window partitions; 0-1
+    FIFO-earlier pending drivers each."""
+    from spark_scheduler_tpu_torch.core.solver import WindowRequest
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    driver = Resources.from_quantities("1", "2Gi")
+    executor = Resources.from_quantities("2", "4Gi")
+
+    def app(skippable):
+        count = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+        return (driver, executor, count, skippable)
+
+    out = []
+    for r in range(n_requests):
+        g = groups[r % len(groups)]
+        rows = [app(bool(rng.random() < 0.3))
+                for _ in range(int(rng.integers(0, 2)))]
+        rows.append(app(False))
+        out.append(WindowRequest(rows=rows, driver_candidate_names=g,
+                                 domain_node_names=g))
+    return out
+
+
+class SlotTarget:
+    """Names the pool slot whose part solve is running on this thread, so a
+    fault spec can target one slot: a part solve on slot k fires
+    `device.dispatch.slot<k>` through the injector (every other boundary
+    fires `device.<kind>` as the injector's own shim does)."""
+
+    def __init__(self, solver, injector):
+        import threading
+
+        self.local = threading.local()
+        self.injector = injector
+        solve = solver._part_solve
+        labels = {id(s): i for i, s in enumerate(solver._pool.slots)}
+        local = self.local
+
+        def part_solve(slot, *a):
+            local.slot = labels[id(slot)]
+            try:
+                return solve(slot, *a)
+            finally:
+                local.slot = None
+
+        solver._part_solve = part_solve
+
+    def __call__(self, kind):
+        slot = getattr(self.local, "slot", None)
+        if kind == "dispatch" and slot is not None:
+            self.injector.fire(f"device.dispatch.slot{slot}")
+        else:
+            self.injector.fire(f"device.{kind}")
+
+
+def p14_run(solver, nodes, usage, windows):
+    """Serve `windows` in pipelined pairs (two dispatches, then both
+    fetches), committing each fetched window's gangs into `usage` as the
+    extender's reservations would. A build that must drain (a device fault
+    dropped the pipeline) first fetches and commits the windows in flight,
+    then retries. Returns (decisions per window, the dispatched handles,
+    pair wall times in ms ending in a synchronise)."""
+    import torch
+
+    from spark_scheduler_tpu_torch.core.solver import PipelineDrainRequired
+
+    decisions, handles, pair_ms = [], [], []
+    on_card = solver.device.type == "cuda"
+
+    def fetch(pending):
+        for w, h in pending:
+            got = solver.pack_window_fetch(h)
+            decisions.append(got)
+            commit(usage, solver.registry, w, got)
+        pending.clear()
+
+    for i in range(0, len(windows), 2):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = []
+        for w in windows[i:i + 2]:
+            while True:
+                try:
+                    t = solver.build_tensors_pipelined(nodes, usage, {})
+                    break
+                except PipelineDrainRequired:
+                    fetch(pending)
+            h = solver.pack_window_dispatch("tightly-pack", t, w)
+            handles.append(h)
+            pending.append((w, h))
+        fetch(pending)
+        if on_card:
+            torch.cuda.synchronize()
+        pair_ms.append((time.perf_counter() - t0) * 1e3)
+    return decisions, handles, pair_ms
+
+
+def p14_launched(handle) -> int:
+    """Row-walk launches a pooled dispatch made: one a live segment of
+    every part whose solve ran (a part that died at its launch made
+    none), and again for each part re-dispatched on a survivor."""
+    if handle.parts is None:
+        return 0 if handle.greedy else len(handle.requests)
+    ran = sum(len(p.requests) for p in handle.parts
+              if p.future.exception() is None)
+    return ran + sum(len(p.requests) for p in handle.parts
+                     if p.future.exception() is not None
+                     and handle.request_device[p.req_ids[0]] != p.slot.label)
+
+
+def run_pool_phase(device, card, n_nodes=N_MAIN):
+    """Phase 14 (a)-(d): the device pool at the solver level (see the
+    module docstring). Returns the main path's row-walk and probe launches
+    (the pooled and faulted solvers', not the comparison solvers')."""
+    import torch
+
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.faults import (
+        DegradedModeController,
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+    )
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    on_card = torch.device(device).type == "cuda"
+    nodes, usage0 = main_cluster(seed=7)
+    nodes, usage0 = nodes[:n_nodes], usage0[:n_nodes]
+    names = [nd.name for nd in nodes]
+    groups = p14_groups(names)
+    rng = np.random.default_rng(14)
+    windows = [p14_window(rng, groups, P14_WINDOW) for _ in range(P14_WINDOWS)]
+    pool_devices = [device, device]
+    main = {"window": 0, "probe": 0}
+
+    def counted(fn):
+        w0, p0 = window_pack.launches, probe_add_one.launches
+        out = fn()
+        main["window"] += window_pack.launches - w0
+        main["probe"] += probe_add_one.launches - p0
+        return out, window_pack.launches - w0, probe_add_one.launches - p0
+
+    # (a) two slots on one card against a pool-less cuda and a cpu solver.
+    pooled = PlacementSolver(device=device, pool_devices=pool_devices)
+    check(pooled.pool_size == 2, f"phase 14: pool of {pooled.pool_size}")
+    occupancy = []
+    (got, handles, pooled_ms), w_launched, probes = counted(lambda: p14_run(
+        pooled, nodes, usage0.copy(), windows))
+    for h in handles:
+        occupancy.append(len({p.slot.label for p in h.parts}) / pooled.pool_size)
+    w0 = window_pack.launches
+    flat, _, flat_ms = p14_run(PlacementSolver(device=device), nodes,
+                               usage0.copy(), windows)
+    flat_launches = window_pack.launches - w0
+    cpu_solver = PlacementSolver(device="cpu")
+    t0 = time.perf_counter()
+    want, _, _ = p14_run(cpu_solver, nodes, usage0.copy(), windows)
+    cpu_s = time.perf_counter() - t0
+    for i, (g, f, w) in enumerate(zip(got, flat, want)):
+        check(g == w and f == w, f"phase 14 (a): window {i}: the pooled, "
+                                 "pool-less and cpu decisions differ")
+    parts = [len(h.parts) for h in handles]
+    check(all(h.info["path"] == "pool" for h in handles) and min(parts) > 1,
+          f"phase 14 (a): windows not partitioned: {parts}")
+    want_launches = sum(p14_launched(h) for h in handles)
+    if on_card:
+        check(w_launched == want_launches,
+              f"phase 14 (a): {w_launched} row-walk launches for "
+              f"{want_launches} live segments of the parts")
+        check(probes == 1, f"phase 14 (a): {probes} probe launches")
+    fault_free(pooled, "14 (a)")
+    uploads = {label: {k: v[k] for k in ("full", "delta", "reuse")}
+               for label, v in pooled.device_pool_stats().items()}
+    admitted = sum(d.admitted for w in got for d in w)
+    p50 = lambda xs: float(np.percentile([x / 2 for x in xs[1:]], 50))  # noqa: E731
+    pooled_p50 = p50(pooled_ms)
+    print(f"phase 14 (a) ({card}): {len(windows)} windows of {P14_WINDOW} "
+          f"requests over {P14_GROUPS} instance groups of {len(groups[0])} "
+          f"nodes, in pipelined pairs, on 2 slots of {device}: every window "
+          f"partitioned ({min(parts)}-{max(parts)} parts), {admitted} gangs "
+          f"admitted, decisions equal to the pool-less cuda and the cpu "
+          f"solvers'; row-walk launches {w_launched} = {want_launches} live "
+          f"segments of the parts (pool-less: {flat_launches}); per-slot "
+          f"statics uploads {uploads}, slots busy a dispatch {np.mean(occupancy):.2f}; window p50 "
+          f"pooled {pooled_p50:.3f} ms against pool-less "
+          f"{p50(flat_ms):.3f} ms (host clock ending in a synchronise, pair "
+          f"0 untimed); the cpu solver {cpu_s:.1f} s", flush=True)
+
+    # (b) slot 1 killed mid-burst, re-dispatched, then reinstated by the
+    # probe kernel after the probe interval on an injected clock.
+    clock = ManualClock(1000.0)
+    pooled_b = PlacementSolver(device=device, pool_devices=pool_devices,
+                               quarantine_probe_s=5.0)
+    pooled_b._clock = clock
+    # The host clock at the first quarantine and the first reinstatement.
+    marks = {}
+    on_slot_event = pooled_b._on_slot_event
+
+    def mark_slot_event(event, label):
+        marks.setdefault(event, time.perf_counter())
+        on_slot_event(event, label)
+
+    pooled_b._on_slot_event = mark_slot_event
+    plan = FaultPlan(seed=0, name="slot1-kill", specs=[FaultSpec(
+        surface="device.dispatch.slot1", mode="error", at=[P14_KILL_AT],
+        limit=1)])
+    half = len(windows) // 2
+    usage_b = usage0.copy()
+
+    from spark_scheduler_tpu_torch.core import solver as solver_mod
+
+    with FaultInjector(plan) as inj:
+        target = SlotTarget(pooled_b, inj)
+        prior = solver_mod._DEVICE_SHIM
+        solver_mod.set_device_shim(target)
+        try:
+            (got_b1, handles_b1, _), w_b1, p_b1 = counted(lambda: p14_run(
+                pooled_b, nodes, usage_b, windows[:half]))
+        finally:
+            solver_mod.set_device_shim(prior)
+        fired = inj.schedule()
+    health = pooled_b.device_health()
+    check(len(fired) == 1 and health["healthy"] == 1
+          and health["quarantined"] == [pooled_b._pool.slots[1].label],
+          f"phase 14 (b): fired {fired}, health {health}")
+    check(pooled_b.redispatch_count >= 1, "phase 14 (b): no re-dispatch")
+    clock.advance(5.0)
+    (got_b2, handles_b2, _), w_b2, p_b2 = counted(lambda: p14_run(
+        pooled_b, nodes, usage_b, windows[half:]))
+    check(pooled_b.device_health()["healthy"] == 2
+          and {"quarantine", "reinstate"} <= set(marks),
+          f"phase 14 (b): slot 1 not reinstated: {pooled_b.device_health()}")
+    reinstated_s = marks["reinstate"] - marks["quarantine"]
+    served = {p.slot.label for h in handles_b2 for p in h.parts}
+    check(pooled_b._pool.slots[1].label in served,
+          "phase 14 (b): the reinstated slot served nothing")
+    for i, (g, w) in enumerate(zip(got_b1 + got_b2, want)):
+        check(g == w, f"phase 14 (b): window {i} differs from the cpu solver's")
+    want_b = sum(p14_launched(h) for h in handles_b1 + handles_b2)
+    if on_card:
+        check(w_b1 + w_b2 == want_b,
+              f"phase 14 (b): {w_b1 + w_b2} row-walk launches for {want_b}")
+        check(p_b1 + p_b2 == 2, f"phase 14 (b): {p_b1 + p_b2} probe launches "
+                                "(first solve, reinstatement)")
+    print(f"phase 14 (b) ({card}): slot 1 killed at its part solve "
+          f"{P14_KILL_AT} (FaultInjector device.dispatch.slot1): 1 "
+          f"quarantine, {pooled_b.redispatch_count} part(s) re-dispatched on "
+          f"slot 0, all {len(windows)} windows equal to the cpu solver's; "
+          f"after the 5 s probe interval (injected clock) the probe kernel "
+          f"reinstated slot 1 at the first dispatch after it and the slot "
+          f"served again; quarantine to reinstatement "
+          f"{reinstated_s * 1e3:.1f} ms host clock (the windows served in "
+          f"between, then the probe)", flush=True)
+
+    # (c) every slot killed for two windows: the host greedy serves them.
+    clock_c = ManualClock(1000.0)
+    pooled_c = PlacementSolver(device=device, pool_devices=pool_devices)
+    pooled_c._clock = clock_c
+    pooled_c.degraded = DegradedModeController(policy="greedy", clock=clock_c)
+    usage_c = usage0.copy()
+    (got_c0, h_c0, _), w_c0, p_c0 = counted(lambda: p14_run(
+        pooled_c, nodes, usage_c, windows[:2]))
+    kill_all = FaultPlan(seed=0, name="pool-down", specs=[FaultSpec(
+        surface="device.dispatch", mode="partition")])
+    with FaultInjector(kill_all) as inj:
+        inj.install_device()
+        t0 = time.perf_counter()
+        (got_c1, h_c1, _), w_c1, p_c1 = counted(lambda: p14_run(
+            pooled_c, nodes, usage_c, windows[2:4]))
+        greedy_ms = (time.perf_counter() - t0) * 1e3 / 2
+    snap = pooled_c.degraded.snapshot()
+    check(snap["active"] and snap["engagements"] == 1
+          and snap["fallback_decisions"] == 2 * P14_WINDOW,
+          f"phase 14 (c): degraded {snap}")
+    check(pooled_c.device_health()["healthy"] == 0, "phase 14 (c): a slot "
+                                                    "survived the kill")
+    clock_c.advance(5.0)
+    (got_c2, h_c2, _), w_c2, p_c2 = counted(lambda: p14_run(
+        pooled_c, nodes, usage_c, windows[4:6]))
+    snap2 = pooled_c.degraded.snapshot()
+    check(not snap2["active"] and snap2["engagements"] == 1,
+          f"phase 14 (c): degraded after reinstatement {snap2}")
+    for i, (g, w) in enumerate(zip(got_c0 + got_c1 + got_c2, want)):
+        check(g == w, f"phase 14 (c): window {i} differs from the cpu solver's")
+    want_c = sum(p14_launched(h) for h in h_c0 + h_c1 + h_c2)
+    if on_card:
+        check(w_c0 + w_c1 + w_c2 == want_c,
+              f"phase 14 (c): {w_c0 + w_c1 + w_c2} row-walk launches for "
+              f"{want_c}")
+        check(p_c0 + p_c1 + p_c2 == 3, f"phase 14 (c): probe launches "
+                                       f"{p_c0 + p_c1 + p_c2}")
+    print(f"phase 14 (c) ({card}): both slots killed for windows 3-4: "
+          f"degraded mode engaged once, the host greedy made "
+          f"{snap['fallback_decisions']} decisions, equal to the cpu "
+          f"solver's; {greedy_ms:.1f} ms a greedy window (host clock) against "
+          f"(a)'s pooled window p50 on the card {pooled_p50:.1f} ms; the "
+          f"probe reinstated both slots and cleared degraded mode",
+          flush=True)
+
+    # (d) no pool: one injected h2d fault serves one window on the greedy.
+    flat_d = PlacementSolver(device=device)
+    flat_d.degraded = DegradedModeController(policy="greedy")
+    one = FaultPlan(seed=0, name="h2d-once", specs=[FaultSpec(
+        surface="device.h2d", mode="error", at=[0], limit=1)])
+    with FaultInjector(one) as inj:
+        inj.install_device()
+        (got_d, h_d, _), w_d, p_d = counted(lambda: p14_run(
+            flat_d, nodes, usage0.copy(), windows[:2]))
+    snap_d = flat_d.degraded.snapshot()
+    check([h.greedy for h in h_d] == [True, False],
+          f"phase 14 (d): greedy handles {[h.greedy for h in h_d]}")
+    check(snap_d["engagements"] == 1 and not snap_d["active"]
+          and snap_d["fallback_decisions"] == P14_WINDOW,
+          f"phase 14 (d): degraded {snap_d}")
+    for i, (g, w) in enumerate(zip(got_d, want)):
+        check(g == w, f"phase 14 (d): window {i} differs from the cpu solver's")
+    if on_card:
+        check(w_d == P14_WINDOW and p_d == 1,
+              f"phase 14 (d): launches {w_d} row walk, {p_d} probe")
+    print(f"phase 14 (d) ({card}): pool-less cuda solver, one injected h2d "
+          f"fault: window 1 served on the host greedy, window 2 on the card "
+          f"cleared degraded mode; decisions equal to the cpu solver's",
+          flush=True)
+    return main
+
+
+def p14_pod_json(app_id, group, created):
+    pod = k8s_spark_pod_json(app_id, "driver", f"{app_id}-driver",
+                             int(app_id.rsplit("-", 1)[1]) % 7 + 2, created)
+    pod["spec"]["nodeSelector"] = {EXT_IG_LABEL: group}
+    return pod
+
+
+def run_pool_server_phase(device, card, policy, n_drivers=P14_DRIVERS,
+                          n_clients=P14_CLIENTS, n_nodes=N_MAIN):
+    """Phase 14 (e): phase 7's app on `solver.device-pool: 2` (two slots of
+    `device`), `server.degraded-mode: policy`, four instance groups. The
+    first half of the drivers are served on the pool; then every slot is
+    killed and the second half posted; then the fault ends, a forced probe
+    reinstates the slots and 8 more drivers are served. Returns the
+    launches (row walk, probe)."""
+    import dataclasses
+
+    import torch
+
+    from spark_scheduler_tpu_torch.faults import FaultInjector, FaultPlan, FaultSpec
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    on_card = torch.device(device).type == "cuda"
+    config = InstallConfig(
+        fifo=True, binpack_algo="tightly-pack",
+        instance_group_label=EXT_IG_LABEL, sync_writes=True,
+        debug_routes=True, solver_device_pool=2, degraded_mode=policy,
+        degraded_retry_after_s=7.0,
+    )
+
+    def factory(backend, registry, metrics):
+        app = build_scheduler_app(backend, config, metrics=metrics,
+                                  clock=lambda: EXT_CLOCK, device=device,
+                                  pool_devices=[device, device])
+        return app, None
+
+    w0, p0 = window_pack.launches, probe_add_one.launches
+    srv = RecordedServer(device, config, app_factory=factory)
+    port = srv.server.port
+    label = f"phase 14 (e) {policy}"
+    try:
+        check(srv.app.solver.pool_size == 2, f"{label}: pool "
+                                             f"{srv.app.solver.pool_size}")
+        nodes, usage = main_cluster(seed=7)
+        nodes, usage = nodes[:n_nodes], usage[:n_nodes]
+        names = [nd.name for nd in nodes]
+        groups = p14_groups(names)
+        for g, members in enumerate(groups):
+            for name in members:
+                nodes[names.index(name)].labels[EXT_IG_LABEL] = f"group-{g}"
+        # Readiness turns 200 with the first nodes through the routes.
+        run_clients(port, [[("PUT", "/state/nodes", k8s_node_json(nd))]
+                           for nd in nodes[:SRV_ROUTE_NODES]], 1)
+        for i, node in enumerate(nodes):
+            if i >= SRV_ROUTE_NODES:
+                srv.backend.add_node(node)
+            srv.backend.add_pod(Pod(
+                name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+                scheduler_name="default-scheduler", node_name=node.name,
+                phase="Running",
+                containers=[Container(requests=Resources(*map(int, usage[i])))],
+            ))
+
+        def jobs(lo, hi):
+            out = []
+            for i in range(lo, hi):
+                g = i % P14_GROUPS
+                pod = p14_pod_json(f"p14-{policy}-{i:03d}", f"group-{g}",
+                                   EXT_CLOCK - 500 + i)
+                out.append([("PUT", "/state/pods", pod),
+                            ("POST", "/predicates",
+                             {"Pod": pod, "NodeNames": groups[g]})])
+            return out
+
+        half = n_drivers // 2
+        got, lat = run_clients(port, jobs(0, half), n_clients)
+        check(all(st == 200 for st, _ in got.values()),
+              f"{label}: a healthy driver was refused")
+        check(srv.app.solver.window_path_counts.get("pool", 0) > 0,
+              f"{label}: no window served on the pool")
+        kill_all = FaultPlan(seed=0, name="pool-down", specs=[FaultSpec(
+            surface="device.dispatch", mode="partition")])
+        with FaultInjector(kill_all) as inj:
+            inj.install_device()
+            got2, lat2 = run_clients(port, jobs(half, n_drivers - 1), n_clients)
+            # One more, by hand, for its headers.
+            last = jobs(n_drivers - 1, n_drivers)[0]
+            run_clients(port, [last[:1]], 1)
+            status, headers, body = post_raw(port, last[1][2])
+            got2[last[1][2]["Pod"]["metadata"]["name"]] = (status, body)
+            ready = http_get(port, "/status/readiness")
+            state = json.loads(http_get(port, "/debug/state")[1])
+        faults = state.get("faults", {})
+        check(faults.get("device", {}).get("healthy") == 0
+              and faults.get("degraded", {}).get("active"),
+              f"{label}: /debug/state faults {faults}")
+        if policy == "shed":
+            check(all(st == 503 for st, _ in got2.values()),
+                  f"{label}: {sorted({st for st, _ in got2.values()})} "
+                  "where every driver must be shed")
+            check(all(json.loads(body).get("degraded") for _, body in got2.values()),
+                  f"{label}: a shed body without degraded")
+            check(ready[0] == 503 and json.loads(ready[1])["degraded"],
+                  f"{label}: readiness {ready}")
+            check(headers.get("Retry-After") == "7",
+                  f"{label}: Retry-After {headers.get('Retry-After')}")
+        else:
+            check(all(st == 200 for st, _ in got2.values()),
+                  f"{label}: a degraded driver was refused")
+            body = json.loads(ready[1])
+            check(ready[0] == 200 and body["degraded"] and body["policy"] == "greedy",
+                  f"{label}: readiness {ready}")
+            got.update(got2)
+        # The fault ends: a forced probe reinstates both slots.
+        reinstated = srv.app.solver.probe_quarantined(force=True)
+        check(reinstated == 2, f"{label}: {reinstated} slots reinstated")
+        got3, _ = run_clients(port, jobs(n_drivers, n_drivers + 8), n_clients)
+        check(all(st == 200 for st, _ in got3.values()),
+              f"{label}: a driver after the recovery was refused")
+        got.update(got3)
+        ready2 = http_get(port, "/status/readiness")
+        check(ready2 == (200, b'{"ready": true}'), f"{label}: readiness after "
+                                                   f"the recovery {ready2}")
+        if policy == "greedy":
+            server_checks(srv, label, on_card, healthy=False)
+        else:
+            # A shed window records no decision: only the over-commit and
+            # solo-pack checks apply.
+            violations = overcommit_violations(srv.app, srv.backend)
+            check(not violations, f"{label} over-commit: {violations[:8]}")
+            check(srv.solo_packs["other"] == 0, f"{label}: solo packs off "
+                                                 "the batcher thread")
+        snap = srv.app.solver.degraded.snapshot()
+    finally:
+        srv.server.stop()
+    launches = {"window": window_pack.launches - w0,
+                "probe": probe_add_one.launches - p0}
+    if policy == "greedy":
+        compared = replay_server_log(
+            srv.log, dataclasses.replace(config, solver_device_pool=1), got,
+            label=label, skip_drains=True)
+        check(compared == len(got), f"{label}: compared {compared} of "
+                                    f"{len(got)} responses")
+    print(f"{label} ({card}): {len(groups)} instance groups, {n_clients} "
+          f"clients; {half} drivers on the pool, {n_drivers - half} with every "
+          f"slot killed ({'503 Retry-After 7, readiness 503' if policy == 'shed' else 'served on the host greedy, readiness 200 degraded'}), "
+          f"8 after the probe reinstated both slots; degraded engagements "
+          f"{snap['engagements']}, fallback decisions "
+          f"{snap['fallback_decisions']}, sheds {snap['shed_requests']}"
+          + (f"; every body equal to a cpu replay ({len(got)})"
+             if policy == "greedy" else ""), flush=True)
+    return launches
+
+
+def post_raw(port, payload):
+    """(status, headers, body) of one POST /predicates."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/predicates", body=json.dumps(payload).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = (resp.status, dict(resp.getheaders()), resp.read())
+    conn.close()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4629,17 +5211,30 @@ def main() -> int:
     policy_launches, _ = run_policy_phase(device, card)
     elastic_launches, _ = run_autoscaler_phase(device, card)
     print(f"phase 13: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    pool_launches = run_pool_phase(device, card)
+    shed_launches = run_pool_server_phase(device, card, "shed")
+    greedy_launches = run_pool_server_phase(device, card, "greedy")
+    p14 = {k: pool_launches[k] + shed_launches[k] + greedy_launches[k]
+           for k in pool_launches}
+    print(f"phase 14: passed in {time.perf_counter() - t0:.1f} s; row-walk "
+          f"launches {p14['window']} ((a)-(d) {pool_launches['window']}, "
+          f"(e) {shed_launches['window']} + {greedy_launches['window']}), "
+          f"probe {p14['probe']}", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
     # ingestion over the WAL store (phase 9), as HA replicas (phase 10),
-    # with fused claims (phase 11), over pruned windows (phase 12), and
-    # under the policy engine and the autoscaler (phase 13).
+    # with fused claims (phase 11), over pruned windows (phase 12), under
+    # the policy engine and the autoscaler (phase 13), and over the device
+    # pool, its re-dispatches and its quarantine probes (phase 14).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
                         + wal_launches[k] + ha_launches[k] + fused_launches[k]
                         + prune_launches[k] + policy_launches[k]
-                        + elastic_launches[k])
+                        + elastic_launches[k] + pool_launches[k]
+                        + shed_launches[k] + greedy_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

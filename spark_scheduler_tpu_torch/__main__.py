@@ -71,6 +71,24 @@ def main(argv=None) -> int:
         "server.ingest",
     )
     srv.add_argument(
+        "--device-pool",
+        type=int,
+        default=None,
+        help="window-solve device pool: a resident cluster replica on each "
+        "of N cards (clamped to the cards there are), concurrent window "
+        "solves spread over them (disjoint instance-group windows solve in "
+        "parallel), a slot that faults quarantined and its work "
+        "re-dispatched; overrides the install config's solver.device-pool",
+    )
+    srv.add_argument(
+        "--mesh",
+        default=None,
+        metavar="GROUPSx1",
+        help="full mesh form of --device-pool, e.g. '4x1' = 4 pool slots "
+        "(solver.mesh {groups, node-shards}); node-shards > 1 is not "
+        "supported by the port (ROADMAP A.6)",
+    )
+    srv.add_argument(
         "--fuse-windows",
         type=int,
         default=None,
@@ -243,12 +261,30 @@ def main(argv=None) -> int:
         config.server_ingest = args.ingest
     if args.no_delta_statics:
         config.solver_delta_statics = False
+    if args.device_pool is not None:
+        # The flag overrides the whole pool config: a configured
+        # solver.mesh would otherwise win inside the solver and make
+        # `--device-pool 1` a no-op. An explicit --mesh still wins.
+        config.solver_device_pool = args.device_pool
+        config.solver_mesh_groups = None
+        config.solver_mesh_node_shards = None
     if args.fuse_windows is not None:
         config.solver_fuse_windows = args.fuse_windows
     if args.prune_top_k is not None:
         config.solver_prune_top_k = args.prune_top_k
     if args.prune_slack is not None:
         config.solver_prune_slack = args.prune_slack
+    if args.mesh is not None:
+        try:
+            groups, shards = (int(x) for x in args.mesh.lower().split("x"))
+        except ValueError:
+            print(
+                f"--mesh expects GROUPSxSHARDS (e.g. 4x1), got {args.mesh!r}",
+                file=sys.stderr,
+            )
+            return 2
+        config.solver_mesh_groups = groups
+        config.solver_mesh_node_shards = shards
 
     registry = MetricRegistry()
     metrics = SchedulerMetrics(registry, config.instance_group_label)

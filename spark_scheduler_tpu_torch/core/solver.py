@@ -21,6 +21,17 @@ The solver runs on `device="cuda"` unless the caller asks for the CPU; with
 no card and no explicit CPU request it raises, and it never moves work to
 the CPU on its own. On the card the window goes through the CUDA row-walk
 kernel; on the CPU through its plain PyTorch version.
+
+Device-fault tolerance (`device_pool` / `mesh`, `degraded`): a pooled
+solver spreads each pipelined window over slots (core/device_pool.py),
+partitioned by disjoint instance-group domains, each slot on its own CUDA
+stream; a slot whose solve dies of a classified device fault
+(faults/errors.classify_slot_failure) is quarantined and its part
+re-dispatched on a survivor, and a probe launch reinstates it later. With
+no device left the degraded-mode controller answers: the host greedy
+(core/fallback.py) or a shed. A build failure, a launch the kernel's own
+configuration refuses, and an illegal address or launch failure (what a
+wrong kernel raises) are never classified: they raise.
 """
 
 from __future__ import annotations
@@ -31,15 +42,27 @@ import threading
 import time
 import weakref
 from collections import OrderedDict
+from concurrent.futures import Future
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from spark_scheduler_tpu_torch.core.device_pool import (
+    DevicePool,
+    PendingBase,
+    WindowPart,
+    shared_solve_pool,
+)
 from spark_scheduler_tpu_torch.core.prune import (
     PLAIN_FILLS,
     PrunePlanner,
     certify_window,
+)
+from spark_scheduler_tpu_torch.faults.errors import (
+    AllSlotsQuarantinedError,
+    DegradedUnavailableError,
+    classify_slot_failure,
 )
 from spark_scheduler_tpu_torch.models.cluster import (
     FIELD_DTYPES,
@@ -60,12 +83,31 @@ from spark_scheduler_tpu_torch.ops.packing import (
     PREEMPTION_FILL,
     preemption_batched_fit,
 )
-from spark_scheduler_tpu_torch.ops.probe import probe
+from spark_scheduler_tpu_torch.ops.probe import PROBE_SHAPE, probe, probe_add_one
 from spark_scheduler_tpu_torch.ops.window import (
     SegmentedWindow,
     segmented_window_from_flat,
     window_pack,
 )
+
+# Device shim (testing/rtt_shim.py, faults/injector.py). When installed,
+# the solver calls it with "h2d" on the dispatcher thread at every window
+# or solo upload, "dispatch" on the thread launching a pooled slot's solve
+# (and before a quarantine probe), and "d2h" on the thread pulling a
+# decision blob. None keeps every hook a single global read.
+_DEVICE_SHIM = None
+
+
+def set_device_shim(shim) -> None:
+    """Install (or clear, with None) the process-wide device shim."""
+    global _DEVICE_SHIM
+    _DEVICE_SHIM = shim
+
+
+def _shim(kind: str) -> None:
+    s = _DEVICE_SHIM
+    if s is not None:
+        s(kind)
 
 
 def _build_segmented_window(
@@ -215,7 +257,7 @@ class WindowHandle:
         "row_skippable", "seg_map", "window_rows", "info", "request_device",
         "dispatched_at", "released", "fused_decisions", "fused_bounds",
         "applied", "prune", "base_kept", "use_fallback", "resolved",
-        "__weakref__",
+        "parts", "greedy", "__weakref__",
     )
 
     def __init__(self, *, strategy, blob, requests, host_avail,
@@ -284,10 +326,30 @@ class WindowHandle:
         # windows' results here for the fetch.
         self.use_fallback = False
         self.resolved = None
+        # Pooled dispatch: the WindowParts (per-part futures); None on the
+        # single-device path. request_device names each request's slot.
+        self.parts = None
+        # No device solved this window (the card failed at dispatch, or no
+        # pool slot was healthy): the fetch serves it on the host greedy.
+        self.greedy = False
 
     @property
     def dispatch_id(self):
         return (self.info or {}).get("dispatch_id")
+
+    def fetch_ready(self) -> bool:
+        """True when every decision pull this dispatch started has landed
+        (completing it costs no blocking wait); False when there is none
+        to wait for on a side thread."""
+        if self.parts is not None:
+            return all(p.future.done() for p in self.parts)
+        return False
+
+    def has_eager_fetch(self) -> bool:
+        """Whether decision pulls run on side threads (a pooled dispatch's
+        parts): the serving loop then waits on their futures instead of
+        blocking in the fetch."""
+        return self.parts is not None
 
     def release_buffers(self) -> None:
         """Drop the decision buffer (close()/discard_pipeline()): a
@@ -296,6 +358,8 @@ class WindowHandle:
         self.released = True
         self.blob = None
         self.ready = None
+        for part in self.parts or ():
+            part.future.cancel()
 
     def fetch_blob(self) -> np.ndarray:
         """The decision blob on the host, waiting for the device if the
@@ -341,6 +405,32 @@ class FusedWindowView:
         rd = self.owner.request_device
         return rd[self.lo:self.hi] if rd is not None else None
 
+    # The serving loop's eager-fetch surface (server/http.py eager_futures).
+    @property
+    def parts(self):
+        return self.owner.parts
+
+    def fetch_ready(self) -> bool:
+        if self.owner.fused_decisions is not None:
+            return True
+        return self.owner.fetch_ready()
+
+    def has_eager_fetch(self) -> bool:
+        return self.owner.has_eager_fetch()
+
+
+def _debit_rows(base, base_rows, rows, vals):
+    """Subtract `vals` from `base` (in place, returned) where the sorted
+    global rows `base_rows` that index it hold `rows`; rows outside it
+    are skipped."""
+    if rows.size:
+        loc = np.searchsorted(base_rows, rows)
+        locc = np.clip(loc, 0, base_rows.size - 1)
+        on = base_rows[locc] == rows
+        if on.any():
+            base[locc[on]] -= vals[on]
+    return base
+
 
 class PlacementSolver:
     def __init__(
@@ -351,6 +441,10 @@ class PlacementSolver:
         delta_statics: bool = True,
         prune_top_k: int = 0,
         prune_slack: float = 2.0,
+        device_pool: int = 1,
+        mesh: "tuple[int, int] | None" = None,
+        quarantine_probe_s: float = 5.0,
+        pool_devices=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -365,6 +459,55 @@ class PlacementSolver:
             # compare equal to the solver's device.
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.registry = NodeRegistry()
+        # The window-solve device pool (`solver.device-pool` /
+        # `solver.mesh.groups`): `mesh=(groups, node_shards)` or
+        # `device_pool=P` (mesh (P, 1)) asks for that many slots over the
+        # devices of the solver's type, clamped to their count, so one card
+        # gives no pool. `pool_devices` (a deliberate deviation from the
+        # JAX package) names the slots' devices instead, one slot each,
+        # repeats allowed: several slots on one card, each on its own
+        # stream. A pool of one slot is no pool. Node-sharded slots
+        # (node_shards > 1) raise (ROADMAP §A.6).
+        self._pool: DevicePool | None = None
+        groups, node_shards = mesh if mesh is not None else (device_pool, 1)
+        if pool_devices is not None or groups > 1 or node_shards > 1:
+            from spark_scheduler_tpu_torch.parallel.mesh import (
+                local_devices,
+                make_pool_slots,
+            )
+
+            devices = (
+                pool_devices
+                if pool_devices is not None
+                else local_devices(self.device.type)
+            )
+            slots = make_pool_slots(
+                len(devices) if pool_devices is not None else groups,
+                node_shards, devices=devices,
+            )
+            if any(d.type != self.device.type for d in slots):
+                raise ValueError(
+                    f"pool devices {[str(d) for d in slots]} are not of the "
+                    f"solver's type {self.device.type}"
+                )
+            if len(slots) > 1:
+                self._pool = DevicePool(slots)
+        # Quarantine probing, the degraded-mode controller
+        # (faults/degraded.py, wired by build_scheduler_app; None = device
+        # failures propagate) and the lazy host greedy it serves through.
+        self.quarantine_probe_s = float(quarantine_probe_s)
+        self.degraded = None
+        self._fallback = None
+        self.redispatch_count = 0
+        self._clock = time.time
+        # Pool worker futures in flight, cancelled (if not started) by
+        # close(); after close() a dispatch fails fast.
+        self._inflight_futures: set = set()
+        self._closed = False
+        # Statics-epoch journal: epoch -> rows a static row delta changed.
+        # A pool slot E epochs behind scatters the union of those rows; a
+        # full upload clears it (every replica then re-uploads).
+        self._static_journal: dict[int, np.ndarray] = {}
         self._driver_label_priority = driver_label_priority
         self._executor_label_priority = executor_label_priority
         # Static row deltas: a node event that changes few static rows
@@ -407,8 +550,7 @@ class PlacementSolver:
         self.last_solve_info: dict | None = None
         # SolverTelemetry hook surface (observability/telemetry.py), wired
         # by build_scheduler_app; None keeps every hot-path hook a single
-        # attribute test. There is no degraded mode: a build or launch
-        # failure raises.
+        # attribute test.
         self.telemetry = None
         # Candidate pruning (`solver.prune-top-k` / `solver.prune-slack`,
         # core/prune.py): when top-k > 0, an eligible pipelined window
@@ -465,6 +607,151 @@ class PlacementSolver:
             "offset_ms": 0.0,
         }
 
+    # -- device-fault tolerance -------------------------------------------
+
+    @property
+    def fallback(self):
+        """The host greedy the degraded "greedy" policy serves through."""
+        if self._fallback is None:
+            from spark_scheduler_tpu_torch.core.fallback import (
+                GreedyFallbackSolver,
+            )
+
+            self._fallback = GreedyFallbackSolver(self)
+        return self._fallback
+
+    @property
+    def pool_size(self) -> int:
+        """Slots of the window-solve pool (1 = the single-device path)."""
+        return len(self._pool.slots) if self._pool is not None else 1
+
+    def device_pool_stats(self) -> dict:
+        """Per-slot resident-state stats ({label: {full, delta, reuse,
+        inflight, quarantined, failures, mirror}})."""
+        return self._pool.stats() if self._pool is not None else {}
+
+    def device_health(self) -> dict:
+        """{slots, healthy, quarantined: [labels]} — /debug/state and the
+        readiness probe's degraded view."""
+        if self._pool is None:
+            return {"slots": 1, "healthy": 1, "quarantined": []}
+        return self._pool.health()
+
+    def dispatch_occupancy(self) -> float:
+        """Busy fraction of the dispatch surface now: pooled, the share of
+        slots with a solve in flight; one device, 1.0 while a dispatched
+        window is still unfetched."""
+        if self._pool is not None:
+            return self._pool.occupancy()
+        p = self._pipe
+        return 1.0 if p is not None and p["unfetched"] else 0.0
+
+    def _on_slot_event(self, event: str, label: str) -> None:
+        if self.telemetry is not None:
+            self.telemetry.on_slot_event(event, label)
+            if self._pool is not None:
+                self.telemetry.on_quarantine_count(
+                    len(self._pool.quarantined_slots())
+                )
+
+    def _quarantine_slot(self, slot, exc) -> None:
+        self._pool.quarantine(slot, self._clock())
+        self._on_slot_event("quarantine", slot.label)
+        from spark_scheduler_tpu_torch.tracing import svc1log
+
+        svc1log().warn(
+            "device slot quarantined",
+            device=slot.label,
+            error=f"{type(exc).__name__}: {exc}",
+            failures=slot.failure_count,
+        )
+
+    def probe_quarantined(self, force: bool = False) -> int:
+        """Launch the probe kernel (ops/probe.probe_add_one) on each
+        quarantined slot whose probe interval elapsed, on the slot's
+        stream; success reinstates the slot (statics re-upload on its next
+        dispatch). A classified device fault keeps it quarantined; wrong
+        values or any other error raise. Returns the slots reinstated.
+        After a fault that poisons the CUDA context (an uncorrectable ECC
+        error) the probe keeps failing and the slot stays out."""
+        pool = self._pool
+        if pool is None:
+            return 0
+        reinstated = 0
+        now = self._clock()
+        for s in pool.quarantined_slots():
+            if not force and now - s.last_probe < self.quarantine_probe_s:
+                continue
+            s.last_probe = now
+            try:
+                with s.context():
+                    _shim("dispatch")
+                    x = torch.zeros(PROBE_SHAPE, dtype=torch.int32, device=s.device)
+                    ok = bool((probe_add_one(x) == 1).all())
+            except Exception as exc:
+                if classify_slot_failure(exc):
+                    self._on_slot_event("probe-failed", s.label)
+                    continue
+                raise
+            if not ok:
+                raise RuntimeError(
+                    f"probe kernel returned wrong values on slot {s.label}"
+                )
+            pool.reinstate(s)
+            reinstated += 1
+            self._on_slot_event("reinstate", s.label)
+        if reinstated and self.degraded is not None and pool.healthy_slots():
+            self.degraded.clear()
+        return reinstated
+
+    def _degraded_or_raise(self, exc):
+        """A device failure with no healthy slot to retry on: consult the
+        degraded policy. Returns True when the caller should serve on the
+        host greedy; raises DegradedUnavailableError (shed) or re-raises
+        `exc` (no controller wired)."""
+        d = self.degraded
+        if d is None:
+            raise exc
+        d.engage(f"{type(exc).__name__}: {exc}")
+        if d.sheds:
+            d.on_shed()
+            raise DegradedUnavailableError(
+                f"no device slot available: {exc}", d.retry_after_s
+            ) from exc
+        return True
+
+    def _device_recovered(self) -> None:
+        """A device solve completed: a degraded mode engaged by a transient
+        single-device failure clears (a pool's clears at reinstatement)."""
+        d = self.degraded
+        if d is not None and d.active:
+            if self._pool is None or self._pool.healthy_slots():
+                d.clear()
+
+    def _drop_pipeline(self, event: str) -> None:
+        """A device fault made the threaded base unknowable: drop it (the
+        next build uploads the host view in full). The windows still in
+        flight on it hold builds back until they are fetched, as after a
+        pruned window's escalation: their gangs are on no device base and
+        in no host view yet (the JAX package full-uploads without them,
+        and a window dispatched on that upload can over-commit)."""
+        p = self._pipe
+        if p is not None:
+            for h in p["unfetched"]:
+                self._poisoned.setdefault(h, set(h.applied))
+            self._pipe = None
+            self._note_inflight()
+        if self.telemetry is not None:
+            self.telemetry.on_pipeline_event(event)
+
+    def _release_pool(self) -> None:
+        if self._pool is None:
+            return
+        self._pool.release()
+        if self.telemetry is not None:
+            for s in self._pool.slots:
+                self.telemetry.on_device_inflight(s.label, 0)
+
     def _build_host(self, nodes: Sequence[Node], usage, overhead):
         for n in nodes:
             self.registry.intern(n.name)
@@ -508,14 +795,21 @@ class PlacementSolver:
         return self._upload(self._build_host(nodes, usage, overhead))
 
     def close(self) -> None:
-        """Release the pipelined device state (the app's shutdown). The
-        solver keeps no worker threads: a dispatch's decision copy is
-        queued on the card's stream, so there is no queued work to
-        cancel."""
+        """Release the pipelined device state (the app's shutdown): cancel
+        the pool's queued part solves of this solver (the shared workers
+        stay up for other solvers), drop the pipeline, the gathered
+        statics, fused buffers and every slot's resident replicas. A
+        dispatch after close() raises. On one device a dispatch's decision
+        copy is queued on the card's stream: there is nothing to cancel."""
+        self._closed = True
+        for fut in list(self._inflight_futures):
+            fut.cancel()
+        self._inflight_futures.clear()
         self._pipe = None
         self._poisoned.clear()
         self._prune_gather_cache.clear()  # release the gathered statics
         self._release_fused()
+        self._release_pool()
         self._note_inflight()
 
     def discard_pipeline(self) -> None:
@@ -529,6 +823,7 @@ class PlacementSolver:
         self._poisoned.clear()
         self._prune_gather_cache.clear()  # release the gathered statics
         self._release_fused()
+        self._release_pool()
         self._note_inflight()
         if self.telemetry is not None:
             self.telemetry.on_pipeline_event("discard")
@@ -581,10 +876,12 @@ class PlacementSolver:
         if self._poisoned:
             avail = host.available.astype(np.int64)
             for h, fetched in list(self._poisoned.items()):
-                if h.use_fallback and h.resolved is None and h.requests:
-                    h.resolved = self._resolve_full(
-                        h, h.fused_bounds or [(0, len(h.requests))]
-                    )
+                bounds = h.fused_bounds or [(0, len(h.requests))]
+                if h.resolved is None and h.requests:
+                    if h.greedy:
+                        h.resolved = self._fetch_fallback(h, bounds)
+                    elif h.use_fallback:
+                        h.resolved = self._resolve_full(h, bounds)
                 for i, (rows, amounts) in enumerate(h.window_placements or ()):
                     if i not in fetched and rows.size:
                         avail[rows] -= amounts
@@ -612,23 +909,34 @@ class PlacementSolver:
                         for r, a in zip(rows, amounts):
                             yield name_of(int(r)), a
                 continue
-            blob = h.fetch_blob()[h.seg_map[0], h.seg_map[1]].astype(np.int64)
-            gmap = (
-                h.prune.keep.astype(np.int64) if h.prune is not None else None
-            )
-            drivers, admitted, execs = blob[:, 0], blob[:, 1], blob[:, 3:]
-            starts = np.concatenate(
-                [[0], np.cumsum([len(req.rows) for req in h.requests])]
-            )
+            if h.parts is not None:
+                # A pooled dispatch: each part's blob, in its own row space.
+                pieces = [
+                    (p.future.result()["blob"].astype(np.int64), p.req_ids,
+                     p.rows.drv_arr.astype(np.int64),
+                     p.rows.exc_arr.astype(np.int64),
+                     None if p.idx is None else p.idx.astype(np.int64))
+                    for p in h.parts
+                ]
+            else:
+                blob = h.fetch_blob()[h.seg_map[0], h.seg_map[1]]
+                pieces = [(
+                    blob.astype(np.int64), range(len(h.requests)),
+                    h.row_driver_req, h.row_exec_req,
+                    h.prune.keep.astype(np.int64) if h.prune is not None else None,
+                )]
+            window_of = np.zeros(len(h.requests), np.int64)
             for i, (lo, hi) in enumerate(bounds):
-                if i in h.applied:
-                    continue
-                for k in range(lo, hi):
-                    real = int(starts[k + 1]) - 1
-                    if not admitted[real]:
+                window_of[lo:hi] = i
+            for blob, req_ids, drv64, exc64, gmap in pieces:
+                drivers, admitted, execs = blob[:, 0], blob[:, 1], blob[:, 3:]
+                real = -1
+                for k in req_ids:
+                    real += len(h.requests[k].rows)
+                    if window_of[k] in h.applied or not admitted[real]:
                         continue
-                    slots = [(drivers[real], h.row_driver_req[real])]
-                    slots += [(e, h.row_exec_req[real]) for e in execs[real]]
+                    slots = [(drivers[real], drv64[real])]
+                    slots += [(e, exc64[real]) for e in execs[real]]
                     for row, amount in slots:
                         if row >= 0:
                             if gmap is not None:
@@ -697,7 +1005,10 @@ class PlacementSolver:
         dropped carry has been fetched: their gangs are on no device base
         and in no host view yet, and a window dispatched on a fresh upload
         would not see them (the JAX package does not wait, and such a
-        window can over-commit)."""
+        window can over-commit). So does a device fault that dropped the
+        pipeline (`_drop_pipeline`), and a pooled window's base combine
+        that failed drops it here."""
+        self._resolve_base()
         if self._pipe is None and self._poisoned:
             if self.telemetry is not None:
                 self.telemetry.on_pipeline_event("drain")
@@ -781,9 +1092,11 @@ class PlacementSolver:
         tensors = self._upload(host)
         self._note_transfer("h2d", _host_nbytes(host))
         self.last_state_upload = "full"
-        # The statics may have changed: the planner's resident state and
-        # the gathered statics start again from this host view.
+        # The statics may have changed: the planner's resident state, the
+        # gathered statics and every pool replica start again from this
+        # host view (the journal cannot bridge a full upload).
         self._static_epoch += 1
+        self._static_journal.clear()
         self._prune_invalidate()
         self._pipe = {
             "host": host,
@@ -794,6 +1107,18 @@ class PlacementSolver:
             "debited": {},
         }
         return tensors
+
+    def _resolve_base(self) -> None:
+        """Resolve a pooled window's pending committed-base combine (each
+        partition's sub-base scattered back into the global base). A
+        combine that failed (a part's solve died) leaves the base
+        unknowable: the pipeline drops, exactly as after a failed fetch."""
+        p = self._pipe
+        if p is not None and isinstance(p["avail"], PendingBase):
+            try:
+                p["avail"] = p["avail"].result()
+            except Exception:
+                self._drop_pipeline("fetch-failure")
 
     def _plan_static_delta(self, prev, host):
         """(changed field names, dirty rows) when the static drift between
@@ -832,6 +1157,10 @@ class PlacementSolver:
         self.device_state_stats["static_delta_uploads"] += 1
         self._note_transfer("h2d", nbytes)
         self._static_epoch += 1
+        # Pool replicas catch up by scattering the same rows.
+        self._static_journal[self._static_epoch] = rows
+        while len(self._static_journal) > 64:
+            self._static_journal.pop(next(iter(self._static_journal)))
         if self._planner is not None:
             # Static dirt: a kept row's zone or validity flip re-scans its
             # zone; a new valid row merges exactly.
@@ -1046,12 +1375,34 @@ class PlacementSolver:
         )
         tel = self.telemetry
         compiles_before = tel.compile_count() if tel is not None else None
-        self._ensure_probed()
-        meta, execs, _base_after = window_pack(
-            tensors, win, fill=strategy, emax=emax,
-            num_zones=self._num_zones_bucket(),
-        )
-        blob = torch.cat([meta[0, 0, :3], execs[0, 0]]).cpu().numpy()
+        try:
+            _shim("h2d")
+            self._ensure_probed()
+            meta, execs, _base_after = window_pack(
+                tensors, win, fill=strategy, emax=emax,
+                num_zones=self._num_zones_bucket(),
+            )
+            _shim("d2h")
+            blob = torch.cat([meta[0, 0, :3], execs[0, 0]]).cpu().numpy()
+        except Exception as exc:
+            if not (classify_slot_failure(exc) and self.degraded is not None):
+                raise
+            # A solo pack does not thread the pipelined base, so the
+            # pipeline survives; this decision is served degraded.
+            self._degraded_or_raise(exc)
+            self.last_solve_info = {
+                "path": "greedy-fallback",
+                "nodes": n,
+                "emax": emax,
+                "compile_cache_hit": None,
+                "degraded": True,
+            }
+            packing = self.fallback.pack(
+                strategy, host, driver_resources, executor_resources,
+                executor_count, driver_mask, domain_mask,
+            )
+            self.degraded.on_fallback_decision()
+            return packing
         self.last_solve_info = {
             "path": "cuda" if self.device.type == "cuda" else "reference",
             "nodes": n,
@@ -1077,6 +1428,7 @@ class PlacementSolver:
             exc,
         )
         name_of = self.registry.name_of
+        self._device_recovered()
         return HostPacking(
             driver_node=name_of(driver_idx) if driver_idx >= 0 else None,
             executor_nodes=[name_of(int(i)) for i in executor_nodes if i >= 0],
@@ -1170,6 +1522,9 @@ class PlacementSolver:
         planner declines it."""
         if strategy not in BINPACK_STRATEGIES:
             raise ValueError(f"strategy {strategy!r} is not batchable")
+        if self._closed:
+            # Fail fast before any device work or pipeline mutation.
+            raise RuntimeError("cannot schedule new futures after shutdown")
         self._check_device(tensors)
         if not requests:
             return WindowHandle(
@@ -1179,6 +1534,11 @@ class PlacementSolver:
         rows = self._window_rows(tensors, requests)
         p = self._pipe
         pipelined = p is not None and tensors is p["tensors"]
+        if self._pool is not None and pipelined:
+            # The device pool: the window, partitioned by disjoint
+            # domains when it can be, over the pool's slots (each
+            # partition pruned on its own when pruning is on).
+            return self._dispatch_pooled(strategy, tensors, rows, p)
         if pipelined and self._prune_eligible(strategy):
             dom_shared, dom_key = self._shared_prune_domain(
                 requests, rows.dom_keys, rows.dom_per_req
@@ -1193,13 +1553,21 @@ class PlacementSolver:
         batch = self._layout(rows)
         tel = self.telemetry
         compiles_before = tel.compile_count() if tel is not None else None
-        self._ensure_probed()
         path = "cuda" if self.device.type == "cuda" else "reference"
-        meta, execs, base_after = window_pack(
-            tensors, batch.win, fill=strategy, emax=batch.emax,
-            num_zones=batch.num_zones,
-        )
-        blob, ready = self._stage_blob(meta, execs)
+        try:
+            _shim("h2d")
+            self._ensure_probed()
+            meta, execs, base_after = window_pack(
+                tensors, batch.win, fill=strategy, emax=batch.emax,
+                num_zones=batch.num_zones,
+            )
+            blob, ready = self._stage_blob(meta, execs)
+        except Exception as exc:
+            if not classify_slot_failure(exc):
+                raise
+            return self._device_failed_at_dispatch(
+                exc, strategy, tensors, rows, p if pipelined else None
+            )
         self.window_path_counts[path] = (
             self.window_path_counts.get(path, 0) + 1
         )
@@ -1251,15 +1619,99 @@ class PlacementSolver:
         handle.row_skippable = batch.skippable
         handle.seg_map = batch.seg_map
         handle.info = info
+        # Read by a re-solve only: the host greedy after a device fault,
+        # or the row walk after a pruned window's escalation poisoned the
+        # carry this dispatch rides.
+        handle.host_tensors = host
+        handle.window_rows = rows
         if pipelined:
-            if self._prune_top_k > 0:
-                # Read only by a full re-solve, after a pruned window's
-                # escalation poisoned the carry this dispatch rides.
-                handle.host_tensors = host
-                handle.window_rows = rows
             p["unfetched"].append(handle)
             self._note_inflight()
         return handle
+
+    def _device_failed_at_dispatch(self, exc, strategy, tensors, rows, p):
+        """A classified device fault while dispatching on the solver's
+        device: the threaded base may hold half a solve, so the pipeline
+        drops (`p` is the live pipeline when the dispatch rode it), and the
+        window is served per the degraded policy: a greedy handle, a shed,
+        or `exc` again with no controller."""
+        priors: tuple = ()
+        debited = None
+        if p is not None:
+            priors = tuple(p["unfetched"])
+            debited = [p["debited"].get(h, frozenset()) for h in priors]
+        self._drop_pipeline("device-failure")
+        self._degraded_or_raise(exc)
+        return self._make_fallback_handle(
+            strategy, rows, host_view(tensors), priors, debited
+        )
+
+    def _make_fallback_handle(
+        self, strategy, rows: _WindowRows, host, priors, debited
+    ) -> WindowHandle:
+        """A dispatch-less handle: no device solved the window (degraded
+        "greedy" with no device to serve it); pack_window_fetch serves it
+        on the host greedy, from the same reconstruction every fetch uses.
+        It holds builds back until it is fetched: its gangs are on no
+        device base."""
+        handle = WindowHandle(
+            strategy=strategy,
+            blob=None,
+            requests=rows.requests,
+            host_avail=np.array(host.available, dtype=np.int64),
+            host_schedulable=np.asarray(host.schedulable),
+            priors=priors,
+            prior_debited=debited,
+        )
+        handle.greedy = True
+        handle.host_tensors = host
+        handle.window_rows = rows
+        handle.info = {
+            "path": "greedy-fallback",
+            "nodes": int(host.available.shape[0]),
+            "rows": len(rows.drv_arr),
+            "row_bucket": 0,
+            "emax": 0,
+            "state_upload": None,
+            "compile_cache_hit": None,
+            "dispatch_id": next(self._dispatch_seq),
+            "fused_k": 1,
+            "degraded": True,
+        }
+        handle.dispatched_at = time.perf_counter()
+        self.last_solve_info = handle.info
+        self.window_path_counts["greedy-fallback"] = (
+            self.window_path_counts.get("greedy-fallback", 0) + 1
+        )
+        self._poisoned[handle] = set()
+        return handle
+
+    def _fetch_fallback(self, handle: WindowHandle, bounds) -> list:
+        """Serve a dispatch's windows on the host greedy, over the same base
+        reconstruction every fetch path uses (the host view at dispatch
+        minus the placements of windows in flight then), so the degraded
+        decisions see exactly the availability a device solve would have."""
+        base = self._dense_base(handle)
+        out = []
+        for lo, hi in bounds:
+            decisions, placements = self.fallback.window_decisions(
+                handle.strategy, handle.host_tensors, base,
+                handle.requests[lo:hi], emax=handle.window_rows.emax,
+            )
+            base -= placements
+            rows = np.flatnonzero(placements.any(axis=1)).astype(np.int64)
+            out.append((decisions, rows, placements[rows]))
+        handle.window_placements = [(r, a) for _, r, a in out]
+        if self.degraded is not None:
+            self.degraded.on_fallback_decision(len(handle.requests))
+        for _, rows, _ in out:
+            self._prune_note_rows(rows)
+        if self.telemetry is not None:
+            k = max(1, (handle.info or {}).get("fused_k", 1))
+            self.telemetry.on_dispatch_complete(
+                (time.perf_counter() - handle.dispatched_at) * 1e3 / k, k
+            )
+        return out
 
     def _stage_blob(self, meta, execs):
         """The decision blob [S, R, 3 + emax] of a window solve, and the
@@ -1516,6 +1968,25 @@ class PlacementSolver:
         dev = self.device
         tel = self.telemetry
         compiles_before = tel.compile_count() if tel is not None else None
+        try:
+            return self._dispatch_pruned_solve(
+                strategy, tensors, rows, p, dom_shared, plan, host, n, b,
+                dev, tel, compiles_before,
+            )
+        except Exception as exc:
+            if not classify_slot_failure(exc):
+                raise
+            return self._device_failed_at_dispatch(
+                exc, strategy, tensors, rows, p
+            )
+
+    def _dispatch_pruned_solve(
+        self, strategy, tensors, rows, p, dom_shared, plan, host, n, b, dev,
+        tel, compiles_before,
+    ) -> "WindowHandle":
+        """The pruned dispatch's device work and handle (_dispatch_pruned)."""
+        requests = rows.requests
+        _shim("h2d")
         self._ensure_probed()
         keep = plan.keep
         t_gather = time.perf_counter()
@@ -1616,6 +2087,668 @@ class PlacementSolver:
         self._note_inflight()
         return handle
 
+    # -- the device pool (core/device_pool.py) ----------------------------
+
+    @staticmethod
+    def _rows_subset(rows: _WindowRows, req_ids) -> _WindowRows:
+        """The flat rows and masks of the requests `req_ids` of a window,
+        in that order."""
+        starts = np.concatenate(
+            [[0], np.cumsum([len(r.rows) for r in rows.requests])]
+        ).astype(np.int64)
+        row_sel = np.concatenate(
+            [np.arange(starts[r], starts[r + 1]) for r in req_ids]
+        )
+        return _WindowRows(
+            requests=tuple(rows.requests[r] for r in req_ids),
+            drv_arr=rows.drv_arr[row_sel],
+            exc_arr=rows.exc_arr[row_sel],
+            counts=rows.counts[row_sel],
+            skip_arr=rows.skip_arr[row_sel],
+            cand_per_req=[rows.cand_per_req[r] for r in req_ids],
+            dom_per_req=[rows.dom_per_req[r] for r in req_ids],
+            dom_keys=tuple(rows.dom_keys[r] for r in req_ids),
+            emax=rows.emax,
+            num_zones=rows.num_zones,
+        )
+
+    def _slot_inputs_ready(self, slot, base) -> None:
+        """Queue the slot's stream behind the work the calling thread has
+        queued so far (the base it is about to read), and mark the base in
+        use on that stream."""
+        if slot.stream is None:
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        slot.stream.wait_event(ev)
+        if base.device == slot.device:
+            base.record_stream(slot.stream)
+
+    def _base_on_slot(self, slot, base, idx=None) -> torch.Tensor:
+        """The committed base (or its rows `idx`) on the slot's device,
+        under the slot's stream. Same device: the base itself, or a gather
+        of it; another device: a copy of the whole base ("dense")."""
+        if idx is not None:
+            sub = base.index_select(
+                0, torch.as_tensor(idx.astype(np.int64), device=base.device)
+            )
+            return sub if sub.device == slot.device else sub.to(slot.device)
+        if base.device == slot.device:
+            slot.mirror["reuse"] += 1
+            return base
+        slot.mirror["dense"] += 1
+        if self.telemetry is not None:
+            self.telemetry.on_device_mirror(
+                slot.label, "dense", int(base.shape[0]),
+                base.numel() * base.element_size(),
+            )
+        return base.to(slot.device)
+
+    def _land(self, res) -> torch.Tensor:
+        """A part's committed (sub-)base, for the calling thread's stream:
+        that stream waits for the slot's solve and the tensor is marked in
+        use on it; a part on another device copies over."""
+        t, ev = res
+        if ev is not None:
+            cur = torch.cuda.current_stream(t.device)
+            cur.wait_event(ev)
+            t.record_stream(cur)
+        return t if t.device == self.device else t.to(self.device)
+
+    @staticmethod
+    def _part_solve(slot, strategy, sub_avail, statics, batch, zone_base,
+                    delta, after_fut):
+        """One part's solve on a pool worker, on the slot's stream: the row
+        walk over the slot's (sub-)cluster; its committed base (a delta
+        over the kept rows for a pruned part) publishes on `after_fut` as
+        soon as the solve is queued, then the decision blob is pulled."""
+        t0 = time.perf_counter()
+        try:
+            with slot.context():
+                _shim("dispatch")
+                meta, execs, after = window_pack(
+                    cluster_from_statics(sub_avail, statics), batch.win,
+                    fill=strategy, emax=batch.emax, num_zones=batch.num_zones,
+                    zone_base=zone_base,
+                )
+                if delta:
+                    after = after - sub_avail
+                ev = None
+                if slot.stream is not None:
+                    ev = torch.cuda.Event()
+                    ev.record(slot.stream)
+                blob = torch.cat([meta[:, :, :3], execs], dim=2)
+        except BaseException as exc:
+            if not after_fut.done():
+                after_fut.set_exception(exc)
+            raise
+        after_fut.set_result((after, ev))
+        t1 = time.perf_counter()
+        with slot.context():
+            _shim("d2h")
+            full = blob.cpu().numpy()
+        t2 = time.perf_counter()
+        return {
+            "blob": full[batch.seg_map[0], batch.seg_map[1]],
+            "solve_ms": (t1 - t0) * 1e3,
+            "fetch_ms": (t2 - t1) * 1e3,
+            "device": slot.label,
+        }
+
+    def _dispatch_pooled(self, strategy, tensors, rows: _WindowRows, p):
+        """Pooled window dispatch (`solver.device-pool`, the JAX package's
+        `_dispatch_pooled`).
+
+        The window splits into PARTITIONS of requests whose affinity
+        domains are pairwise disjoint (instance groups: every request's
+        node selector pins it to one group). Requests of different
+        partitions interact through no availability row, and zone ranks,
+        priority orders and efficiencies all derive from domain-masked
+        aggregates, so partitions COMMUTE: each solves over a gathered
+        sub-cluster of its domain's rows on its own slot, and the decisions
+        equal the serialized window's. A window that does not partition
+        runs whole on the next slot. With pruning on, each partition (or a
+        whole window with one shared domain) solves the planner's top-K
+        rows of its domain instead.
+
+        The committed base stays one logical thread: each part's committed
+        rows scatter back into a copy of the global base (out of place: a
+        handle in flight may still read the old one) when the next
+        pipelined build resolves the combine."""
+        host = host_view(tensors)
+        n = tensors.num_nodes
+        pool = self._pool
+        tel = self.telemetry
+        compiles_before = tel.compile_count() if tel is not None else None
+        requests = rows.requests
+        solve_pool = shared_solve_pool(min(8, 2 * len(pool.slots)))
+        now = self._clock()
+        # Quarantine gate: probe the quarantined slots whose interval
+        # elapsed; with no healthy slot left, the degraded policy answers.
+        if pool.quarantined_slots():
+            self.probe_quarantined()
+        if not pool.healthy_slots():
+            return self._device_failed_at_dispatch(
+                AllSlotsQuarantinedError(
+                    f"all {len(pool.slots)} device slot(s) quarantined"
+                ),
+                strategy, tensors, rows, p,
+            )
+        dom_keys, dom_per_req = rows.dom_keys, rows.dom_per_req
+        # The partition plan: at least two distinct domain keys, every
+        # request keyed, masks pairwise disjoint and non-empty.
+        plan = None
+        if all(k is not None for k in dom_keys):
+            groups: dict = {}
+            for r, key in enumerate(dom_keys):
+                groups.setdefault(key, []).append(r)
+            if len(groups) > 1:
+                masks = [dom_per_req[ids[0]] for ids in groups.values()]
+                overlap = np.zeros(n, np.int32)
+                for m in masks:
+                    overlap += m
+                if int(overlap.max()) <= 1 and all(m.any() for m in masks):
+                    plan = list(groups.items())
+        base = tensors.available  # the pipeline's carry (p["avail"])
+        havail = np.asarray(host.available)
+        request_device: list = [None] * len(requests)
+        parts: list = []
+        try_prune = self._prune_eligible(strategy)
+        shared_dom, shared_key = (
+            self._shared_prune_domain(requests, dom_keys, dom_per_req)
+            if try_prune
+            else (None, None)
+        )
+        epoch = self._static_epoch
+
+        def submit_part(slot, req_ids, idx_key, idx):
+            sub = self._rows_subset(rows, req_ids)
+            prune_plan = None
+            if try_prune:
+                part_dom = dom_per_req[req_ids[0]] if idx is not None else shared_dom
+                part_key = dom_keys[req_ids[0]] if idx is not None else shared_key
+                if part_dom is not None:
+                    prune_plan = self._plan_prune(
+                        host, part_dom, sub.cand_per_req, sub.drv_arr,
+                        sub.exc_arr, sub.counts, dom_key=part_key,
+                        dom_ref=requests[req_ids[0]].domain_node_names,
+                    )
+                if prune_plan is not None:
+                    # The pruned gather replaces the domain gather.
+                    idx = prune_plan.keep
+                    idx_key = None
+                    self._note_prune_dispatch(prune_plan, len(sub.drv_arr))
+            if idx is None:
+                batch = self._layout(sub)
+            else:
+                batch = self._layout(
+                    sub, cand=[c[idx] for c in sub.cand_per_req],
+                    dom=[d[idx] for d in sub.dom_per_req],
+                )
+            _shim("h2d")
+            zone_base = None
+            with slot.context():
+                self._slot_inputs_ready(slot, base)
+                if idx is None:
+                    statics = slot.resident_statics(
+                        host, epoch, self._clock, tel,
+                        journal=self._static_journal,
+                    )
+                    sub_avail = self._base_on_slot(slot, base)
+                elif prune_plan is not None:
+                    t_gather = time.perf_counter()
+                    ent = self._prune_gather_entry(host, prune_plan)
+                    per_slot = ent.setdefault("slot_statics", {})
+                    statics = per_slot.get(slot.label)
+                    if statics is not None:
+                        slot.uploads["reuse"] += 1
+                        self.prune_stats["gather_reuse"] += 1
+                        if tel is not None:
+                            tel.on_device_upload(slot.label, "reuse", 0)
+                            tel.on_prune_gather_reuse()
+                    else:
+                        statics = slot.upload_statics(ent["statics_np"])
+                        per_slot[slot.label] = statics
+                        slot.uploads["full"] += 1
+                        if tel is not None:
+                            tel.on_device_upload(
+                                slot.label, "full",
+                                sum(f.nbytes for f in ent["statics_np"]),
+                            )
+                    sub_avail = self._base_on_slot(slot, base, idx)
+                    zone_base = tuple(
+                        torch.as_tensor(a, device=slot.device)
+                        for a in prune_plan.zone_base
+                    )
+                    self.prune_stats["gather_ms"] += (
+                        time.perf_counter() - t_gather
+                    ) * 1e3
+                else:
+                    statics = slot.sub_replica(
+                        host, idx_key, idx, epoch, self._clock, tel
+                    )
+                    sub_avail = self._base_on_slot(slot, base, idx)
+            slot.inflight += 1
+            if tel is not None:
+                tel.on_device_inflight(slot.label, slot.inflight)
+                if slot.last_full_upload:
+                    tel.on_device_age(
+                        slot.label, max(0.0, now - slot.last_full_upload)
+                    )
+            after_fut: Future = Future()
+            fut = solve_pool.submit(
+                self._part_solve, slot, strategy, sub_avail, statics, batch,
+                zone_base, prune_plan is not None, after_fut,
+            )
+
+            def propagate_cancel(f, af=after_fut):
+                # A part close() cancelled never runs: its base future
+                # fails too, instead of hanging a later combine.
+                if f.cancelled() and not af.done():
+                    af.cancel()
+
+            fut.add_done_callback(propagate_cancel)
+            self._inflight_futures.add(fut)
+            fut.add_done_callback(self._inflight_futures.discard)
+            for r in req_ids:
+                request_device[r] = slot.label
+            return WindowPart(
+                future=fut, after_future=after_fut, req_ids=list(req_ids),
+                requests=sub.requests, rows=sub, batch=batch,
+                idx=None if idx is None else np.asarray(idx, np.int64),
+                idx_key=idx_key, slot=slot, prune=prune_plan,
+                base_kept=None if idx is None else havail[idx].astype(np.int64),
+            )
+
+        try:
+            self._ensure_probed()
+            if plan is None:
+                head = submit_part(
+                    pool.next_slot(), list(range(len(requests))), None, None
+                )
+                parts.append(head)
+                if head.prune is not None:
+                    # A pruned whole window: its part returns the kept
+                    # rows' DELTA, folded into the base (padding adds 0).
+                    idx_dev = torch.as_tensor(head.idx, device=self.device)
+                    p["avail"] = PendingBase(
+                        lambda: base.index_add(
+                            0, idx_dev, self._land(head.after_future.result())
+                        )
+                    )
+                else:
+                    p["avail"] = PendingBase(
+                        lambda: self._land(head.after_future.result())
+                    )
+            else:
+                for key, req_ids in plan:
+                    idx = np.flatnonzero(dom_per_req[req_ids[0]])
+                    parts.append(submit_part(pool.next_slot(), req_ids, key, idx))
+
+                def combine(parts=tuple(parts)):
+                    # Disjoint rows: each partition's committed sub-base
+                    # scatters into the base; a pruned one adds its delta.
+                    out = base
+                    for part in parts:
+                        sub_after = self._land(part.after_future.result())
+                        idx_dev = torch.as_tensor(part.idx, device=self.device)
+                        if part.prune is not None:
+                            out = out.index_add(0, idx_dev, sub_after)
+                        else:
+                            out = out.index_copy(0, idx_dev, sub_after)
+                    return out
+
+                p["avail"] = PendingBase(combine)
+        except Exception as exc:
+            if not classify_slot_failure(exc):
+                raise
+            # A device boundary failed on the dispatcher thread: the parts
+            # already submitted are cancelled and the window is served per
+            # the degraded policy.
+            for part in parts:
+                part.future.cancel()
+                part.slot.inflight = max(0, part.slot.inflight - 1)
+                if tel is not None:
+                    tel.on_device_inflight(part.slot.label, part.slot.inflight)
+            return self._device_failed_at_dispatch(
+                exc, strategy, tensors, rows, p
+            )
+        self.window_path_counts["pool"] = self.window_path_counts.get("pool", 0) + 1
+        b = len(rows.drv_arr)
+        info = {
+            "path": "pool",
+            "nodes": n,
+            "rows": b,
+            "row_bucket": pad_bucket(b, 8),
+            "emax": rows.emax,
+            "partitions": len(parts),
+            "devices": sorted({pt.slot.label for pt in parts}),
+            "state_upload": self.last_state_upload,
+            "dispatch_id": next(self._dispatch_seq),
+            "fused_k": 1,
+        }
+        self.last_solve_info = info
+        if tel is not None:
+            info["compile_cache_hit"] = tel.compile_count() == compiles_before
+            tel.on_window_dispatch(
+                "pool", nodes=n, rows=b, row_bucket=pad_bucket(b, 8)
+            )
+            tel.on_transfer(
+                "h2d", sum(_window_nbytes(pt.batch.win) for pt in parts)
+            )
+        priors = tuple(p["unfetched"])
+        handle = WindowHandle(
+            strategy=strategy,
+            blob=None,
+            requests=requests,
+            host_avail=havail,
+            host_schedulable=np.asarray(host.schedulable),
+            priors=priors,
+            prior_debited=[p["debited"].get(h, frozenset()) for h in priors],
+        )
+        handle.parts = parts
+        handle.request_device = request_device
+        handle.host_tensors = host
+        handle.window_rows = rows
+        handle.row_driver_req = rows.drv_arr.astype(np.int64)
+        handle.row_exec_req = rows.exc_arr.astype(np.int64)
+        handle.row_skippable = rows.skip_arr
+        handle.info = info
+        handle.dispatched_at = time.perf_counter()
+        p["unfetched"].append(handle)
+        self._note_inflight()
+        return handle
+
+    def _fetch_pooled(self, handle: WindowHandle, bounds) -> list:
+        """Fetch and reconstruct a pooled (possibly partitioned) dispatch,
+        window by window of `bounds`.
+
+        Partitions are row-disjoint, so any order of their reconstruction
+        gives the serialized window's base. A gathered part reconstructs
+        in its own row space against the base captured at dispatch; a
+        whole-window part against the dense reconstruction. A part whose
+        solve died of a device fault quarantines its slot and re-solves on
+        a survivor from the host reconstruction (`_redispatch_part`), or
+        with no survivor on the host greedy (degraded "greedy"). A pruned
+        part whose certificate fails re-solves on the row walk over the
+        dense base (the port's recorded deviation: never on the greedy,
+        which serves only when the card failed)."""
+        requests = handle.requests
+        tel = self.telemetry
+        window_of = np.zeros(len(requests), np.int64)
+        for i, (lo, hi) in enumerate(bounds):
+            window_of[lo:hi] = i
+        results: list = [None] * len(requests)
+        win_rows: list = [[] for _ in bounds]
+        win_vals: list = [[] for _ in bounds]
+        committed: list = []
+        dense: dict = {"base": None}
+        lp_rows, lp_vals = self._collect_priors(handle, strict=False)
+        strict: dict = {}
+
+        def dense_base() -> np.ndarray:
+            # The dense reconstruction, minus what earlier parts committed.
+            if dense["base"] is None:
+                b = self._dense_base(handle)
+                for r, v in committed:
+                    b[r] -= v
+                dense["base"] = b
+            return dense["base"]
+
+        def record(w, rows_, vals, applied) -> None:
+            win_rows[w].append(rows_)
+            win_vals[w].append(vals)
+            committed.append((rows_, vals))
+            if not applied and dense["base"] is not None and rows_.size:
+                dense["base"][rows_] -= vals
+
+        def groups(part):
+            # [window, part-local request positions, row lo, row hi], one
+            # per run of the part's requests in one window.
+            out, r0 = [], 0
+            for k, rid in enumerate(part.req_ids):
+                r1 = r0 + len(requests[rid].rows)
+                if out and out[-1][0] == window_of[rid]:
+                    out[-1][1].append(k)
+                    out[-1][3] = r1
+                else:
+                    out.append([int(window_of[rid]), [k], r0, r1])
+                r0 = r1
+            return out
+
+        def reconstruct(part, blob, base, sched, row_map, applied) -> None:
+            drivers = blob[:, 0].astype(np.int64)
+            admitted = blob[:, 1].astype(bool)
+            packed = blob[:, 2].astype(bool)
+            execs = blob[:, 3:].astype(np.int64)
+            drv64 = part.rows.drv_arr.astype(np.int64)
+            exc64 = part.rows.exc_arr.astype(np.int64)
+            skip = part.rows.skip_arr
+            for w, ks, lo, hi in groups(part):
+                placements = np.zeros_like(base)
+                decisions = self._reconstruct_requests(
+                    [part.requests[k] for k in ks], drivers[lo:hi],
+                    admitted[lo:hi], packed[lo:hi], execs[lo:hi],
+                    drv64[lo:hi], exc64[lo:hi], skip[lo:hi], base,
+                    placements, sched, row_map=row_map,
+                )
+                for k, d in zip(ks, decisions):
+                    results[part.req_ids[k]] = d
+                loc = np.flatnonzero(placements.any(axis=1))
+                g = loc if row_map is None else row_map[loc]
+                record(w, g.astype(np.int64), placements[loc], applied)
+
+        def greedy(part) -> None:
+            base = dense_base()
+            for w, ks, _lo, _hi in groups(part):
+                decisions, placements = self.fallback.window_decisions(
+                    handle.strategy, handle.host_tensors, base,
+                    [part.requests[k] for k in ks], emax=part.rows.emax,
+                )
+                base -= placements
+                for k, d in zip(ks, decisions):
+                    results[part.req_ids[k]] = d
+                g = np.flatnonzero(placements.any(axis=1)).astype(np.int64)
+                record(w, g, placements[g], True)
+            if self.degraded is not None:
+                self.degraded.on_fallback_decision(len(part.requests))
+
+        def release(parts) -> None:
+            for pt in parts:
+                pt.slot.inflight = max(0, pt.slot.inflight - 1)
+                if tel is not None:
+                    tel.on_device_inflight(pt.slot.label, pt.slot.inflight)
+
+        for part_i, part in enumerate(handle.parts):
+            try:
+                out = part.future.result()
+            except Exception as exc:
+                release([part])
+                if not classify_slot_failure(exc):
+                    # The base embodies unknowable placements: the pipeline
+                    # drops; the later parts release their slots here.
+                    self._drop_pipeline("fetch-failure")
+                    release(handle.parts[part_i + 1:])
+                    raise
+                # Slot-failure recovery: quarantine the slot (its resident
+                # state is unreachable and the base it fed is poisoned),
+                # then re-solve this part on a survivor from the exact host
+                # reconstruction.
+                self._drop_pipeline("fetch-failure")
+                self._quarantine_slot(part.slot, exc)
+                try:
+                    out = self._redispatch_part(handle, part, dense_base())
+                except Exception:
+                    release(handle.parts[part_i + 1:])
+                    raise
+                if out is None:
+                    greedy(part)
+                    continue
+            else:
+                release([part])
+            blob = out["blob"]
+            if tel is not None:
+                tel.on_transfer("d2h", blob.nbytes)
+                tel.on_device_window(
+                    out["device"], out["solve_ms"], out["fetch_ms"],
+                    inflight=part.slot.inflight,
+                )
+            if part.idx is None:
+                # A whole window: global rows over the dense base, as the
+                # single-device fetch.
+                reconstruct(
+                    part, blob, dense_base(), handle.host_schedulable, None, True
+                )
+                continue
+            gmap = part.idx
+            sched_loc = np.asarray(handle.host_schedulable)[gmap]
+            if part.prune is None:
+                bk = _debit_rows(part.base_kept.copy(), gmap, lp_rows, lp_vals)
+                reconstruct(part, blob, bk, sched_loc, gmap, False)
+                continue
+            # A pruned part: its certificate, in its own row space.
+            if "ps" not in strict:
+                strict["ps"] = self._collect_priors(handle, strict=True)
+            ok, reason, base_loc = self._certify_pruned(
+                part.prune, handle, part.requests, blob.astype(np.int64),
+                part.rows.drv_arr.astype(np.int64),
+                part.rows.exc_arr.astype(np.int64), part.base_kept, strict["ps"],
+            )
+            if not ok:
+                # Re-solve just this partition on the row walk over the
+                # dense base (the other partitions are row-disjoint and
+                # stand), then poison the carry.
+                full_blob, segments, nbytes = self._solve_on_base(
+                    handle.strategy, handle.host_tensors, dense_base(),
+                    part.rows,
+                )
+                reconstruct(
+                    part, full_blob, dense_base(), handle.host_schedulable,
+                    None, True,
+                )
+                if handle.info is not None:
+                    handle.info["resolved"] = {
+                        "reason": "certificate",
+                        "segments": segments,
+                        "d2h": nbytes,
+                    }
+                self._note_prune_escalation(handle, reason)
+                continue
+            reconstruct(part, blob, base_loc, sched_loc, gmap, False)
+        out = []
+        for w, (lo, hi) in enumerate(bounds):
+            if win_rows[w]:
+                allr = np.concatenate(win_rows[w])
+                allv = np.concatenate(win_vals[w])
+                uniq, inv = np.unique(allr, return_inverse=True)
+                vals = np.zeros((uniq.size, NUM_DIMS), np.int64)
+                np.add.at(vals, inv, allv)
+            else:
+                uniq = np.empty(0, np.int64)
+                vals = np.empty((0, NUM_DIMS), np.int64)
+            out.append((results[lo:hi], uniq, vals))
+            self._prune_note_rows(uniq)
+        handle.window_placements = [(r, a) for _, r, a in out]
+        if tel is not None:
+            k = max(1, (handle.info or {}).get("fused_k", 1))
+            tel.on_dispatch_complete(
+                (time.perf_counter() - handle.dispatched_at) * 1e3 / k, k
+            )
+        return out
+
+    def _redispatch_part(self, handle: WindowHandle, part, base):
+        """Re-run a failed part's solve on a SURVIVING slot with the same
+        inputs: the availability rows from the host reconstruction `base`
+        (what the dead slot's base embodied; partitions are row-disjoint,
+        so earlier parts' commits touch none of this part's rows), the
+        statics uploaded to the survivor, the part's own window layout.
+        Slot choice never changes a decision.
+
+        Returns the worker-style {"blob", "solve_ms", "fetch_ms",
+        "device"}, or None when NO slot survives and the degraded policy
+        is greedy (the caller serves the part on the host). Raises
+        DegradedUnavailableError (shed) or AllSlotsQuarantinedError (no
+        controller)."""
+        pool = self._pool
+        host = handle.host_tensors
+        tel = self.telemetry
+        batch = part.batch
+        while True:
+            self.probe_quarantined()
+            healthy = pool.healthy_slots()
+            if not healthy:
+                self._degraded_or_raise(
+                    AllSlotsQuarantinedError("no surviving slot for re-dispatch")
+                )
+                return None
+            slot = min(healthy, key=lambda s: s.inflight)
+            t0 = time.perf_counter()
+            try:
+                with slot.context():
+                    _shim("h2d")
+                    epoch = self._static_epoch
+                    if part.idx is None:
+                        statics = slot.resident_statics(
+                            host, epoch, self._clock, tel,
+                            journal=self._static_journal,
+                        )
+                        avail_rows = base
+                    elif part.prune is not None:
+                        # Fresh gathered statics on the survivor (a keep
+                        # set is per window).
+                        statics = slot.upload_statics(
+                            _gather_statics_host(
+                                host, part.idx, part.prune.k_real
+                            )
+                        )
+                        avail_rows = base[part.idx]
+                    else:
+                        statics = slot.sub_replica(
+                            host, part.idx_key, part.idx, epoch, self._clock,
+                            tel,
+                        )
+                        avail_rows = base[part.idx]
+                    sub_avail = slot.put(
+                        np.clip(avail_rows, _INT32.min, _INT32.max).astype(
+                            np.int32
+                        )
+                    )
+                    zone_base = None
+                    if part.prune is not None:
+                        zone_base = tuple(
+                            torch.as_tensor(a, device=slot.device)
+                            for a in part.prune.zone_base
+                        )
+                    _shim("dispatch")
+                    meta, execs, _ = window_pack(
+                        cluster_from_statics(sub_avail, statics), batch.win,
+                        fill=handle.strategy, emax=batch.emax,
+                        num_zones=batch.num_zones, zone_base=zone_base,
+                    )
+                    t1 = time.perf_counter()
+                    _shim("d2h")
+                    full = torch.cat([meta[:, :, :3], execs], dim=2).cpu().numpy()
+                t2 = time.perf_counter()
+            except Exception as exc:
+                if classify_slot_failure(exc):
+                    # The survivor died too: quarantine it and walk on.
+                    self._quarantine_slot(slot, exc)
+                    continue
+                raise
+            self.redispatch_count += 1
+            self._on_slot_event("redispatch", slot.label)
+            if handle.info is not None:
+                handle.info["redispatches"] = handle.info.get("redispatches", 0) + 1
+            if handle.request_device is not None:
+                for r in part.req_ids:
+                    handle.request_device[r] = slot.label
+            return {
+                "blob": full[batch.seg_map[0], batch.seg_map[1]],
+                "solve_ms": (t1 - t0) * 1e3,
+                "fetch_ms": (t2 - t1) * 1e3,
+                "device": slot.label,
+            }
+
     def pack_windows_dispatch(
         self,
         strategy: str,
@@ -1635,8 +2768,7 @@ class PlacementSolver:
         Returns one FusedWindowView per window; fetch them IN DISPATCH
         ORDER with pack_window_fetch."""
         windows = [list(w) for w in request_windows]
-        p = self._pipe
-        occupancy = 1.0 if p is not None and p["unfetched"] else 0.0
+        occupancy = self.dispatch_occupancy()
         flat = [r for w in windows for r in w]
         owner = self.pack_window_dispatch(strategy, tensors, flat)
         k = len(windows)
@@ -1721,19 +2853,45 @@ class PlacementSolver:
             # close()/discard_pipeline() dropped this dispatch's buffer; its
             # decisions are gone by design.
             raise RuntimeError("window dispatch was discarded")
+        if handle.greedy:
+            if handle.resolved is None:
+                handle.resolved = self._fetch_fallback(handle, bounds)
+            return handle.resolved
         if handle.use_fallback:
             if handle.resolved is None:
                 handle.resolved = self._resolve_full(handle, bounds)
             return handle.resolved
-        if handle.prune is not None:
-            return self._fetch_pruned(handle, bounds)
-        full = handle.fetch_blob()
+        if handle.parts is not None:
+            out = self._fetch_pooled(handle, bounds)
+            self._device_recovered()
+            return out
+        try:
+            _shim("d2h")
+            full = handle.fetch_blob()
+        except Exception as exc:
+            # The device base embodies this window's (now unknowable)
+            # placements: the pipeline drops. With one device and no
+            # survivor, the degraded policy answers: the host greedy
+            # re-solves THIS window exactly (nothing of it was applied), or
+            # a shed.
+            self._drop_pipeline("fetch-failure")
+            if not (classify_slot_failure(exc) and self.degraded is not None):
+                raise
+            self._degraded_or_raise(exc)
+            handle.greedy = True
+            handle.resolved = self._fetch_fallback(handle, bounds)
+            return handle.resolved
         self._note_transfer("d2h", full.nbytes)
-        blob = full[handle.seg_map[0], handle.seg_map[1]]
-        return self._windows_from_blob(
-            handle, bounds, blob, self._dense_base(handle),
-            handle.host_schedulable,
-        )
+        if handle.prune is not None:
+            out = self._fetch_pruned(handle, bounds, full)
+        else:
+            blob = full[handle.seg_map[0], handle.seg_map[1]]
+            out = self._windows_from_blob(
+                handle, bounds, blob, self._dense_base(handle),
+                handle.host_schedulable,
+            )
+        self._device_recovered()
+        return out
 
     def _windows_from_blob(
         self, handle, bounds, blob, base, host_schedulable, row_map=None
@@ -1782,57 +2940,64 @@ class PlacementSolver:
             )
         return out
 
-    def _fetch_pruned(self, handle: WindowHandle, bounds) -> list:
+    def _fetch_pruned(self, handle: WindowHandle, bounds, full) -> list:
         """Tier 2 of the two-tier solve: certify the pruned decisions
         against the exact dispatch base on the kept rows (the host view
         minus the priors' placements) and reconstruct them in kept-local
         space, or escalate the dispatch to a full re-solve. O(K + rows):
         nothing here touches an [N]-wide array."""
         plan = handle.prune
-        full = handle.fetch_blob()
-        self._note_transfer("d2h", full.nbytes)
         blob = full[handle.seg_map[0], handle.seg_map[1]].astype(np.int64)
-        gmap = plan.keep.astype(np.int64)
-        keep_real = plan.keep[: plan.k_real]
-        drivers_l = blob[:, 0]
-        execs_l = blob[:, 3:]
-        drivers = np.where(drivers_l >= 0, gmap[np.clip(drivers_l, 0, None)], -1)
-        execs = np.where(execs_l >= 0, gmap[np.clip(execs_l, 0, None)], -1)
-        ps = self._collect_priors(handle, strict=True)
-        if ps is None:
-            ok, reason = False, "prior-unknown"
-        else:
-            prior_rows, prior_deltas = ps
-            base_kept = handle.base_kept.copy()
-            if prior_rows.size:
-                loc = np.searchsorted(keep_real, prior_rows)
-                locc = np.clip(loc, 0, keep_real.size - 1)
-                on_kept = keep_real[locc] == prior_rows
-                if on_kept.any():
-                    base_kept[locc[on_kept]] -= prior_deltas[on_kept]
-            ok, reason = certify_window(
-                plan,
-                strategy=handle.strategy,
-                requests=handle.requests,
-                drivers=drivers,
-                admitted=blob[:, 1].astype(bool),
-                packed=blob[:, 2].astype(bool),
-                execs=execs,
-                drv64=handle.row_driver_req,
-                exc64=handle.row_exec_req,
-                base_kept=base_kept.copy(),  # certify threads commits
-                host=handle.host_tensors,
-                prior_rows=prior_rows,
-                prior_deltas=prior_deltas,
-            )
+        ok, reason, base_loc = self._certify_pruned(
+            plan, handle, handle.requests, blob, handle.row_driver_req,
+            handle.row_exec_req, handle.base_kept,
+            self._collect_priors(handle, strict=True),
+        )
         if not ok:
             return self._escalate_pruned(handle, bounds, reason)
-        base_loc = np.zeros((plan.keep.shape[0], NUM_DIMS), np.int64)
-        base_loc[: plan.k_real] = base_kept
         return self._windows_from_blob(
             handle, bounds, blob, base_loc,
-            np.asarray(handle.host_schedulable)[plan.keep], row_map=gmap,
+            np.asarray(handle.host_schedulable)[plan.keep],
+            row_map=plan.keep.astype(np.int64),
         )
+
+    def _certify_pruned(
+        self, plan, handle, requests, blob, drv64, exc64, base_kept, ps
+    ):
+        """The certificate of one pruned solve, in its kept-row space: the
+        kept rows' dispatch base (`base_kept`, the host view on
+        plan.keep[:k_real]) minus the priors' placements on them (`ps`,
+        strict `_collect_priors`; None when unknown), then `certify_window`
+        over the int64 decision `blob`, mapped back to global rows.
+        Returns (ok, reason, the kept-local base [len(plan.keep), 3] the
+        decisions reconstruct over)."""
+        if ps is None:
+            return False, "prior-unknown", None
+        prior_rows, prior_deltas = ps
+        gmap = plan.keep.astype(np.int64)
+        bk = _debit_rows(
+            base_kept[: plan.k_real].copy(), plan.keep[: plan.k_real],
+            prior_rows, prior_deltas,
+        )
+        drivers_l, execs_l = blob[:, 0], blob[:, 3:]
+        ok, reason = certify_window(
+            plan,
+            strategy=handle.strategy,
+            requests=requests,
+            drivers=np.where(drivers_l >= 0, gmap[np.clip(drivers_l, 0, None)], -1),
+            admitted=blob[:, 1].astype(bool),
+            packed=blob[:, 2].astype(bool),
+            execs=np.where(execs_l >= 0, gmap[np.clip(execs_l, 0, None)], -1),
+            drv64=drv64,
+            exc64=exc64,
+            base_kept=bk.copy(),  # certify threads commits
+            host=handle.host_tensors,
+            prior_rows=prior_rows,
+            prior_deltas=prior_deltas,
+        )
+        base_loc = np.zeros((gmap.shape[0], NUM_DIMS), np.int64)
+        base_loc[: plan.k_real] = bk
+        return ok, reason, base_loc
 
     def _escalate_pruned(self, handle: WindowHandle, bounds, reason) -> list:
         """A failed certificate: re-solve the whole dispatch (every window
@@ -1850,20 +3015,9 @@ class PlacementSolver:
         unpruned dispatch on that base runs, so the decisions are those
         of the unpruned path."""
         base = self._dense_base(handle)
-        host = handle.host_tensors
-        batch = self._layout(handle.window_rows)
-        avail32 = np.clip(base, _INT32.min, _INT32.max).astype(np.int32)
-        cluster = cluster_from_numpy(
-            (avail32,) + tuple(cluster_statics(host)), device=self.device
+        blob, segments, nbytes = self._solve_on_base(
+            handle.strategy, handle.host_tensors, base, handle.window_rows
         )
-        self._note_transfer("h2d", _host_nbytes(host) + _window_nbytes(batch.win))
-        self._ensure_probed()
-        meta, execs, _ = window_pack(
-            cluster, batch.win, fill=handle.strategy, emax=batch.emax,
-            num_zones=batch.num_zones,
-        )
-        full = torch.cat([meta[:, :, :3], execs], dim=2).cpu().numpy()
-        self._note_transfer("d2h", full.nbytes)
         if handle.info is not None:
             # The re-solve's reason, its live segments (row-walk launches
             # on the card) and its decision bytes, for the records.
@@ -1871,12 +3025,34 @@ class PlacementSolver:
                 "reason": (
                     "prune-escalation" if handle.use_fallback else "certificate"
                 ),
-                "segments": int((batch.win.row_count > 0).sum()),
-                "d2h": full.nbytes,
+                "segments": segments,
+                "d2h": nbytes,
             }
         return self._windows_from_blob(
-            handle, bounds, full[batch.seg_map[0], batch.seg_map[1]], base,
-            handle.host_schedulable,
+            handle, bounds, blob, base, handle.host_schedulable,
+        )
+
+    def _solve_on_base(self, strategy, host, base, rows: _WindowRows):
+        """The row walk over `rows` on the full cluster with availability
+        `base` (int64 [N,3]) and `host`'s statics, on the solver's device:
+        (flat decision blob, live segments, pulled bytes)."""
+        batch = self._layout(rows)
+        avail32 = np.clip(base, _INT32.min, _INT32.max).astype(np.int32)
+        cluster = cluster_from_numpy(
+            (avail32,) + tuple(cluster_statics(host)), device=self.device
+        )
+        self._note_transfer("h2d", _host_nbytes(host) + _window_nbytes(batch.win))
+        self._ensure_probed()
+        meta, execs, _ = window_pack(
+            cluster, batch.win, fill=strategy, emax=batch.emax,
+            num_zones=batch.num_zones,
+        )
+        full = torch.cat([meta[:, :, :3], execs], dim=2).cpu().numpy()
+        self._note_transfer("d2h", full.nbytes)
+        return (
+            full[batch.seg_map[0], batch.seg_map[1]],
+            int((batch.win.row_count > 0).sum()),
+            full.nbytes,
         )
 
     def _debit_mirror(self, handle: WindowHandle, index: int, rows, amounts) -> None:

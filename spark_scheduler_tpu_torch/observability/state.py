@@ -11,11 +11,12 @@ store, the same consistency every reporter tick has.
 
 The port's copy of spark_scheduler_tpu/observability/state.py. It reports
 what the port's app has: the autoscaler's fleet view and its `census`
-block as in the JAX package, but no trace sink, device pool or
-degraded-mode controller sections, since the port has none of them yet;
-the solver section names the device and how each window was served, the
-prune section the two-tier solve's ledger, and the server section the
-transport and the ingest lane.
+block and the `faults` block (device-slot quarantine, re-dispatches, the
+degraded-mode controller) as in the JAX package, but no trace sink, since
+the port has none yet; the solver section names the device, how each
+window was served and the pool's per-slot state, the prune section the
+two-tier solve's ledger, and the server section the transport and the
+ingest lane.
 """
 
 from __future__ import annotations
@@ -135,7 +136,20 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
             "device": str(solver.device),
             "window_paths": dict(solver.window_path_counts),
             "last_state_upload": solver.last_state_upload,
+            "pool": solver.device_pool_stats(),
         }
+        # Fault tolerance: device-slot quarantine state, the degraded-mode
+        # controller, and how many parts were re-dispatched onto a
+        # survivor — the operator's first stop when readiness reports
+        # degraded.
+        faults = {
+            "device": solver.device_health(),
+            "redispatches": solver.redispatch_count,
+        }
+        degraded = getattr(solver, "degraded", None)
+        if degraded is not None:
+            faults["degraded"] = degraded.snapshot()
+        out["faults"] = faults
         prune = getattr(solver, "prune_stats", None)
         if prune is not None and prune.get("windows"):
             # Two-tier solve: pruned-window volume, kept-row ratio, the

@@ -97,14 +97,17 @@ def build_all(names=SOURCES) -> dict[str, str]:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(
+        try:
+            proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
-            ),
-            tmp,
-            out,
-        )
+            )
+        except OSError as exc:
+            # A RuntimeError, never an OSError: the fault classifier
+            # (faults/errors.py) counts OSError as a device fault, and a
+            # build that cannot run must not engage degraded mode.
+            raise RuntimeError(f"CUDA build failed: cannot run {nvcc}: {exc}") from exc
+        procs[name] = (proc, tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -128,6 +131,11 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = _loaded.get(name)
             if lib is None:
                 build_all((name,))
-                lib = ctypes.CDLL(str(library_path(name)))
+                try:
+                    lib = ctypes.CDLL(str(library_path(name)))
+                except OSError as exc:  # not a device fault (see build_all)
+                    raise RuntimeError(
+                        f"CUDA library load failed: {library_path(name)}: {exc}"
+                    ) from exc
                 _loaded[name] = lib
     return lib

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spark_scheduler_tpu_torch.faults.errors import cuda_launch_error
 from spark_scheduler_tpu_torch.models.cluster import (
     ClusterTensors,
     check_cluster,
@@ -277,8 +278,8 @@ def fifo_kernel_info(layout: QueueLayout, device=None) -> dict:
         int(layout.state == "smem"), layout.slice, out,
     )
     if err != 0:
-        raise RuntimeError(
-            "queue kernel query failed: " + lib.fifo_kernel_error(err).decode()
+        raise cuda_launch_error(
+            err, "queue kernel query", lib.fifo_kernel_error(err).decode()
         )
     return dict(regs=out[0], local_bytes=out[1], static_smem=out[2],
                 max_active_teams=out[3])
@@ -323,8 +324,8 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(
-            "queue kernel launch failed: " + lib.fifo_kernel_error(err).decode()
+        raise cuda_launch_error(
+            err, "queue kernel launch", lib.fifo_kernel_error(err).decode()
         )
     fifo_pack.launches += 1
     return meta, execs, avail_out

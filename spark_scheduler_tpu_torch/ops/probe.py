@@ -14,6 +14,8 @@ import threading
 
 import torch
 
+from spark_scheduler_tpu_torch.faults.errors import cuda_launch_error
+
 PROBE_SHAPE = (8, 128)
 
 
@@ -53,8 +55,8 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(
-            "probe kernel launch failed: " + lib.probe_error(err).decode()
+        raise cuda_launch_error(
+            err, "probe kernel launch", lib.probe_error(err).decode()
         )
     with _launches_lock:
         probe_add_one.launches += 1

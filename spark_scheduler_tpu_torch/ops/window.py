@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spark_scheduler_tpu_torch.faults.errors import cuda_launch_error
 from spark_scheduler_tpu_torch.models.cluster import (
     ClusterTensors,
     check_cluster,
@@ -349,8 +350,8 @@ def window_kernel_info(layout: WalkLayout, device=None) -> dict:
         _device_index(device), int(layout.state == "smem"), layout.slice, out
     )
     if err != 0:
-        raise RuntimeError(
-            "window kernel query failed: " + lib.window_kernel_error(err).decode()
+        raise cuda_launch_error(
+            err, "window kernel query", lib.window_kernel_error(err).decode()
         )
     return dict(regs=out[0], local_bytes=out[1], static_smem=out[2],
                 max_active_clusters=out[3])
@@ -455,9 +456,9 @@ def window_pack(
             stream,
         )
         if err != 0:
-            raise RuntimeError(
-                "window row-walk kernel launch failed: "
-                + lib.window_kernel_error(err).decode()
+            raise cuda_launch_error(
+                err, "window row-walk kernel launch",
+                lib.window_kernel_error(err).decode(),
             )
         with _launches_lock:
             window_pack.launches += 1

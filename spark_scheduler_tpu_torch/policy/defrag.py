@@ -109,8 +109,8 @@ class Defragmenter:
     def _pool_idle(self) -> bool:
         """Only consume device time the serving path is not using. Solvers
         without a pool (single-device) are always 'idle' for this purpose.
-        The port's PlacementSolver has no device pool (ROADMAP A.4), so
-        this always answers idle, as the JAX package does on one device."""
+        A pool without an `idle_slots()` (the port's, like the JAX
+        package's) answers idle too."""
         pool = getattr(self._solver, "pool", None) or getattr(
             self._solver, "_pool", None
         )

@@ -20,11 +20,10 @@ the JAX package. With `policy.enabled` the extender carries a PolicyEngine
 (priority or DRF ordering, the preemption search on the solver's device,
 the defragmenter); with `autoscaler.enabled` the app carries an
 ElasticAutoscaler over a ClusterCensus, started and stopped with the app.
-One
-part of the JAX wiring is absent by design until its module is ported:
-the degraded-mode controller (`solver.degraded` is unset, so readiness
-answers as a healthy server does and a solve failure reaches the client
-through the protocol's Error channel).
+`solver.device-pool` / `solver.mesh.groups` give the solver a device pool
+(`pool_devices=` lays its slots on named devices instead, several on one
+card allowed), and the solver always carries the DegradedModeController of
+`server.degraded-mode`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,12 +53,9 @@ from spark_scheduler_tpu_torch.store.crd import (
 # Install keys the port cannot serve yet: field -> (YAML key, where it is
 # ported). A field that differs from InstallConfig's default raises.
 UNSUPPORTED_KEYS = {
-    "solver_device_pool": ("solver.device-pool", "ROADMAP A.4"),
-    "solver_mesh_groups": ("solver.mesh.groups", "ROADMAP A.4"),
     "solver_mesh_node_shards": ("solver.mesh.node-shards", "ROADMAP A.6"),
     "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.6"),
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
-    "degraded_mode": ("server.degraded-mode", "ROADMAP A.5"),
     "trace_path": ("trace.path", "ROADMAP A.7"),
     "fleet_enabled": ("fleet.enabled", "ROADMAP A.7"),
     "fleet_clusters": ("fleet.clusters", "ROADMAP A.7"),
@@ -84,7 +80,11 @@ def unsupported_keys(config: InstallConfig) -> list[str]:
             else f.default
         )
         value = getattr(config, field)
-        if value != default:
+        if field == "solver_mesh_node_shards":
+            refused = (value or 1) > 1  # one node shard is the plain slot
+        else:
+            refused = value != default
+        if refused:
             out.append(
                 f"{key}: {value!r} is not supported by the port "
                 f"(default {default!r}; {where})"
@@ -165,6 +165,7 @@ def build_scheduler_app(
     clock=None,
     *,
     device="cuda",
+    pool_devices=None,
 ) -> SchedulerApp:
     import time as _time
 
@@ -280,8 +281,15 @@ def build_scheduler_app(
         demand_crd_watcher.on_ready(
             lambda: backend.subscribe("demands", on_update=_on_demand_update)
         )
-    # One device serves every window: the device pool and the mesh are
-    # refused above.
+    # The window-solve device pool: `solver.mesh.groups` wins over the
+    # `solver.device-pool` shorthand when both are set (node-sharded slots
+    # are refused above). `pool_devices` names the slots' devices instead.
+    mesh = None
+    if config.solver_mesh_groups or config.solver_mesh_node_shards:
+        mesh = (
+            config.solver_mesh_groups or 1,
+            config.solver_mesh_node_shards or 1,
+        )
     solver = PlacementSolver(
         driver_label_priority=(
             config.driver_prioritized_node_label.as_tuple()
@@ -294,6 +302,10 @@ def build_scheduler_app(
             else None
         ),
         device=device,
+        device_pool=config.solver_device_pool,
+        mesh=mesh,
+        quarantine_probe_s=config.quarantine_probe_s,
+        pool_devices=pool_devices,
         prune_top_k=config.solver_prune_top_k,
         prune_slack=config.solver_prune_slack,
         delta_statics=config.solver_delta_statics,
@@ -316,6 +328,21 @@ def build_scheduler_app(
         solver.telemetry = SolverTelemetry(
             metrics.registry if metrics is not None else None
         )
+    # Degraded-mode controller: when no device can serve, the solver
+    # consults this policy — host greedy fallback or 503+Retry-After
+    # shedding. Readiness and /debug/state reflect it.
+    from spark_scheduler_tpu_torch.faults.degraded import DegradedModeController
+
+    solver.degraded = DegradedModeController(
+        policy=config.degraded_mode,
+        retry_after_s=config.degraded_retry_after_s,
+        clock=clock,
+        on_change=(
+            solver.telemetry.on_degraded
+            if solver.telemetry is not None
+            else None
+        ),
+    )
     # Delta-maintained reserved-usage aggregate over the solver's node-index
     # space: the hot path reads a dense array instead of walking every
     # reservation slot per request (SURVEY.md §7 latency budget).

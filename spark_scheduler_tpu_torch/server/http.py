@@ -297,10 +297,13 @@ class PredicateBatcher:
         claim (`fuse_windows` > 1) dispatches its sub-windows as one
         device program and occupies one depth slot.
 
-        The JAX package's eager decision-pull futures are not here: a
-        window completes when the depth bound or an empty queue asks for it
-        (or, inside a fused batch, once the batch's one pull has landed),
-        waiting on the card's copy event."""
+        A pooled window (`solver.device-pool`) pulls its decisions on pool
+        workers, one future per part: its completion waits for them
+        without blocking the loop, so requests arriving meanwhile dispatch
+        the next window first. A single-device window completes when the
+        depth bound or an empty queue asks for it (or, inside a fused
+        batch, once the batch's one pull has landed), waiting on the
+        card's copy event."""
         import time as _time
         from collections import deque
 
@@ -325,10 +328,18 @@ class PredicateBatcher:
                 complete_head()
 
         def head_ready() -> bool:
-            """A later window of a fused batch whose one pull has landed
-            completes at no cost."""
-            owner = getattr(pending[0][0].handle, "owner", None)
-            return owner is not None and owner.fused_decisions is not None
+            """The head's decisions are on the host (every part's pull of a
+            pooled window, or a fused batch's one pull): it completes at no
+            cost."""
+            t = pending[0][0]
+            if t.handle is None:
+                return False
+            ready = getattr(t.handle, "fetch_ready", None)
+            return ready is not None and ready()
+
+        def eager_futures(handle) -> list:
+            parts = getattr(handle, "parts", None)
+            return [p.future for p in parts] if parts else []
 
         def inflight_dispatches() -> int:
             """Pipeline depth in DEVICE ROUND TRIPS: the windows of one
@@ -447,15 +458,36 @@ class PredicateBatcher:
                     if pending:
                         self.pipelined_windows += 1
                     pending.append((ticket, sub))
-            # Heads whose fused pull already landed complete at no cost; the
+                    # Wake the loop the moment a pooled window's pulls land,
+                    # so its completion never waits on a timeout.
+                    for fut in eager_futures(ticket.handle):
+                        fut.add_done_callback(lambda _f: self._notify())
+            # Heads whose pulls already landed complete at no cost; the
             # depth bound backpressures (blocking complete) when the
-            # pipeline is full; with nothing queued, the head completes now.
+            # pipeline is full; with nothing queued, the head completes now,
+            # or, when its pulls run on pool workers, once they land or a
+            # request arrives (which dispatches first).
             while pending and head_ready():
                 complete_head()
             while pending and inflight_dispatches() >= self._pipeline_depth:
                 complete_head()
             if not batch and pending and not self._queue:
-                complete_head()
+                head = pending[0][0]
+                if head.handle is None or not eager_futures(head.handle):
+                    complete_head()
+                else:
+                    with self._cv:
+                        while (
+                            not self._queue
+                            and not self._stopped
+                            and pending
+                            and not head_ready()
+                        ):
+                            self._cv.wait(0.005)
+
+    def _notify(self) -> None:
+        with self._cv:
+            self._cv.notify_all()
 
     def _dispatch_batches(self, sub_batches):
         """Dispatch one claim: a single window, or a FUSED group of K
@@ -708,7 +740,8 @@ class SchedulerHTTPServer:
             max_window=getattr(cfg, "predicate_max_window", 32),
             hold_ms=getattr(cfg, "predicate_hold_ms", 25.0),
             registry=registry,
-            pipeline_depth=3,
+            # One window in flight per pool slot at least.
+            pipeline_depth=max(3, getattr(app.solver, "pool_size", 1)),
             # Fused multi-window dispatch (`solver.fuse-windows` /
             # --fuse-windows): a deep backlog rides one device round trip
             # per K windows instead of one each.

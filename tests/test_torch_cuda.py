@@ -999,3 +999,208 @@ def test_preemption_search_on_cuda_matches_cpu(cuda_device, strategy):
     assert got[0] == got[1]
     assert got[0][0] >= 1  # the first sets do not fit; a later one does
     assert solvers[0].preemption_searches == {"cuda": 1}
+
+
+@pytest.mark.parametrize("prune", [0, 4])
+def test_pool_on_one_card_redispatches_a_killed_slot(cuda_device, prune):
+    """Two slots on cuda:0, each on its own stream, windows partitioned over
+    two instance groups; the injector kills one part's launch. The part
+    re-dispatches on the survivor: its blob equals the pool-less solve's
+    (the decisions, every field), the slot is quarantined, and the probe
+    kernel reinstates it on its stream."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+    from spark_scheduler_tpu_torch.faults import FaultInjector, FaultPlan, FaultSpec
+    from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL, Node
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+
+    one = Resources.from_quantities("1", "1Gi")
+    two = Resources.from_quantities("2", "2Gi")
+    nodes = [Node(name=f"n{i:03d}",
+                  allocatable=Resources.from_quantities("8", "8Gi", "1",
+                                                        round_up=False),
+                  labels={ZONE_LABEL: f"z{i % 2}"}) for i in range(300)]
+    names = [n.name for n in nodes]
+    half = names[:150], names[150:]
+
+    def random_windows(rng):
+        out, r = [], 0
+        for _ in range(2):
+            reqs = []
+            for _ in range(4):
+                rows = [(one, one, int(rng.integers(1, 3)), bool(rng.random() < 0.5))
+                        for _ in range(int(rng.integers(0, 3)))]
+                rows.append((two if rng.random() < 0.3 else one, one,
+                             int(rng.integers(1, 4)), False))
+                dom = half[r % 2]
+                reqs.append(WindowRequest(rows=rows, driver_candidate_names=dom,
+                                          domain_node_names=dom))
+                r += 1
+            out.append(reqs)
+        return out
+
+    def random_usage(rng):
+        return {n: Resources.from_quantities(str(int(rng.integers(1, 4))), "1Gi")
+                for n in names if rng.random() < 0.3}
+
+    def run_sequential(s, batches, usages):
+        out = []
+        for usage, wins in zip(usages, batches):
+            handles = [s.pack_window_dispatch(
+                "tightly-pack", s.build_tensors_pipelined(nodes, usage, {}), w)
+                for w in wins]
+            for h in handles:
+                out.extend(s.pack_window_fetch(h))
+        return out
+
+    rng = np.random.default_rng(70 + prune)
+    batches = [random_windows(rng) for _ in range(3)]
+    usage_objs = [{}] + [random_usage(rng) for _ in range(2)]
+    want = run_sequential(PlacementSolver(device=cuda_device), batches, usage_objs)
+    cpu = run_sequential(PlacementSolver(device="cpu"), batches, usage_objs)
+    assert want == cpu
+    pooled = PlacementSolver(device=cuda_device, pool_devices=[cuda_device] * 2,
+                             prune_top_k=prune, prune_slack=0.5)
+    assert [s.stream is not None for s in pooled._pool.slots] == [True, True]
+    plan = FaultPlan(seed=0, specs=[FaultSpec(surface="device.dispatch",
+                                              at=[3], limit=1)])
+    with FaultInjector(plan) as inj:
+        inj.install_device()
+        got = run_sequential(pooled, batches, usage_objs)
+    assert got == want
+    assert pooled.redispatch_count == 1
+    assert pooled.device_health()["healthy"] == 1
+    before = probe_add_one.launches
+    assert pooled.probe_quarantined(force=True) == 1
+    assert probe_add_one.launches == before + 1
+    assert pooled.device_health()["healthy"] == 2
+
+
+def test_cuda_device_fault_from_a_wrapper_is_slot_fatal(cuda_device, monkeypatch,
+                                                        tmp_path):
+    """The wrappers map a device-side cudaError (an uncorrectable ECC
+    error) to CudaDeviceFault (slot-fatal); an illegal address, which a
+    wrong kernel raises, and a build failure stay plain errors."""
+    from spark_scheduler_tpu_torch.faults.errors import (
+        CudaDeviceFault,
+        classify_slot_failure,
+    )
+    from spark_scheduler_tpu_torch.ops import _build, probe as probe_mod
+
+    lib = probe_mod._lib()
+
+    class Faulting:
+        code = 214  # cudaErrorECCUncorrectable
+
+        def probe_add_one(self, *a):
+            return self.code
+
+        def probe_error(self, code):
+            return lib.probe_error(code)
+
+    faulting = Faulting()
+    monkeypatch.setattr(probe_mod, "_lib", lambda: faulting)
+    x = torch.zeros(probe_mod.PROBE_SHAPE, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(CudaDeviceFault) as ei:
+        probe_mod.probe_add_one(x)
+    assert ei.value.code == 214 and classify_slot_failure(ei.value)
+    faulting.code = 700  # cudaErrorIllegalAddress
+    with pytest.raises(RuntimeError, match="cudaError 700") as ei:
+        probe_mod.probe_add_one(x)
+    assert not isinstance(ei.value, CudaDeviceFault)
+    assert not classify_slot_failure(ei.value)
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such architecture'\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: _build.BUILD_DIR / f"missing-{name}.so")
+    with pytest.raises(RuntimeError, match="CUDA build failed") as build_err:
+        _build.load_library("probe")
+    assert not classify_slot_failure(build_err.value)
+
+
+# A real illegal address inside the row walk: the base pointer of the
+# second window's launches is replaced by one no allocation holds. Run in
+# a process of its own, since the fault poisons that process's CUDA
+# context.
+_ILLEGAL_ADDRESS_SCRIPT = r"""
+import json, os, sys
+import torch
+from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+from spark_scheduler_tpu_torch.faults import DegradedModeController
+from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL, Node
+from spark_scheduler_tpu_torch.models.resources import Resources
+from spark_scheduler_tpu_torch.ops import window
+
+pool = sys.argv[1] == "pool"
+dev = torch.device("cuda", 0)
+kw = {"pool_devices": [dev, dev]} if pool else {}
+s = PlacementSolver(device=dev, **kw)
+s.degraded = DegradedModeController(policy="greedy")
+nodes = [Node(name=f"n{i:02d}", allocatable=Resources.from_quantities("8", "8Gi"),
+              labels={ZONE_LABEL: f"z{i % 2}"}) for i in range(12)]
+one = Resources.from_quantities("1", "1Gi")
+names = [n.name for n in nodes]
+reqs = [WindowRequest(rows=[(one, one, 2 + i, False)], driver_candidate_names=names)
+        for i in range(3)]
+healthy = s.pack_window("tightly-pack", s.build_tensors_pipelined(nodes, {}, {}), reqs)
+torch.cuda.synchronize()
+real = window._row_walk_lib()
+
+
+class Corrupt:
+    def __getattr__(self, name):
+        return getattr(real, name)
+
+    def window_row_walk(self, *args):
+        args = list(args)
+        args[8] = 0x100  # the availability base
+        return real.window_row_walk(*args)
+
+
+window._row_walk_lib = lambda: Corrupt()
+raised = None
+try:
+    s.pack_window("tightly-pack", s.build_tensors_pipelined(nodes, {}, {}), reqs)
+    torch.cuda.synchronize()
+except Exception as exc:
+    raised = f"{type(exc).__name__}: {exc}"
+snap = s.degraded.snapshot()
+print(json.dumps({
+    "healthy": sum(d.admitted for d in healthy),
+    "raised": raised,
+    "engagements": snap["engagements"],
+    "fallback_decisions": snap["fallback_decisions"],
+    "quarantined": s.device_health()["quarantined"],
+    "redispatches": s.redispatch_count,
+}), flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.parametrize("mode", ["single", "pool"])
+def test_illegal_address_from_the_row_walk_raises(cuda_device, mode):
+    """An illegal address inside the row walk (a wrong kernel's fault) on a
+    cuda solver with the greedy degraded policy wired, pool-less and on a
+    pool of two slots: the window raises, degraded mode never engages, no
+    slot is quarantined and no part re-dispatched."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-c", _ILLEGAL_ADDRESS_SCRIPT, mode],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["healthy"] == 3
+    assert got["raised"] is not None and (
+        "illegal memory access" in got["raised"] or "cudaError 700" in got["raised"]
+    ), got["raised"]
+    assert got["engagements"] == 0 and got["fallback_decisions"] == 0, got
+    assert got["quarantined"] == [] and got["redispatches"] == 0, got

@@ -339,3 +339,56 @@ def test_window_pack_refuses_other_devices():
         window_pack(cluster, win, fill="tightly-pack", emax=8, num_zones=2)
     with pytest.raises(ValueError, match="window path supports"):
         window_pack(cluster, win, fill="first-fit", emax=8, num_zones=2)
+
+
+FAULT_TOLERANCE = (
+    "spark_scheduler_tpu_torch.core.device_pool",
+    "spark_scheduler_tpu_torch.core.fallback",
+    "spark_scheduler_tpu_torch.core.greedy",
+    "spark_scheduler_tpu_torch.faults.degraded",
+    "spark_scheduler_tpu_torch.faults.injector",
+    "spark_scheduler_tpu_torch.parallel.mesh",
+    "spark_scheduler_tpu_torch.testing.rtt_shim",
+)
+
+
+def test_fault_tolerance_modules_run_with_jax_blocked():
+    """The device pool, the injector, the degraded-mode controller and the
+    host greedy are the port's own copies: each imports, and a two-slot
+    pool on the CPU re-dispatches a killed part and then serves the host
+    greedy with every slot down, while jax and the JAX package are
+    refused."""
+    assert set(FAULT_TOLERANCE) <= set(_port_modules())
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import importlib\n"
+        f"for name in {FAULT_TOLERANCE!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest\n"
+        "from spark_scheduler_tpu_torch.faults import DegradedModeController, FaultInjector, FaultPlan, FaultSpec\n"
+        "from spark_scheduler_tpu_torch.models.kube import Node\n"
+        "from spark_scheduler_tpu_torch.models.resources import Resources\n"
+        "one = Resources.from_quantities('1', '1Gi')\n"
+        "nodes = [Node(name=f'n{i}', allocatable=Resources.from_quantities('8', '8Gi')) for i in range(8)]\n"
+        "halves = [n.name for n in nodes[:4]], [n.name for n in nodes[4:]]\n"
+        "reqs = [WindowRequest(rows=[(one, one, 2, False)], driver_candidate_names=h, domain_node_names=h) for h in halves]\n"
+        "s = PlacementSolver(device='cpu', pool_devices=['cpu', 'cpu'])\n"
+        "s.degraded = DegradedModeController(policy='greedy')\n"
+        "for spec in (FaultSpec(surface='device.dispatch', at=[0], limit=1),\n"
+        "             FaultSpec(surface='device.dispatch', mode='partition')):\n"
+        "    with FaultInjector(FaultPlan(seed=0, specs=[spec])) as inj:\n"
+        "        inj.install_device()\n"
+        "        out = s.pack_window('tightly-pack', s.build_tensors_pipelined(nodes, {}, {}), reqs)\n"
+        "    assert all(d.admitted for d in out)\n"
+        "assert s.redispatch_count == 1 and s.degraded.active\n"
+        "assert s.degraded.fallback_decisions == 2\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -596,12 +596,9 @@ def _unsupported_values():
     from spark_scheduler_tpu_torch.server.app import UNSUPPORTED_KEYS
 
     values = {
-        "solver_device_pool": 2,
-        "solver_mesh_groups": 2,
         "solver_mesh_node_shards": 2,
         "solver_scale_tier": True,
         "solver_build_oracle": True,
-        "degraded_mode": "shed",
         "trace_path": "trace.jsonl",
         "fleet_enabled": True,
         "fleet_clusters": 3,
@@ -759,14 +756,39 @@ def test_unsupported_yaml_keys_raise_from_from_dict():
     from spark_scheduler_tpu_torch.server.config import InstallConfig
     from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
 
-    raw = {"solver": {"scale-tier": True}, "server": {"degraded-mode": "shed"}}
+    raw = {"solver": {"scale-tier": True}, "fleet": {"enabled": True}}
     with pytest.raises(NotImplementedError) as err:
         build_scheduler_app(
             InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
         )
     assert "solver.scale-tier" in str(err.value)
     assert "ROADMAP A.6" in str(err.value)
-    assert "server.degraded-mode" in str(err.value)
+    assert "fleet.enabled" in str(err.value)
+    assert "ROADMAP A.7" in str(err.value)
+
+
+def test_node_sharded_mesh_still_raises_naming_a6():
+    """`solver.mesh` with one node shard builds a pool; two node shards
+    (the JAX package's node-sharded slots) still raise, naming §A.6."""
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
+
+    raw = {"solver": {"mesh": {"groups": 2, "node-shards": 2}}}
+    with pytest.raises(NotImplementedError) as err:
+        build_scheduler_app(
+            InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
+        )
+    assert "solver.mesh.node-shards" in str(err.value)
+    assert "ROADMAP A.6" in str(err.value)
+    one = {"solver": {"mesh": {"groups": 2, "node-shards": 1}},
+           "server": {"degraded-mode": "shed"}}
+    app = build_scheduler_app(
+        InMemoryBackend(), InstallConfig.from_dict(one), device="cpu"
+    )
+    assert app.solver.pool_size == 1  # clamped to the one CPU device
+    assert app.solver.degraded.policy == "shed"
+    app.stop()
 
 
 def test_supported_defaults_build_and_match_jax_config():
@@ -790,7 +812,9 @@ def test_supported_defaults_build_and_match_jax_config():
     app = build_scheduler_app(InMemoryBackend(), port_cfg, device="cpu")
     assert app.solver.device.type == "cpu"
     assert app.solver.telemetry is not None
-    assert getattr(app.solver, "degraded", None) is None
+    # The JAX package always wires the controller; so does the port now.
+    assert app.solver.degraded.policy == "greedy"
+    assert app.solver.pool_size == 1
     assert app.reservation_manager.usage_tracker is not None
     assert app.recorder is not None
     app.stop()
