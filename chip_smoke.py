@@ -270,9 +270,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `server.degraded-mode: shed` every killed-pool driver answers 503
      with Retry-After 7 and readiness 503, and /debug/state carries the
      `faults` block; under `greedy` readiness stays 200 but degraded and
-     every body equals a cpu replay. Phases 3-13 fail if degraded mode
-     ever engaged, a slot was quarantined, a fallback decision was made
-     or a part was re-dispatched there.
+     every body equals a cpu replay. Phases 3-13 and 15 fail if degraded
+     mode ever engaged, a slot was quarantined, a fallback decision was
+     made or a part was re-dispatched there.
+ 15. Decision traces, replay and the fleet on the card, 10,000 nodes a
+     cluster. (a) Capture: phase 7's cluster behind
+     `build_scheduler_app(..., device="cuda")` with `trace.path` and the
+     flight recorder (threaded transport, 16 clients): 64 drivers (gangs
+     of 2-8, ~15% 32 wide), a pod DELETE and a node PUT from another
+     connection while windows are in flight, then every admitted app's
+     executors; /debug/trace must report 0 write errors, no over-commit.
+     (b) `replay_trace(strict=True)` of that trace on a `cuda` lane and on
+     a `cpu` lane: 0 mismatches, every decision compared, no uncompared
+     window, the same placements on both; the `cuda` replay's row-walk
+     launches equal the capture's. (c) `what_if` under `binpack:
+     distribute-evenly`: a clean base, a non-empty diff. (d) `run_sweep`
+     over tightly-pack, distribute-evenly, minimal-fragmentation and
+     single-az-tightly-pack on the card: each arm equal to its own
+     sequential replay; no window defers on the card (stacked dispatches
+     0: the row walk serves every arm's windows). (e)
+     `arm_stacked_fifo_pack` (4 arms over one 10,000-node cluster) and
+     `bucket_stacked_fifo_pack` (3 different 10,000-node clusters, one
+     bucket) on the card: every member's blob and `available_after` equal
+     its own row walk (`window_pack`) and the same call on the cpu; both
+     times (CUDA events) beside the row walks'. (f) `fleet.enabled` with 3
+     clusters of 10,000 nodes (`max-spillover-hops: 1`, `stack-window-ms:
+     5`, record_ops) behind the HTTP server: cluster-tagged drivers (some
+     forwarded), a spill group homed on cluster 0's 8 small nodes whose
+     drivers spill to cluster 1, cluster 2 killed mid-run (its placed
+     apps' executors deny, its pending app is re-routed) and rejoined;
+     GET /debug/fleet and the `fleet.*` series read; no window defers on
+     the card; `verify_cluster_equivalence` on the card and on the cpu.
+     Every main-path phase here checks row-walk launches = live segments
+     + solo packs, and one probe a `cuda` solver.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -2154,7 +2184,7 @@ def run_clients(port, jobs, n_clients, binary=False, keep_all=False):
             data = resp.read()
             ms = (time.perf_counter() - t0) * 1e3
             with mu:
-                if path == "/predicates":
+                if path.split("?")[0] == "/predicates":
                     name = payload["Pod"]["metadata"]["name"]
                     if keep_all:
                         out.setdefault(name, []).append((resp.status, data))
@@ -5102,6 +5132,679 @@ def post_raw(port, payload):
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+P15_DRIVERS = 64  # cut from 128 to hold phase 15 near 90 s of the limit
+P15_CLIENTS = 16
+P15_ARMS = ("tightly-pack", "distribute-evenly", "minimal-fragmentation",
+            "single-az-tightly-pack")
+P15_STACK_REQUESTS = 8
+P15_CLUSTERS = 3
+P15_FLEET_DRIVERS = 24
+P15_FLEET_CLIENTS = 6
+P15_SMALL_NODES = 8  # the spill group's nodes in cluster 0 (2 CPU, 4 Gi)
+
+
+class SolverTap:
+    """While open, counts what every PlacementSolver does: the live
+    segments of each window dispatch and the solo packs of `cuda` solvers
+    (one row-walk launch each) and the solvers themselves, for
+    `fault_free`."""
+
+    def __init__(self):
+        import threading
+
+        from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+
+        self.cls = PlacementSolver
+        self.solo = 0
+        self.handles: list = []
+        self.solvers: list = []
+        self._mu = threading.Lock()
+
+    @property
+    def segments(self) -> int:
+        """Live segments of the `cuda` dispatches, and again those of each
+        full re-solve after an escalation (known once fetched)."""
+        return sum(dispatch_segments(h) for h in self.handles)
+
+    def _seen(self, solver):
+        if all(s is not solver for s in self.solvers):
+            self.solvers.append(solver)
+
+    def __enter__(self):
+        cls, tap = self.cls, self
+        dispatch, pack = cls.pack_window_dispatch, cls.pack
+        self._orig = (dispatch, pack)
+
+        def pack_window_dispatch(solver, *a, **kw):
+            h = dispatch(solver, *a, **kw)
+            with tap._mu:
+                tap._seen(solver)
+                if solver.device.type == "cuda":
+                    tap.handles.append(h)
+            return h
+
+        def solo_pack(solver, *a, **kw):
+            with tap._mu:
+                tap._seen(solver)
+                if solver.device.type == "cuda":
+                    tap.solo += 1
+            return pack(solver, *a, **kw)
+
+        cls.pack_window_dispatch, cls.pack = pack_window_dispatch, solo_pack
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.pack_window_dispatch, self.cls.pack = self._orig
+
+    def check(self, label, launches, on_card):
+        for s in self.solvers:
+            fault_free(s, 15)
+        if on_card:
+            check(launches == self.segments + self.solo,
+                  f"{label}: row-walk launches {launches} != "
+                  f"{self.segments} live segments + {self.solo} solo packs")
+
+
+def p15_capture(device, card, path, n_nodes, n_drivers, n_clients):
+    """Phase 15 (a): phase 7's cluster behind the port's server with
+    `trace.path` and the flight recorder; drivers with churn mid-window,
+    then the executors. Returns (decisions, stats)."""
+    import copy
+    import threading
+
+    from spark_scheduler_tpu_torch.metrics import MetricRegistry, SchedulerMetrics
+    from spark_scheduler_tpu_torch.models.kube import Container, Pod
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.server.http import SchedulerHTTPServer
+    from spark_scheduler_tpu_torch.store.backend import DEMAND_CRD, InMemoryBackend
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    config = InstallConfig(
+        fifo=True, binpack_algo="tightly-pack",
+        instance_group_label=EXT_IG_LABEL, sync_writes=True,
+        debug_routes=True, flight_recorder=True, trace_path=path,
+    )
+    backend = InMemoryBackend()
+    backend.register_crd(DEMAND_CRD)
+    registry = MetricRegistry()
+    app = build_scheduler_app(
+        backend, config, metrics=SchedulerMetrics(registry, EXT_IG_LABEL),
+        clock=lambda: EXT_CLOCK, device=device,
+    )
+    server = SchedulerHTTPServer(app, registry, host="127.0.0.1", port=0,
+                                 debug_routes=True)
+    server.start()
+    port = server.port
+    try:
+        nodes, usage = main_cluster(seed=7)
+        nodes, usage = nodes[:n_nodes], usage[:n_nodes]
+        for node in nodes:
+            node.labels[EXT_IG_LABEL] = EXT_IG
+        names = [n.name for n in nodes]
+        run_clients(port, [[("PUT", "/state/nodes", k8s_node_json(nd))]
+                           for nd in nodes[:SRV_ROUTE_NODES]], 1)
+        for i, node in enumerate(nodes):
+            if i >= SRV_ROUTE_NODES:
+                backend.add_node(node)
+            backend.add_pod(Pod(
+                name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+                scheduler_name="default-scheduler", node_name=node.name,
+                phase="Running",
+                containers=[Container(requests=Resources(*map(int, usage[i])))],
+            ))
+        rng = np.random.default_rng(29)
+        apps = []
+        for i in range(n_drivers):
+            n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+            apps.append((f"p15-{i:03d}", n_exec, EXT_CLOCK - 500 + i))
+        extra = copy.deepcopy(nodes[0])
+        extra.name = f"node-{n_nodes:05d}"
+        churned = threading.Event()
+        # The candidate list a client sends: every node, in the order they
+        # joined (as kube-scheduler's node lister keeps it), so the trace
+        # stores "*" instead of the names.
+        current = {"names": names}
+
+        def churn():
+            run_clients(port, [[
+                ("DELETE", "/state/pods/other/base-00001", None),
+                ("PUT", "/state/nodes", k8s_node_json(extra))]], 1)
+            current["names"] = names + [extra.name]
+
+        def driver_job(k, app_id, n_exec, created):
+            pod = k8s_spark_pod_json(app_id, "driver", f"{app_id}-driver",
+                                     n_exec, created)
+
+            def job(send):
+                send("PUT", "/state/pods", pod)
+                send("POST", "/predicates",
+                     {"Pod": pod, "NodeNames": current["names"]})
+                # Churn mid-window: a pod DELETE and a node PUT from another
+                # connection while the other clients' windows are in flight.
+                if k == n_drivers // 3 and not churned.is_set():
+                    churned.set()
+                    churn()
+            return job
+
+        t0 = time.perf_counter()
+        got, lat = run_clients(
+            port, [driver_job(k, *a) for k, a in enumerate(apps)], n_clients)
+        t_drivers = time.perf_counter() - t0
+        check(churned.is_set(), "phase 15 (a): the churn never ran")
+        check(all(st == 200 for st, _ in got.values()),
+              "phase 15 (a): a driver was refused")
+        admitted = {}
+        for app_id, n_exec, created in apps:
+            body = json.loads(got[f"{app_id}-driver"][1])
+            if body.get("NodeNames"):
+                admitted[app_id] = (body["NodeNames"][0], n_exec, created)
+        check(admitted, "phase 15 (a): no driver admitted")
+
+        def exec_job(app_id, node, n_exec, created):
+            pod = k8s_spark_pod_json(app_id, "driver", f"{app_id}-driver",
+                                     n_exec, created)
+            bound = dict(pod, spec=dict(pod["spec"], nodeName=node),
+                         status={"phase": "Running"})
+            out = [("PUT", "/state/pods", bound)]
+            for e in range(n_exec):
+                ex = k8s_spark_pod_json(app_id, "executor",
+                                        f"{app_id}-exec-{e}", n_exec, created)
+                out += [("PUT", "/state/pods", ex),
+                        ("POST", "/predicates",
+                         {"Pod": ex, "NodeNames": current["names"]})]
+            return out
+
+        t0 = time.perf_counter()
+        got_e, lat_e = run_clients(
+            port, [exec_job(a, *v) for a, v in sorted(admitted.items())],
+            n_clients)
+        t_execs = time.perf_counter() - t0
+        check(all(st == 200 for st, _ in got_e.values()),
+              "phase 15 (a): an executor was refused")
+        status, body = http_get(port, "/debug/trace")
+        check(status == 200, f"phase 15 (a): /debug/trace {status}")
+        trace_stats = json.loads(body)
+        violations = overcommit_violations(app, backend)
+        check(not violations, f"phase 15 (a) over-commit: {violations[:8]}")
+        fault_free(app.solver, 15)
+    finally:
+        server.stop()
+    stats = {
+        "drivers": len(apps), "admitted": len(admitted),
+        "executors": len(got_e), "events": trace_stats["events"],
+        "bytes": trace_stats["bytes"], "windows": trace_stats["windows"],
+        "write_errors": trace_stats["write_errors"],
+        "drivers_s": t_drivers, "executors_s": t_execs,
+        "driver_p50": pctl(lat, 50), "driver_p99": pctl(lat, 99),
+    }
+    check(stats["write_errors"] == 0, "phase 15 (a): trace write errors")
+    return {**got, **got_e}, stats
+
+
+def p15_stacked(device, card, n_nodes, n_requests=P15_STACK_REQUESTS):
+    """Phase 15 (e): `arm_stacked_fifo_pack` (4 arms over one cluster) and
+    `bucket_stacked_fifo_pack` (3 different clusters, one bucket) on
+    `device`, each member against `window_pack` (the row walk on the card)
+    and the `cpu` plain path. Comparison launches are not main-path
+    launches. Returns the timings (CUDA events on the card)."""
+    import dataclasses
+
+    import torch
+
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+    from spark_scheduler_tpu_torch.models.cluster import cluster_statics, pad_bucket
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.batched import (
+        arm_stacked_fifo_pack,
+        bucket_stacked_fifo_pack,
+        pad_app_batch,
+        stack_app_batches,
+    )
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(31)
+
+    def cluster(seed):
+        nodes, usage = main_cluster(seed=seed)
+        nodes, usage = nodes[:n_nodes], usage[:n_nodes]
+        solver = PlacementSolver(device=device)
+        usage_map = {nd.name: Resources(*map(int, usage[i]))
+                     for i, nd in enumerate(nodes)}
+        return solver, solver.build_tensors(nodes, usage_map, {}), nodes
+
+    def requests(nodes):
+        names = [nd.name for nd in nodes]
+        out = []
+        for _ in range(n_requests):
+            rows = []
+            for _ in range(int(rng.integers(0, 3))):
+                rows.append((Resources(1000, 2 << 20, 0),
+                             Resources(2000, 4 << 20, 0),
+                             int(rng.integers(2, 9)), bool(rng.random() < 0.3)))
+            n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+            rows.append((Resources(1000, 2 << 20, 0),
+                         Resources(2000, 4 << 20, 0), n_exec, False))
+            out.append(WindowRequest(rows=rows, driver_candidate_names=names))
+        return out
+
+    def row_walk(solver, tensors, rows, fill):
+        batch = solver._layout(rows)
+        meta, execs, after = window_pack(tensors, batch.win, fill=fill,
+                                         emax=rows.emax,
+                                         num_zones=rows.num_zones)
+        blob = torch.cat([meta[:, :, :3], execs], dim=2)
+        s, r = batch.seg_map
+        return blob[torch.as_tensor(s), torch.as_tensor(r)], after
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        if on_card:
+            return cuda_time_ms(fn, 3)
+        return timed_ms(fn)[1]
+
+    w0 = window_pack.launches
+    # (e1) 4 arms over one cluster: per-arm availability differs by a
+    # different debit of the same usage.
+    solver, tensors, nodes = cluster(7)
+    rows = solver._window_rows(tensors, requests(nodes))
+    b = len(rows.skip_arr)
+    apps = solver.window_app_batch(rows, pad_bucket(b, 8))
+    fills = tuple(sorted(P15_ARMS))
+    arm_avail = torch.stack([
+        tensors.available - int(i) * (tensors.available > 0).to(torch.int32)
+        for i in range(len(fills))
+    ])
+    statics = cluster_statics(tensors)
+    blob, after = arm_stacked_fifo_pack(arm_avail, statics, apps, fills=fills,
+                                        emax=rows.emax, num_zones=rows.num_zones)
+    cpu_stat = tuple(x.cpu() for x in statics)
+    cblob, cafter = arm_stacked_fifo_pack(arm_avail.cpu(), cpu_stat, apps,
+                                          fills=fills, emax=rows.emax,
+                                          num_zones=rows.num_zones)
+    check(torch.equal(blob.cpu(), cblob) and torch.equal(after.cpu(), cafter),
+          "phase 15 (e): arm stack on the card != the cpu plain path")
+    for i, fill in enumerate(fills):
+        arm_t = dataclasses.replace(tensors, available=arm_avail[i].clone())
+        want, want_after = row_walk(solver, arm_t, rows, fill)
+        check(torch.equal(blob[i, :b].cpu(), want.cpu())
+              and torch.equal(after[i].cpu(), want_after.cpu()),
+              f"phase 15 (e): arm {fill} != the row walk")
+    arm_ms = timed(lambda: arm_stacked_fifo_pack(
+        arm_avail, statics, apps, fills=fills, emax=rows.emax,
+        num_zones=rows.num_zones))
+    arm_walk_ms = timed(lambda: [row_walk(
+        solver, dataclasses.replace(tensors, available=arm_avail[i]), rows, f)
+        for i, f in enumerate(fills)])
+    solver.close()
+    # (e2) 3 different clusters padded to one bucket.
+    members = []
+    for seed, fill in ((11, "tightly-pack"), (12, "distribute-evenly"),
+                       (13, "tightly-pack")):
+        s, t, nds = cluster(seed)
+        r = s._window_rows(t, requests(nds))
+        members.append((s, t, r, fill))
+    check(len({(m[1].num_nodes, m[2].emax, m[2].num_zones) for m in members})
+          == 1, "phase 15 (e): members differ in bucket")
+    members.sort(key=lambda m: m[3])
+    b_rows = [len(m[2].skip_arr) for m in members]
+    bucket = pad_bucket(max(b_rows), 8)
+    host_apps = [m[0].window_app_batch(m[2], bucket) for m in members]
+    apps_stack = stack_app_batches([pad_app_batch(a, bucket) for a in host_apps])
+    st = tuple(torch.stack([cluster_statics(m[1])[i] for m in members])
+               for i in range(len(cluster_statics(members[0][1]))))
+    av = torch.stack([m[1].available for m in members])
+    bfills = tuple(m[3] for m in members)
+    lead = members[0][2]
+    bblob, bafter = bucket_stacked_fifo_pack(
+        av, st, apps_stack, fills=bfills, emax=lead.emax,
+        num_zones=lead.num_zones)
+    cbblob, cbafter = bucket_stacked_fifo_pack(
+        av.cpu(), tuple(x.cpu() for x in st), apps_stack, fills=bfills,
+        emax=lead.emax, num_zones=lead.num_zones)
+    check(torch.equal(bblob.cpu(), cbblob) and torch.equal(bafter.cpu(), cbafter),
+          "phase 15 (e): bucket stack on the card != the cpu plain path")
+    for i, (s, t, r, fill) in enumerate(members):
+        want, want_after = row_walk(s, t, r, fill)
+        check(torch.equal(bblob[i, :b_rows[i]].cpu(), want.cpu())
+              and torch.equal(bafter[i].cpu(), want_after.cpu()),
+              f"phase 15 (e): cluster {i} != the row walk")
+    bucket_ms = timed(lambda: bucket_stacked_fifo_pack(
+        av, st, apps_stack, fills=bfills, emax=lead.emax,
+        num_zones=lead.num_zones))
+    bucket_walk_ms = timed(lambda: [row_walk(s, t, r, f)
+                                   for s, t, r, f in members])
+    for m in members:
+        m[0].close()
+    sync()
+    out = {"arm_ms": arm_ms, "arm_row_walk_ms": arm_walk_ms,
+           "bucket_ms": bucket_ms, "bucket_row_walk_ms": bucket_walk_ms,
+           "arm_rows": b, "bucket_rows": b_rows,
+           "comparison_launches": window_pack.launches - w0}
+    print(f"phase 15 (e) ({card}): arm_stacked_fifo_pack M={len(fills)} over "
+          f"one {n_nodes}-node cluster ({b} rows, bucket {apps.driver_req.shape[0]}) "
+          f"and bucket_stacked_fifo_pack M={len(members)} clusters ({b_rows} rows, "
+          f"bucket {bucket}) equal to each member's row walk and to the cpu "
+          f"plain path; {'CUDA events' if on_card else 'host clock'}: arm stack "
+          f"{arm_ms:.2f} ms vs {len(fills)} row walks {arm_walk_ms:.2f} ms, "
+          f"bucket stack {bucket_ms:.2f} ms vs {len(members)} row walks "
+          f"{bucket_walk_ms:.2f} ms", flush=True)
+    return out
+
+
+def p15_fleet(device, card, n_nodes, n_drivers=P15_FLEET_DRIVERS,
+              n_clients=P15_FLEET_CLIENTS):
+    """Phase 15 (f): a fleet of 3 clusters of `n_nodes` behind the HTTP
+    server (`fleet.enabled`, `max-spillover-hops: 1`, `stack-window-ms: 5`,
+    record_ops): cluster-tagged drivers (some forwarded), a spill group
+    whose home in cluster 0 is too small so its drivers spill to cluster 1,
+    cluster 2 killed mid-run (its placed apps' executors deny, its pending
+    app is re-routed) and rejoined; then `verify_cluster_equivalence` on
+    the card and on the cpu. Returns stats."""
+    import dataclasses
+
+    import torch
+
+    from spark_scheduler_tpu_torch.fleet import FleetFacade, verify_cluster_equivalence
+    from spark_scheduler_tpu_torch.metrics import MetricRegistry
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.server.http import SchedulerHTTPServer
+
+    on_card = torch.device(device).type == "cuda"
+    # The fleet block from YAML; synchronous write-back (not a YAML key),
+    # so each cluster's reservations reach its backend as they are made.
+    config = dataclasses.replace(InstallConfig.from_dict({
+        "fifo": True, "binpack-algo": "tightly-pack",
+        "instance-group-label": EXT_IG_LABEL,
+        "fleet": {"enabled": True, "clusters": P15_CLUSTERS,
+                  "max-spillover-hops": 1, "stack-window-ms": 5},
+    }), sync_writes=True)
+    check(config.fleet_enabled and config.fleet_stack_window_ms == 5.0,
+          f"phase 15 (f): fleet block {config.fleet_clusters}")
+    registry = MetricRegistry()
+    t0 = time.perf_counter()
+    f = FleetFacade(config.fleet_clusters, config, registry=registry,
+                    record_ops=True,
+                    max_spillover_hops=config.fleet_max_spillover_hops,
+                    device=device)
+    groups = {0: "ig-c0", 1: "ig-shared", 2: "ig-c2"}
+    for c in range(P15_CLUSTERS):
+        nodes, _ = main_cluster(seed=40 + c)
+        for i, node in enumerate(nodes[:n_nodes]):
+            node.labels[EXT_IG_LABEL] = groups[c]
+            if c == 0 and i < P15_SMALL_NODES:
+                # The spill group's home in cluster 0: a few small nodes.
+                node.labels[EXT_IG_LABEL] = "ig-shared"
+                node = dataclasses.replace(
+                    node, allocatable=Resources(2000, 4 << 20, 0))
+            f.add_node(c, node)
+    t_setup = time.perf_counter() - t0
+    server = SchedulerHTTPServer(f.stacks[0].app, registry, host="127.0.0.1",
+                                 port=0, fleet=f)
+    server.start()
+    port = server.port
+    rng = np.random.default_rng(37)
+
+    def pod(app_id, role, name, n_exec, group, created):
+        p = k8s_spark_pod_json(app_id, role, name, n_exec, created)
+        p["spec"]["nodeSelector"] = {EXT_IG_LABEL: group}
+        return p
+
+    def predicate(p, via):
+        path = "/predicates" + (f"?cluster={via}" if via is not None else "")
+        return ("POST", path, {"Pod": p, "NodeNames": []})
+
+    try:
+        apps = []
+        for i in range(n_drivers):
+            group = ("ig-c0", "ig-c2", "ig-shared")[i % 3]
+            n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+            via = int(rng.integers(0, P15_CLUSTERS))  # some are the wrong one
+            apps.append((f"f15-{i:03d}", group, n_exec, via,
+                         EXT_CLOCK - 900 + i))
+        # The spill group's apps are homed on cluster 0, whose 8 small
+        # nodes cannot hold their gangs: they spill to cluster 1.
+        for app_id, group, *_ in apps:
+            if group == "ig-shared":
+                f.router.bind(app_id, 0)
+        got, lat = run_clients(port, [[predicate(
+            pod(a, "driver", f"{a}-driver", n, g, c), via)]
+            for a, g, n, via, c in apps], n_clients)
+        check(all(st == 200 for st, _ in got.values()),
+              "phase 15 (f): a driver was refused")
+        placed = {}
+        for a, g, n, via, c in apps:
+            body = json.loads(got[f"{a}-driver"][1])
+            if body.get("NodeNames"):
+                placed[a] = (g, n, c)
+        spilled = f.spillover.spilled
+        check(spilled > 0, "phase 15 (f): no driver spilled over")
+        check(f.forwarded > 0, "phase 15 (f): no call was forwarded")
+        # A pending app on cluster 2 (a gang no node holds), then the kill.
+        big = pod("f15-pending", "driver", "f15-pending-driver", 100000,
+                  "ig-c2", EXT_CLOCK - 100)
+        run_clients(port, [[predicate(big, 2)]], 1)
+        before_kill = f.unavailable_denials
+        orphans = f.kill_cluster(2)
+        check(orphans >= 1, f"phase 15 (f): {orphans} orphans at the kill")
+
+        def exec_jobs(which, via=None):
+            out = []
+            for a in which:
+                g, n, c = placed[a]
+                out.append([predicate(pod(a, "executor", f"{a}-exec-{e}", n,
+                                          g, c), via) for e in range(n)])
+            return out
+
+        down = [a for a, (g, *_ ) in sorted(placed.items()) if g == "ig-c2"]
+        up = [a for a in sorted(placed) if a not in down]
+        got_down, _ = run_clients(port, exec_jobs(down[:4]), n_clients)
+        denied = f.unavailable_denials - before_kill
+        check(denied == len(got_down) > 0,
+              f"phase 15 (f): {denied} unavailable denials for "
+              f"{len(got_down)} executors of apps placed on the dead cluster")
+        check(all(not json.loads(b).get("NodeNames")
+                  for _, b in got_down.values()),
+              "phase 15 (f): an executor of a dead cluster's app was placed")
+        got_up, lat_e = run_clients(port, exec_jobs(up), n_clients)
+        run_clients(port, [[predicate(big, None)]], 1)  # the orphan retries
+        f.rejoin_cluster(2)
+        got_back, _ = run_clients(port, exec_jobs(down[:4]), n_clients)
+        check(all(st == 200 for st, _ in
+                  list(got_up.values()) + list(got_back.values())),
+              "phase 15 (f): an executor was refused")
+        status, body = http_get(port, "/debug/fleet")
+        check(status == 200, f"phase 15 (f): /debug/fleet {status}")
+        fleet_state = json.loads(body)
+        check([c["live"] for c in fleet_state["clusters"]] == [True] * 3,
+              f"phase 15 (f): /debug/fleet live {fleet_state['clusters']}")
+        series = sorted({k.split("[")[0] for k in registry.snapshot()
+                         if "scheduler.fleet." in k})
+        check(len(series) >= 5, f"phase 15 (f): fleet series {series}")
+        stacking = fleet_state["stacking"]
+        deferred = sum(s.app.solver.window_path_counts.get("deferred", 0)
+                       for s in f.stacks)
+        if on_card:
+            # `stack-window-ms` is inert on the card: no coordinator, and
+            # the row walk serves every window.
+            check(stacking == {"enabled": False} and deferred == 0,
+                  f"phase 15 (f): stacking on the card: {stacking}, "
+                  f"{deferred} windows deferred")
+    finally:
+        server.stop()
+    t0 = time.perf_counter()
+    reports = {}
+    try:
+        for dev in (None, "cpu"):
+            reports[str(dev)] = verify_cluster_equivalence(f, device=dev)
+            check(all(r["identical"] for r in reports[str(dev)].values()),
+                  f"phase 15 (f): verify on {dev}")
+    finally:
+        f.stop()
+    t_verify = time.perf_counter() - t0
+    for s in f.stacks:
+        fault_free(s.app.solver, 15)
+    stats = {
+        "setup_s": t_setup, "verify_s": t_verify, "drivers": len(apps),
+        "placed": len(placed), "spilled": spilled, "forwarded": f.forwarded,
+        "orphans": orphans, "unavailable": f.unavailable_denials,
+        "decisions": [r["decisions"] for r in reports["None"].values()],
+        "picks": fleet_state["router"]["picks"], "series": len(series),
+        # Too few drivers for a p99: the slowest one is reported as such.
+        "driver_p50": pctl(lat, 50), "driver_max": float(max(lat)),
+        "executor_p50": pctl(lat_e, 50), "stacking": stacking,
+    }
+    print(f"phase 15 (f) ({card}): {P15_CLUSTERS} clusters x {n_nodes} nodes "
+          f"(set up in {t_setup:.1f} s), {len(apps)} drivers over HTTP "
+          f"({len(placed)} placed, {f.forwarded} forwarded, {spilled} spilled "
+          f"0 -> 1, picks {stats['picks']}), cluster 2 killed "
+          f"({orphans} orphan re-routed, {stats['unavailable']} executors "
+          f"denied while down) and rejoined; decisions per cluster "
+          f"{stats['decisions']} equal to a standalone replay on the card "
+          f"({device}) and on the cpu ({t_verify:.1f} s); stacking "
+          f"{'on' if stacking['enabled'] else 'off'}, {deferred} deferred, "
+          f"{stacking.get('stacked_dispatches', 0)} stacked; "
+          f"{len(series)} fleet series; driver p50 {stats['driver_p50']:.1f} "
+          f"max {stats['driver_max']:.1f} ms (of {len(lat)}), executor p50 "
+          f"{stats['executor_p50']:.1f} ms (client host clock)", flush=True)
+    return stats
+
+
+def run_replay_phase(device, card, n_nodes=N_MAIN, n_drivers=P15_DRIVERS,
+                     n_clients=P15_CLIENTS, out_dir=None):
+    """Phase 15: trace capture (a), strict replay on `device` and on the
+    cpu (b), a what-if (c), a 4-arm sweep (d), the stacked solves (e) and
+    the fleet (f). Returns the main-path launches (row walk, probe) of
+    (a)-(d) and (f)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.replay import replay_trace, run_sweep, what_if
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="p15-", dir=out_dir)
+    path = os.path.join(tmp, "capture.jsonl")
+    launches = {"window": 0, "probe": 0}
+
+    def main_path(label, fn):
+        window_pack.launches = 0
+        probe_add_one.launches = 0
+        with SolverTap() as tap:
+            out = fn()
+        got = {"window": window_pack.launches, "probe": probe_add_one.launches}
+        tap.check(label, got["window"], on_card)
+        if on_card:
+            check(got["probe"] == sum(s.device.type == "cuda"
+                                      for s in tap.solvers),
+                  f"{label}: probe launches {got['probe']}")
+        for k in launches:
+            launches[k] += got[k]
+        return out, got, tap
+
+    t0 = time.perf_counter()
+    (answers, cap), got_a, _ = main_path("phase 15 (a)", lambda: p15_capture(
+        device, card, path, n_nodes, n_drivers, n_clients))
+    print(f"phase 15 (a) ({card}): {cap['drivers']} drivers "
+          f"({cap['admitted']} admitted) and {cap['executors']} executors "
+          f"over HTTP on {n_nodes} nodes, churn mid-window; trace "
+          f"{cap['events']} events, {cap['bytes']} bytes, {cap['windows']} "
+          f"windows, 0 write errors; drivers {cap['drivers_s']:.1f} s "
+          f"(p50 {cap['driver_p50']:.1f} ms, p99 {cap['driver_p99']:.1f} ms, "
+          f"client host clock), executors {cap['executors_s']:.1f} s; "
+          f"row-walk launches {got_a['window']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    reps = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        rep, got_b, tap = main_path(f"phase 15 (b) {dev}", lambda: replay_trace(
+            path, strict=True, device=dev))
+        check(not rep.mismatches and rep.compared == rep.decisions > 0
+              and rep.uncompared_windows == 0 and not rep.malformed
+              and rep.overcommit == 0,
+              f"phase 15 (b) {dev}: {rep.summary()}")
+        check(rep.decisions == len(answers),
+              f"phase 15 (b) {dev}: {rep.decisions} decisions for "
+              f"{len(answers)} answers")
+        if on_card and dev == device:
+            check(got_b["window"] == got_a["window"],
+                  f"phase 15 (b): replay launches {got_b['window']} != live "
+                  f"{got_a['window']}")
+        reps[str(dev)] = rep
+        print(f"phase 15 (b) ({card}): strict replay on {dev}: "
+              f"{rep.decisions} decisions, {rep.compared} compared, 0 "
+              f"mismatches, 0 uncompared windows; row-walk launches "
+              f"{got_b['window']} = {tap.segments} live segments + {tap.solo} "
+              f"solo packs; decision p50 {rep.latency_ms(0.5)} ms p99 "
+              f"{rep.latency_ms(0.99)} ms (host clock); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(reps[str(device)].placements == reps["cpu"].placements,
+          "phase 15 (b): card and cpu replays placed differently")
+
+    t0 = time.perf_counter()
+    diff, got_c, _ = main_path("phase 15 (c)", lambda: what_if(
+        path, {"binpack-algo": "distribute-evenly"}, device=device))
+    p = diff["placements"]
+    check(diff["base_mismatches"] == 0 and p["same"] + p["changed"] > 0
+          and diff["decisions"]["base"] == diff["decisions"]["variant"] > 0
+          and p["changed"] > 0,
+          f"phase 15 (c): what-if diff {p} {diff['decisions']}")
+    print(f"phase 15 (c) ({card}): what-if distribute-evenly: placements "
+          f"same {p['same']} changed {p['changed']}, denials delta "
+          f"{diff['denials']['delta']}, fragmentation cpu delta "
+          f"{diff['fragmentation']['cpu_delta']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    arms = [{"binpack_algo": a} for a in P15_ARMS]
+    sweep, got_d, _ = main_path("phase 15 (d)", lambda: run_sweep(
+        path, arms, device=device))
+    tel = sweep.telemetry
+    check(tel["streams"] == len(arms) and tel["forced_resolves"] == 0,
+          f"phase 15 (d): {tel}")
+    if on_card:
+        check(tel["stacked_dispatches"] == 0 and tel["windows"] == 0,
+              f"phase 15 (d): windows deferred on the card: {tel}")
+    for arm, rep in zip(arms, sweep.reports):
+        seq, _, _ = main_path("phase 15 (d) sequential", lambda: replay_trace(
+            path, overrides=arm, device=device))
+        check(rep.placements == seq.placements
+              and rep.verdict_counts == seq.verdict_counts
+              and rep.decision_summary() == seq.decision_summary(),
+              f"phase 15 (d): arm {arm} != its sequential replay")
+    print(f"phase 15 (d) ({card}): sweep of {len(arms)} arms "
+          f"({', '.join(P15_ARMS)}) on one shared stream of events, each "
+          f"arm equal to its own sequential replay; stacked dispatches "
+          f"{tel['stacked_dispatches']}, shared mask hits "
+          f"{tel['shared_build_hits']}, row-walk launches {got_d['window']}; "
+          f"denials per arm {[r.denials for r in sweep.reports]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    stacked = p15_stacked(device, card, n_nodes)
+    print(f"phase 15 (e): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    fleet, got_f, _ = main_path("phase 15 (f)", lambda: p15_fleet(
+        device, card, n_nodes))
+    print(f"phase 15 (f): row-walk launches {got_f['window']}, probe "
+          f"{got_f['probe']}; {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, {"capture": cap, "stacked": stacked, "fleet": fleet}
+
+
 def main() -> int:
     try:
         import torch
@@ -5222,19 +5925,27 @@ def main() -> int:
           f"launches {p14['window']} ((a)-(d) {pool_launches['window']}, "
           f"(e) {shed_launches['window']} + {greedy_launches['window']}), "
           f"probe {p14['probe']}", flush=True)
+
+    t0 = time.perf_counter()
+    replay_launches, _ = run_replay_phase(device, card)
+    print(f"phase 15: passed in {time.perf_counter() - t0:.1f} s; row-walk "
+          f"launches {replay_launches['window']}, probe "
+          f"{replay_launches['probe']} ({card})", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
     # ingestion over the WAL store (phase 9), as HA replicas (phase 10),
     # with fused claims (phase 11), over pruned windows (phase 12), under
-    # the policy engine and the autoscaler (phase 13), and over the device
-    # pool, its re-dispatches and its quarantine probes (phase 14).
+    # the policy engine and the autoscaler (phase 13), over the device
+    # pool, its re-dispatches and its quarantine probes (phase 14), and
+    # under trace capture, replay, what-if, sweep and the fleet (phase 15).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
                         + wal_launches[k] + ha_launches[k] + fused_launches[k]
                         + prune_launches[k] + policy_launches[k]
                         + elastic_launches[k] + pool_launches[k]
-                        + shed_launches[k] + greedy_launches[k])
+                        + shed_launches[k] + greedy_launches[k]
+                        + replay_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

@@ -13,14 +13,19 @@ ships as a second binary (spark-scheduler-conversion-webhook/main.go:27).
 
 The port's copy of spark_scheduler_tpu/__main__.py: the in-memory, the
 durable (JSONL WAL) and the apiserver (KubeBackend) backends, list+watch
-ingestion, lease-elected HA replicas, and the in-process elastic
-autoscaler (`--autoscaler`). The server solves on the current
+ingestion, lease-elected HA replicas, the in-process elastic
+autoscaler (`--autoscaler`), and the multi-cluster fleet (`fleet.enabled`:
+F private in-memory cluster stacks behind this endpoint, cluster 0
+doubling as the local app; refused with HA, a durable store or an
+apiserver backend, as in the JAX package). The server solves on the current
 CUDA card and raises without one; an install key the port cannot serve yet
 raises NotImplementedError (server/app.py), and `--ingest native` builds
 the port's native library or raises. With a durable store or an apiserver
 the server waits for the watch caches to sync, reconciles (or runs one
 election tick as an HA replica), and only then serves. The JAX package's
-fleet and multi-device flags are not ported.
+multi-device flags and `--fleet-stack` are not ported: the server solves
+on the card, where `fleet.stack-window-ms` is accepted but inert (the row
+walk serves every window; fleet/facade.py).
 """
 
 from __future__ import annotations
@@ -345,6 +350,7 @@ def main(argv=None) -> int:
             "each cluster stack owns a private backend."
         )
     ha_runtime = None
+    fleet_facade = None
     if config.ha_enabled:
         from spark_scheduler_tpu_torch.ha import (
             BackendLeaseStore,
@@ -387,6 +393,22 @@ def main(argv=None) -> int:
             registry=registry,
         )
         app = ha_runtime.app
+    elif config.fleet_enabled:
+        from spark_scheduler_tpu_torch.fleet import FleetFacade
+
+        # F independent per-cluster stacks behind this one endpoint
+        # (fleet/facade.py), each solving on the card. Cluster 0 doubles
+        # as the server's local app (readiness, debug state, PUT /state
+        # ingestion); /predicates is fleet-routed by the routing layer the
+        # moment `fleet` is wired.
+        fleet_facade = FleetFacade(
+            config.fleet_clusters,
+            config,
+            registry=registry,
+            max_spillover_hops=config.fleet_max_spillover_hops,
+            suppress_resync=False,
+        )
+        app = fleet_facade.stacks[0].app
     else:
         app = build_scheduler_app(
             backend, config, metrics=metrics, events=events, waste=waste
@@ -425,6 +447,7 @@ def main(argv=None) -> int:
         debug_routes=config.debug_routes,
         request_log=config.request_log,
         ha=ha_runtime,
+        fleet=fleet_facade,
     )
     reporters.start()
     print(
@@ -472,6 +495,8 @@ def main(argv=None) -> int:
         server.stop()
     finally:
         reporters.stop()
+        if fleet_facade is not None:
+            fleet_facade.stop()
     return 0
 
 

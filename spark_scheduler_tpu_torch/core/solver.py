@@ -77,6 +77,7 @@ from spark_scheduler_tpu_torch.models.cluster import (
 )
 from spark_scheduler_tpu_torch.models.kube import Node
 from spark_scheduler_tpu_torch.models.resources import NUM_DIMS, Resources
+from spark_scheduler_tpu_torch.ops.batched import make_app_batch
 from spark_scheduler_tpu_torch.ops.efficiency import avg_packing_efficiency_np
 from spark_scheduler_tpu_torch.ops.packing import (
     BINPACK_STRATEGIES,
@@ -257,7 +258,7 @@ class WindowHandle:
         "row_skippable", "seg_map", "window_rows", "info", "request_device",
         "dispatched_at", "released", "fused_decisions", "fused_bounds",
         "applied", "prune", "base_kept", "use_fallback", "resolved",
-        "parts", "greedy", "__weakref__",
+        "parts", "greedy", "blob_future", "__weakref__",
     )
 
     def __init__(self, *, strategy, blob, requests, host_avail,
@@ -270,6 +271,10 @@ class WindowHandle:
         # `ready` is the CUDA event that copy records.
         self.blob = blob
         self.ready = None
+        # A window deferred into a dispatch lane's stacked solve (replay
+        # sweep, fleet): the lane's future resolves to the flat host blob
+        # [B, 3 + emax]; blob is None until then.
+        self.blob_future = None
         self.requests = requests
         # Host availability at dispatch ([N,3]: an int64 copy, or for a
         # pruned dispatch the int32 host array itself, read only on an
@@ -343,6 +348,8 @@ class WindowHandle:
         to wait for on a side thread."""
         if self.parts is not None:
             return all(p.future.done() for p in self.parts)
+        if self.blob_future is not None:
+            return self.blob_future.done()
         return False
 
     def has_eager_fetch(self) -> bool:
@@ -364,6 +371,8 @@ class WindowHandle:
     def fetch_blob(self) -> np.ndarray:
         """The decision blob on the host, waiting for the device if the
         copy has not landed yet."""
+        if self.blob_future is not None:
+            return self.blob_future.result()[None]
         if self.ready is not None:
             self.ready.synchronize()
         return self.blob.numpy()
@@ -544,8 +553,31 @@ class PlacementSolver:
         # How the LAST pipelined build reached the device
         # ("full" | "delta" | "reuse").
         self.last_state_upload: str | None = None
-        # Static row deltas shipped (a node event riding the pipeline).
+        # Static row deltas shipped (a node event riding the pipeline), and
+        # full uploads of the pipelined base.
         self.device_state_stats = {"static_delta_uploads": 0}
+        self.build_stats = {"full_snapshots": 0}
+        # Deferred-dispatch lane (replay/sweep.py, fleet/dispatch.py); None
+        # on the plain serving path. A lane is a coordinator that takes a
+        # pipelined window's plain solve and defers it into a stacked
+        # solve: the sweep stacks the SAME window across config arms at
+        # its lockstep barrier (ops/batched.arm_stacked_fifo_pack), the
+        # fleet stacks concurrent windows of different clusters inside a
+        # short gather window (bucket_stacked_fifo_pack). As in the JAX
+        # package, only a window that does not take the kernel route can
+        # defer: on a CUDA solver the row walk serves every window of all
+        # six strategies and the lane is never asked. Protocol:
+        # `accepts(solver)` gates each deferral, `row_bucket_quantum`
+        # (None = the solver's `_row_bucket_quantum`) pads the deferred
+        # window's app rows, and `defer_window(...)` parks the window and
+        # returns (future of the host blob, PendingBase of the committed
+        # base). `_sweep_shared` is the sweep's cross-lane candidate-mask
+        # memo (registry state is arm-invariant, so lanes 2..M reuse lane
+        # 1's mask builds). `_row_bucket_quantum` stays 32 on serving
+        # paths; sweep lanes set 8.
+        self._dispatch_lane = None
+        self._sweep_shared: dict | None = None
+        self._row_bucket_quantum = 32
         # Dispatch info of the most recent solve (solo pack or window).
         self.last_solve_info: dict | None = None
         # SolverTelemetry hook surface (observability/telemetry.py), wired
@@ -1092,6 +1124,7 @@ class PlacementSolver:
         tensors = self._upload(host)
         self._note_transfer("h2d", _host_nbytes(host))
         self.last_state_upload = "full"
+        self.build_stats["full_snapshots"] += 1
         # The statics may have changed: the planner's resident state, the
         # gathered statics and every pool replica start again from this
         # host view (the journal cannot bridge a full upload).
@@ -1205,16 +1238,29 @@ class PlacementSolver:
             if mask is not None:
                 self._cand_cache.move_to_end(key)
                 return mask
-        mask = np.zeros(n, dtype=bool)
-        index_of = self.registry.index_of
-        for name in names:
-            idx = index_of(name)
-            if idx is not None and idx < n:
-                mask[idx] = True
-        mask.flags.writeable = False
+        shared = self._sweep_shared
+        mask = None
+        if shared is not None:
+            # Replay sweep: a sibling lane's mask for the same (n, epoch,
+            # names) is this lane's mask (node events are inputs, so the
+            # registries agree); validated by the same seqlock below.
+            with self._cand_lock:
+                mask = shared.get(key)
+                if mask is not None:
+                    shared["__hits__"] = shared.get("__hits__", 0) + 1
+        if mask is None:
+            mask = np.zeros(n, dtype=bool)
+            index_of = self.registry.index_of
+            for name in names:
+                idx = index_of(name)
+                if idx is not None and idx < n:
+                    mask[idx] = True
+            mask.flags.writeable = False
         # Seqlock read: cache only a walk over one stable mapping.
         if not epoch & 1 and self.registry.epoch == epoch:
             with self._cand_lock:
+                if shared is not None:
+                    shared.setdefault(key, mask)
                 self._cand_cache[key] = mask
                 while len(self._cand_cache) > 64:
                     self._cand_cache.popitem(last=False)
@@ -1549,6 +1595,14 @@ class PlacementSolver:
                 )
                 if handle is not None:
                     return handle
+        lane = self._dispatch_lane
+        if (
+            pipelined
+            and self.device.type != "cuda"
+            and lane is not None
+            and lane.accepts(self)
+        ):
+            return self._dispatch_deferred(strategy, tensors, rows, p, lane)
         n = tensors.num_nodes
         batch = self._layout(rows)
         tel = self.telemetry
@@ -1627,6 +1681,98 @@ class PlacementSolver:
         if pipelined:
             p["unfetched"].append(handle)
             self._note_inflight()
+        return handle
+
+    def window_app_batch(self, rows: _WindowRows, pad_to: int):
+        """The flat window batch of `rows` (ops/batched.AppBatch, host
+        numpy) that the stacked solves take: request-major rows, each
+        request's earlier drivers then its committing row (commit on the
+        last row, reset on the first), its candidate and domain masks on
+        every row, padded to `pad_to` rows."""
+        commit, reset, cand_rows, dom_rows = [], [], [], []
+        for req, cand, dom in zip(
+            rows.requests, rows.cand_per_req, rows.dom_per_req
+        ):
+            k = len(req.rows)
+            commit.extend(j == k - 1 for j in range(k))
+            reset.extend(j == 0 for j in range(k))
+            cand_rows.extend([cand] * k)
+            dom_rows.extend([dom] * k)
+        return make_app_batch(
+            rows.drv_arr, rows.exc_arr, rows.counts,
+            pad_to=pad_to, skippable=rows.skip_arr,
+            driver_cand=np.stack(cand_rows), domain=np.stack(dom_rows),
+            commit=np.asarray(commit), reset=np.asarray(reset),
+        )
+
+    def _dispatch_deferred(self, strategy, tensors, rows, p, lane):
+        """Park a pipelined window's plain solve with the dispatch lane.
+        The handle's blob is the lane's future (the flat [B, 3 + emax]
+        blob, one segment of B rows for the fetch's reconstruction) and
+        the pipeline's next base is the lane's PendingBase, which the next
+        build resolves on this solver's thread."""
+        b = len(rows.skip_arr)
+        quantum = (
+            getattr(lane, "row_bucket_quantum", None)
+            or self._row_bucket_quantum
+        )
+        row_bucket = pad_bucket(b, quantum)
+        apps = self.window_app_batch(rows, row_bucket)
+        future, base = lane.defer_window(
+            self, apps,
+            avail=tensors.available,
+            statics=cluster_statics(tensors),
+            host=host_view(tensors),
+            fill=strategy, emax=rows.emax, num_zones=rows.num_zones,
+        )
+        self.window_path_counts["deferred"] = (
+            self.window_path_counts.get("deferred", 0) + 1
+        )
+        priors = tuple(p["unfetched"])
+        debited = [p["debited"].get(h, frozenset()) for h in priors]
+        p["avail"] = base  # the next pipelined build resolves it
+        info = {
+            "path": "deferred",
+            "nodes": tensors.num_nodes,
+            "rows": b,
+            "row_bucket": row_bucket,
+            "emax": rows.emax,
+            "state_upload": self.last_state_upload,
+            "dispatch_id": next(self._dispatch_seq),
+            "fused_k": 1,
+        }
+        self.last_solve_info = info
+        tel = self.telemetry
+        if tel is not None:
+            info["compile_cache_hit"] = True
+            tel.on_window_dispatch(
+                "xla", nodes=info["nodes"], rows=b, row_bucket=row_bucket,
+                segment_bucket=1,
+            )
+            tel.on_transfer(
+                "h2d", sum(getattr(f, "nbytes", 0) for f in apps)
+            )
+        host = host_view(tensors)
+        handle = WindowHandle(
+            strategy=strategy,
+            blob=None,
+            requests=rows.requests,
+            host_avail=np.array(host.available, dtype=np.int64),
+            host_schedulable=np.asarray(host.schedulable),
+            priors=priors,
+            prior_debited=debited,
+        )
+        handle.blob_future = future
+        handle.dispatched_at = time.perf_counter()
+        handle.row_driver_req = rows.drv_arr.astype(np.int64)
+        handle.row_exec_req = rows.exc_arr.astype(np.int64)
+        handle.row_skippable = rows.skip_arr
+        handle.seg_map = (np.zeros(b, np.int64), np.arange(b))
+        handle.info = info
+        handle.host_tensors = host
+        handle.window_rows = rows
+        p["unfetched"].append(handle)
+        self._note_inflight()
         return handle
 
     def _device_failed_at_dispatch(self, exc, strategy, tensors, rows, p):

@@ -25,7 +25,7 @@ the compiler writes a `.<pid>.tmp` file that `os.replace` moves into place,
 so test workers building at once never load a half-written library. A
 build or load failure raises with the compiler's output; nothing degrades
 to a pure-Python lane. `ClusterArena` and `NativeShardedQueue` are bound
-but not wired into the port yet (ROADMAP B.5, A.9).
+but not wired into the port yet (ROADMAP B.5, A.8).
 """
 
 from __future__ import annotations

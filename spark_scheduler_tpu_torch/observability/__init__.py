@@ -22,6 +22,7 @@ from spark_scheduler_tpu_torch.observability.recorder import (  # noqa: F401
     FlightRecorder,
 )
 from spark_scheduler_tpu_torch.observability.telemetry import (  # noqa: F401
+    FleetTelemetry,
     HATelemetry,
     RetryTelemetry,
     SolverTelemetry,
@@ -38,6 +39,7 @@ from spark_scheduler_tpu_torch.observability.state import (  # noqa: F401
 
 __all__ = [
     "DecisionRecord",
+    "FleetTelemetry",
     "FlightRecorder",
     "HATelemetry",
     "RetryTelemetry",

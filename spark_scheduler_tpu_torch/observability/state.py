@@ -12,8 +12,8 @@ store, the same consistency every reporter tick has.
 The port's copy of spark_scheduler_tpu/observability/state.py. It reports
 what the port's app has: the autoscaler's fleet view and its `census`
 block and the `faults` block (device-slot quarantine, re-dispatches, the
-degraded-mode controller) as in the JAX package, but no trace sink, since
-the port has none yet; the solver section names the device, how each
+degraded-mode controller) and the trace sink's `trace` block as in the
+JAX package; the solver section names the device, how each
 window was served and the pool's per-slot state, the prune section the
 two-tier solve's ledger, and the server section the transport and the
 ingest lane.
@@ -121,6 +121,9 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
     recorder = getattr(app, "recorder", None)
     if recorder is not None:
         out["flight_recorder"] = recorder.stats()
+    trace_writer = getattr(app, "trace_writer", None)
+    if trace_writer is not None:
+        out["trace"] = trace_writer.stats()
     features = getattr(getattr(app, "extender", None), "features", None)
     if features is not None:
         # Host feature store: how often per-window featurize actually

@@ -1,8 +1,8 @@
 """Serving-path telemetry: the solver, the retry ladder, the HTTP
-transport and the HA replica runtime.
+transport, the HA replica runtime and the fleet facade.
 
 The port's copy of `SolverTelemetry`, `RetryTelemetry`,
-`TransportTelemetry` and `HATelemetry` from
+`TransportTelemetry`, `HATelemetry` and `FleetTelemetry` from
 spark_scheduler_tpu/observability/telemetry.py.
 SolverTelemetry publishes the solver's internals as
 `foundry.spark.scheduler.solver.*` series: windows dispatched per path,
@@ -10,8 +10,9 @@ padding-bucket occupancy, solo packs, pipelined builds and how they
 reached the device, pipeline drains and discards, host<->device bytes, and
 the host featurize split. The JAX package counts XLA compiles through a
 jax.monitoring listener; the port has none to count, and its compile
-gauges read the library builds of ops/_build.py instead. `FleetTelemetry`
-is not ported yet (ROADMAP A.9).
+gauges read the library builds of ops/_build.py instead.
+`FleetTelemetry` publishes `foundry.spark.scheduler.fleet.*` under the JAX
+package's names.
 """
 
 from __future__ import annotations
@@ -574,3 +575,76 @@ class HATelemetry:
 
     def on_tailed(self, applied: int) -> None:
         self.registry.gauge(HA_TAILED_EVENTS, **self._tags()).set(applied)
+
+
+FLEET_CLUSTERS_LIVE = "foundry.spark.scheduler.fleet.clusters.live"
+FLEET_DECISIONS = "foundry.spark.scheduler.fleet.decisions"
+FLEET_ROUTER_PICKS = "foundry.spark.scheduler.fleet.router.picks"
+FLEET_FORWARDED = "foundry.spark.scheduler.fleet.forwarded"
+FLEET_SPILLOVERS = "foundry.spark.scheduler.fleet.spillovers"
+FLEET_SPILLOVER_DENIED = "foundry.spark.scheduler.fleet.spillover.denied"
+FLEET_ORPHANS_REROUTED = "foundry.spark.scheduler.fleet.orphans.rerouted"
+FLEET_AGG_EVENTS = "foundry.spark.scheduler.fleet.aggregate.events.applied"
+# Fused fleet dispatch (fleet/dispatch.py): stacked launches,
+# windows-per-launch, fallback singles, and how long a deferred window
+# waited in the gather before its flush.
+FLEET_DISPATCH_STACKED = "foundry.spark.scheduler.fleet.dispatch.stacked"
+FLEET_DISPATCH_ARMS = "foundry.spark.scheduler.fleet.dispatch.arms"
+FLEET_DISPATCH_FALLBACKS = "foundry.spark.scheduler.fleet.dispatch.fallbacks"
+FLEET_DISPATCH_GATHER_WAIT_MS = (
+    "foundry.spark.scheduler.fleet.dispatch.gather.wait.ms"
+)
+
+
+class FleetTelemetry:
+    """`foundry.spark.scheduler.fleet.*` — the facade's two-level serving
+    surface: live cluster count, per-cluster decision counters, router
+    pick reasons, spillovers by (from, to), and aggregate freshness."""
+
+    def __init__(self, registry: MetricRegistry | None = None):
+        self.registry = registry or MetricRegistry()
+
+    def on_live(self, live: int) -> None:
+        self.registry.gauge(FLEET_CLUSTERS_LIVE).set(int(live))
+
+    def on_decision(self, cluster: int) -> None:
+        self.registry.counter(FLEET_DECISIONS, cluster=str(cluster)).inc()
+
+    def on_pick(self, reason: str) -> None:
+        self.registry.counter(FLEET_ROUTER_PICKS, reason=reason).inc()
+
+    def on_forwarded(self) -> None:
+        self.registry.counter(FLEET_FORWARDED).inc()
+
+    def on_spillover(self, home: int, sibling: int) -> None:
+        self.registry.counter(
+            FLEET_SPILLOVERS, from_cluster=str(home), to_cluster=str(sibling)
+        ).inc()
+
+    def on_spillover_denied(self, home: int) -> None:
+        self.registry.counter(
+            FLEET_SPILLOVER_DENIED, from_cluster=str(home)
+        ).inc()
+
+    def on_orphans_rerouted(self, n: int) -> None:
+        if n:
+            self.registry.counter(FLEET_ORPHANS_REROUTED).inc(n)
+
+    def on_aggregate_events(self, cluster: int, applied: int) -> None:
+        self.registry.gauge(FLEET_AGG_EVENTS, cluster=str(cluster)).set(
+            int(applied)
+        )
+
+    # -- fused fleet dispatch (fleet/dispatch.py) ----------------------------
+
+    def on_stacked_dispatch(self, arms: int) -> None:
+        self.registry.counter(FLEET_DISPATCH_STACKED).inc()
+        self.registry.counter(FLEET_DISPATCH_ARMS).inc(arms)
+
+    def on_stack_fallback(self, reason: str) -> None:
+        self.registry.counter(FLEET_DISPATCH_FALLBACKS, reason=reason).inc()
+
+    def on_gather_wait(self, wait_ms: float) -> None:
+        self.registry.histogram(FLEET_DISPATCH_GATHER_WAIT_MS).update(
+            round(wait_ms, 3)
+        )

@@ -489,3 +489,148 @@ def fuse_app_batches(batches, *, pad_to: int | None = None) -> AppBatch:
         commit=cat("commit"),
         reset=cat("reset"),
     )
+
+
+# -- stacked solves (replay sweep arms, fleet clusters) ----------------------
+
+
+def pad_app_batch(apps: AppBatch, pad_to: int) -> AppBatch:
+    """Re-pad a host batch (numpy fields) to a LARGER row bucket: windows
+    stacked into one solve must share the app axis, so every member grows
+    to the group max. New rows are pure padding (app_valid=False,
+    all-zero/False), what make_app_batch emits at the bigger bucket, so
+    decisions cannot shift. Returns `apps` itself when it is already as
+    large; the input arrays are never written."""
+    b = np.asarray(apps.driver_req).shape[0]
+    if pad_to <= b:
+        return apps
+    grow = pad_to - b
+
+    def _rows(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return np.pad(a, [(0, grow)] + [(0, 0)] * (a.ndim - 1))
+
+    return AppBatch(*(_rows(getattr(apps, f)) for f in AppBatch._fields))
+
+
+def stack_app_batches(batches) -> AppBatch:
+    """Stack M same-shape host batches along a new leading member axis
+    ([M, B, ...]) for `bucket_stacked_fifo_pack`. Optional masks must be
+    set on every member or on none: a mix raises."""
+
+    def _stack(field):
+        vals = [getattr(b, field) for b in batches]
+        if all(v is None for v in vals):
+            return None
+        if any(v is None for v in vals):
+            raise ValueError(
+                f"cannot stack batches with mixed None-ness in {field!r}"
+            )
+        return np.stack([_host(v) for v in vals])
+
+    return AppBatch(*(_stack(f) for f in AppBatch._fields))
+
+
+def _packing_blob(out: BatchedPacking) -> torch.Tensor:
+    """[B, 3 + emax] int32 in the window blob's column layout: driver,
+    admitted, packed, executor slots."""
+    return torch.cat(
+        [
+            out.driver_node[:, None],
+            out.admitted[:, None].to(torch.int32),
+            out.packed[:, None].to(torch.int32),
+            out.executor_nodes,
+        ],
+        dim=1,
+    )
+
+
+def _stacked_solve(avail_stack, statics_of, apps_of, fills, emax, num_zones):
+    if len(fills) != avail_stack.shape[0]:
+        raise ValueError(
+            f"fills ({len(fills)}) must match the member axis "
+            f"({avail_stack.shape[0]})"
+        )
+    blobs, avails = [], []
+    # A per-member loop: each member is solved on its own with its own
+    # fill, so the JAX package's same-fill sub-stacks (a vmap needs one
+    # static fill) have no counterpart here.
+    for m, fill in enumerate(fills):
+        out = batched_fifo_pack(
+            cluster_from_statics(avail_stack[m], statics_of(m)),
+            apps_of(m), fill=fill, emax=emax, num_zones=num_zones,
+        )
+        blobs.append(_packing_blob(out))
+        avails.append(out.available_after)
+    return torch.stack(blobs), torch.stack(avails)
+
+
+def arm_stacked_fifo_pack(
+    avail_stack: torch.Tensor,  # [M, N, 3] i32 — per-arm committed base
+    statics: tuple,
+    apps: AppBatch,
+    *,
+    fills: tuple,  # per-arm fill strategy
+    emax: int,
+    num_zones: int,
+):
+    """One window solved for M config arms in one call, the replay sweep's
+    stacked solve. The window's app batch and statics are arm-invariant
+    (node events are inputs, not decisions); only the availability carry
+    differs per arm, so it stacks as `[M, N, 3]`.
+
+    The JAX package's counterpart is an XLA program that vmaps each
+    same-fill sub-stack. Here the members are solved in turn by
+    `batched_fifo_pack` under their own fill, on the stack's device, with
+    the app batch copied there once: the call stacks the results, not the
+    work, so it costs M sequential solves and buys no speed. It is kept
+    for the CPU deferred lane's parity with the JAX package. `avail_stack`
+    is left as it was (the JAX package donates it).
+
+    Returns `(blob, avail_after)`: `blob` `[M, B, 3+emax]` int32 in the
+    window blob's column layout (driver, admitted, packed, exec slots),
+    `avail_after` `[M, N, 3]`; arm m's rows equal a sequential
+    `batched_fifo_pack` under `fills[m]`."""
+    dev_apps = app_batch_to_device(apps, avail_stack.device)
+    return _stacked_solve(
+        avail_stack, lambda m: statics, lambda m: dev_apps, fills, emax,
+        num_zones,
+    )
+
+
+def bucket_stacked_fifo_pack(
+    avail_stack: torch.Tensor,  # [M, N, 3] i32 — per-cluster availability
+    statics_stack: tuple,  # cluster_statics stacked per field: each [M, N]
+    apps_stack: AppBatch,  # fields stacked [M, B, ...]
+    *,
+    fills: tuple,  # per-member fill strategy
+    emax: int,
+    num_zones: int,
+):
+    """M different clusters' windows solved in one call, the fleet's
+    generalization of `arm_stacked_fifo_pack`: statics and apps stack too,
+    and member m sees only its own cluster's statics, masks and
+    availability, so its rows equal that cluster's own `batched_fifo_pack`
+    solve. Members agree on the padded shapes (node bucket, emax, zones,
+    app rows via `pad_app_batch`), not on content. A per-member loop like
+    the arm solve; `avail_stack` is left as it was.
+
+    Returns `(blob, avail_after)`: `blob` `[M, B, 3+emax]`, `avail_after`
+    `[M, N, 3]`."""
+    if len(fills) != avail_stack.shape[0]:
+        raise ValueError(
+            f"fills ({len(fills)}) must match the member axis "
+            f"({avail_stack.shape[0]})"
+        )
+    dev = avail_stack.device
+    dev_apps = app_batch_to_device(apps_stack, dev)
+
+    def apps_of(m):
+        return AppBatch(*(None if f is None else f[m] for f in dev_apps))
+
+    return _stacked_solve(
+        avail_stack, lambda m: tuple(s[m] for s in statics_stack), apps_of,
+        fills, emax, num_zones,
+    )

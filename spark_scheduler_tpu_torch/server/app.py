@@ -23,7 +23,11 @@ ElasticAutoscaler over a ClusterCensus, started and stopped with the app.
 `solver.device-pool` / `solver.mesh.groups` give the solver a device pool
 (`pool_devices=` lays its slots on named devices instead, several on one
 card allowed), and the solver always carries the DegradedModeController of
-`server.degraded-mode`, as in the JAX package.
+`server.degraded-mode`, as in the JAX package. With `trace.path` (and the
+flight recorder on) the app carries a replay.TraceWriter: the recorder's
+sink plus node and pod subscriptions journal every decision's inputs and
+results (`fleet.*` is served by fleet/facade.py, which builds one app per
+cluster).
 """
 
 from __future__ import annotations
@@ -56,11 +60,6 @@ UNSUPPORTED_KEYS = {
     "solver_mesh_node_shards": ("solver.mesh.node-shards", "ROADMAP A.6"),
     "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.6"),
     "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
-    "trace_path": ("trace.path", "ROADMAP A.7"),
-    "fleet_enabled": ("fleet.enabled", "ROADMAP A.7"),
-    "fleet_clusters": ("fleet.clusters", "ROADMAP A.7"),
-    "fleet_max_spillover_hops": ("fleet.max-spillover-hops", "ROADMAP A.7"),
-    "fleet_stack_window_ms": ("fleet.stack-window-ms", "ROADMAP A.7"),
     "jax_compilation_cache_dir": (
         "jax-compilation-cache-dir",
         "none: the port's kernels build into spark_scheduler_tpu_torch/_build/",
@@ -112,6 +111,7 @@ class SchedulerApp:
     runtime_manager: object | None = None  # RuntimeConfigManager when configured
     autoscaler: object | None = None  # ElasticAutoscaler when enabled
     recorder: object | None = None  # FlightRecorder when flight_recorder is on
+    trace_writer: object | None = None  # replay.TraceWriter when trace_path set
     _background_started: bool = False
 
     def start_background(self) -> None:
@@ -154,6 +154,8 @@ class SchedulerApp:
         self.demand_cache.flush()
         self.demand_cache.stop()
         self.solver.close()
+        if self.trace_writer is not None:
+            self.trace_writer.close()
 
 
 def build_scheduler_app(
@@ -328,6 +330,46 @@ def build_scheduler_app(
         solver.telemetry = SolverTelemetry(
             metrics.registry if metrics is not None else None
         )
+    trace_writer = None
+    if config.trace_path:
+        if recorder is None:
+            import warnings
+
+            warnings.warn(
+                "trace.path set but the flight recorder is disabled — "
+                "decision tracing requires flight-recorder: true; "
+                "no trace will be written",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        else:
+            # Durable decision trace: header (config fingerprint) ->
+            # bootstrap journal of the pre-existing world -> live event
+            # hooks. The sink rides the recorder, so the extender's capture
+            # wrappers cost one attribute check when tracing is off.
+            from spark_scheduler_tpu_torch.replay.trace import TraceWriter
+
+            trace_writer = TraceWriter(
+                config.trace_path,
+                clock=clock,
+                decisions=config.trace_decisions,
+                epoch_fn=lambda: getattr(backend, "nodes_version", None),
+            )
+            trace_writer.write_header(config)
+            trace_writer.bootstrap(backend)
+            recorder.attach_sink(trace_writer)
+            backend.subscribe(
+                "nodes",
+                on_add=trace_writer.on_node_add,
+                on_update=trace_writer.on_node_update,
+                on_delete=trace_writer.on_node_delete,
+            )
+            backend.subscribe(
+                "pods",
+                on_add=trace_writer.on_pod_add,
+                on_update=trace_writer.on_pod_update,
+                on_delete=trace_writer.on_pod_delete,
+            )
     # Degraded-mode controller: when no device can serve, the solver
     # consults this policy — host greedy fallback or 503+Retry-After
     # shedding. Readiness and /debug/state reflect it.
@@ -526,6 +568,7 @@ def build_scheduler_app(
         ingestion=ingestion,
         autoscaler=autoscaler,
         recorder=recorder,
+        trace_writer=trace_writer,
     )
     if config.runtime_config_path:
         from spark_scheduler_tpu_torch.server.runtime import RuntimeConfigManager

@@ -46,8 +46,8 @@ selected by the `server.transport` install knob:
 The port's copy of spark_scheduler_tpu/server/http.py. `ingest="native"`
 builds the port's native library (spark_scheduler_tpu_torch/native) or
 raises: the JAX package's degrade of `native` to `python` is not copied.
-`ha=` takes an HA replica runtime (ha/replica.py), as in
-the JAX package; the fleet facade waits for ROADMAP A.9.
+`ha=` takes an HA replica runtime (ha/replica.py) and `fleet=` a
+FleetFacade (fleet/facade.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -679,6 +679,7 @@ class SchedulerHTTPServer:
         max_connections: int | None = None,
         shed_queue_depth: int | None = None,
         ha=None,
+        fleet=None,
     ):
         from spark_scheduler_tpu_torch.observability import TransportTelemetry
 
@@ -695,6 +696,13 @@ class SchedulerHTTPServer:
         # a serving role (leader/active), GET /debug/ha exposes the role /
         # lease / tailer state, and start()/stop() run the heartbeat.
         self.ha = ha
+        # FleetFacade (fleet/facade.py) when this endpoint fronts F
+        # per-cluster stacks: GET /debug/fleet exposes router/spillover/
+        # aggregate state and threaded-transport predicates accept a
+        # ?cluster=N tag (which cluster endpoint kube-scheduler thinks it
+        # hit — wrong-cluster calls are forwarded, counted, and
+        # byte-identical either way).
+        self.fleet = fleet
         self.ready = threading.Event()
         self._shutdown = threading.Event()
         cfg = getattr(app, "config", None)

@@ -21,9 +21,10 @@ on a device solve; the batcher's dispatcher thread was always the real
 serialization point, so parked handler threads bought nothing).
 
 The port's copy of spark_scheduler_tpu/server/routing.py, with the HA
-surfaces (readiness by role, GET /debug/ha). Not here yet: the fleet
-surface (ROADMAP A.9); the replay sweep counters of
-/debug/trace (the port has no trace sink). /debug/profile drives
+surfaces (readiness by role, GET /debug/ha), the fleet surface (GET
+/debug/fleet and the `?cluster=N` tag of a threaded-transport predicate,
+routed through the FleetFacade) and the trace sink's /debug/trace (with
+the last in-process sweep's counters). /debug/profile drives
 torch.profiler instead of the JAX profiler.
 """
 
@@ -343,6 +344,11 @@ class SchedulerRoutes(SyncRoutes):
             # served whenever HA is wired — failover forensics must not
             # depend on the debug-routes opt-in.
             return json_response(200, s.ha.state())
+        if path == "/debug/fleet" and getattr(s, "fleet", None) is not None:
+            # Fleet surface (router picks, spillovers, per-cluster
+            # aggregates): served whenever the facade is wired — same
+            # always-on rule as /debug/ha.
+            return json_response(200, s.fleet.state())
         if path == "/debug/traces" and s.debug_routes:
             from spark_scheduler_tpu_torch.tracing import tracer
 
@@ -350,8 +356,20 @@ class SchedulerRoutes(SyncRoutes):
         if path == "/debug/decisions" and s.debug_routes:
             return self._debug_decisions(req)
         if path == "/debug/trace" and s.debug_routes:
-            # The port has no trace sink yet (ROADMAP A.9).
-            return json_response(404, {"error": "trace sink disabled"})
+            tw = getattr(s.app, "trace_writer", None)
+            if tw is None:
+                return json_response(404, {"error": "trace sink disabled"})
+            body = tw.stats()
+            # The last in-process multi-arm sweep, when one ran: the
+            # replay counters live next to the trace they replayed.
+            from spark_scheduler_tpu_torch.replay.sweep import (
+                last_sweep_telemetry,
+            )
+
+            replay = last_sweep_telemetry()
+            if replay:
+                body = dict(body, replay=replay)
+            return json_response(200, body)
         if path == "/debug/state" and s.debug_routes:
             from spark_scheduler_tpu_torch.observability import debug_state_snapshot
 
@@ -406,6 +424,15 @@ class SchedulerRoutes(SyncRoutes):
                         if isinstance(v, (int, float))
                     }
                 )
+            tw = getattr(s.app, "trace_writer", None)
+            if tw is not None:
+                extra.update(
+                    {
+                        f"foundry.spark.scheduler.trace.{k}": v
+                        for k, v in tw.stats().items()
+                        if isinstance(v, (int, float))
+                    }
+                )
             return text_response(
                 200,
                 render_prometheus(snap, extra_gauges=extra),
@@ -417,6 +444,9 @@ class SchedulerRoutes(SyncRoutes):
         recorder = getattr(s.app, "recorder", None)
         if recorder is not None:
             snap["flight_recorder"] = recorder.stats()
+        tw = getattr(s.app, "trace_writer", None)
+        if tw is not None:
+            snap["trace"] = tw.stats()
         return json_response(200, snap)
 
     def _debug_decisions(self, req: Request) -> Response:
@@ -642,6 +672,29 @@ class SchedulerRoutes(SyncRoutes):
         shed = self._shed_response()
         if shed is not None:
             return shed
+        # Fleet mode: the facade routes to the home cluster's own stack
+        # (bypassing this endpoint's batcher — each cluster serializes on
+        # its own worker). `?cluster=N` tags which cluster endpoint the
+        # caller believed it hit; wrong-cluster calls are forwarded and
+        # counted, decisions byte-identical either way.
+        fleet = getattr(s, "fleet", None)
+        if fleet is not None:
+            via = req.q("cluster")
+            with tracer().root_from_headers(
+                req.headers, "predicate", pod=f"{pod.namespace}/{pod.name}"
+            ) as root:
+                try:
+                    decision = fleet.schedule(
+                        pod,
+                        node_names or None,
+                        via=int(via) if via is not None else None,
+                    )
+                except Exception as exc:
+                    root.tag("outcome", "failure-internal")
+                    return self._predicate_err(pod, exc)
+                root.tag("outcome", decision.result.outcome)
+                root.tag("cluster", str(decision.cluster))
+                return self._predicate_ok(pod, decision.result, node_names)
         # Root span continues the caller's b3 trace context (the
         # witchcraft tracing middleware slot).
         with tracer().root_from_headers(

@@ -171,6 +171,10 @@ class Harness:
         self.extender = self.app.extender
         # suppress time-gap reconciliation in deterministic tests
         self.extender._last_request = float("inf")
+        # ... and record that suppression in the trace (when one is being
+        # captured), so a replay suppresses it too.
+        if self.app.trace_writer is not None:
+            self.app.trace_writer.emit_meta(resync_suppressed=True)
 
     # -- cluster fixtures ---------------------------------------------------
 

@@ -1204,3 +1204,185 @@ def test_illegal_address_from_the_row_walk_raises(cuda_device, mode):
     ), got["raised"]
     assert got["engagements"] == 0 and got["fallback_decisions"] == 0, got
     assert got["quarantined"] == [] and got["redispatches"] == 0, got
+
+
+def _random_port_cluster(rng, n, device):
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+
+    avail = rng.integers(0, 24, size=(n, 3)).astype(np.int32)
+    avail[:, 2] = rng.integers(0, 3, size=n)
+    return cluster_from_numpy(
+        [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+         rng.permutation(n).astype(np.int32),
+         np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
+         rng.random(n) < 0.05, rng.random(n) < 0.97, np.ones(n, bool)],
+        device=device,
+    )
+
+
+def _random_window_batch(rng, n, segs):
+    from spark_scheduler_tpu_torch.ops.batched import make_app_batch
+
+    b = sum(segs)
+    drv = rng.integers(0, 4, size=(b, 3)).astype(np.int32)
+    exc = rng.integers(0, 6, size=(b, 3)).astype(np.int32)
+    drv[:, 2] = exc[:, 2] = 0
+    commit, reset = np.zeros(b, bool), np.zeros(b, bool)
+    cand, dom = np.zeros((b, n), bool), np.zeros((b, n), bool)
+    r = 0
+    for s in segs:
+        reset[r] = True
+        commit[r + s - 1] = True
+        cand[r:r + s] = rng.random(n) < 0.8
+        dom[r:r + s] = rng.random(n) < 0.9
+        r += s
+    return make_app_batch(
+        drv, exc, rng.integers(0, 8, size=b).astype(np.int32),
+        skippable=rng.random(b) < 0.3, driver_cand=cand, domain=dom,
+        commit=commit, reset=reset,
+    )
+
+
+def test_cuda_solver_lane_declines_and_launches_the_row_walk(cuda_device):
+    """A dispatch lane on a `cuda` solver is never asked: the row walk
+    serves every window (as the Pallas kernel does on a TPU), and the
+    same lane on a `cpu` solver defers the same window."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+    from spark_scheduler_tpu_torch.models.kube import Node
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.replay.sweep import SweepCoordinator
+
+    nodes = [Node(name=f"n{i}", allocatable=Resources.from_quantities("8", "8Gi"))
+             for i in range(64)]
+    one = Resources.from_quantities("1", "1Gi")
+    reqs = [WindowRequest(rows=[(one, one, 2, False)],
+                          driver_candidate_names=[n.name for n in nodes])
+            for _ in range(3)]
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        tel = {k: 0 for k in ("windows", "stacked_dispatches",
+                              "stacked_arm_windows", "lane_fallbacks",
+                              "forced_resolves")}
+        tel.update(replay_compile_ms=0.0, solve_s=0.0)
+        lane = SweepCoordinator(tel)
+        solver = PlacementSolver(device=dev)
+        solver._dispatch_lane = lane
+        before = window_pack.launches
+        h = solver.pack_window_dispatch(
+            "tightly-pack", solver.build_tensors_pipelined(nodes, {}, {}), reqs
+        )
+        lane.flush()
+        got[str(dev)] = [d.packing.driver_node for d in solver.pack_window_fetch(h)]
+        if dev == cuda_device:
+            assert window_pack.launches - before == 3
+            assert solver.window_path_counts == {"cuda": 1}
+            assert tel["windows"] == 0 and not lane.pending
+        else:
+            assert solver.window_path_counts == {"deferred": 1}
+            assert tel["windows"] == 1
+        solver.close()
+    assert got[str(cuda_device)] == got["cpu"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stacked_solves_on_cuda_match_cpu(cuda_device, seed):
+    """`arm_stacked_fifo_pack` and `bucket_stacked_fifo_pack` on CUDA
+    tensors equal the same calls on CPU tensors, and leave the caller's
+    stack as it was."""
+    from spark_scheduler_tpu_torch.models.cluster import cluster_statics
+    from spark_scheduler_tpu_torch.ops.batched import (
+        arm_stacked_fifo_pack,
+        bucket_stacked_fifo_pack,
+        pad_app_batch,
+        stack_app_batches,
+    )
+
+    rng = np.random.default_rng(seed)
+    n, emax, zones = 300, 8, 4
+    base = _random_port_cluster(rng, n, "cpu")
+    apps = _random_window_batch(rng, n, (2, 1, 3))
+    fills = ("distribute-evenly", "single-az-tightly-pack", "tightly-pack",
+             "tightly-pack")
+    stack = torch.stack([base.available - int(i) for i in range(4)])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        s = stack.to(dev)
+        before = s.clone()
+        blob, after = arm_stacked_fifo_pack(
+            s, tuple(x.to(dev) for x in cluster_statics(base)), apps,
+            fills=fills, emax=emax, num_zones=zones,
+        )
+        assert torch.equal(s, before)
+        out[str(dev)] = (blob.cpu(), after.cpu())
+    assert torch.equal(out["cpu"][0], out[str(cuda_device)][0])
+    assert torch.equal(out["cpu"][1], out[str(cuda_device)][1])
+
+    clusters = [_random_port_cluster(rng, n, "cpu") for _ in range(3)]
+    batches = [_random_window_batch(rng, n, segs) for segs in ((1,), (2, 2), (3,))]
+    rows = max(b.driver_req.shape[0] for b in batches)
+    apps_stack = stack_app_batches([pad_app_batch(b, rows) for b in batches])
+    fills = ("minimal-fragmentation", "tightly-pack", "tightly-pack")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        statics = tuple(
+            torch.stack([cluster_statics(c)[i] for c in clusters]).to(dev)
+            for i in range(len(cluster_statics(clusters[0])))
+        )
+        avail = torch.stack([c.available for c in clusters]).to(dev)
+        blob, after = bucket_stacked_fifo_pack(
+            avail, statics, apps_stack, fills=fills, emax=emax,
+            num_zones=zones,
+        )
+        out[str(dev)] = (blob.cpu(), after.cpu())
+    assert torch.equal(out["cpu"][0], out[str(cuda_device)][0])
+    assert torch.equal(out["cpu"][1], out[str(cuda_device)][1])
+
+
+def test_fleet_on_cuda_matches_its_cpu_replay(cuda_device):
+    """A short stacked-config fleet on the card: `stack-window-ms` is inert
+    there (no coordinator, stacking reported disabled), no window defers,
+    every driver window launches the row walk, and each cluster's oplog
+    replays byte-identically on a `cpu` standalone stack and on the
+    card."""
+    from spark_scheduler_tpu_torch.fleet import FleetFacade, verify_cluster_equivalence
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.testing.harness import (
+        INSTANCE_GROUP_LABEL,
+        new_node,
+        static_allocation_spark_pods,
+    )
+
+    cfg = InstallConfig(fifo=True, sync_writes=True,
+                        instance_group_label=INSTANCE_GROUP_LABEL)
+    f = FleetFacade(3, cfg, record_ops=True, stack_window_ms=5.0,
+                    device=cuda_device)
+    try:
+        for c in range(3):
+            for i in range(40):
+                f.add_node(c, new_node(f"c{c}-n{i}", zone=f"zone{i % 2}",
+                                       instance_group="ig-s" if c < 2 else "ig-x"))
+        before = window_pack.launches
+        drivers = 0
+        for k in range(12):
+            pods = static_allocation_spark_pods(
+                f"cf-{k}", 1 + k % 3, instance_group="ig-s" if k % 4 else "ig-x"
+            )
+            for p in pods:
+                f.schedule(p, via=k % 3)
+            drivers += 1
+        f.kill_cluster(2)
+        f.rejoin_cluster(2)
+        st = f.state()
+        assert f.dispatch is None
+        assert st["stacking"] == {"enabled": False}
+        assert window_pack.launches - before >= drivers
+        assert all(s.app.solver.window_path_counts.get("deferred", 0) == 0
+                   for s in f.stacks)
+        for dev in ("cpu", None):
+            report = verify_cluster_equivalence(f, device=dev)
+            assert all(r["identical"] for r in report.values())
+    finally:
+        f.stop()

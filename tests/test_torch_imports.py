@@ -392,3 +392,79 @@ def test_fault_tolerance_modules_run_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+REPLAY_AND_FLEET = (
+    "spark_scheduler_tpu_torch.replay.trace",
+    "spark_scheduler_tpu_torch.replay.engine",
+    "spark_scheduler_tpu_torch.replay.generators",
+    "spark_scheduler_tpu_torch.replay.sweep",
+    "spark_scheduler_tpu_torch.replay.__main__",
+    "spark_scheduler_tpu_torch.fleet.aggregates",
+    "spark_scheduler_tpu_torch.fleet.router",
+    "spark_scheduler_tpu_torch.fleet.spillover",
+    "spark_scheduler_tpu_torch.fleet.facade",
+    "spark_scheduler_tpu_torch.fleet.dispatch",
+)
+
+
+def test_replay_and_fleet_modules_run_with_jax_blocked(tmp_path):
+    """The trace codec, the replay engine, the generators, the sweep and
+    the fleet are the port's own copies: each imports, and a generated
+    trace runs with re-capture, replays strictly, sweeps two arms with a
+    stacked solve, and a two-cluster stacked fleet serves and verifies on
+    the CPU, while jax and the JAX package are refused."""
+    assert set(REPLAY_AND_FLEET) <= set(_port_modules())
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import importlib\n"
+        f"for name in {REPLAY_AND_FLEET!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from spark_scheduler_tpu_torch.replay import generate, replay_trace, run_sweep\n"
+        "from spark_scheduler_tpu_torch.fleet import FleetFacade, verify_cluster_equivalence\n"
+        "from spark_scheduler_tpu_torch.server.config import InstallConfig\n"
+        "from spark_scheduler_tpu_torch.testing.harness import INSTANCE_GROUP_LABEL, new_node, static_allocation_spark_pods\n"
+        f"gen, cap = {str(tmp_path / 'g.jsonl')!r}, {str(tmp_path / 'c.jsonl')!r}\n"
+        "generate('churn', gen, seed=1, n_nodes=8, steps=12)\n"
+        "assert replay_trace(gen, record_path=cap, device='cpu').decisions > 0\n"
+        "rep = replay_trace(cap, strict=True, device='cpu')\n"
+        "assert rep.compared == rep.decisions > 0\n"
+        "sw = run_sweep(cap, [{}, {'binpack_algo': 'distribute-evenly'}], device='cpu')\n"
+        "assert sw.telemetry['stacked_dispatches'] > 0\n"
+        "cfg = InstallConfig(fifo=True, sync_writes=True, instance_group_label=INSTANCE_GROUP_LABEL)\n"
+        "f = FleetFacade(2, cfg, record_ops=True, stack_window_ms=5.0, device='cpu')\n"
+        "for c in range(2):\n"
+        "    f.add_node(c, new_node(f'c{c}-n0', instance_group=f'ig-{c}'))\n"
+        "assert f.schedule(static_allocation_spark_pods('a', 1, instance_group='ig-1')[0]).cluster == 1\n"
+        "assert all(r['identical'] for r in verify_cluster_equivalence(f).values())\n"
+        "f.stop()\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_replay_and_fleet_entry_points_default_to_cuda():
+    """Each new entry point asks for the card unless told otherwise."""
+    import inspect
+
+    from spark_scheduler_tpu_torch.fleet import (
+        ClusterStack,
+        FleetFacade,
+        replay_standalone,
+    )
+    from spark_scheduler_tpu_torch.replay import replay_trace, run_sweep, what_if
+    from spark_scheduler_tpu_torch.replay.engine import ReplayLane
+
+    for fn in (replay_trace, run_sweep, what_if, ReplayLane, FleetFacade,
+               ClusterStack, replay_standalone):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            FleetFacade(2)
