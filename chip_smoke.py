@@ -303,13 +303,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the card; `verify_cluster_equivalence` on the card and on the cpu.
      Every main-path phase here checks row-walk launches = live segments
      + solo packs, and one probe a `cuda` solver.
+ 16. The native arena's resident host build at full width (every solver
+     of phases 3-15 builds on it too). (a) Phase 3's 10,000 nodes behind
+     three extenders, each with the feature store's availability journal
+     (the usage tracker the app attaches): a `cuda` solver on the arena
+     with `solver.build-oracle`, a `cuda` solver on the dense Python build
+     (`use_native=False`) and a `cpu` solver on the arena. 16 pipelined
+     windows of 32 drivers with churn between and under windows in flight:
+     base-pod deletes (overhead rows), 4 node adds, a label and a zone
+     update, and, after a drain, 2 idle nodes deleted with their pods,
+     whose registry rows the later adds take. Every result, reservation
+     and demand equal across the three; oracle checks > 0 and none missed
+     a row; no dense mirror sync after the first build; tombstones
+     recycled; the resident solver's row walks = its live segments.
+     Prints each side's `solver.build.ms` p50/p99, incremental builds
+     against full snapshots and window p50. (b) Phase 12 (c)'s 100,000
+     nodes at the solver level, 8 pipelined windows of 32, the resident
+     `cuda` solver (fed the journal of its commits) against the dense
+     `cuda` solver: equal decisions, the same figures. Phases 7 and 12 (c)
+     print /debug/state's `build` block (12 (c): the pruned solver's
+     build stats) and phase 7 the batcher's busy share.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
+
+    python3 chip_smoke.py --trace-race ROUNDS [--nodes N] [--device cpu]
+
+checks the trace capture's event order instead (ROADMAP §C.9): ROUNDS
+pairs of phase 15 (a) captures, with the trace's order lock on the
+backend and without it (an event can then land between a window's state
+reads and its journal entry), in turns A B B A, each replayed on the same
+device and compared. Prints one JSON line a capture (mismatches, the
+capture's driver p50/p99), then a summary line a side. No result line;
+exits 0 when every capture with the lock replayed with no mismatch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1446,12 +1477,16 @@ EXT_EXTRAS = 16
 EXT_RESCHEDULES = 16
 
 
-def build_extender(device):
+def build_extender(device, track_usage=False, **solver_kw):
     """A port extender wired from its parts as the JAX package's
     server/app.py `build_scheduler_app` wires its own: an in-memory backend
     with the Demand CRD, synchronous write-back, `tightly-pack`, FIFO on,
     reconciler / metrics / events / waste / recorder / policy off, one
-    fixed clock. Returns (extender, backend, solver)."""
+    fixed clock; `solver_kw` goes to the PlacementSolver. With
+    `track_usage` the reservation manager carries the ReservedUsageTracker
+    the app attaches, so the feature store journals the usage rows each
+    reservation changes (the resident build's feed). Returns (extender,
+    backend, solver)."""
     from spark_scheduler_tpu_torch.core.binpacker import select_binpacker
     from spark_scheduler_tpu_torch.core.demands import DemandManager
     from spark_scheduler_tpu_torch.core.extender import (
@@ -1491,7 +1526,15 @@ def build_extender(device):
     demands = DemandManager(backend, demand_cache, EXT_IG_LABEL,
                             is_single_az_binpacker=binpacker.is_single_az,
                             events=None, waste=None, clock=clock)
-    solver = PlacementSolver(device=device)
+    solver = PlacementSolver(device=device, **solver_kw)
+    if track_usage:
+        from spark_scheduler_tpu_torch.core.usage_tracker import (
+            ReservedUsageTracker,
+        )
+
+        rrm.attach_usage_tracker(
+            ReservedUsageTracker(solver.registry, rr_cache, soft_store)
+        )
     ext = SparkSchedulerExtender(
         backend, lister, rrm, demands, overhead, binpacker, solver,
         config=ExtenderConfig(fifo=True, instance_group_label=EXT_IG_LABEL),
@@ -1502,14 +1545,14 @@ def build_extender(device):
     return ext, backend, solver
 
 
-def extender_cluster(backend):
+def extender_cluster(backend, n=N_MAIN):
     """Phase 3's 10,000 nodes (4 zones, one instance group), with its prior
     usage as one running pod of another scheduler on each node (the
     extender counts it as overhead)."""
     from spark_scheduler_tpu_torch.models.kube import Container, Pod
     from spark_scheduler_tpu_torch.models.resources import Resources
 
-    nodes, usage = main_cluster(seed=7)
+    nodes, usage = main_cluster(seed=7, n=n)
     for i, node in enumerate(nodes):
         node.labels[EXT_IG_LABEL] = EXT_IG
         backend.add_node(node)
@@ -1569,9 +1612,10 @@ def spark_pods(app_id, executors, dynamic, ts):
 class ExtenderSide:
     """One extender of phase 6 with its own backend and pod objects."""
 
-    def __init__(self, device, apps):
-        self.ext, self.backend, self.solver = build_extender(device)
-        self.names = extender_cluster(self.backend)
+    def __init__(self, device, apps, n_nodes=N_MAIN, **solver_kw):
+        self.ext, self.backend, self.solver = build_extender(
+            device, **solver_kw)
+        self.names = extender_cluster(self.backend, n_nodes)
         self.pods = {
             app: spark_pods(app, n, dyn, float(1 + i))
             for i, (app, n, dyn) in enumerate(apps)
@@ -2379,7 +2423,9 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         batcher = snapshot["predicate_batcher"]
         state = http_get(port, "/debug/state")
         check(state[0] == 200, f"/debug/state: {state[0]}")
-        prune_block = json.loads(state[1]).get("prune", {})
+        state_json = json.loads(state[1])
+        prune_block = state_json.get("prune", {})
+        build_state = state_json.get("build", {})
         violations = overcommit_violations(srv.app, srv.backend)
         check(not violations, f"phase {phase} over-commit: {violations[:8]}")
         fault_free(srv.app.solver, phase)
@@ -2520,6 +2566,7 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
         "drv_busy": drv_busy, "exec_busy": exec_busy, "rtt_mean": rtt_mean,
         "driver_windows": len(driver_windows), "prune": prune_block,
         "resolved": len(resolved), "device_dispatches": device_dispatches,
+        "build": build_state,
     }
     print(f"phase {phase}: {n_drivers} driver predicates from {n_clients} client "
           f"threads ({n_admitted} admitted), then {len(lat_exec)} executor "
@@ -2543,6 +2590,9 @@ def run_server_phase(device, card, n_nodes=N_MAIN, n_drivers=SRV_DRIVERS,
           f"({sum(e['rows'] for e in done)} rows) + {resolved_segments} "
           f"re-solved + {solo['batcher']} solo packs; probe {launches['probe']}; "
           f"served in {serve_s:.1f} s", flush=True)
+    print(f"phase {phase} ({card}): /debug/state build block {build_state}; "
+          f"the batcher busy {drv_busy / drv_s:.3f} of the driver stage",
+          flush=True)
     print(f"phase {phase}: /metrics solver.window.dispatches {dispatches}, "
           f"solver.device.uploads {srv.builds}, "
           f"solver.transfer.bytes h2d {h2d} d2h {d2h}: equal to this "
@@ -3785,7 +3835,7 @@ def run_prune_arm(device, card, label, nodes, usage, windows, *, fused,
         escalations=st["escalations"], reasons=dict(st["reasons"]),
         resolved=len(resolved), launches=launches, want_launches=want_launches,
         probes=probes, times=times, prof=prof, rows=rows,
-        n=pruned.registry.capacity,
+        n=pruned.registry.capacity, build=build_block(pruned),
     )
     kept = st["kept_rows"] / max(st["windows"], 1)
     cand = st["candidate_rows"] / max(st["windows"], 1)
@@ -3891,7 +3941,9 @@ def run_prune_phase(device, card):
                         slack=PRUNE_SLACK, churn_seed=53, with_cpu=False)
     check(big["pruned_dispatches"] > 0 or not on_card,
           "phase 12 (c): no window pruned at 100,000 nodes")
-    print(f"phase 12 (c): ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 12 (c): ran in {time.perf_counter() - t0:.1f} s; the "
+          f"pruned solver's build block (as /debug/state shows it) "
+          f"{big['build']}", flush=True)
     window_launches += big["launches"]["pruned"]
     probes += big["probes"]["pruned"]
     return {"window": window_launches + srv_launches["window"],
@@ -4190,7 +4242,7 @@ def run_policy_phase(device, card, n_nodes=N_MAIN, group_nodes=P13_GROUP_NODES,
     import torch
 
     import spark_scheduler_tpu_torch.core.solver as solver_mod
-    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy, host_view
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.ops.probe import probe_add_one
     from spark_scheduler_tpu_torch.ops.window import window_pack
     from spark_scheduler_tpu_torch.policy.engine import PREEMPTION_SEARCH_FAILURES
@@ -4360,7 +4412,10 @@ def run_policy_phase(device, card, n_nodes=N_MAIN, group_nodes=P13_GROUP_NODES,
     (a, kw), = fit_args
     c = int(a[1].shape[0])
     want = batched_fit(*a, **kw)
-    cpu_cluster = cluster_from_numpy(host_view(a[0]).fields(), device="cpu")
+    # The card's inputs as the search saw them: the device tensors (the
+    # host view behind them is the resident build's, patched since).
+    cpu_cluster = cluster_from_numpy(
+        [t.cpu().numpy() for t in a[0].fields()], device="cpu")
     cpu_args = (cpu_cluster,) + tuple(x.cpu() if torch.is_tensor(x) else x
                                       for x in a[1:])
     t0 = time.perf_counter()
@@ -5805,6 +5860,381 @@ def run_replay_phase(device, card, n_nodes=N_MAIN, n_drivers=P15_DRIVERS,
     return launches, {"capture": cap, "stacked": stacked, "fleet": fleet}
 
 
+# ------------------------------------------------------------ phase 16
+
+P16_WINDOWS = 16
+P16_WINDOW = 32
+P16_SYNC = 9  # the window before which the pipeline drains and 2 nodes go
+P16_BIG_WINDOWS = 8
+P16_BIG_WINDOW = 32
+
+
+def build_block(solver) -> dict:
+    """The solver's `build_stats` as /debug/state's `build` block shows
+    them (observability/state.py)."""
+    block = dict(solver.build_stats)
+    block["build_ms_mean"] = round(
+        block["build_ms"] / max(int(block["builds"]), 1), 4
+    )
+    return block
+
+
+def build_hist(solver) -> dict:
+    """p50 / p99 / count of the solver's `solver.build.ms` histogram."""
+    from spark_scheduler_tpu_torch.observability.telemetry import BUILD_MS
+
+    st = solver.telemetry.registry.histogram(BUILD_MS).stats()
+    return {"p50": st["p50"], "p99": st["p99"], "count": st["count"]}
+
+
+def with_telemetry(solver):
+    from spark_scheduler_tpu_torch.metrics.registry import MetricRegistry
+    from spark_scheduler_tpu_torch.observability.telemetry import SolverTelemetry
+
+    solver.telemetry = SolverTelemetry(MetricRegistry())
+    return solver
+
+
+def p16_idle_nodes(side, k):
+    """`k` node names no reservation (hard or soft) names, from the end of
+    the roster: nodes whose deletion leaves no usage behind."""
+    taken = set()
+    for rr in side.backend.list("resourcereservations"):
+        taken.update(r.node for r in rr.spec.reservations.values())
+    for soft in side.ext._rrm.soft_store.get_all_copy().values():
+        taken.update(r.node for r in soft.reservations.values())
+    return [n for n in reversed(side.names)
+            if n not in taken and not n.startswith("node-b16")][:k]
+
+
+def run_build_extender_arm(device, card, n_windows=P16_WINDOWS,
+                           window=P16_WINDOW, n_nodes=N_MAIN, sync=P16_SYNC):
+    """Phase 16 (a): the resident build behind the extender at 10,000 nodes
+    against the dense build and the cpu (see the module docstring).
+    Returns the resident cuda solver's row-walk and probe launches."""
+    import torch
+
+    from spark_scheduler_tpu_torch.models.kube import Node, ZONE_LABEL
+    from spark_scheduler_tpu_torch.models.resources import Resources
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(61)
+    apps = [
+        (f"b16-{i:03d}", 32 if rng.random() < 0.15 else int(rng.integers(2, 9)),
+         False)
+        for i in range(n_windows * window)
+    ]
+    t_setup = time.perf_counter()
+    window_pack.launches = 0
+    probe_add_one.launches = 0
+    res = ExtenderSide(device, apps, n_nodes, track_usage=True,
+                       build_oracle=True)
+    probes_res = probe_add_one.launches
+    dense = ExtenderSide(device, apps, n_nodes, track_usage=True,
+                         use_native=False)
+    cpu = ExtenderSide("cpu", apps, n_nodes, track_usage=True)
+    sides = {"resident": res, "dense": dense, "cpu": cpu}
+    for s in sides.values():
+        with_telemetry(s.solver)
+    check(res.solver.uses_native_arena and cpu.solver.uses_native_arena
+          and not dense.solver.uses_native_arena,
+          "phase 16 (a): the arena sides do not build on the arena")
+    print(f"phase 16 (a): three extenders (cuda resident with the build "
+          f"oracle, cuda dense, cpu resident) on {len(res.names)} nodes, set "
+          f"up in {time.perf_counter() - t_setup:.1f} s", flush=True)
+
+    launches = {"resident": 0, "dense": 0}
+    segments = {"resident": 0, "dense": 0}
+    window_ms = {k: [] for k in sides}
+    events = []
+    added = [0]
+
+    def add_node(s, name, zone):
+        s.backend.add_node(Node(
+            name=name, allocatable=Resources(64_000, 256 << 20, 0),
+            labels={ZONE_LABEL: zone, EXT_IG_LABEL: EXT_IG},
+        ))
+        s.names = s.names + [name]
+
+    def event(w, kind):
+        """One churn event, alike on the three sides."""
+        for s in sides.values():
+            if kind == "pod-delete":
+                for j in range(4):
+                    s.backend.delete_pod(
+                        s.backend.get("pods", "other", f"base-{4 * w + j:05d}"))
+            elif kind == "node-add":
+                add_node(s, f"node-b16-{added[0]:02d}", f"zone-{added[0] % 4}")
+            elif kind in ("node-label", "node-zone"):
+                name = s.names[100 + w]
+                cur = s.backend.get_node(name)
+                labels = dict(cur.labels)
+                if kind == "node-label":
+                    labels["example.com/tier"] = "b16"
+                else:
+                    z = int(labels[ZONE_LABEL].rsplit("-", 1)[1])
+                    labels[ZONE_LABEL] = f"zone-{(z + 1) % 4}"
+                s.backend.update("nodes", dataclasses.replace(cur, labels=labels))
+        if kind == "node-add":
+            added[0] += 1
+        events.append((w, kind))
+
+    def dispatch(w):
+        batch = [app for app, _, _ in apps[w * window:(w + 1) * window]]
+        out = {}
+        for name, s in sides.items():
+            for app in batch:
+                s.backend.add_pod(s.pods[app][0])
+            before = window_pack.launches
+            t0 = time.perf_counter()
+            t = s.ext.predicate_window_dispatch(
+                [s.args(s.pods[app][0]) for app in batch])
+            if on_card and name != "cpu":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if name in launches:
+                segs = len(t.handle.requests) if t.handle is not None else 0
+                n = window_pack.launches - before
+                check(n == segs or not on_card,
+                      f"phase 16 (a) {name}: window {w} launched {n} row "
+                      f"walks for {segs} segments")
+                launches[name] += n
+                segments[name] += segs
+            out[name] = (batch, t, ms)
+        return out
+
+    def complete(w, pend):
+        results = {}
+        for name, s in sides.items():
+            batch, t, ms = pend[name]
+            t0 = time.perf_counter()
+            r = s.ext.predicate_window_complete(t)
+            window_ms[name].append(ms + (time.perf_counter() - t0) * 1e3)
+            s.bind([s.pods[app][0] for app in batch], r)
+            results[name] = r
+        for name in ("dense", "cpu"):
+            check(results[name] == results["resident"],
+                  f"phase 16 (a): window {w}: the {name} side's results "
+                  f"differ from the resident cuda side's")
+            check(sides[name].state() == res.state(),
+                  f"phase 16 (a): window {w}: the {name} side's reservations "
+                  f"or demands differ")
+
+    between = {1: "pod-delete", 3: "node-label", 5: "node-zone", 12: "node-add",
+               13: "node-add", 14: "pod-delete"}
+    in_flight = {2: "node-add", 4: "pod-delete", 7: "node-add",
+                 11: "pod-delete"}
+    deleted: list = []
+    t0 = time.perf_counter()
+    pending = None
+    for w in range(n_windows):
+        if w == sync:
+            # Drain, then delete two nodes no reservation names, with their
+            # pods, as Kubernetes does: the next build (no window in
+            # flight) recycles their registry rows, and the node adds after
+            # it take them. (A pod left on a deleted node keeps its
+            # overhead on the row, and the next node there inherits it:
+            # ROADMAP §C.8.)
+            complete(w - 1, pending)
+            pending = None
+            deleted = p16_idle_nodes(res, 2)
+            for s in sides.values():
+                for name in deleted:
+                    for pod in list(s.backend.list_pods()):
+                        if pod.node_name == name:
+                            s.backend.delete_pod(pod)
+                    s.backend.delete("nodes", "", name)
+                s.names = [n for n in s.names if n not in deleted]
+            events.append((w, f"node-delete {deleted}"))
+        if w in between:
+            event(w, between[w])
+        cur = dispatch(w)
+        if w in in_flight and pending is not None:
+            event(w, in_flight[w])
+        if pending is not None:
+            complete(w - 1, pending)
+        pending = cur
+    complete(n_windows - 1, pending)
+    windows_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.synchronize()
+
+    rs = res.solver
+    bs = rs.build_stats
+    fault_free(rs, 16)
+    fault_free(dense.solver, 16)
+    check(bs["oracle_checks"] > 0, "phase 16 (a): the build oracle never ran")
+    check(bs["mirror_dense_syncs"] == 0,
+          f"phase 16 (a): {bs['mirror_dense_syncs']} dense mirror syncs on "
+          f"the resident solver after its first build")
+    check(cpu.solver.build_stats["mirror_dense_syncs"] == 0,
+          "phase 16 (a): dense mirror syncs on the cpu resident solver")
+    check(rs.tombstones_recycled >= 1 and cpu.solver.tombstones_recycled >= 1,
+          f"phase 16 (a): no deleted row recycled ({rs.tombstones_recycled})")
+    recycled_rows = [rs.registry.index_of(f"node-b16-{k:02d}")
+                     for k in range(added[0])]
+    check(bs["incremental_builds"] > 0 and bs["full_snapshots"] >= 1,
+          f"phase 16 (a): build mix {bs}")
+    if on_card:
+        check(launches["resident"] == segments["resident"],
+              f"phase 16 (a): {launches['resident']} row walks for "
+              f"{segments['resident']} live segments")
+    p = np.percentile
+    hist = {k: build_hist(s.solver) for k, s in sides.items()}
+    print(f"phase 16 (a) ({card}): {n_windows} pipelined windows of {window} "
+          f"drivers, churn {events}: results, reservations and demands equal "
+          f"across the resident cuda, dense cuda and resident cpu extenders "
+          f"in {windows_s:.1f} s; oracle checks {bs['oracle_checks']} (no "
+          f"missed row), dense mirror syncs {bs['mirror_dense_syncs']}, "
+          f"tombstones recycled {rs.tombstones_recycled} (the added nodes' "
+          f"rows {recycled_rows}); row-walk launches {launches['resident']} "
+          f"= {segments['resident']} live segments (dense side "
+          f"{launches['dense']})", flush=True)
+    for name, s in sides.items():
+        b = s.solver.build_stats
+        print(f"phase 16 (a) {name} ({card}): build ms p50 "
+              f"{hist[name]['p50']:.4f} p99 {hist[name]['p99']:.4f} over "
+              f"{hist[name]['count']} builds (solver.build.ms); "
+              f"{b['incremental_builds']} incremental builds, "
+              f"{b['full_snapshots']} full snapshots, dense mirror syncs "
+              f"{b['mirror_dense_syncs']}, dirty-set rows {b['dirty_rows']}; "
+              f"window p50 {p(window_ms[name], 50):.3f} ms p99 "
+              f"{p(window_ms[name], 99):.3f} ms (dispatch + complete, host "
+              f"clock)", flush=True)
+    print(f"phase 16 (a) resident build block: {build_block(rs)}", flush=True)
+    return {"window": launches["resident"], "probe": probes_res}
+
+
+class P16Feed:
+    """The feature store's build hints for a solver-level run: one
+    topology version (the roster does not change) and the availability
+    journal, one epoch a commit naming the usage rows it changed."""
+
+    def __init__(self):
+        self.epoch = 0
+        self.journal: dict = {}
+
+    def note(self, rows) -> None:
+        empty = np.empty(0, np.int64)
+        self.epoch += 1
+        self.journal[self.epoch] = (np.unique(np.asarray(rows, np.int64)),
+                                    empty, empty)
+
+    def hints(self) -> dict:
+        return dict(topo_version=1, avail_epoch=self.epoch,
+                    avail_journal=self.journal)
+
+
+def p16_run(solver, nodes, usage, windows):
+    """Pipelined windows (window k+1 dispatched before window k is fetched)
+    on one solver, fed the journal of its commits. Returns (decisions,
+    window ms after the first, dispatched handles)."""
+    import torch
+
+    usage = usage.copy()
+    feed = P16Feed()
+    out, times, handles = [], [], []
+    pending = None
+    sync = (torch.cuda.synchronize if solver.device.type == "cuda"
+            else (lambda: None))
+
+    def fetch(w, h):
+        d = solver.pack_window_fetch(h)
+        before = usage.copy()
+        commit(usage, solver.registry, w, d)
+        feed.note(np.flatnonzero((usage != before).any(axis=1)))
+        out.append(d)
+
+    for w in windows:
+        sync()
+        t0 = time.perf_counter()
+        t = solver.build_tensors_pipelined(nodes, usage, {}, **feed.hints())
+        h = solver.pack_window_dispatch("tightly-pack", t, w)
+        handles.append(h)
+        if pending is not None:
+            fetch(*pending)
+        sync()
+        if pending is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        pending = (w, h)
+    fetch(*pending)
+    return out, times, handles
+
+
+def run_build_solver_arm(device, card, n_nodes=PRUNE_BIG_NODES,
+                         n_windows=P16_BIG_WINDOWS, window=P16_BIG_WINDOW):
+    """Phase 16 (b): phase 12 (c)'s 100,000 nodes at the solver level, the
+    resident cuda solver against the dense cuda solver. Returns the
+    resident solver's row-walk and probe launches."""
+    import torch
+
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    on_card = torch.device(device).type == "cuda"
+    nodes, usage = main_cluster(seed=7, n=n_nodes)
+    names = [nd.name for nd in nodes]
+    rng = np.random.default_rng(67)
+    windows = [prune_window(rng, names, window) for _ in range(n_windows)]
+    got, times, launched = {}, {}, {}
+    solvers = {
+        "resident": with_telemetry(PlacementSolver(device=device,
+                                                   build_oracle=True)),
+        "dense": with_telemetry(PlacementSolver(device=device, use_native=False)),
+    }
+    probes = 0
+    for name, solver in solvers.items():
+        before, probes_before = window_pack.launches, probe_add_one.launches
+        got[name], times[name], handles = p16_run(solver, nodes, usage, windows)
+        launched[name] = window_pack.launches - before
+        if name == "resident":
+            probes = probe_add_one.launches - probes_before
+            segs = sum(len(h.requests) for h in handles)
+        fault_free(solver, 16)
+    check(got["resident"] == got["dense"],
+          "phase 16 (b): the resident solver's decisions differ from the "
+          "dense solver's")
+    rs = solvers["resident"]
+    bs = rs.build_stats
+    check(bs["mirror_dense_syncs"] == 0 and bs["oracle_checks"] > 0,
+          f"phase 16 (b): resident build block {bs}")
+    check(bs["incremental_builds"] >= n_windows - 1,
+          f"phase 16 (b): {bs['incremental_builds']} incremental builds")
+    if on_card:
+        check(launched["resident"] == segs,
+              f"phase 16 (b): {launched['resident']} row walks for {segs} "
+              f"live segments")
+    admitted = sum(d.admitted for w in got["resident"] for d in w)
+    p = np.percentile
+    for name, solver in solvers.items():
+        h = build_hist(solver)
+        b = solver.build_stats
+        print(f"phase 16 (b) {name} ({card}): {n_nodes} nodes, {n_windows} "
+              f"pipelined windows of {window} requests ({admitted} admitted, "
+              f"equal on both solvers); build ms p50 {h['p50']:.4f} p99 "
+              f"{h['p99']:.4f} over {h['count']} builds (solver.build.ms); "
+              f"{b['incremental_builds']} incremental builds, "
+              f"{b['full_snapshots']} full snapshots, dense mirror syncs "
+              f"{b['mirror_dense_syncs']}; window p50 "
+              f"{p(times[name], 50):.3f} ms (build + dispatch + the previous "
+              f"window's fetch, host clock ending in a synchronise, "
+              f"{len(times[name])} windows); row-walk launches "
+              f"{launched[name]}", flush=True)
+    print(f"phase 16 (b) resident build block: {build_block(rs)}", flush=True)
+    return {"window": launched["resident"], "probe": probes}
+
+
+def run_build_phase(device, card):
+    """Phase 16: the native arena's resident build at full width."""
+    a = run_build_extender_arm(device, card)
+    b = run_build_solver_arm(device, card)
+    return {k: a[k] + b[k] for k in a}
+
+
+
 def main() -> int:
     try:
         import torch
@@ -5931,21 +6361,27 @@ def main() -> int:
     print(f"phase 15: passed in {time.perf_counter() - t0:.1f} s; row-walk "
           f"launches {replay_launches['window']}, probe "
           f"{replay_launches['probe']} ({card})", flush=True)
+    t0 = time.perf_counter()
+    build_launches = run_build_phase(device, card)
+    print(f"phase 16: passed in {time.perf_counter() - t0:.1f} s; row-walk "
+          f"launches {build_launches['window']}, probe "
+          f"{build_launches['probe']} ({card})", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
     # ingestion over the WAL store (phase 9), as HA replicas (phase 10),
     # with fused claims (phase 11), over pruned windows (phase 12), under
     # the policy engine and the autoscaler (phase 13), over the device
-    # pool, its re-dispatches and its quarantine probes (phase 14), and
-    # under trace capture, replay, what-if, sweep and the fleet (phase 15).
+    # pool, its re-dispatches and its quarantine probes (phase 14), under
+    # trace capture, replay, what-if, sweep and the fleet (phase 15), and
+    # fed by the resident host build under churn (phase 16).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
                         + wal_launches[k] + ha_launches[k] + fused_launches[k]
                         + prune_launches[k] + policy_launches[k]
                         + elastic_launches[k] + pool_launches[k]
                         + shed_launches[k] + greedy_launches[k]
-                        + replay_launches[k])
+                        + replay_launches[k] + build_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",
@@ -5975,5 +6411,72 @@ def main() -> int:
     return 0
 
 
+def trace_race(argv) -> int:
+    """`--trace-race ROUNDS [--nodes N] [--device cpu]` (module docstring)."""
+    import argparse
+    import shutil
+    import tempfile
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--trace-race", type=int, required=True, metavar="ROUNDS")
+    ap.add_argument("--nodes", type=int, default=N_MAIN)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    import torch
+
+    if args.device != "cpu" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from spark_scheduler_tpu_torch import native
+    from spark_scheduler_tpu_torch.replay import replay_trace
+    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
+
+    device = torch.device("cpu")
+    card = "cpu"
+    if args.device != "cpu":
+        from spark_scheduler_tpu_torch.ops._build import build_all
+        from spark_scheduler_tpu_torch.ops.probe import probe
+
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        build_all()
+        probe(device)
+        card = card_line()
+    native.build()
+    native.load()
+    print(card, flush=True)
+    ordered = InMemoryBackend.order_events_with
+    sides: dict = {"lock": [], "no-lock": []}
+    for i in range(2 * args.trace_race):
+        side = "lock" if i % 4 in (0, 3) else "no-lock"
+        tmp = tempfile.mkdtemp(prefix="trace-race-")
+        path = os.path.join(tmp, "capture.jsonl")
+        t0 = time.perf_counter()
+        if side == "no-lock":
+            InMemoryBackend.order_events_with = lambda self, lock: None
+        try:
+            _, cap = p15_capture(device, card, path, args.nodes,
+                                 P15_DRIVERS, P15_CLIENTS)
+        finally:
+            InMemoryBackend.order_events_with = ordered
+        rep = replay_trace(path, strict=False, device=device)
+        shutil.rmtree(tmp, ignore_errors=True)
+        row = {"capture": i, "side": side, "compared": rep.compared,
+               "mismatches": len(rep.mismatches),
+               "first": rep.mismatches[:1],
+               "driver_p50_ms": cap["driver_p50"],
+               "driver_p99_ms": cap["driver_p99"],
+               "seconds": time.perf_counter() - t0}
+        sides[side].append(row)
+        print(json.dumps(row), flush=True)
+    for side, rows in sides.items():
+        print(f"trace race ({card}, {args.nodes} nodes) {side}: "
+              f"{sum(r['mismatches'] > 0 for r in rows)} of {len(rows)} "
+              f"captures mismatched; driver p50 "
+              f"{[round(r['driver_p50_ms'], 1) for r in rows]} ms", flush=True)
+    return 0 if not any(r["mismatches"] for r in sides["lock"]) else 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(trace_race(sys.argv[1:]) if sys.argv[1:] else main())

@@ -109,7 +109,7 @@ class PoolSlot:
         "device", "label", "stream", "statics", "statics_epoch",
         "sub_statics", "uploads", "last_full_upload", "inflight",
         "quarantined", "last_probe", "failure_count",
-        "mirror",
+        "mirror", "avail", "avail_epoch", "avail_token",
     )
 
     def __init__(self, device: torch.device, label: str):
@@ -133,10 +133,18 @@ class PoolSlot:
         self.last_probe = 0.0
         self.failure_count = 0
         # How whole-window solves reached the committed base: "reuse" (the
-        # base lives on this slot's device) or "dense" (copied over from
-        # another device). The JAX package's journal catch-up between
-        # devices is not ported (ROADMAP §A.4).
-        self.mirror = {"dense": 0, "reuse": 0}
+        # base lives on this slot's device, or the slot's replica was
+        # current), "catchup" (the replica scattered the journaled rows it
+        # missed; "delta_rows" counts them) or "dense" (the whole base
+        # copied over from the solver's device).
+        self.mirror = {"dense": 0, "reuse": 0, "catchup": 0, "delta_rows": 0}
+        # The slot's availability replica when it lies on another device
+        # than the solver's base: valid within the pipeline generation
+        # `avail_token`, as of the pipeline's availability epoch
+        # `avail_epoch` (core/solver.py `_pool_full_base`).
+        self.avail = None
+        self.avail_epoch = -1
+        self.avail_token = None
 
     def context(self):
         """The slot's stream as the calling thread's current stream (a
@@ -239,6 +247,9 @@ class PoolSlot:
         self.statics = None
         self.statics_epoch = -1
         self.sub_statics.clear()
+        self.avail = None
+        self.avail_epoch = -1
+        self.avail_token = None
         self.inflight = 0
 
 

@@ -276,7 +276,10 @@ class SparkSchedulerExtender:
     # dispatch succeeds — PipelineDrainRequired propagates un-journaled,
     # so the caller's drain-and-retry appears in the trace exactly as the
     # serialization the replay engine re-drives (drained results first,
-    # then the retried dispatch).
+    # then the retried dispatch). Each wrapper holds the sink's order lock
+    # from its first state read to its journal entry, and node and pod
+    # events take the same lock, so no event lands between what a window
+    # read and where the trace places it.
 
     def _trace_sink(self):
         rec = self._recorder
@@ -286,38 +289,46 @@ class SparkSchedulerExtender:
         tw = self._trace_sink()
         if tw is None:
             return self._predicate_solo(args)
-        wid = tw.on_predicate([args], mode="solo")
-        res = self._predicate_solo(args)
-        tw.on_results(wid, [res])
+        with tw.order_lock:
+            wid = tw.on_predicate([args], mode="solo")
+            res = self._predicate_solo(args)
+            tw.on_results(wid, [res])
         return res
 
     def predicate_window_dispatch(
         self, args_list: Sequence[ExtenderArgs]
     ) -> "WindowTicket":
-        t = self._window_dispatch(args_list)
         tw = self._trace_sink()
-        if tw is not None and not t.sync and t.trace_wid is None:
-            t.trace_wid = tw.on_predicate(t.args_list, mode="window")
+        if tw is None:
+            return self._window_dispatch(args_list)
+        with tw.order_lock:
+            t = self._window_dispatch(args_list)
+            if not t.sync and t.trace_wid is None:
+                t.trace_wid = tw.on_predicate(t.args_list, mode="window")
         return t
 
     def predicate_window_complete(
         self, t: "WindowTicket"
     ) -> list[ExtenderFilterResult]:
-        results = self._window_complete(t)
-        # Sync tickets route through self.predicate() inside
-        # _window_complete and self-journal there.
-        if t.trace_wid is not None:
-            tw = self._trace_sink()
-            if tw is not None:
+        tw = self._trace_sink()
+        if tw is None:
+            return self._window_complete(t)
+        with tw.order_lock:
+            results = self._window_complete(t)
+            # Sync tickets route through self.predicate() inside
+            # _window_complete and self-journal there.
+            if t.trace_wid is not None:
                 tw.on_results(t.trace_wid, results)
         return results
 
     def predicate_windows_dispatch(
         self, args_lists: Sequence[Sequence[ExtenderArgs]]
     ) -> "list[WindowTicket]":
-        tickets = self._windows_dispatch(args_lists)
         tw = self._trace_sink()
-        if tw is not None:
+        if tw is None:
+            return self._windows_dispatch(args_lists)
+        with tw.order_lock:
+            tickets = self._windows_dispatch(args_lists)
             # Each fused sub-window journals as its own window dispatch,
             # in claim order — replaying them as sequential pipelined
             # dispatches is decision-equivalent by the fused==sequential

@@ -32,12 +32,25 @@ no device left the degraded-mode controller answers: the host greedy
 (core/fallback.py) or a shed. A build failure, a launch the kernel's own
 configuration refuses, and an illegal address or launch failure (what a
 wrong kernel raises) are never classified: they raise.
+
+The host tensor build (`build_tensors`) runs on the native C++ arena
+(native/runtime.cpp's ClusterArena) by default: per-node state is upserted
+only when a node object changes, the nine host field buffers stay RESIDENT
+between serving builds and the rows the feature store's availability
+journal names are recomputed in one C call, so a window's build is
+O(K + changed). The pipelined device mirror syncs over the same named rows
+(the event-fed dirty set); the dense [N] compare runs only on a journal gap
+and as the `solver.build-oracle` check. `use_native=False` is the dense
+Python build (models/cluster.build_host_tensors), the oracle twin of the
+tests.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import itertools
+import os
 import threading
 import time
 import weakref
@@ -48,6 +61,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_scheduler_tpu_torch import native
 from spark_scheduler_tpu_torch.core.device_pool import (
     DevicePool,
     PendingBase,
@@ -76,7 +90,11 @@ from spark_scheduler_tpu_torch.models.cluster import (
     pad_bucket,
 )
 from spark_scheduler_tpu_torch.models.kube import Node
-from spark_scheduler_tpu_torch.models.resources import NUM_DIMS, Resources
+from spark_scheduler_tpu_torch.models.resources import (
+    INT32_INF,
+    NUM_DIMS,
+    Resources,
+)
 from spark_scheduler_tpu_torch.ops.batched import make_app_batch
 from spark_scheduler_tpu_torch.ops.efficiency import avg_packing_efficiency_np
 from spark_scheduler_tpu_torch.ops.packing import (
@@ -258,7 +276,8 @@ class WindowHandle:
         "row_skippable", "seg_map", "window_rows", "info", "request_device",
         "dispatched_at", "released", "fused_decisions", "fused_bounds",
         "applied", "prune", "base_kept", "use_fallback", "resolved",
-        "parts", "greedy", "blob_future", "__weakref__",
+        "parts", "greedy", "blob_future", "host_avail32", "avail_gen",
+        "avail_note_epoch", "__weakref__",
     )
 
     def __init__(self, *, strategy, blob, requests, host_avail,
@@ -276,12 +295,21 @@ class WindowHandle:
         # [B, 3 + emax]; blob is None until then.
         self.blob_future = None
         self.requests = requests
-        # Host availability at dispatch ([N,3]: an int64 copy, or for a
-        # pruned dispatch the int32 host array itself, read only on an
-        # escalation); the device base additionally lacks the placements
-        # of `priors` (windows dispatched earlier but un-fetched at this
-        # dispatch).
+        # Host availability at dispatch (an int64 [N,3] copy; None for a
+        # pruned or pooled dispatch, see host_avail32); the device base
+        # additionally lacks the placements of `priors` (windows
+        # dispatched earlier but un-fetched at this dispatch).
         self.host_avail = host_avail
+        # A pruned or pooled dispatch keeps no dense copy: host_avail is
+        # None, host_avail32 is the resident int32 host buffer and
+        # avail_gen its generation at dispatch. The resident build patches
+        # that buffer in place afterwards; `_avail_at_dispatch` replays the
+        # undo journal to the dispatch-time view on the rare dense paths.
+        self.host_avail32 = None
+        self.avail_gen = None
+        # Pooled dispatch of a whole window: the availability epoch it
+        # journaled as unknowable, patched with the commit rows at fetch.
+        self.avail_note_epoch = None
         self.host_schedulable = host_schedulable
         self.host_tensors = None  # the host ClusterTensors view at dispatch
         self.priors = priors  # tuple[WindowHandle] — fetched before this one
@@ -441,6 +469,105 @@ def _debit_rows(base, base_rows, rows, vals):
     return base
 
 
+class _NameRankSpace:
+    """Order-maintaining name ranks for the native arena.
+
+    Every sort and certificate reads name_rank as a key: rank ORDER
+    matters, values never do. So ranks need not be dense: values are
+    assigned with gaps, and an added node takes the midpoint between its
+    lexicographic neighbours' values (a bisect and one arena scatter)
+    instead of renumbering every slot. A crowded gap relabels a local
+    neighbourhood; only genuine exhaustion renumbers the whole space
+    (`renumbers`).
+
+    Values stay under 2^29 < INT32_INF / 2, so they never collide with the
+    arena's invalid-slot sentinel."""
+
+    _SPAN = 1 << 29
+
+    __slots__ = ("names", "ranks", "renumbers", "rebalances")
+
+    def __init__(self):
+        self.names: list[str] = []  # lexicographically sorted
+        self.ranks: list[int] = []  # parallel gapped values, ascending
+        self.renumbers = 0
+        self.rebalances = 0
+
+    def assign_all(self, names_sorted) -> None:
+        self.names = list(names_sorted)
+        gap = max(1, self._SPAN // (len(self.names) + 1))
+        self.ranks = [(i + 1) * gap for i in range(len(self.names))]
+        self.renumbers += 1
+
+    def insert(self, name: str):
+        """Insert one name. Returns the names whose rank VALUES changed
+        (just `name` for a clean gap insert, a rebalanced neighbourhood
+        when the local gap is exhausted), or None when the whole space
+        renumbered (the caller re-scatters every rank)."""
+        i = bisect.bisect_left(self.names, name)
+        if i < len(self.names) and self.names[i] == name:
+            return []  # already ranked
+        lo = self.ranks[i - 1] if i > 0 else 0
+        hi = (
+            self.ranks[i]
+            if i < len(self.ranks)
+            else min(lo + 2 * max(1, self._SPAN // (len(self.names) + 2)),
+                     self._SPAN)
+        )
+        self.names.insert(i, name)
+        if hi - lo < 2:
+            self.ranks.insert(i, lo)  # placeholder; _rebalance assigns
+            return self._rebalance(i)
+        self.ranks.insert(i, (lo + hi) // 2)
+        return [name]
+
+    def _rebalance(self, i: int):
+        """Spread a geometrically grown neighbourhood of position `i`
+        evenly across its enclosing value interval. Returns the names whose
+        values moved, or None after a full renumber."""
+        n = len(self.names)
+        half = 4
+        while True:
+            a = max(0, i - half)
+            b = min(n, i + half)
+            lo = self.ranks[a - 1] if a > 0 else 0
+            hi = self.ranks[b] if b < n else self._SPAN
+            count = b - a
+            if hi - lo >= 4 * (count + 1):
+                gap = (hi - lo) // (count + 1)
+                changed: list[str] = []
+                for k in range(a, b):
+                    val = lo + (k - a + 1) * gap
+                    if self.ranks[k] != val:
+                        self.ranks[k] = val
+                        changed.append(self.names[k])
+                self.rebalances += 1
+                return changed
+            if a == 0 and b == n:
+                self.assign_all(self.names)
+                return None
+            half *= 2
+
+    def remove(self, name: str) -> None:
+        """Drop one name (a node delete): its value leaves the space and
+        the neighbours keep theirs."""
+        i = bisect.bisect_left(self.names, name)
+        if i < len(self.names) and self.names[i] == name:
+            self.names.pop(i)
+            self.ranks.pop(i)
+
+    def rank_of(self, name: str) -> int:
+        return self.ranks[bisect.bisect_left(self.names, name)]
+
+
+# The nine ClusterTensors fields of the resident build, in field order.
+_RES_FIELDS = (
+    "available", "schedulable", "zone_id", "name_rank",
+    "label_rank_driver", "label_rank_executor",
+    "unschedulable", "ready", "valid",
+)
+
+
 class PlacementSolver:
     def __init__(
         self,
@@ -454,6 +581,9 @@ class PlacementSolver:
         mesh: "tuple[int, int] | None" = None,
         quarantine_probe_s: float = 5.0,
         pool_devices=None,
+        use_native: bool = True,
+        build_oracle: bool = False,
+        lazy_warm_start: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -553,10 +683,102 @@ class PlacementSolver:
         # How the LAST pipelined build reached the device
         # ("full" | "delta" | "reuse").
         self.last_state_upload: str | None = None
-        # Static row deltas shipped (a node event riding the pipeline), and
-        # full uploads of the pipelined base.
-        self.device_state_stats = {"static_delta_uploads": 0}
-        self.build_stats = {"full_snapshots": 0}
+        # How the pipelined and cached builds reached the device: full
+        # uploads, availability row deltas, reuses, static row deltas, and
+        # every upload's h2d bytes.
+        self.device_state_stats = {
+            "full_uploads": 0,
+            "delta_uploads": 0,
+            "delta_rows": 0,
+            "reuse_hits": 0,
+            "static_delta_uploads": 0,
+            "static_delta_rows": 0,
+            "upload_bytes": 0,
+        }
+        # The host build (`build_tensors`): the native arena
+        # (native/runtime.cpp ClusterArena) unless `use_native=False`, which
+        # keeps the dense Python build as the oracle twin. The arena builds
+        # the port's runtime with g++ at first use or raises: no build
+        # degrades to the Python path.
+        self._arena = native.ClusterArena() if use_native else None
+        # The arena's view of each node (upserted only when the Node object
+        # changes), the name-rank generation and its gapped rank space.
+        self._node_seen: dict[str, Node] = {}
+        self._rank_epoch = -1
+        self._rank_space = _NameRankSpace()
+        # Deleted nodes' registry rows awaiting recycling: a row re-enters
+        # the registry's free list once its usage and overhead drained to
+        # zero and no window is in flight; until then it stays masked out.
+        self._pending_tombstones: set[str] = set()
+        self.tombstones_recycled = 0
+        # Topology memo: the feature store's node version the arena last
+        # synced to, and the request mask memoized on it.
+        self._topo_seen = None
+        self._topo_request_mask = None  # ((version, pad, n), [pad] bool)
+        # The resident build: the nine host field buffers stay alive
+        # between serving builds and only the changed rows are recomputed.
+        # Statics copy-on-write when their rows change (in-flight handles
+        # keep their dispatch-time arrays); `available` is patched in place
+        # with an undo journal while pruned or pooled handles are in
+        # flight. `_res_pending` holds arena rows upserted since the
+        # resident buffers last absorbed them; `_res_full_pending` marks a
+        # change no row list names (a full rank renumber).
+        self._snap_res: dict | None = None
+        self._res_pending: list = []
+        self._res_full_pending = False
+        # A static row the resident build patched since the pipeline last
+        # synced its statics: the feature store's statics epoch alone no
+        # longer proves the statics unchanged (a build on another thread
+        # may have upserted a node the store has not journaled yet).
+        self._res_statics_moved = False
+        self._avail_gen = 0
+        self._avail_undo: list = []  # (gen, buffer, rows, old int32 rows)
+        self._avail_handles: "weakref.WeakSet[WindowHandle]" = weakref.WeakSet()
+        # (availability rows, static rows) the last build named; None when
+        # it could not name them (a full snapshot, the Python build).
+        self._last_build_rows: "tuple | None" = None
+        # Union of the rows every build named since the pipelined statics
+        # last synced (None: some build could not name its rows): the
+        # candidate rows of `_plan_static_delta`'s field diff.
+        self._static_acc: "list | None" = []
+        # `solver.build-oracle`: after every dirty-set mirror sync run the
+        # dense compare and raise on a changed row the dirty set missed
+        # (SPARK_SCHEDULER_BUILD_ORACLE=1 forces it, as in the JAX package).
+        self.build_oracle = bool(build_oracle) or (
+            os.environ.get("SPARK_SCHEDULER_BUILD_ORACLE", "") not in ("", "0")
+        )
+        # `solver.lazy-warm-start`: a full device upload whose host build
+        # named its changed rows keeps the prune planner resident; False
+        # invalidates it on every full upload.
+        self._lazy_warm_start = bool(lazy_warm_start)
+        # The arena and the resident buffers are shared by every thread
+        # that builds (the predicate batcher and the unschedulable-pod
+        # marker): one lock serializes their builds and ledger updates.
+        self._build_lock = threading.RLock()
+        # build_tensors_cached's device-resident state (the solo path of
+        # the JAX package's serving loop and /debug/state).
+        self._dev: dict | None = None
+        # Pipeline tokens: a pool slot's availability replica is a valid
+        # catch-up base only within the pipeline generation that wrote it.
+        self._pipe_tokens = itertools.count(1)
+        # Per-names patch bases of the candidate-mask patch across
+        # registry epochs (`_cand_try_patch`).
+        self._cand_patch: OrderedDict = OrderedDict()
+        self.build_stats = {
+            "builds": 0,
+            "build_ms": 0.0,
+            "incremental_builds": 0,
+            "full_snapshots": 0,
+            # Rows the DENSE mirror sweep examined (a journal gap, or a
+            # build that could not name its rows; 0 in steady state), and
+            # the rows the event-fed dirty-set sync examined.
+            "mirror_rows_compared": 0,
+            "mirror_dense_syncs": 0,
+            "dirty_rows": 0,
+            # Rows pooled fetches debited sparsely into the mirror.
+            "pooled_debit_rows": 0,
+            "oracle_checks": 0,
+        }
         # Deferred-dispatch lane (replay/sweep.py, fleet/dispatch.py); None
         # on the plain serving path. A lane is a coordinator that takes a
         # pipelined window's plain solve and defers it into a stacked
@@ -773,6 +995,7 @@ class PlacementSolver:
                 self._poisoned.setdefault(h, set(h.applied))
             self._pipe = None
             self._note_inflight()
+        self._prune_mark_unknown()
         if self.telemetry is not None:
             self.telemetry.on_pipeline_event(event)
 
@@ -784,21 +1007,53 @@ class PlacementSolver:
             for s in self._pool.slots:
                 self.telemetry.on_device_inflight(s.label, 0)
 
-    def _build_host(self, nodes: Sequence[Node], usage, overhead):
-        for n in nodes:
-            self.registry.intern(n.name)
-        return build_host_tensors(
-            list(nodes),
-            usage,
-            overhead,
-            self.registry,
-            driver_label_priority=self._driver_label_priority,
-            executor_label_priority=self._executor_label_priority,
-            pad_to=pad_bucket(self.registry.capacity, 8),
-        )
+    @property
+    def uses_native_arena(self) -> bool:
+        return self._arena is not None
+
+    def _build_host(
+        self,
+        nodes: Sequence[Node],
+        usage,
+        overhead,
+        *,
+        full_node_list: bool = False,
+        topo_version: Optional[int] = None,
+        roster_rows: "np.ndarray | None" = None,
+        dirty_hint: "tuple | None" = None,
+        avail_epoch: "int | None" = None,
+        avail_journal: "dict | None" = None,
+    ) -> ClusterTensors:
+        """The host view (a ClusterTensors of numpy arrays) of `nodes`:
+        the arena's resident build, or with `use_native=False` the dense
+        Python build, which names no changed row."""
+        with self._build_lock:
+            if self._arena is not None:
+                return self._build_tensors_native(
+                    nodes, usage, overhead,
+                    full_node_list=full_node_list, topo_version=topo_version,
+                    roster_rows=roster_rows, dirty_hint=dirty_hint,
+                    avail_epoch=avail_epoch, avail_journal=avail_journal,
+                )
+            self._last_build_rows = None
+            self._acc_build_rows()
+            self._note_consumers_unknown()
+            for n in nodes:
+                self.registry.intern(n.name)
+            return build_host_tensors(
+                list(nodes),
+                usage,
+                overhead,
+                self.registry,
+                driver_label_priority=self._driver_label_priority,
+                executor_label_priority=self._executor_label_priority,
+                pad_to=pad_bucket(self.registry.capacity, 8),
+            )
 
     def _upload(self, host: ClusterTensors) -> ClusterTensors:
-        """Copy a host view to the solver's device (never aliasing it)."""
+        """Copy a host view to the solver's device. Every field is copied,
+        on the CPU too: the resident build patches the host buffers in
+        place, so no tensor may alias them."""
         out = cluster_from_numpy(host.fields(), device=self.device)
         out.host = host
         return out
@@ -816,15 +1071,654 @@ class PlacementSolver:
         avail_epoch: "int | None" = None,
         avail_journal: "dict | None" = None,
     ):
-        """`usage` / `overhead` are {node: Resources} maps or dense int64
-        [cap, 3] arrays indexed by this solver's registry.
+        """Device tensors of `nodes`. `usage` / `overhead` are {node:
+        Resources} maps or dense int64 [cap, 3] arrays indexed by this
+        solver's registry.
 
-        The keyword arguments are the JAX package's build accelerators
-        (topology memo, roster rows, dirty hints, availability journal).
-        The port always runs the full host build, the JAX package's own
-        path without its native arena, so it accepts them and reads none:
-        no hint can change a result."""
-        return self._upload(self._build_host(nodes, usage, overhead))
+        The keyword arguments are the feature store's build accelerators
+        (core/feature_store.FeatureSnapshot). `full_node_list` asserts
+        `nodes` is the backend's whole roster and `topo_version` is its
+        node version, captured before the list: together they skip the
+        arena's O(nodes) sync walk and memoize the request mask.
+        `roster_rows` makes the request mask one scatter; `dirty_hint`
+        (previous version, changed nodes, deleted names) upserts only the
+        changed nodes. `avail_epoch` / `avail_journal` name the rows whose
+        availability inputs changed: with a gap-free chain the resident
+        build recomputes just those rows, otherwise it materializes every
+        row into fresh buffers. No hint changes a result."""
+        return self._upload(
+            self._build_host(
+                nodes, usage, overhead,
+                full_node_list=full_node_list, topo_version=topo_version,
+                roster_rows=roster_rows, dirty_hint=dirty_hint,
+                avail_epoch=avail_epoch, avail_journal=avail_journal,
+            )
+        )
+
+    def build_tensors_cached(
+        self,
+        nodes: Sequence[Node],
+        usage,
+        overhead,
+        topo_version: Optional[int] = None,
+        roster_rows=None,
+        dirty_hint=None,
+        avail_epoch=None,
+        avail_journal=None,
+    ) -> ClusterTensors:
+        """Device-resident cluster state with delta updates: the host view
+        of build_tensors (the full node list), with the device copy kept
+        alive between calls. When only availability rows changed, just
+        those rows ship (an out-of-place row copy); unchanged state reuses
+        the resident tensors; a static-field change uploads in full. With
+        the resident build the availability buffer is patched in place, so
+        the changed rows come from the pending ledger, not a value
+        compare."""
+        with self._build_lock:
+            host = self._build_host(
+                nodes, usage, overhead,
+                full_node_list=True, topo_version=topo_version,
+                roster_rows=roster_rows, dirty_hint=dirty_hint,
+                avail_epoch=avail_epoch, avail_journal=avail_journal,
+            )
+            stats = self.device_state_stats
+            dev = self._dev
+            tensors = None
+            n = host.available.shape[0]
+            if dev is not None and dev["host"].available.shape == host.available.shape:
+                prev = dev["host"]
+                if all(
+                    getattr(prev, f) is getattr(host, f)
+                    or np.array_equal(getattr(prev, f), getattr(host, f))
+                    for f in _STATIC_FIELDS
+                ):
+                    if prev.available is host.available:
+                        pend = dev.get("pending")
+                        if pend is None:
+                            dirty = None
+                        elif pend:
+                            dirty = np.unique(
+                                np.concatenate([np.asarray(c) for c in pend])
+                            ).astype(np.int64)
+                            dirty = dirty[dirty < n]
+                        else:
+                            dirty = np.empty(0, np.int64)
+                    else:
+                        dirty = np.flatnonzero(
+                            np.any(prev.available != host.available, axis=1)
+                        )
+                    if dirty is not None and not dirty.size:
+                        tensors = dev["tensors"]
+                        stats["reuse_hits"] += 1
+                        self.last_state_upload = "reuse"
+                    elif dirty is not None and dirty.size <= max(32, n // 8):
+                        rows = host.available[dirty].copy()
+                        avail = dev["tensors"].available.index_copy(
+                            0,
+                            torch.as_tensor(dirty, device=self.device),
+                            torch.as_tensor(rows, device=self.device),
+                        )
+                        tensors = dataclasses.replace(
+                            dev["tensors"], available=avail
+                        )
+                        nbytes = rows.nbytes + dirty.nbytes
+                        stats["delta_uploads"] += 1
+                        stats["delta_rows"] += int(dirty.size)
+                        stats["upload_bytes"] += nbytes
+                        self._note_transfer("h2d", nbytes)
+                        self.last_state_upload = "delta"
+                    else:
+                        # A copy: the resident buffer is patched in place.
+                        tensors = dataclasses.replace(
+                            dev["tensors"],
+                            available=torch.tensor(
+                                host.available, device=self.device
+                            ),
+                        )
+                        stats["full_uploads"] += 1
+                        stats["upload_bytes"] += host.available.nbytes
+                        self._note_transfer("h2d", host.available.nbytes)
+                        self.last_state_upload = "full"
+            if tensors is None:
+                tensors = self._upload(host)
+                nbytes = _host_nbytes(host)
+                stats["full_uploads"] += 1
+                stats["upload_bytes"] += nbytes
+                self._note_transfer("h2d", nbytes)
+                self.last_state_upload = "full"
+            tensors.host = host
+            self._dev = {"host": host, "tensors": tensors, "pending": []}
+            return tensors
+
+    # -- the native arena's resident build --------------------------------
+
+    def _label_rank(self, node: Node, prio) -> int:
+        if prio is None:
+            return INT32_INF
+        label, values = prio
+        val = node.labels.get(label)
+        if val is not None and val in values:
+            return values.index(val)
+        return INT32_INF
+
+    def _build_tensors_native(
+        self,
+        nodes: Sequence[Node],
+        usage,
+        overhead,
+        *,
+        full_node_list: bool = False,
+        topo_version: Optional[int] = None,
+        roster_rows: "np.ndarray | None" = None,
+        dirty_hint: "tuple | None" = None,
+        avail_epoch: "int | None" = None,
+        avail_journal: "dict | None" = None,
+    ) -> ClusterTensors:
+        """The arena-backed host view (caller holds the build lock).
+
+        Name ranks are GLOBAL and gapped over every known node, not dense
+        over the request's subset: every consumer reads rank order only,
+        and the order is the same for any subset.
+
+        The serving contract (full node list + topology version) keeps the
+        nine buffers resident and patches the changed rows (journal rows
+        and arena upserts) in one C call; every other caller (a filtered
+        subset, a journal gap, pad growth) materializes every row into
+        FRESH buffers, so no earlier handle's arrays are touched."""
+        arena = self._arena
+        seen = self._node_seen
+        topo = topo_version
+
+        def _upsert(node) -> None:
+            seen[node.name] = node
+            # A re-added name is live again: its tombstone must not
+            # release the row under it.
+            self._pending_tombstones.discard(node.name)
+            idx = self.registry.intern(node.name)
+            arena.upsert(
+                idx,
+                node.allocatable.as_array(),
+                self.registry.zone_id(node.zone),
+                node.unschedulable,
+                node.ready,
+                self._label_rank(node, self._driver_label_priority),
+                self._label_rank(node, self._executor_label_priority),
+            )
+            # Pending until a resident patch (or a full snapshot) absorbs
+            # this row's statics.
+            self._res_pending.append(idx)
+
+        if not (topo is not None and topo == self._topo_seen):
+            if (
+                dirty_hint is not None
+                and full_node_list
+                and topo is not None
+                and dirty_hint[0] == self._topo_seen
+            ):
+                # A verified version chain: upsert just the changed nodes.
+                # New names take a gapped rank between their neighbours;
+                # deleted names tombstone (masked out by the request mask,
+                # recycled once their usage drains).
+                new_names = [
+                    n.name for n in dirty_hint[1] if n.name not in seen
+                ]
+                for node in dirty_hint[1]:
+                    _upsert(node)
+                if new_names:
+                    self._insert_name_ranks(new_names)
+                for name in dirty_hint[2] if len(dirty_hint) > 2 else ():
+                    if name in seen:
+                        seen.pop(name, None)
+                        self._rank_space.remove(name)
+                        self._pending_tombstones.add(name)
+                self._topo_seen = topo
+            else:
+                changed_names = False
+                for node in nodes:
+                    if seen.get(node.name) is node:
+                        continue
+                    if node.name not in seen:
+                        changed_names = True
+                    _upsert(node)
+                if changed_names or self._rank_epoch < 0:
+                    self._assign_all_name_ranks()
+                if full_node_list and topo is not None:
+                    # Only a full-list walk proves the arena synced to this
+                    # version; a filtered subset must not skip later walks.
+                    self._topo_seen = topo
+        pad = pad_bucket(self.registry.capacity, 8)
+        usage_t = self._dense_or_scatter(usage, pad)
+        overhead_t = self._dense_or_scatter(overhead, pad)
+        # Only the serving contract may consume the resident buffers (a
+        # filtered subset would bake its request mask into them), and only
+        # a serving build recycles tombstones: its usage and overhead are
+        # the store's, where a filtered build (the unschedulable-pod
+        # marker's, with no usage) would free a row that still holds
+        # reservations.
+        serving = topo is not None and full_node_list
+        if serving and self._pending_tombstones:
+            self._release_tombstones(usage_t, overhead_t)
+        res = self._snap_res
+        rows_hint = None
+        if (
+            serving
+            and res is not None
+            and not self._res_full_pending
+            and res["pad"] == pad
+        ):
+            rows_hint = self._avail_rows_between(
+                res.get("avail_epoch"), avail_epoch, avail_journal
+            )
+        if rows_hint is not None:
+            host = self._patch_resident(
+                res, rows_hint, usage_t, overhead_t, nodes, topo, pad,
+                roster_rows,
+            )
+            res["avail_epoch"] = avail_epoch
+            return host
+        return self._snapshot_full(
+            pad, usage_t, overhead_t, nodes, topo, serving, roster_rows,
+            avail_epoch,
+        )
+
+    def _request_mask(self, nodes, topo, pad, roster_rows, cacheable):
+        """[pad] bool mask of this request's node rows (the arena knows
+        every node ever seen). Memoized on the topology version for a full
+        node list only (a filtered subset of the same length would
+        collide)."""
+        cached = self._topo_request_mask
+        if (
+            cacheable
+            and cached is not None
+            and cached[0] == (topo, pad, len(nodes))
+        ):
+            return cached[1]
+        request_mask = np.zeros(pad, dtype=bool)
+        if roster_rows is not None and len(roster_rows) == len(nodes):
+            request_mask[roster_rows[roster_rows < pad]] = True
+        else:
+            idxs = [self.registry.index_of(n.name) for n in nodes]
+            request_mask[[i for i in idxs if i is not None and i < pad]] = True
+        if cacheable:
+            if (
+                cached is not None
+                and cached[1].shape[0] == pad
+                and np.array_equal(cached[1], request_mask)
+            ):
+                # Membership did not move (a node update): keep the old
+                # object, whose identity keeps the valid mask and the
+                # planner's per-domain contexts stable.
+                request_mask = cached[1]
+            self._topo_request_mask = ((topo, pad, len(nodes)), request_mask)
+        return request_mask
+
+    def _avail_rows_between(self, prev, cur, journal):
+        """(usage rows, overhead rows, node rows) changed between the
+        resident build's synced availability epoch and the snapshot's,
+        from the feature store's journal; None on a gap (a journal break,
+        an evicted epoch, a caller that passes no journal). Usage rows
+        touch only `available`, overhead rows `schedulable` too, node rows
+        any static field."""
+        if prev is None or cur is None or journal is None:
+            return None
+        if cur < prev or cur - prev > 64:
+            return None
+        empty = np.empty(0, np.int64)
+        if cur == prev:
+            return empty, empty, empty
+        arows: list = []
+        orows: list = []
+        nrows: list = []
+        for e in range(prev + 1, cur + 1):
+            ent = journal.get(e)
+            if ent is None:
+                return None
+            arows.append(ent[0])
+            orows.append(ent[1])
+            nrows.append(ent[2])
+        return (
+            np.unique(np.concatenate(arows)).astype(np.int64),
+            np.unique(np.concatenate(orows)).astype(np.int64),
+            np.unique(np.concatenate(nrows)).astype(np.int64),
+        )
+
+    def _acc_build_rows(self) -> None:
+        """Fold the last build's named rows into the statics-delta
+        candidate accumulator (None: the next `_plan_static_delta` takes
+        the dense field diff)."""
+        rows = self._last_build_rows
+        if rows is None:
+            self._static_acc = None
+            return
+        if self._static_acc is None:
+            return
+        if rows[0].size:
+            self._static_acc.append(rows[0])
+        if rows[1].size:
+            self._static_acc.append(rows[1])
+
+    def _note_consumer_rows(self, rows) -> None:
+        """Rows the resident build just patched, appended to the device
+        mirrors' pending ledgers (the pipelined and the cached sync compare
+        exactly these instead of every row)."""
+        for st in (self._pipe, self._dev):
+            if st is not None and st.get("pending") is not None:
+                st["pending"].append(rows)
+
+    def _note_consumers_unknown(self) -> None:
+        """This build could not name its changed rows: each device mirror
+        falls back to one dense compare."""
+        for st in (self._pipe, self._dev):
+            if st is not None:
+                st["pending"] = None
+
+    def _mirror_dirty(self, p, host, mirror) -> np.ndarray:
+        """Rows whose availability the next delta upload must ship.
+
+        The pipeline's pending ledger (rows the resident build patched and
+        rows fetched placements debited from the mirror) is a superset of
+        every mirror-vs-host difference, so the sync compares just those
+        rows. A build that could not name its rows leaves the ledger None
+        and the dense [N] compare runs once (`mirror_dense_syncs`). With
+        `build_oracle` the dense compare also runs after every dirty-set
+        sync and a missed row raises."""
+        pend = p.get("pending")
+        bs = self.build_stats
+        if pend is None:
+            dirty = np.flatnonzero((mirror != host.available).any(axis=1))
+            bs["mirror_rows_compared"] += int(mirror.shape[0])
+            bs["mirror_dense_syncs"] += 1
+            return dirty
+        if pend:
+            cand = np.unique(np.concatenate([np.asarray(c) for c in pend]))
+            cand = cand.astype(np.int64)
+            cand = cand[cand < mirror.shape[0]]
+        else:
+            cand = np.empty(0, np.int64)
+        if cand.size:
+            neq = (mirror[cand] != host.available[cand]).any(axis=1)
+            dirty = cand[neq]
+        else:
+            dirty = cand
+        bs["dirty_rows"] += int(cand.size)
+        if self.build_oracle:
+            bs["oracle_checks"] += 1
+            oracle = np.flatnonzero((mirror != host.available).any(axis=1))
+            missed = np.setdiff1d(oracle, dirty)
+            if missed.size:
+                raise AssertionError(
+                    "dirty-set mirror sync missed changed rows "
+                    f"{missed[:8].tolist()} (of {missed.size})"
+                )
+        return dirty
+
+    def _res_tensors(self, res) -> ClusterTensors:
+        """The resident buffers as a host ClusterTensors. The bool views of
+        the uint8 backings are memoized: a view's identity stays stable
+        while its backing does, so the pipelined statics compare settles
+        unchanged fields with `is`."""
+        f = res["fields"]
+        views = res.setdefault("views", {})
+        for name in ("unschedulable", "ready"):
+            v = views.get(name)
+            if v is None or v.base is not f[name]:
+                views[name] = v = f[name].view(np.bool_)
+        return ClusterTensors(
+            f["available"],
+            f["schedulable"],
+            f["zone_id"],
+            f["name_rank"],
+            f["label_rank_driver"],
+            f["label_rank_executor"],
+            views["unschedulable"],
+            views["ready"],
+            res["valid_req"],
+        )
+
+    def _snapshot_full(
+        self, pad, usage_t, overhead_t, nodes, topo, serving, roster_rows,
+        avail_epoch,
+    ) -> ClusterTensors:
+        """Every row materialized into FRESH buffers (the cold build, pad
+        growth, a journal gap, a filtered subset). Earlier handles keep
+        the old arrays; a serving build makes the new ones resident."""
+        raw = self._arena.snapshot_raw(pad, usage_t, overhead_t)
+        fields = dict(zip(_RES_FIELDS, raw))
+        request_mask = self._request_mask(nodes, topo, pad, roster_rows, serving)
+        valid_req = fields["valid"].view(np.bool_) & request_mask
+        self._last_build_rows = None
+        self._acc_build_rows()
+        self._note_consumers_unknown()
+        if serving:
+            self._snap_res = res = {
+                "pad": pad,
+                "avail_epoch": avail_epoch,
+                "mask": request_mask,
+                "fields": fields,
+                "valid_req": valid_req,
+            }
+            self._res_pending = []
+            self._res_full_pending = False
+            self._res_statics_moved = True
+            self.build_stats["full_snapshots"] += 1
+            return self._res_tensors(res)
+        return ClusterTensors(
+            *raw[:6], raw[6].view(np.bool_), raw[7].view(np.bool_), valid_req,
+        )
+
+    def _patch_resident(
+        self, res, rows_hint, usage_t, overhead_t, nodes, topo, pad,
+        roster_rows,
+    ) -> ClusterTensors:
+        """The O(K + changed) build: recompute exactly the changed rows
+        into the resident buffers. Node rows copy every static field
+        first, overhead rows only `schedulable`, so in-flight handles keep
+        their dispatch-time statics. The copy is also what the pipelined
+        build's static row delta relies on: it finds the static rows to
+        ship by comparing the previous host view's arrays with these, and
+        an in-place static patch would hide a node event from the card.
+        `available` is patched in place, with an undo entry while pruned
+        or pooled handles are in flight."""
+        arows, orows, nrows = rows_hint
+        if self._res_pending:
+            prows = np.unique(np.asarray(self._res_pending, np.int64))
+            self._res_pending = []
+            nrows = np.union1d(nrows, prows) if nrows.size else prows
+        patch = arows
+        for extra in (orows, nrows):
+            if extra.size:
+                patch = np.union1d(patch, extra) if patch.size else extra
+        f = res["fields"]
+        mask = self._request_mask(nodes, topo, pad, roster_rows, True)
+        mask_changed = mask is not res["mask"]
+        if patch.size:
+            if nrows.size:
+                for name in _RES_FIELDS[1:]:
+                    f[name] = f[name].copy()
+                self._res_statics_moved = True
+            elif orows.size:
+                f["schedulable"] = f["schedulable"].copy()
+                self._res_statics_moved = True
+            avail = f["available"]
+            if self._avail_handles:
+                # Trim the undo journal to the oldest live handle's
+                # generation before appending: serving keeps a handle in
+                # flight, so clearing only when none is would never clear.
+                gens = [
+                    h.avail_gen for h in self._avail_handles
+                    if h.avail_gen is not None
+                ]
+                if gens:
+                    min_gen = min(gens)
+                    if self._avail_undo and self._avail_undo[0][0] < min_gen:
+                        self._avail_undo = [
+                            e for e in self._avail_undo if e[0] >= min_gen
+                        ]
+                self._avail_undo.append(
+                    (self._avail_gen, avail, patch, avail[patch].copy())
+                )
+            elif self._avail_undo:
+                self._avail_undo.clear()
+            self._avail_gen += 1
+            self._arena.snapshot_rows(
+                patch, usage_t, overhead_t,
+                f["available"], f["schedulable"], f["zone_id"],
+                f["name_rank"], f["label_rank_driver"],
+                f["label_rank_executor"], f["unschedulable"], f["ready"],
+                f["valid"],
+            )
+            self._note_consumer_rows(patch)
+        if mask_changed:
+            res["mask"] = mask
+            res["valid_req"] = f["valid"].view(np.bool_) & mask
+        elif nrows.size:
+            vals = f["valid"].view(np.bool_)[nrows] & mask[nrows]
+            if not np.array_equal(vals, res["valid_req"][nrows]):
+                # Copy only when validity moved: a flip that leaves it
+                # (unschedulable, labels) keeps the valid mask's identity.
+                vr = res["valid_req"].copy()
+                vr[nrows] = vals
+                res["valid_req"] = vr
+        # The planner's feed: overhead rows move availability keys, node
+        # rows are static dirt.
+        self._last_build_rows = (
+            np.union1d(arows, orows) if orows.size else arows,
+            nrows,
+        )
+        self._acc_build_rows()
+        self.build_stats["incremental_builds"] += 1
+        return self._res_tensors(res)
+
+    def _release_tombstones(self, usage_t, overhead_t) -> None:
+        """Recycle deleted nodes' registry rows: a row whose reservation
+        usage and overhead drained re-enters the registry's free list (a
+        later node add reuses it; its statics ship as an ordinary static
+        row delta). A row with leftovers stays parked and is retried every
+        build; so is every row while a window is in flight (its fetch may
+        still name the row)."""
+        p = self._pipe
+        if p is not None and p["unfetched"]:
+            return
+        still = set()
+        for name in self._pending_tombstones:
+            row = self.registry.index_of(name)
+            if row is None:
+                continue
+            if (
+                row < usage_t.shape[0]
+                and row < overhead_t.shape[0]
+                and not usage_t[row].any()
+                and not overhead_t[row].any()
+            ):
+                self.registry.remove(name)
+                self.tombstones_recycled += 1
+            else:
+                still.add(name)
+        self._pending_tombstones = still
+
+    def _scatter_all_ranks(self) -> None:
+        space = self._rank_space
+        index_of = self.registry.index_of
+        idx = np.fromiter(
+            (index_of(name) for name in space.names),
+            np.int64,
+            count=len(space.names),
+        )
+        self._arena.set_name_ranks(np.empty(0, np.int64))  # every slot INF
+        self._arena.set_name_rank_values(idx, np.asarray(space.ranks, np.int32))
+
+    def _assign_all_name_ranks(self) -> None:
+        """Assign every known name its rank from scratch (the cold path):
+        every slot's rank moves, so the next build snapshots in full."""
+        self._res_full_pending = True
+        self._rank_space.assign_all(sorted(self._node_seen))
+        self._scatter_all_ranks()
+        self._rank_epoch += 1
+
+    def _insert_name_ranks(self, names: list[str]) -> None:
+        """Rank the newly added names, O(changed). A crowded gap relabels
+        its neighbourhood (those rows ride the resident build's static
+        dirt); only an exhausted space renumbers every rank."""
+        space = self._rank_space
+        changed: list[str] = []
+        renumbered = False
+        for name in names:
+            out = space.insert(name)
+            if out is None:
+                renumbered = True
+            elif not renumbered:
+                changed.extend(out)
+        index_of = self.registry.index_of
+        if renumbered:
+            self._scatter_all_ranks()
+            self._res_full_pending = True
+            self._prune_invalidate()
+        elif changed:
+            pairs = [
+                (r, n)
+                for r, n in ((index_of(n), n) for n in changed)
+                if r is not None
+            ]
+            if pairs:
+                # rank_of at scatter time: a name a later rebalance moved
+                # again scatters its final value.
+                self._arena.set_name_rank_values(
+                    np.asarray([r for r, _ in pairs], np.int64),
+                    np.asarray([space.rank_of(n) for _, n in pairs], np.int32),
+                )
+                self._res_pending.extend(int(r) for r, _ in pairs)
+        self._rank_epoch += 1
+
+    def _dense_or_scatter(self, mapping, pad: int) -> np.ndarray:
+        """[pad, 3] int64 usage or overhead: a dense array is taken as it is
+        when it already has the pad's shape (the feature store's resident
+        masters; no consumer writes it), else padded or cut in one copy
+        (rows past the registry can only be zeros); a map scatters entry
+        by entry."""
+        if isinstance(mapping, np.ndarray):
+            if (
+                mapping.shape[0] == pad
+                and mapping.dtype == np.int64
+                and mapping.flags.c_contiguous
+            ):
+                return mapping
+            out = np.zeros((pad, NUM_DIMS), dtype=np.int64)
+            rows = min(pad, mapping.shape[0])
+            out[:rows] = mapping[:rows]
+            return out
+        out = np.zeros((pad, NUM_DIMS), dtype=np.int64)
+        for name, res in mapping.items():
+            idx = self.registry.index_of(name)
+            if idx is not None and idx < pad:
+                out[idx] += res.as_array()
+        return out
+
+    def _avail_at_dispatch(self, handle) -> np.ndarray:
+        """The int32 host availability as of `handle`'s dispatch: the
+        resident buffer with the undo entries newer than the handle's
+        generation replayed in reverse. Rare paths only (escalations,
+        greedy and re-dispatch re-solves, pooled whole-window fetches)."""
+        arr = handle.host_avail32
+        gen = handle.avail_gen
+        with self._build_lock:
+            entries = [
+                e for e in self._avail_undo if e[1] is arr and e[0] >= gen
+            ]
+            if not entries:
+                return arr.copy()
+            out = arr.copy()
+            for _g, _buf, rows, old in reversed(entries):
+                out[rows] = old
+            return out
+
+    def _track_avail(self, handle, host) -> None:
+        """Point a pruned or pooled handle at the resident host buffer
+        (no dense copy at dispatch) and register it for the undo
+        journal."""
+        handle.host_avail32 = np.asarray(host.available)
+        with self._build_lock:
+            handle.avail_gen = self._avail_gen
+            self._avail_handles.add(handle)
 
     def close(self) -> None:
         """Release the pipelined device state (the app's shutdown): cancel
@@ -838,6 +1732,10 @@ class PlacementSolver:
             fut.cancel()
         self._inflight_futures.clear()
         self._pipe = None
+        self._dev = None
+        with self._build_lock:
+            self._snap_res = None  # the resident host buffers
+            self._avail_undo.clear()
         self._poisoned.clear()
         self._prune_gather_cache.clear()  # release the gathered statics
         self._release_fused()
@@ -890,9 +1788,9 @@ class PlacementSolver:
           mirror has not debited yet. The blob stays on the handle: the
           fetch reads the same bytes.
 
-        The keyword arguments are those of build_tensors, read by
-        neither."""
-        host = self._build_host(nodes, usage, overhead)
+        The keyword arguments are those of build_tensors. The host view's
+        arrays are never written here: the debits go into copies."""
+        host = self._build_host(nodes, usage, overhead, **hints)
         p = self._pipe
         if p is not None and p["unfetched"]:
             avail = host.available.astype(np.int64)
@@ -988,21 +1886,39 @@ class PlacementSolver:
         avail_journal=None,
     ) -> ClusterTensors:
         """Timing and telemetry shell around the pipelined build: its wall
-        time, the rows the dense mirror compare examined and the rows it
-        found changed (`on_build`), and how the build reached the device
-        (`on_device_upload`). The keyword arguments are build accelerators
-        the port does not read (see build_tensors)."""
-        t0 = time.perf_counter()
-        counts = {"compared": 0, "dirty": 0}
-        try:
-            tensors = self._build_tensors_pipelined(nodes, usage, overhead, counts)
-        finally:
-            if self.telemetry is not None:
-                self.telemetry.on_build(
-                    (time.perf_counter() - t0) * 1e3,
-                    counts["compared"],
-                    counts["dirty"],
+        time (`build_stats`, `solver.build.ms`), the rows a dense mirror
+        sweep examined and the rows the event-fed dirty-set sync examined
+        (`on_build`), and how the build reached the device
+        (`on_device_upload`). The keyword arguments are build_tensors'
+        accelerators; `statics_version` is the feature store's statics
+        epoch (see _build_tensors_pipelined). The build holds the build
+        lock throughout, so a build on another thread never lands between
+        the host build and the mirror sync."""
+        bs = self.build_stats
+        with self._build_lock:
+            compared0 = bs["mirror_rows_compared"]
+            dirty0 = bs["dirty_rows"]
+            t0 = time.perf_counter()
+            try:
+                tensors = self._build_tensors_pipelined(
+                    nodes, usage, overhead,
+                    topo_version=topo_version,
+                    statics_version=statics_version,
+                    roster_rows=roster_rows,
+                    dirty_hint=dirty_hint,
+                    avail_epoch=avail_epoch,
+                    avail_journal=avail_journal,
                 )
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                bs["builds"] += 1
+                bs["build_ms"] += ms
+                if self.telemetry is not None:
+                    self.telemetry.on_build(
+                        ms,
+                        bs["mirror_rows_compared"] - compared0,
+                        bs["dirty_rows"] - dirty0,
+                    )
         if self.telemetry is not None:
             self.telemetry.on_device_upload(
                 str(self.device), self.last_state_upload
@@ -1010,7 +1926,16 @@ class PlacementSolver:
         return tensors
 
     def _build_tensors_pipelined(
-        self, nodes: Sequence[Node], usage, overhead, counts: dict
+        self,
+        nodes: Sequence[Node],
+        usage,
+        overhead,
+        topo_version: Optional[int] = None,
+        statics_version: Optional[int] = None,
+        roster_rows=None,
+        dirty_hint=None,
+        avail_epoch=None,
+        avail_journal=None,
     ) -> ClusterTensors:
         """Device-resident availability threaded ACROSS serving windows.
 
@@ -1025,12 +1950,18 @@ class PlacementSolver:
         is restored by the next delta. This is what makes it safe to
         DISPATCH window k+1 before FETCHING window k.
 
-        A static-field change that touches few rows ships as a row scatter
-        (`delta_statics`); any other static change needs a full upload,
-        which raises PipelineDrainRequired while a window is in flight —
-        fetch it first, then retry. So does an availability delta beyond
-        int32. `counts` receives the rows compared and found dirty.
-        Single-threaded by contract.
+        The mirror syncs over the pending ledger (`_mirror_dirty`): the
+        rows the resident build patched and the rows fetches debited. A
+        build that named no rows leaves a dense compare.
+
+        `statics_version` (the feature store's statics epoch) equal to the
+        pipeline's proves the static fields unchanged and skips their
+        compare, unless the resident build patched a static row since the
+        last sync. A static-field change that touches few rows ships as a
+        row scatter (`delta_statics`, diffed over the rows the builds
+        named); any other static change needs a full upload, which raises
+        PipelineDrainRequired while a window is in flight — fetch it first,
+        then retry. So does an availability delta beyond int32.
 
         After a pruned window's escalation dropped the pipeline, the build
         raises PipelineDrainRequired until every window dispatched on the
@@ -1048,13 +1979,26 @@ class PlacementSolver:
                 "windows dispatched on a carry a pruned window's escalation "
                 "dropped are still in flight"
             )
-        host = self._build_host(nodes, usage, overhead)
+        host = self._build_host(
+            nodes, usage, overhead,
+            full_node_list=True, topo_version=topo_version,
+            roster_rows=roster_rows, dirty_hint=dirty_hint,
+            avail_epoch=avail_epoch, avail_journal=avail_journal,
+        )
+        stats = self.device_state_stats
         p = self._pipe
         static_plan = None
         statics_same = False
         if p is not None and p["host"].available.shape == host.available.shape:
-            statics_same = all(
-                np.array_equal(getattr(p["host"], f), getattr(host, f))
+            statics_same = (
+                statics_version is not None
+                and statics_version == p.get("statics_version")
+                and not self._res_statics_moved
+            ) or all(
+                # Identity first: the resident build shares unchanged
+                # static arrays across builds.
+                getattr(p["host"], f) is getattr(host, f)
+                or np.array_equal(getattr(p["host"], f), getattr(host, f))
                 for f in _STATIC_FIELDS
             )
             if not statics_same and self._delta_statics:
@@ -1065,11 +2009,7 @@ class PlacementSolver:
                 static_plan = self._plan_static_delta(p["host"], host)
         if statics_same or static_plan is not None:
             mirror = p["mirror"]
-            # Rows whose availability the delta must ship: a dense compare
-            # of the host view against the mirror.
-            dirty = np.flatnonzero((mirror != host.available).any(axis=1))
-            counts["compared"] += len(mirror)
-            counts["dirty"] += len(dirty)
+            dirty = self._mirror_dirty(p, host, mirror)
             delta_rows = host.available[dirty].astype(np.int64) - mirror[dirty]
             # A swing too large for int32 delta rows falls through to a
             # FULL re-upload instead of wrapping and corrupting the base.
@@ -1088,9 +2028,11 @@ class PlacementSolver:
                     static_fields = self._apply_static_delta(p, static_plan, host)
                 avail = p["avail"]
                 if dirty.size:
-                    # The prune planner's O(changed) sync rides exactly
-                    # this dirty set (and the fetched placement rows).
+                    # The prune planner's O(changed) sync and the pool
+                    # slots' availability mirrors ride exactly this dirty
+                    # set (and the fetched placement rows).
                     self._prune_note_rows(dirty)
+                    self._avail_journal_note(p, dirty)
                     # Out of place: the base a caller still holds (through
                     # an earlier build's tensors) is never written.
                     rows32 = delta_rows.astype(np.int32)
@@ -1100,10 +2042,17 @@ class PlacementSolver:
                         torch.as_tensor(rows32, device=self.device),
                     )
                     mirror[dirty] = host.available[dirty]
-                    self._note_transfer("h2d", dirty.nbytes + rows32.nbytes)
-                self.last_state_upload = (
-                    "delta" if dirty.size or static_plan is not None else "reuse"
-                )
+                    nbytes = dirty.nbytes + rows32.nbytes
+                    stats["delta_uploads"] += 1
+                    stats["delta_rows"] += int(dirty.size)
+                    stats["upload_bytes"] += nbytes
+                    self._note_transfer("h2d", nbytes)
+                    self.last_state_upload = "delta"
+                elif static_plan is not None:
+                    self.last_state_upload = "delta"
+                else:
+                    stats["reuse_hits"] += 1
+                    self.last_state_upload = "reuse"
                 tensors = dataclasses.replace(
                     p["tensors"], available=avail, **static_fields
                 )
@@ -1112,8 +2061,14 @@ class PlacementSolver:
                 # debited as of THIS build: the host view holds their
                 # reservations, the device base lacks only the rest.
                 debited = {h: frozenset(h.applied) for h in p["unfetched"]}
-                p.update(host=host, tensors=tensors, avail=avail,
-                         debited=debited)
+                p.update(
+                    host=host, tensors=tensors, avail=avail, debited=debited,
+                    statics_version=statics_version,
+                    # Mirror synced: the ledger drains.
+                    pending=[],
+                )
+                self._static_acc = []
+                self._res_statics_moved = False
                 return tensors
         if p is not None and p["unfetched"]:
             if self.telemetry is not None:
@@ -1122,15 +2077,21 @@ class PlacementSolver:
                 "cluster topology changed with a window in flight"
             )
         tensors = self._upload(host)
-        self._note_transfer("h2d", _host_nbytes(host))
+        nbytes = _host_nbytes(host)
+        stats["full_uploads"] += 1
+        stats["upload_bytes"] += nbytes
+        self._note_transfer("h2d", nbytes)
         self.last_state_upload = "full"
-        self.build_stats["full_snapshots"] += 1
-        # The statics may have changed: the planner's resident state, the
-        # gathered statics and every pool replica start again from this
-        # host view (the journal cannot bridge a full upload).
+        # The statics may have changed: the gathered statics and every pool
+        # replica start again from this host view (the journal cannot
+        # bridge a full upload). The prune planner keys on host state: when
+        # this build named its changed rows it stays resident (lazy warm
+        # start).
         self._static_epoch += 1
         self._static_journal.clear()
-        self._prune_invalidate()
+        self._static_acc = []
+        self._res_statics_moved = False
+        self._prune_full_upload()
         self._pipe = {
             "host": host,
             "tensors": tensors,
@@ -1138,6 +2099,19 @@ class PlacementSolver:
             "mirror": host.available.astype(np.int64),
             "unfetched": [],
             "debited": {},
+            "statics_version": statics_version,
+            # The dirty-row ledger of the event-fed mirror sync: rows the
+            # resident build patches and rows fetched placements debit;
+            # None = unknown (a dense compare next build). Empty now: the
+            # mirror IS the host view.
+            "pending": [],
+            # The availability epoch and journal of the pool slots'
+            # mirrors: each change of the canonical base bumps the epoch
+            # and journals its rows (None: unknowable). A fresh token: no
+            # replica from before is a catch-up base.
+            "avail_epoch": 0,
+            "avail_journal": {},
+            "token": next(self._pipe_tokens),
         }
         return tensors
 
@@ -1156,12 +2130,36 @@ class PlacementSolver:
     def _plan_static_delta(self, prev, host):
         """(changed field names, dirty rows) when the static drift between
         two same-shape host views is small enough to ship as a row
-        scatter; None sends the caller to the full-upload/drain path."""
+        scatter; None sends the caller to the full-upload/drain path.
+
+        When every build since the last sync named its rows
+        (`_static_acc`), the diff runs over just those rows: the resident
+        build only ever rewrites named rows (its statics copy-on-write), so
+        they are a superset of every field difference. Otherwise the dense
+        diff runs."""
         n = host.available.shape[0]
+        acc = self._static_acc
+        cand = None
+        if acc is not None:
+            cand = (
+                np.unique(np.concatenate(acc)).astype(np.int64)
+                if acc
+                else np.empty(0, np.int64)
+            )
+            cand = cand[cand < n]
+            if not cand.size:
+                # A field differs but no build named a row: take the
+                # dense diff.
+                cand = None
         changed: list[str] = []
-        rows_mask = np.zeros(n, dtype=bool)
+        sel = cand if cand is not None else slice(None)
+        rows_mask = np.zeros(cand.shape[0] if cand is not None else n, bool)
         for f in _STATIC_FIELDS:
-            neq = np.asarray(getattr(prev, f)) != np.asarray(getattr(host, f))
+            a = np.asarray(getattr(prev, f))
+            b = np.asarray(getattr(host, f))
+            if a is b:
+                continue
+            neq = a[sel] != b[sel]
             if neq.ndim == 2:
                 neq = neq.any(axis=1)
             if neq.any():
@@ -1169,7 +2167,7 @@ class PlacementSolver:
                 rows_mask |= neq
         if not changed:
             return None
-        rows = np.flatnonzero(rows_mask)
+        rows = cand[rows_mask] if cand is not None else np.flatnonzero(rows_mask)
         if len(rows) > max(32, n // 8):
             return None
         return changed, rows
@@ -1187,7 +2185,10 @@ class PlacementSolver:
             nbytes += host_vals.nbytes
             vals = torch.as_tensor(host_vals, device=self.device).to(cur.dtype)
             out[f] = cur.index_copy(0, idx, vals)
-        self.device_state_stats["static_delta_uploads"] += 1
+        stats = self.device_state_stats
+        stats["static_delta_uploads"] += 1
+        stats["static_delta_rows"] += int(rows.size)
+        stats["upload_bytes"] += nbytes
         self._note_transfer("h2d", nbytes)
         self._static_epoch += 1
         # Pool replicas catch up by scattering the same rows.
@@ -1224,47 +2225,165 @@ class PlacementSolver:
         itself, so a steady-state request (kube-scheduler resends the same
         candidate list every call) hits WITHOUT materializing its names or
         hashing a tuple of them; only a cold miss iterates. Plain lists
-        keep the tuple key."""
+        keep the tuple key. Across registry epochs (a node add or a
+        recycled row) a cached mask is patched from the registry's journal
+        (`_cand_try_patch`) instead of rebuilt by a walk over every name."""
         n = tensors.num_nodes
         names = (
             node_names
             if getattr(node_names, "names_digest", None) is not None
             else tuple(node_names)
         )
-        epoch = self.registry.epoch
-        key = (n, epoch, names)
-        with self._cand_lock:
-            mask = self._cand_cache.get(key)
-            if mask is not None:
-                self._cand_cache.move_to_end(key)
-                return mask
-        shared = self._sweep_shared
-        mask = None
-        if shared is not None:
-            # Replay sweep: a sibling lane's mask for the same (n, epoch,
-            # names) is this lane's mask (node events are inputs, so the
-            # registries agree); validated by the same seqlock below.
-            with self._cand_lock:
-                mask = shared.get(key)
-                if mask is not None:
-                    shared["__hits__"] = shared.get("__hits__", 0) + 1
-        if mask is None:
+
+        def _build():
             mask = np.zeros(n, dtype=bool)
+            unresolved: set = set()
             index_of = self.registry.index_of
             for name in names:
                 idx = index_of(name)
                 if idx is not None and idx < n:
                     mask[idx] = True
+                elif idx is None:
+                    # A name with no registry row yet: its mask bit flips
+                    # if it ever interns (the patch must know it).
+                    unresolved.add(name)
             mask.flags.writeable = False
-        # Seqlock read: cache only a walk over one stable mapping.
-        if not epoch & 1 and self.registry.epoch == epoch:
+            return mask, unresolved
+
+        for _ in range(4):
+            epoch = self.registry.epoch
+            if epoch & 1:  # a mapping change in flight: the walk would tear
+                continue
+            key = (n, epoch, names)
             with self._cand_lock:
-                if shared is not None:
-                    shared.setdefault(key, mask)
-                self._cand_cache[key] = mask
-                while len(self._cand_cache) > 64:
-                    self._cand_cache.popitem(last=False)
-        return mask
+                mask = self._cand_cache.get(key)
+                if mask is not None:
+                    self._cand_cache.move_to_end(key)
+                    return mask
+                patched = self._cand_try_patch(names, n, epoch)
+            shared = self._sweep_shared
+            hit = None
+            if patched is None and shared is not None:
+                # Replay sweep: a sibling lane's mask for the same (n,
+                # epoch, names) is this lane's mask (node events are
+                # inputs, so the registries agree).
+                with self._cand_lock:
+                    hit = shared.get(key)
+                    if hit is not None:
+                        shared["__hits__"] = shared.get("__hits__", 0) + 1
+            if patched is not None:
+                mask, unresolved, removed = patched
+            elif hit is not None:
+                (mask, unresolved), removed = hit, set()
+            else:
+                (mask, unresolved), removed = _build(), set()
+            # Seqlock read: cache only a walk over one stable mapping.
+            if self.registry.epoch == epoch:
+                with self._cand_lock:
+                    if shared is not None:
+                        shared.setdefault(key, (mask, unresolved))
+                    self._cand_cache[key] = mask
+                    while len(self._cand_cache) > 64:
+                        self._cand_cache.popitem(last=False)
+                    self._cand_patch[names] = (epoch, n, mask, unresolved, removed)
+                    self._cand_patch.move_to_end(names)
+                    while len(self._cand_patch) > 16:
+                        self._cand_patch.popitem(last=False)
+                if getattr(names, "patch_base", None) is not None:
+                    # Re-based: drop the lineage so older tickets can go.
+                    try:
+                        names.patch_base = None
+                    except AttributeError:
+                        pass
+                return mask
+        # The registry churned through every try: one consistent build
+        # under its lock (not cached: the epoch is stale by construction).
+        return self.registry.read_consistent(lambda: _build()[0])
+
+    def _cand_try_patch(self, names, n: int, epoch: int):
+        """Patch a cached candidate mask across registry epochs from the
+        registry's mapping journal (models/cluster.NodeRegistry
+        .journal_between); the caller holds the memo lock. The patch is
+        exact: a newly interned name is a member iff it was unresolved
+        (named before it had a row) or removed (deleted, then re-added); a
+        removed name clears its row and parks in `removed`. Domain tickets
+        also carry lineage (core/extender._DomainNames patch_base /
+        patch_added / patch_removed): the patch follows the chain to the
+        last ticket it has a base for and replays the membership deltas
+        oldest first. Returns (mask, unresolved, removed), or None (no
+        base, a journal gap, too many changes, another pad)."""
+        prev = self._cand_patch.get(names)
+        lineage: list = []
+        base_key = names
+        while prev is None and len(lineage) < 8:
+            base = getattr(base_key, "patch_base", None)
+            if base is None:
+                return None
+            lineage.append(base_key)
+            base_key = base
+            prev = self._cand_patch.get(base_key)
+        if prev is None:
+            return None
+        e0, n0, mask0, unresolved0, removed0 = prev
+        # An equal epoch is patchable only with lineage (membership deltas
+        # of a node update or delete move no registry epoch).
+        if n0 != n or epoch < e0 or (epoch == e0 and not lineage):
+            return None
+        ops = self.registry.journal_between(e0, epoch)
+        if ops is None or len(ops) > 4096:
+            return None
+        # Copy on WRITE: when no change flips a bit (a node event elsewhere
+        # moved the epoch), the same mask object re-caches, and its
+        # identity keeps the planner's per-domain contexts warm.
+        mask = mask0
+        writable = False
+
+        def _w():
+            nonlocal mask, writable
+            if not writable:
+                mask = mask0.copy()
+                writable = True
+
+        unresolved = set(unresolved0)
+        removed = set(removed0)
+        for op, nm, row in ops:
+            if op == "add":
+                member = nm in removed or nm in unresolved
+                removed.discard(nm)
+                unresolved.discard(nm)
+                if row < n:
+                    if bool(mask[row]) != member:
+                        _w()
+                        mask[row] = member
+                elif member:
+                    return None  # a member beyond the pad: rebuild
+            elif row < n and mask[row]:
+                removed.add(nm)
+                _w()
+                mask[row] = False
+        index_of = self.registry.index_of
+        for tk in reversed(lineage):
+            for nm in tk.patch_removed:
+                row = index_of(nm)
+                if row is not None and row < n and mask[row]:
+                    _w()
+                    mask[row] = False
+                unresolved.discard(nm)
+                removed.discard(nm)
+            for nm in tk.patch_added:
+                removed.discard(nm)
+                row = index_of(nm)
+                if row is None:
+                    unresolved.add(nm)
+                elif row < n:
+                    if not mask[row]:
+                        _w()
+                        mask[row] = True
+                else:
+                    return None
+        if writable:
+            mask.flags.writeable = False
+        return mask, unresolved, removed
 
     def _num_zones_bucket(self) -> int:
         return pad_bucket(max(self.registry.num_zones, 1), 2)
@@ -1897,9 +3016,8 @@ class PlacementSolver:
 
     def _prune_invalidate(self) -> None:
         """Drop every resident prefilter artifact (planner state and the
-        gathered statics): the full-upload contract. The port keeps no
-        resident host build that could name a full upload's changed rows,
-        so there is no warm restart of the planner."""
+        gathered statics): a full name-rank renumber moved every row's
+        key."""
         if self._planner is not None:
             self._planner.invalidate()
         self._prune_gather_cache.clear()
@@ -1908,6 +3026,34 @@ class PlacementSolver:
         """Feed EXACT changed rows to the planner (O(changed) sync)."""
         if self._planner is not None and len(rows):
             self._planner.note_dirty(rows)
+
+    def _prune_full_upload(self) -> None:
+        """A full device upload is happening. The gathered statics die with
+        it; the PLANNER keys on host state, so when the build that caused
+        the upload named its changed rows (the resident build), feeding
+        them keeps the planner exact and a warm restart (discard_pipeline,
+        then a full upload of unchanged host state) skips the O(N log N)
+        cold replan. A build that named no rows, or `lazy_warm_start`
+        off, invalidates it."""
+        self._prune_gather_cache.clear()
+        planner = self._planner
+        if planner is None:
+            return
+        rows = self._last_build_rows
+        if self._lazy_warm_start and rows is not None:
+            arows, srows = rows
+            if len(arows):
+                planner.note_dirty(arows)
+            if len(srows):
+                planner.note_static(srows)
+        else:
+            planner.invalidate()
+
+    def _prune_mark_unknown(self) -> None:
+        """A path that cannot name its changed rows touched availability:
+        the planner's next sync diff-scans the snapshots instead."""
+        if self._planner is not None:
+            self._planner.mark_unknown()
 
     def _prune_gather_entry(self, host, plan) -> dict:
         """Gathered-statics cache entry for a plan's kept rows, keyed by
@@ -2210,14 +3356,16 @@ class PlacementSolver:
             strategy=strategy,
             blob=blob,
             requests=requests,
-            host_avail=np.asarray(host.available),
+            host_avail=None,
             host_schedulable=np.asarray(host.schedulable),
             priors=priors,
             prior_debited=debited,
         )
         handle.ready = ready
-        # The certificate's base, gathered on the kept rows now.
-        handle.base_kept = handle.host_avail[keep[: plan.k_real]].astype(
+        # The certificate's base, gathered on the kept rows now: the
+        # resident host buffer is patched in place by later builds.
+        self._track_avail(handle, host)
+        handle.base_kept = handle.host_avail32[keep[: plan.k_real]].astype(
             np.int64
         )
         handle.host_tensors = host
@@ -2270,10 +3418,11 @@ class PlacementSolver:
         if base.device == slot.device:
             base.record_stream(slot.stream)
 
-    def _base_on_slot(self, slot, base, idx=None) -> torch.Tensor:
+    def _base_on_slot(self, slot, base, idx=None, p=None) -> torch.Tensor:
         """The committed base (or its rows `idx`) on the slot's device,
         under the slot's stream. Same device: the base itself, or a gather
-        of it; another device: a copy of the whole base ("dense")."""
+        of it; another device: the slot's availability replica, caught up
+        from the pipeline's journal (`_pool_full_base`)."""
         if idx is not None:
             sub = base.index_select(
                 0, torch.as_tensor(idx.astype(np.int64), device=base.device)
@@ -2282,13 +3431,85 @@ class PlacementSolver:
         if base.device == slot.device:
             slot.mirror["reuse"] += 1
             return base
-        slot.mirror["dense"] += 1
-        if self.telemetry is not None:
-            self.telemetry.on_device_mirror(
-                slot.label, "dense", int(base.shape[0]),
-                base.numel() * base.element_size(),
-            )
-        return base.to(slot.device)
+        return self._pool_full_base(p, slot, base)
+
+    def _avail_journal_note(self, p, rows):
+        """Bump the pipeline's availability epoch with the rows the
+        canonical base just changed on (a delta upload's dirty rows, a
+        pruned or partitioned window's rows at dispatch), or None when they
+        are unknowable (a whole window's commit, patched at its fetch).
+        Pool replicas catch up by scattering the journaled union; a gap or
+        a None epoch in a replica's missed chain re-ships the whole base. A
+        journaled superset is harmless: catch-up copies the canonical
+        values. Returns the epoch (None without a pool)."""
+        if self._pool is None or p is None:
+            return None
+        e = p["avail_epoch"] + 1
+        p["avail_epoch"] = e
+        j = p["avail_journal"]
+        j[e] = None if rows is None else np.asarray(rows, np.int64)
+        while len(j) > 64:
+            j.pop(next(iter(j)))
+        return e
+
+    @staticmethod
+    def _journal_rows_between(p, lo: int, hi: int):
+        """Union of the journaled rows of epochs (lo, hi], or None on a
+        gap or an unknowable epoch."""
+        if lo == hi:
+            return np.empty(0, np.int64)
+        j = p["avail_journal"]
+        out = []
+        for e in range(lo + 1, hi + 1):
+            rows = j.get(e)
+            if rows is None:
+                return None
+            out.append(rows)
+        return np.unique(np.concatenate(out)).astype(np.int64)
+
+    def _pool_full_base(self, p, slot, base) -> torch.Tensor:
+        """The full committed base on a slot of ANOTHER device than the
+        solver's, for a whole-window solve: the slot's replica, when it
+        belongs to this pipeline generation and every epoch it missed is
+        journaled, catches up by scattering just those rows; otherwise the
+        whole [N,3] base is copied over. The replica is never the
+        canonical base and is replaced out of place (a solve on the slot's
+        stream may still read the old one)."""
+        tel = self.telemetry
+        token, epoch = p["token"], p["avail_epoch"]
+        rep = slot.avail
+        rows = None
+        if (
+            rep is not None
+            and slot.avail_token == token
+            and 0 <= slot.avail_epoch <= epoch
+            and rep.shape == base.shape
+        ):
+            rows = self._journal_rows_between(p, slot.avail_epoch, epoch)
+        if rows is not None and not rows.size:
+            slot.mirror["reuse"] += 1
+            out = rep
+        elif rows is not None:
+            idx = torch.as_tensor(rows, device=base.device)
+            vals = base.index_select(0, idx).to(slot.device)
+            out = rep.index_copy(0, idx.to(slot.device), vals)
+            slot.mirror["catchup"] += 1
+            slot.mirror["delta_rows"] += int(rows.size)
+            if tel is not None:
+                tel.on_device_mirror(
+                    slot.label, "catchup", int(rows.size),
+                    rows.nbytes + vals.numel() * vals.element_size(),
+                )
+        else:
+            slot.mirror["dense"] += 1
+            if tel is not None:
+                tel.on_device_mirror(
+                    slot.label, "dense", int(base.shape[0]),
+                    base.numel() * base.element_size(),
+                )
+            out = base.to(slot.device, copy=True)
+        slot.avail, slot.avail_epoch, slot.avail_token = out, epoch, token
+        return out
 
     def _land(self, res) -> torch.Tensor:
         """A part's committed (sub-)base, for the calling thread's stream:
@@ -2399,6 +3620,7 @@ class PlacementSolver:
         havail = np.asarray(host.available)
         request_device: list = [None] * len(requests)
         parts: list = []
+        note_epoch = None
         try_prune = self._prune_eligible(strategy)
         shared_dom, shared_key = (
             self._shared_prune_domain(requests, dom_keys, dom_per_req)
@@ -2440,7 +3662,7 @@ class PlacementSolver:
                         host, epoch, self._clock, tel,
                         journal=self._static_journal,
                     )
-                    sub_avail = self._base_on_slot(slot, base)
+                    sub_avail = self._base_on_slot(slot, base, p=p)
                 elif prune_plan is not None:
                     t_gather = time.perf_counter()
                     ent = self._prune_gather_entry(host, prune_plan)
@@ -2522,10 +3744,12 @@ class PlacementSolver:
                             0, idx_dev, self._land(head.after_future.result())
                         )
                     )
+                    self._avail_journal_note(p, head.idx)
                 else:
                     p["avail"] = PendingBase(
                         lambda: self._land(head.after_future.result())
                     )
+                    note_epoch = self._avail_journal_note(p, None)
             else:
                 for key, req_ids in plan:
                     idx = np.flatnonzero(dom_per_req[req_ids[0]])
@@ -2545,6 +3769,9 @@ class PlacementSolver:
                     return out
 
                 p["avail"] = PendingBase(combine)
+                self._avail_journal_note(
+                    p, np.concatenate([pt.idx for pt in parts])
+                )
         except Exception as exc:
             if not classify_slot_failure(exc):
                 raise
@@ -2587,11 +3814,13 @@ class PlacementSolver:
             strategy=strategy,
             blob=None,
             requests=requests,
-            host_avail=havail,
+            host_avail=None,
             host_schedulable=np.asarray(host.schedulable),
             priors=priors,
             prior_debited=[p["debited"].get(h, frozenset()) for h in priors],
         )
+        self._track_avail(handle, host)
+        handle.avail_note_epoch = note_epoch
         handle.parts = parts
         handle.request_device = request_device
         handle.host_tensors = host
@@ -3208,9 +4437,28 @@ class PlacementSolver:
         p = self._pipe
         if p is None or handle not in p["unfetched"] or index in handle.applied:
             return
+        ne = handle.avail_note_epoch
+        if ne is not None and p["avail_journal"].get(ne, 0) is None:
+            # The dispatch journaled its epoch as unknowable; the fetch
+            # knows the commit rows of all its windows now: pool replicas
+            # can catch up across it.
+            p["avail_journal"][ne] = np.unique(
+                np.concatenate(
+                    [np.empty(0, np.int64)]
+                    + [r for r, _ in handle.window_placements or ()]
+                )
+            )
         handle.applied.add(index)
         if rows.size:
             p["mirror"][rows] -= amounts
+            with self._build_lock:
+                if p.get("pending") is not None:
+                    # Debited rows differ from the host view until their
+                    # reservations write back: the mirror sync keeps
+                    # comparing them.
+                    p["pending"].append(rows)
+            if handle.parts is not None:
+                self.build_stats["pooled_debit_rows"] += int(rows.size)
         if len(handle.applied) == len(handle.fused_bounds or (None,)):
             p["unfetched"].remove(handle)
             self._note_inflight()
@@ -3241,7 +4489,10 @@ class PlacementSolver:
         were in the host view already). A prior whose fetch never ran
         contributes nothing: its capacity returns with the next full
         upload."""
-        base = np.array(handle.host_avail, dtype=np.int64)
+        if handle.host_avail is not None:
+            base = np.array(handle.host_avail, dtype=np.int64)
+        else:
+            base = self._avail_at_dispatch(handle).astype(np.int64)
         for i, rows, amounts in self._prior_windows(handle):
             if i is not None and rows.size:
                 base[rows] -= amounts

@@ -24,8 +24,10 @@ hash of the flags and the source, as ops/_build.py names the CUDA kernels:
 the compiler writes a `.<pid>.tmp` file that `os.replace` moves into place,
 so test workers building at once never load a half-written library. A
 build or load failure raises with the compiler's output; nothing degrades
-to a pure-Python lane. `ClusterArena` and `NativeShardedQueue` are bound
-but not wired into the port yet (ROADMAP B.5, A.8).
+to a pure-Python lane. `ClusterArena` is the solver's host tensor build
+(core/solver.py `_build_tensors_native`, every solver unless
+`use_native=False`); `NativeShardedQueue` is bound but not wired into the
+port yet (ROADMAP A.8).
 """
 
 from __future__ import annotations

@@ -171,10 +171,21 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
             if planner is not None:
                 block["planner"] = planner.index_stats()
             out["prune"] = block
-        # Device-state upload mix (static row deltas shipped).
+        # Device-state upload mix: full uploads, availability and static
+        # row deltas, reuses, and their h2d bytes.
         dev_state = getattr(solver, "device_state_stats", None)
         if dev_state is not None:
             out["device_state"] = dict(dev_state)
+        # The host tensor build: pipelined builds and their wall time, the
+        # dense-sweep against the dirty-set row ledgers, incremental builds
+        # against full snapshots, the rows pooled fetches debited.
+        build = getattr(solver, "build_stats", None)
+        if build is not None and build.get("builds"):
+            block = dict(build)
+            block["build_ms_mean"] = round(
+                build["build_ms"] / max(int(build["builds"]), 1), 4
+            )
+            out["build"] = block
     autoscaler = getattr(app, "autoscaler", None)
     census = getattr(autoscaler, "_census", None)
     if census is not None:

@@ -125,10 +125,10 @@ class SolverTelemetry:
     native runtime, ops/_build.py) under the JAX package's series names.
     The pruned solve's window path is "pallas-pruned" on the card (the
     row walk over the gathered rows) and "xla-pruned" on the CPU, the
-    JAX package's name for its pruned path. `on_device_mirror` /
-    `on_device_age` / `on_device_window`, `on_slot_event`,
-    `on_quarantine_count` and `on_degraded` have no caller until the
-    device pool and degraded mode are ported (ROADMAP A.4, A.5)."""
+    JAX package's name for its pruned path. The device pool books
+    `on_device_mirror` (a slot replica's catch-up or dense copy),
+    `on_device_age`, `on_device_window`, `on_slot_event` and
+    `on_quarantine_count`; degraded mode books `on_degraded`."""
 
     def __init__(self, registry: MetricRegistry | None = None):
         self.registry = registry or MetricRegistry()

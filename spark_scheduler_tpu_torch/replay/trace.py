@@ -184,6 +184,13 @@ class TraceWriter:
         self._epoch_fn = epoch_fn
         self._source = source
         self._lock = threading.Lock()
+        # The capture's order lock: the backend takes it around each node
+        # and pod mutation with its hooks (InMemoryBackend
+        # .order_events_with), and the extender's capture wrappers around
+        # each serving window's state reads and its journal entry. Without
+        # it an event committed after a window's reads, but journaled
+        # before the window, replays as if the window had seen it.
+        self.order_lock = threading.RLock()
         self._seq = 0
         self._wid = 0
         # Node-roster mirror for the "*" candidate compression: appended on

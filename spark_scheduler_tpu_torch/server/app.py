@@ -59,7 +59,6 @@ from spark_scheduler_tpu_torch.store.crd import (
 UNSUPPORTED_KEYS = {
     "solver_mesh_node_shards": ("solver.mesh.node-shards", "ROADMAP A.6"),
     "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.6"),
-    "solver_build_oracle": ("solver.build-oracle", "ROADMAP B.5"),
     "jax_compilation_cache_dir": (
         "jax-compilation-cache-dir",
         "none: the port's kernels build into spark_scheduler_tpu_torch/_build/",
@@ -168,7 +167,13 @@ def build_scheduler_app(
     *,
     device="cuda",
     pool_devices=None,
+    use_native: bool = True,
 ) -> SchedulerApp:
+    """The scheduler app over `backend`. `device` is where the solver
+    solves (the card unless the caller asks for "cpu"); `pool_devices`
+    lays the window-solve pool's slots on named devices; `use_native=False`
+    gives the solver the dense Python host build instead of the native
+    arena's resident build (the tests' oracle twin)."""
     import time as _time
 
     config = config or InstallConfig()
@@ -311,6 +316,9 @@ def build_scheduler_app(
         prune_top_k=config.solver_prune_top_k,
         prune_slack=config.solver_prune_slack,
         delta_statics=config.solver_delta_statics,
+        use_native=use_native,
+        build_oracle=config.solver_build_oracle,
+        lazy_warm_start=config.solver_lazy_warm_start,
     )
     recorder = None
     if config.flight_recorder:
@@ -358,6 +366,7 @@ def build_scheduler_app(
             trace_writer.write_header(config)
             trace_writer.bootstrap(backend)
             recorder.attach_sink(trace_writer)
+            backend.order_events_with(trace_writer.order_lock)
             backend.subscribe(
                 "nodes",
                 on_add=trace_writer.on_node_add,

@@ -21,6 +21,7 @@ standalone deployments; a k8s-REST adapter can implement the same interface.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable, Iterable, Optional
 
@@ -55,6 +56,9 @@ class _Handlers:
 
 
 KINDS = ("pods", "nodes", "resourcereservations", "demands", "leases")
+# The kinds a decision trace journals (replay/trace.TraceWriter subscribes
+# to these): their mutations take the trace's order lock when one is set.
+ORDERED_KINDS = frozenset({"pods", "nodes"})
 
 DEMAND_CRD = "demands.scaler.palantir.com"
 RESERVATION_CRD = "resourcereservations.sparkscheduler.palantir.com"
@@ -88,6 +92,23 @@ class InMemoryBackend(ClusterBackend):
         # by consumers (SparkPodLister); list_pods uses them when the filter
         # carries an indexed key.
         self._pod_indexes: dict[str, dict[str, dict[tuple[str, str], Pod]]] = {}
+        # A decision trace's order lock (order_events_with): None unless a
+        # trace is being captured.
+        self._event_order_lock = None
+
+    def order_events_with(self, lock) -> None:
+        """Serialize node and pod mutations, each with its event hooks,
+        under `lock`. A trace capture holds the same lock while a serving
+        window reads its state and journals itself, so every event lands
+        wholly before or wholly after that window in the trace, as the
+        scheduler observed it."""
+        self._event_order_lock = lock
+
+    def _ordered(self, kind: str):
+        lock = self._event_order_lock
+        if lock is None or kind not in ORDERED_KINDS:
+            return contextlib.nullcontext()
+        return lock
 
     # -- CRDs ---------------------------------------------------------------
 
@@ -164,61 +185,64 @@ class InMemoryBackend(ClusterBackend):
                 raise exc
 
     def create(self, kind: str, obj: Any) -> Any:
-        with self._lock:
-            self._check_fault(kind, "create", obj)
-            ns = getattr(obj, "namespace", "")
-            if ns in self.terminating_namespaces:
-                raise NamespaceTerminatingError(ns)
-            k = self._key(obj)
-            if k in self._objects[kind]:
-                raise AlreadyExistsError(f"{kind} {k}")
-            if hasattr(obj, "resource_version"):
-                obj.resource_version = self._next_rv()
-            self._objects[kind][k] = obj
-            if kind == "pods":
-                self._pod_index_add(obj)
-            elif kind == "nodes":
-                self.nodes_version += 1
-            self._on_committed(kind, "create", obj)
-        self._fire(kind, "add", obj)
+        with self._ordered(kind):
+            with self._lock:
+                self._check_fault(kind, "create", obj)
+                ns = getattr(obj, "namespace", "")
+                if ns in self.terminating_namespaces:
+                    raise NamespaceTerminatingError(ns)
+                k = self._key(obj)
+                if k in self._objects[kind]:
+                    raise AlreadyExistsError(f"{kind} {k}")
+                if hasattr(obj, "resource_version"):
+                    obj.resource_version = self._next_rv()
+                self._objects[kind][k] = obj
+                if kind == "pods":
+                    self._pod_index_add(obj)
+                elif kind == "nodes":
+                    self.nodes_version += 1
+                self._on_committed(kind, "create", obj)
+            self._fire(kind, "add", obj)
         return obj
 
     def update(self, kind: str, obj: Any) -> Any:
-        with self._lock:
-            self._check_fault(kind, "update", obj)
-            k = self._key(obj)
-            cur = self._objects[kind].get(k)
-            if cur is None:
-                raise NotFoundError(f"{kind} {k}")
-            if hasattr(obj, "resource_version") and hasattr(cur, "resource_version"):
-                if obj.resource_version != cur.resource_version:
-                    raise ConflictError(
-                        f"{kind} {k}: rv {obj.resource_version} != {cur.resource_version}"
-                    )
-                obj.resource_version = self._next_rv()
-            old = cur
-            self._objects[kind][k] = obj
-            if kind == "pods":
-                self._pod_index_remove(old)
-                self._pod_index_add(obj)
-            elif kind == "nodes":
-                self.nodes_version += 1
-            self._on_committed(kind, "update", obj)
-        self._fire(kind, "update", old, obj)
+        with self._ordered(kind):
+            with self._lock:
+                self._check_fault(kind, "update", obj)
+                k = self._key(obj)
+                cur = self._objects[kind].get(k)
+                if cur is None:
+                    raise NotFoundError(f"{kind} {k}")
+                if hasattr(obj, "resource_version") and hasattr(cur, "resource_version"):
+                    if obj.resource_version != cur.resource_version:
+                        raise ConflictError(
+                            f"{kind} {k}: rv {obj.resource_version} != {cur.resource_version}"
+                        )
+                    obj.resource_version = self._next_rv()
+                old = cur
+                self._objects[kind][k] = obj
+                if kind == "pods":
+                    self._pod_index_remove(old)
+                    self._pod_index_add(obj)
+                elif kind == "nodes":
+                    self.nodes_version += 1
+                self._on_committed(kind, "update", obj)
+            self._fire(kind, "update", old, obj)
         return obj
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
-        with self._lock:
-            self._check_fault(kind, "delete", (namespace, name))
-            cur = self._objects[kind].pop((namespace, name), None)
-            if cur is None:
-                raise NotFoundError(f"{kind} {(namespace, name)}")
-            if kind == "pods":
-                self._pod_index_remove(cur)
-            elif kind == "nodes":
-                self.nodes_version += 1
-            self._on_committed(kind, "delete", (namespace, name))
-        self._fire(kind, "delete", cur)
+        with self._ordered(kind):
+            with self._lock:
+                self._check_fault(kind, "delete", (namespace, name))
+                cur = self._objects[kind].pop((namespace, name), None)
+                if cur is None:
+                    raise NotFoundError(f"{kind} {(namespace, name)}")
+                if kind == "pods":
+                    self._pod_index_remove(cur)
+                elif kind == "nodes":
+                    self.nodes_version += 1
+                self._on_committed(kind, "delete", (namespace, name))
+            self._fire(kind, "delete", cur)
 
     def get(self, kind: str, namespace: str, name: str) -> Optional[Any]:
         with self._lock:
@@ -307,13 +331,14 @@ class InMemoryBackend(ClusterBackend):
     def bind_pod(self, pod: Pod, node_name: str, phase: str = "Running") -> Pod:
         """Simulate kube-scheduler binding + kubelet running the pod — the
         harness's Schedule write-back (extender_test_utils.go:176-190)."""
-        with self._lock:
-            cur = self._objects["pods"].get((pod.namespace, pod.name))
-            if cur is None:
-                raise NotFoundError(pod.name)
-            old = Pod(**{f.name: getattr(cur, f.name) for f in cur.__dataclass_fields__.values()})  # type: ignore[attr-defined]
-            cur.node_name = node_name
-            cur.phase = phase
-            self._on_committed("pods", "update", cur)
-        self._fire("pods", "update", old, cur)
+        with self._ordered("pods"):
+            with self._lock:
+                cur = self._objects["pods"].get((pod.namespace, pod.name))
+                if cur is None:
+                    raise NotFoundError(pod.name)
+                old = Pod(**{f.name: getattr(cur, f.name) for f in cur.__dataclass_fields__.values()})  # type: ignore[attr-defined]
+                cur.node_name = node_name
+                cur.phase = phase
+                self._on_committed("pods", "update", cur)
+            self._fire("pods", "update", old, cur)
         return cur

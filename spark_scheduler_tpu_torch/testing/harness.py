@@ -10,7 +10,7 @@ simulates executor death via terminated container statuses.
 
 The port's copy of spark_scheduler_tpu/testing/harness.py. `Harness` takes
 `device=` and passes it to the app (the card by default; tests pass
-"cpu").
+"cpu"), and `use_native=` (False: the solver's dense Python host build).
 """
 
 from __future__ import annotations
@@ -144,6 +144,7 @@ class Harness:
         backend=None,
         clock=None,
         device="cuda",
+        use_native=True,
         **config_kw,
     ):
         # An injected backend is used as-is; default is a fresh in-memory
@@ -167,6 +168,7 @@ class Harness:
             waste=waste,
             clock=clock,
             device=device,
+            use_native=use_native,
         )
         self.extender = self.app.extender
         # suppress time-gap reconciliation in deterministic tests

@@ -1386,3 +1386,62 @@ def test_fleet_on_cuda_matches_its_cpu_replay(cuda_device):
             assert all(r["identical"] for r in report.values())
     finally:
         f.stop()
+
+
+@pytest.mark.parametrize("prune", [0, 4])
+def test_resident_build_on_cuda_matches_cpu_under_churn(cuda_device, prune):
+    """The native arena's resident build feeding a `cuda` solver against a
+    `cpu` one, both with `solver.build-oracle`, through the port's harness
+    on 300 nodes: node updates, adds and deletes between pipelined windows
+    of 4 drivers. Every window's node names are equal, every mirror sync
+    rides the dirty set (no dense sync, the oracle checked each), and every
+    driver window launched the row walk on the card."""
+    import dataclasses
+
+    from spark_scheduler_tpu_torch.core.extender import ExtenderArgs
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.testing import harness as hm
+
+    runs, stats = [], []
+    for device in (cuda_device, "cpu"):
+        h = hm.Harness(binpack_algo="tightly-pack", fifo=False, device=device,
+                       solver_build_oracle=True, solver_prune_top_k=prune,
+                       solver_prune_slack=0.75)
+        live = [f"n{i:03d}" for i in range(300)]
+        h.add_nodes(*[hm.new_node(n, zone=f"zone{i % 4}")
+                      for i, n in enumerate(live)])
+        rng = np.random.default_rng(5)
+        before = window_pack.launches
+        out = []
+        for step in range(12):
+            op = step % 3
+            if op == 0:
+                name = f"add-{step:02d}"
+                h.add_nodes(hm.new_node(name, zone=f"zone{step % 4}"))
+                live.append(name)
+            elif op == 1:
+                name = live[int(rng.integers(0, len(live)))]
+                cur = h.backend.get_node(name)
+                h.backend.update("nodes", dataclasses.replace(
+                    cur, unschedulable=not cur.unschedulable))
+            else:
+                h.backend.delete("nodes", "", live.pop(int(rng.integers(0, len(live)))))
+            drivers = []
+            for j in range(4):
+                d = hm.static_allocation_spark_pods(f"rc-{step}-{j}", 3)[0]
+                h.add_pods(d)
+                drivers.append(d)
+            t = h.extender.predicate_window_dispatch(
+                [ExtenderArgs(pod=d, node_names=list(live)) for d in drivers])
+            out.append([tuple(r.node_names)
+                        for r in h.extender.predicate_window_complete(t)])
+        bs = h.app.solver.build_stats
+        assert bs["mirror_dense_syncs"] == 0 and bs["oracle_checks"] >= 11, bs
+        assert bs["incremental_builds"] >= 11, bs
+        if device != "cpu":
+            assert window_pack.launches - before >= 12
+        runs.append(out)
+        stats.append(dict(bs))
+        h.app.stop()
+    assert runs[0] == runs[1]
+    assert stats[0]["dirty_rows"] == stats[1]["dirty_rows"]

@@ -18,6 +18,7 @@ Tolerance: none.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -170,8 +171,10 @@ def test_pipelined_build_leaves_earlier_tensors_and_handles_unchanged():
     h = solver.pack_window_dispatch("tightly-pack", t1, w)
     host_at_dispatch = h.host_avail.copy()
     # An external usage change (availability delta) and a node going
-    # unschedulable (static delta) while the window is in flight.
-    nodes[0].unschedulable = True
+    # unschedulable (static delta) while the window is in flight. A node
+    # event replaces the Node object (the arena upserts a node whose
+    # object changed).
+    nodes[0] = dataclasses.replace(nodes[0], unschedulable=True)
     usage = {names[1]: res.from_quantities("2", "2Gi")}
     t2 = solver.build_tensors_pipelined(nodes, usage, {})
     assert solver.last_state_upload == "delta"
@@ -194,11 +197,16 @@ def test_pipelined_build_leaves_earlier_tensors_and_handles_unchanged():
 def test_int32_delta_overflow_drains_only_while_in_flight():
     """A host swing that no int32 delta row can carry (here a node's
     availability from +INT32_MAX to -INT32_MAX) needs a full upload: with a
-    window in flight the build raises, after the fetch it uploads."""
+    window in flight the build raises, after the fetch it uploads. The
+    dense Python build saturates at +-INT32_INF (2^31 - 2); the native
+    arena saturates at +-(2^30 - 1), as the JAX package's does, so no
+    swing of its host view can exceed int32: the drain is the dense
+    build's."""
     solver, nodes, res, solver_mod = _solver_env(PORT, 4, 3)
+    solver = solver_mod.PlacementSolver(device="cpu", use_native=False)
     names = [n.name for n in nodes]
     big = res(2**31 - 1, 2**31 - 1, 0)
-    nodes[0].allocatable = big
+    nodes[0] = dataclasses.replace(nodes[0], allocatable=big)
     t = solver.build_tensors_pipelined(nodes, {}, {})
     w = [solver_mod.WindowRequest(
         rows=[(res.from_quantities("1", "1Gi"), res.from_quantities("1", "1Gi"),

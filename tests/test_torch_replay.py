@@ -14,7 +14,9 @@ call passes `device="cpu"`. Pinned:
     included (the mix of tests/test_replay.py::test_soak_trace_replays_
     bit_identically);
   * the codec, the reader's torn-tail and mid-file handling, the config
-    fingerprint and the what-if diff, as tests/test_replay.py pins them.
+    fingerprint and the what-if diff, as tests/test_replay.py pins them;
+  * in the port alone, a pod event racing a traced serving call waits
+    for the call's journal entry (the trace writer's order lock).
 
 Tolerance: none (bytes and decisions).
 """
@@ -315,6 +317,66 @@ def test_live_capture_equals_jax_bytes_and_cross_replays(tmp_path):
         str(tmp_path / f"{JAX}.jsonl"), strict=True
     )
     assert rep.compared == rep.decisions > 0
+
+
+@pytest.mark.parametrize("mode", ["window", "solo"])
+def test_event_racing_a_serving_call_lands_on_one_side_of_it(tmp_path, mode):
+    """A pod add racing a traced serving call waits for the call's journal
+    entry, so the trace orders it as the call observed it and the strict
+    replay agrees. The racing add is an earlier driver whose gang leaves
+    no room for the served one: replayed on the wrong side of the call,
+    the served driver would be denied. It starts after the call's state
+    reads (a window journals after its dispatch) or before them (a solo
+    call journals first)."""
+    import threading
+
+    hm = _mod(PORT, "testing.harness")
+    ext_mod = _mod(PORT, "core.extender")
+    path = tmp_path / f"race-{mode}.jsonl"
+    h = hm.Harness(
+        binpack_algo="tightly-pack", clock=lambda: 1_700_000_000.0,
+        trace_path=str(path), device="cpu",
+    )
+    nodes = [hm.new_node(f"n{i}") for i in range(2)]
+    h.add_nodes(*nodes)
+    names = [n.name for n in nodes]
+
+    def driver(app, n, ts):
+        pod = hm.static_allocation_spark_pods(app, n)[0]
+        return dataclasses.replace(pod, uid=f"uid-{pod.name}",
+                                   creation_timestamp=ts)
+
+    earlier, served = driver("app-a", 9, 10.0), driver("app-b", 6, 20.0)
+    h.add_pods(served)
+    racer = threading.Thread(target=h.backend.add_pod, args=(earlier,))
+    blocked = []
+
+    def race(fn):
+        def hooked(*a, **kw):
+            if not blocked:
+                racer.start()
+                racer.join(0.5)
+                blocked.append(racer.is_alive())
+            return fn(*a, **kw)
+        return hooked
+
+    args = ext_mod.ExtenderArgs(pod=served, node_names=names)
+    if mode == "window":
+        solver = h.app.solver
+        solver.pack_window_dispatch = race(solver.pack_window_dispatch)
+        t = h.extender.predicate_window_dispatch([args])
+        racer.join()
+        res = h.extender.predicate_window_complete(t)[0]
+    else:
+        h.extender._reconcile_if_needed = race(h.extender._reconcile_if_needed)
+        res = h.extender.predicate(args)
+        racer.join()
+    h.app.stop()
+    assert blocked == [True]
+    assert res.node_names
+    rep = _mod(PORT, "replay").replay_trace(str(path), strict=True,
+                                            device="cpu")
+    assert rep.compared == rep.decisions == 1 and rep.mismatches == []
 
 
 def test_trace_path_without_recorder_warns_and_writes_nothing(tmp_path):

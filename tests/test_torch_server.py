@@ -220,14 +220,15 @@ def test_gang_schedule_over_http_matches_jax(pair):
     assert not result["NodeNames"] and set(result["FailedNodes"]) == set(names)
 
     # Metrics are live numbers (times), so only their shape is compared.
-    # The series the two solvers name differently are the port's recorded
-    # deviations (tests/test_torch_telemetry.py checks them by count).
+    # Both solvers sync their device mirrors over the event-fed dirty set
+    # (`build.dirty.rows`); the series only the port books are its
+    # recorded deviations (tests/test_torch_telemetry.py checks them by
+    # count).
     snaps = [json.loads(s.call("GET", "/metrics")[1]) for s in pair]
     assert "foundry.spark.scheduler.requests" in snaps[1]
     solver = "foundry.spark.scheduler.solver."
-    assert set(snaps[0]) - set(snaps[1]) == {solver + "build.dirty.rows"}
+    assert set(snaps[0]) - set(snaps[1]) == set()
     assert set(snaps[1]) - set(snaps[0]) == {
-        solver + "build.rows.compared",
         solver + "device.uploads",
         solver + "device.inflight",
     }
@@ -598,7 +599,6 @@ def _unsupported_values():
     values = {
         "solver_mesh_node_shards": 2,
         "solver_scale_tier": True,
-        "solver_build_oracle": True,
         "jax_compilation_cache_dir": "jax-cache",
     }
     assert set(values) == set(UNSUPPORTED_KEYS)
@@ -614,6 +614,44 @@ def test_unsupported_key_raises_naming_it(field, value, key):
     config = dataclasses.replace(InstallConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         build_scheduler_app(InMemoryBackend(), config, device="cpu")
+
+
+def test_build_oracle_and_lazy_warm_start_keys_are_served():
+    """`solver.build-oracle` and `solver.lazy-warm-start` (refused or
+    ignored before the port had its resident host build) reach the
+    solver: the app serves, the solver builds on the native arena with
+    the oracle armed, and both packages' harnesses with the oracle armed
+    schedule the same drivers alike while the oracle checks every
+    dirty-set mirror sync."""
+    from spark_scheduler_tpu_torch.server.app import (
+        build_scheduler_app,
+        unsupported_keys,
+    )
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
+
+    config = InstallConfig(solver_build_oracle=True, solver_lazy_warm_start=False)
+    assert unsupported_keys(config) == []
+    app = build_scheduler_app(InMemoryBackend(), config, device="cpu")
+    assert app.solver.build_oracle and not app.solver._lazy_warm_start
+    assert app.solver.uses_native_arena
+    app.stop()
+    load_jax_native()
+    outs = []
+    for root in (JAX, PORT):
+        h, m = _harness(
+            root, binpack_algo="tightly-pack", solver_build_oracle=True
+        )
+        h.add_nodes(*[m.h.new_node(f"n{i}") for i in range(8)])
+        names = [f"n{i}" for i in range(8)]
+        outs.append([
+            canon(h.schedule(m.h.static_allocation_spark_pods(f"o-{i}", 2)[0], names))
+            for i in range(4)
+        ])
+        bs = h.app.solver.build_stats
+        assert bs["oracle_checks"] >= 3 and bs["mirror_dense_syncs"] == 0, bs
+        h.app.stop()
+    assert outs[0] == outs[1]
 
 
 ENABLED_YAML = {

@@ -66,7 +66,8 @@ def _solve_both(strategy, node_specs, usage_specs, request_specs,
          JaxNode, JaxResources, JaxRequest),
         (lambda: PlacementSolver(
             driver_label_priority=label_priority,
-            executor_label_priority=label_priority, device="cpu"),
+            executor_label_priority=label_priority, device="cpu",
+            use_native=False),
          Node, Resources, WindowRequest),
     ):
         solver = mk_solver()

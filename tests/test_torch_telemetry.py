@@ -12,11 +12,13 @@ records (ROADMAP §C):
 - `solver.transfer.bytes` carries the bytes each package really ships
   (the same directions, other amounts), and `solver.bucket.occupancy` the
   port's own [S, R] window bucket (the same sample counts);
-- the port's pipelined build compares every row against its mirror
-  (`solver.build.rows.compared`) where the JAX package syncs an event-fed
-  dirty set (`solver.build.dirty.rows`), and it books how each build
-  reached its one device (`solver.device.uploads`, `solver.device.inflight`),
-  which the JAX package books per device-pool slot only.
+- the port books how each build reached its one device
+  (`solver.device.uploads`, `solver.device.inflight`), which the JAX
+  package books per device-pool slot only.
+Both packages sync their device mirrors over the event-fed dirty set of
+the native arena's resident build (`solver.build.dirty.rows`, with equal
+counts); neither runs a dense mirror sweep here
+(`solver.build.rows.compared`).
 """
 
 from __future__ import annotations
@@ -39,9 +41,8 @@ from tests.test_torch_server import (
 
 SOLVER = "foundry.spark.scheduler.solver."
 COMPILE_GAUGES = {SOLVER + "jit.compiles", SOLVER + "jit.compile.seconds"}
-JAX_ONLY = {SOLVER + "build.dirty.rows"}
+JAX_ONLY: set = set()
 PORT_ONLY = {
-    SOLVER + "build.rows.compared",
     SOLVER + "device.uploads",
     SOLVER + "device.inflight",
 }
