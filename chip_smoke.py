@@ -323,6 +323,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `cuda` solver: equal decisions, the same figures. Phases 7 and 12 (c)
      print /debug/state's `build` block (12 (c): the pruned solver's
      build stats) and phase 7 the batcher's busy share.
+ 17. The soak engines (spark_scheduler_tpu_torch/testing/soak.py) on the
+     card; each `cuda` leg runs with the launch counts set to 0 just
+     before it and read just after: row walks = live segments + solo
+     packs, one probe a `cuda` solver. (a) `Soak`'s dense op mix (seeds
+     42, 43, 44 with tightly-pack, az-aware-tightly-pack and
+     single-az-tightly-pack; 12 nodes, 200 steps) on the card and again
+     on the cpu: equal op counts, admitted map, reservation specs and
+     final availability; then one single-az-tightly-pack leg at 10,000
+     nodes, 200 steps, every request naming every node, on the card only:
+     the engine's invariants with a drained-mirror check before the last,
+     only the row walk serving (no greedy, no deferred window); prints
+     steps, windows served, step p50/p99 and wall seconds. (b) The
+     elastic soak (seeds 47 and 48, 10 nodes, 300 steps): demands
+     fulfilled, nodes added and drained, drain safety held; prints the
+     demand-to-fulfilled p50/p99 on the soak clock. (c) `ChaosMatrixSoak`
+     on all five surfaces (seed 9, 12 nodes, 120 steps), card then cpu:
+     equal verdicts field for field; the device leg's one greedy window,
+     the row walk after it, no slot quarantined. (d) `HAChaosSoak`'s
+     three scenarios of tests/test_ha_chaos_soak.py with the replicas on
+     the card. (e) `FleetSoak`'s two scenarios of
+     tests/test_fleet_soak.py, three clusters on the card, every cluster
+     identical to its standalone replay.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
@@ -6235,6 +6257,399 @@ def run_build_phase(device, card):
 
 
 
+# ---------------------------------------------------------------- phase 17
+
+P17_LEGS = ((42, "tightly-pack"), (43, "az-aware-tightly-pack"),
+            (44, "single-az-tightly-pack"))
+P17_NODES = 12
+P17_STEPS = 200
+P17_BIG_STEPS = 200
+P17_ELASTIC = ((47, "tightly-pack"), (48, "single-az-tightly-pack"))
+P17_ELASTIC_NODES = 10
+P17_ELASTIC_STEPS = 300
+P17_CHAOS_SEED = 9
+P17_CHAOS_STEPS = 120
+
+
+class SoakLaunches:
+    """Phase 17's main-path tally: each `cuda` soak leg runs with the
+    row-walk and probe counts set to 0 just before it and read just after,
+    under a `SolverTap`; the row walks must equal the live segments of the
+    card's dispatches (a greedy window's handle launches nothing) plus its
+    solo packs, and the probes one a `cuda` solver."""
+
+    def __init__(self, on_card):
+        self.on_card = on_card
+        self.total = {"window": 0, "probe": 0}
+
+    def run(self, label, fn, *, healthy=True):
+        from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+        from spark_scheduler_tpu_torch.ops.window import window_pack
+
+        window_pack.launches = 0
+        probe_add_one.launches = 0
+        with SolverTap() as tap:
+            out = fn()
+        got = {"window": window_pack.launches, "probe": probe_add_one.launches}
+        if healthy:
+            for s in tap.solvers:
+                fault_free(s, 17)
+        if self.on_card:
+            live = sum(dispatch_segments(h) for h in tap.handles
+                       if not getattr(h, "greedy", False))
+            check(got["window"] == live + tap.solo,
+                  f"phase 17 {label}: row-walk launches {got['window']} != "
+                  f"{live} live segments + {tap.solo} solo packs")
+            cuda = [s for s in tap.solvers if s.device.type == "cuda"]
+            check(got["probe"] == len(cuda),
+                  f"phase 17 {label}: {got['probe']} probes for {len(cuda)} "
+                  f"cuda solvers")
+            for k in got:
+                self.total[k] += got[k]
+        return out, got, tap
+
+
+def soak_outcome(soak):
+    """What a `Soak` left behind, in comparable form: op counts, apps
+    submitted, the admitted map (driver node, bound executors), every
+    reservation's spec and the final availability."""
+    admitted = {
+        a: (e["node"], tuple(sorted(e["bound"].items())), e["min"])
+        for a, e in soak.admitted.items()
+    }
+    specs = {
+        rr.name: {k: (r.node, r.resources.as_tuple())
+                  for k, r in rr.spec.reservations.items()}
+        for rr in soak.h.app.rr_cache.list()
+    }
+    host = soak.h.app.solver._pipe["host"]
+    avail = {}
+    for node in soak.h.backend.list_nodes():
+        row = soak.h.app.solver.registry.index_of(node.name)
+        avail[node.name] = tuple(int(x) for x in np.asarray(host.available)[row])
+    return {"op_counts": dict(soak.op_counts), "apps": soak.app_seq,
+            "admitted": admitted, "specs": specs, "available": avail}
+
+
+def timed_ops(soak):
+    """Time each op of a non-elastic `soak` (its run loop reads
+    `self.OPS`); returns the list the step times (seconds) land in."""
+    times = []
+
+    def timed(fn):
+        def op(self):
+            t0 = time.perf_counter()
+            fn(self)
+            times.append(time.perf_counter() - t0)
+        return op
+
+    soak.OPS = tuple((n, w, timed(fn)) for n, w, fn in type(soak).OPS)
+    return times
+
+
+def p17_soak(device, seed, strategy, n_nodes, steps, **kw):
+    """One `Soak` run; returns (soak, its outcome, wall seconds). The app
+    is stopped before it returns."""
+    from spark_scheduler_tpu_torch.testing.soak import Soak
+
+    soak = Soak(np.random.default_rng(seed), strategy, n_nodes=n_nodes,
+                device=device, **kw)
+    t0 = time.perf_counter()
+    try:
+        soak.run(steps)
+        return soak, soak_outcome(soak), time.perf_counter() - t0
+    finally:
+        soak.h.app.stop()
+
+
+def p17_dense(device, card, tally):
+    """Phase 17 (a): the dense op mix, 12 nodes, `device` then the cpu."""
+    for seed, strategy in P17_LEGS:
+        label = f"(a) seed {seed} {strategy}"
+        (soak, got, secs), _, _ = tally.run(
+            label, lambda: p17_soak(device, seed, strategy, P17_NODES,
+                                    P17_STEPS))
+        _, want, ref_secs = p17_soak("cpu", seed, strategy, P17_NODES,
+                                     P17_STEPS)
+        for field in want:
+            check(got[field] == want[field],
+                  f"phase 17 {label}: {field} differs from the cpu soak")
+        paths = soak.h.app.solver.window_path_counts
+        print(f"phase 17 {label} ({card}): {P17_STEPS} steps on "
+              f"{P17_NODES} nodes, op counts, {got['apps']} apps, the "
+              f"admitted map ({len(got['admitted'])} apps), "
+              f"{len(got['specs'])} reservation specs and the final "
+              f"availability equal on {device} and cpu; windows {paths}; "
+              f"wall {secs:.2f} s ({device}) {ref_secs:.2f} s (cpu)",
+              flush=True)
+
+
+def p17_wide(device, card, tally, n_nodes):
+    """Phase 17 (a), full width: `n_nodes` nodes, every request naming
+    every node, on `device` only."""
+    strategy = "single-az-tightly-pack"
+    mirror_checks = []
+
+    def run():
+        from spark_scheduler_tpu_torch.testing.soak import Soak
+
+        soak = Soak(np.random.default_rng(45), strategy, n_nodes=n_nodes,
+                    device=device)
+        check_mirror = soak.check_drained_mirror
+
+        def counted():
+            mirror_checks.append(soak.steps)
+            check_mirror()
+
+        soak.check_drained_mirror = counted
+        times = timed_ops(soak)
+        t0 = time.perf_counter()
+        try:
+            soak.run(P17_BIG_STEPS)
+            return soak, times, time.perf_counter() - t0
+        finally:
+            soak.h.app.stop()
+
+    (soak, times, secs), got, _ = tally.run("(a) full width", run)
+    paths = soak.h.app.solver.window_path_counts
+    want = "cuda" if tally.on_card else "reference"
+    check(set(paths) == {want},
+          f"phase 17 (a) full width: window paths {paths}")
+    check(len(mirror_checks) >= 2,
+          f"phase 17 (a) full width: drained-mirror checks at steps "
+          f"{mirror_checks}")
+    ms = [t * 1e3 for t in times]
+    print(f"phase 17 (a) full width ({card}): {soak.steps} steps on "
+          f"{n_nodes} nodes ({strategy}, every request names every node), "
+          f"invariants held, drained-mirror checks at steps {mirror_checks}; "
+          f"windows served {paths[want]}; step p50 {pctl(ms, 50):.3f} ms "
+          f"p99 {pctl(ms, 99):.3f} ms; wall {secs:.2f} s; row-walk "
+          f"launches {got['window']}, probe {got['probe']}; ops "
+          f"{soak.op_counts}", flush=True)
+
+
+def p17_elastic(device, card, tally):
+    """Phase 17 (b): the elastic soak on `device`."""
+    for seed, strategy in P17_ELASTIC:
+        label = f"(b) seed {seed} {strategy}"
+        (soak, _, secs), got, _ = tally.run(
+            label, lambda: p17_soak(device, seed, strategy,
+                                    P17_ELASTIC_NODES, P17_ELASTIC_STEPS,
+                                    elastic=True))
+        counts = soak.h.autoscaler.metrics.counts()
+        for key in ("demands_fulfilled", "nodes_added", "nodes_drained"):
+            check(counts[key] > 0, f"phase 17 {label}: {key} = 0 ({counts})")
+        lat = [s * 1e3 for s in soak.h.autoscaler.metrics.scaleup_latency_samples()]
+        print(f"phase 17 {label} ({card}): {P17_ELASTIC_STEPS} steps from "
+              f"{P17_ELASTIC_NODES} nodes, {counts['demands_fulfilled']} "
+              f"demands fulfilled, {counts['nodes_added']} nodes added, "
+              f"{counts['nodes_drained']} drained (drain safety held after "
+              f"every autoscaler pass); demand to fulfilled p50 "
+              f"{pctl(lat, 50):.3f} ms p99 {pctl(lat, 99):.3f} ms on the "
+              f"soak clock ({len(lat)} samples); wall {secs:.2f} s; row-walk "
+              f"launches {got['window']}", flush=True)
+
+
+def p17_chaos(device, card, tally, tmp):
+    """Phase 17 (c): every chaos-matrix surface on `device`, then the cpu;
+    the verdicts must be equal field for field."""
+    from spark_scheduler_tpu_torch.testing.soak import ChaosMatrixSoak
+
+    def leg(dev, surface, tag):
+        m = ChaosMatrixSoak(surface, seed=P17_CHAOS_SEED, n_nodes=P17_NODES,
+                            wal_path=os.path.join(tmp, f"{surface}-{tag}.wal"),
+                            device=dev)
+        try:
+            return m, m.run(P17_CHAOS_STEPS)
+        finally:
+            m.soak.h.app.stop()
+
+    for surface in ChaosMatrixSoak.SURFACES:
+        label = f"(c) {surface}"
+        (m, verdict), got, tap = tally.run(
+            label, lambda: leg(device, surface, "dev"),
+            healthy=surface != "device")
+        _, ref = leg("cpu", surface, "cpu")
+        check(verdict["fired"], f"phase 17 {label}: no fault fired")
+        check(verdict["write_back"]["dropped"] == 0,
+              f"phase 17 {label}: write-back dropped work")
+        check(verdict["apps"] > 0, f"phase 17 {label}: no apps")
+        for field in ref:
+            check(verdict.get(field) == ref[field],
+                  f"phase 17 {label}: verdict field {field} differs from the "
+                  f"cpu's: {verdict.get(field)} != {ref[field]}")
+        solver = m.soak.h.app.solver
+        paths = solver.window_path_counts
+        extra = ""
+        if surface == "device":
+            want = "cuda" if tally.on_card else "reference"
+            greedy = [h for h in tap.handles if getattr(h, "greedy", False)]
+            later = [h for h in tap.handles if greedy
+                     and h.info["dispatch_id"] > greedy[0].info["dispatch_id"]]
+            check(paths.get("greedy-fallback") == 1,
+                  f"phase 17 {label}: window paths {paths}")
+            check(not tally.on_card or (
+                later and all(not getattr(h, "greedy", False) for h in later)),
+                  f"phase 17 {label}: the row walk did not serve the windows "
+                  f"after the greedy one")
+            check(paths.get(want, 0) > 0, f"phase 17 {label}: {paths}")
+            check(not solver.device_health()["quarantined"],
+                  f"phase 17 {label}: a slot stayed quarantined")
+            extra = (f"; device {verdict['device']}, "
+                     f"{len(later)} row-walk windows after the greedy one")
+        print(f"phase 17 {label} ({card}): verdict equal to the cpu's field "
+              f"for field; fired {verdict['fired']}; apps {verdict['apps']}; "
+              f"write-back {verdict['write_back']}; windows {paths}{extra}; "
+              f"row-walk launches {got['window']}", flush=True)
+
+
+def p17_stop_replicas(soak):
+    for r in soak.replicas:
+        r.app.stop()
+
+
+def p17_ha(device, card, tally, tmp):
+    """Phase 17 (d): tests/test_ha_chaos_soak.py's three scenarios with the
+    replicas on `device`, each held to that test's counts."""
+    from spark_scheduler_tpu_torch.faults import FaultPlan, FaultSpec
+    from spark_scheduler_tpu_torch.store.durable import DurableBackend
+    from spark_scheduler_tpu_torch.testing.soak import HAChaosSoak
+
+    for strategy in ("tightly-pack", "distribute-evenly"):
+        label = f"(d) {strategy}"
+
+        def run():
+            soak = HAChaosSoak(strategy=strategy, n_nodes=16, ttl_s=2.0,
+                               device=device)
+            return soak, soak.run(cycles=3, burst=4)
+
+        (soak, stats), got, _ = tally.run(label, run)
+        check(stats["promotions"] == 3 and stats["fenced_drops"] >= 3
+              and stats["apps_placed"] >= 18, f"phase 17 {label}: {stats}")
+        soak.check_invariants()
+        p17_stop_replicas(soak)
+        print(f"phase 17 {label} ({card}): {stats}; row-walk launches "
+              f"{got['window']}, probe {got['probe']}", flush=True)
+
+    path = os.path.join(tmp, "ha-chaos.jsonl")
+
+    def durable():
+        backend = DurableBackend(path)
+        soak = HAChaosSoak(strategy="tightly-pack", n_nodes=12,
+                           backend=backend, device=device)
+        stats = soak.run(cycles=2, burst=3)
+        backend.close()
+        return soak, stats
+
+    (soak, stats), got, _ = tally.run("(d) durable", durable)
+    p17_stop_replicas(soak)
+    replayed = DurableBackend(path)
+    rrs = {rr.name: rr for rr in replayed.list("resourcereservations")}
+    check(set(rrs) == set(soak.placed),
+          "phase 17 (d) durable: the WAL replay holds other apps")
+    check(all(rrs[a].spec.reservations["driver"].node == n
+              for a, n in soak.placed.items()),
+          "phase 17 (d) durable: a replayed driver slot moved")
+    replayed.close()
+    print(f"phase 17 (d) durable ({card}): {stats}; the WAL replays to the "
+          f"{len(rrs)} surviving placements; row-walk launches "
+          f"{got['window']}", flush=True)
+
+    plan = FaultPlan(
+        seed=7, name="ha-kill-alternate",
+        specs=[FaultSpec(surface="replica.kill", mode="error", every=2),
+               FaultSpec(surface="lease.read", mode="error", p=0.1, limit=6)],
+    )
+
+    def planned():
+        soak = HAChaosSoak(strategy="tightly-pack", n_nodes=16, ttl_s=2.0,
+                           fault_plan=plan, device=device)
+        return soak, soak.run(cycles=4, burst=3)
+
+    (soak, stats), got, _ = tally.run("(d) replica.kill plan", planned)
+    check(stats["kills"] == 2 and stats["spared_cycles"] == 2
+          and stats["promotions"] == 2
+          and stats["fault_stats"]["fired"].get("replica.kill") == 2,
+          f"phase 17 (d) replica.kill plan: {stats}")
+    soak.check_invariants()
+    p17_stop_replicas(soak)
+    print(f"phase 17 (d) replica.kill plan ({card}): kills "
+          f"{stats['kills']}, spared {stats['spared_cycles']}, promotions "
+          f"{stats['promotions']}, faults fired "
+          f"{stats['fault_stats']['fired']}; row-walk launches "
+          f"{got['window']}", flush=True)
+
+
+def p17_fleet(device, card, tally):
+    """Phase 17 (e): tests/test_fleet_soak.py's two scenarios, three
+    clusters on `device`, `verify_cluster_equivalence` replaying each on
+    `device` too."""
+    from spark_scheduler_tpu_torch.testing.soak import FleetSoak
+
+    for steps, kill_at, rejoin_at in ((40, 25, 32), (45, 25, 36)):
+        label = f"(e) {steps} steps"
+
+        def run():
+            soak = FleetSoak(n_clusters=3, nodes_per_cluster=2, seed=1,
+                             device=device)
+            try:
+                return soak.run(steps=steps, kill_at=kill_at,
+                                rejoin_at=rejoin_at).verdict()
+            finally:
+                soak.stop()
+
+        v, got, _ = tally.run(label, run)
+        for key in ("double_placements", "overcommit", "oracle_mismatches",
+                    "orphans_unrouted"):
+            check(v[key] == [], f"phase 17 {label}: {key} {v[key]}")
+        check(all(r["identical"] for r in v["equivalence"].values()),
+              f"phase 17 {label}: equivalence {v['equivalence']}")
+        check(v["placed"] > 0, f"phase 17 {label}: nothing placed")
+        if steps == 40:
+            check(v["spillovers"] > 0, f"phase 17 {label}: no spillover")
+        else:
+            check(v["orphans_at_kill"] > 0, f"phase 17 {label}: no orphans")
+        summary = {k: v[k] for k in ("placed", "pending", "spillovers",
+                                     "orphans_at_kill", "orphans_rerouted",
+                                     "stacking")}
+        print(f"phase 17 {label} ({card}): every invariant held, every "
+              f"cluster identical to its standalone replay on {device}; "
+              f"{summary}; row-walk launches {got['window']}, probe "
+              f"{got['probe']}", flush=True)
+
+
+def run_soak_phase(device, card, big_nodes=N_MAIN, out_dir=None):
+    """Phase 17: the soak engines on `device`. Returns the row-walk and
+    probe launches of its `device` legs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tally = SoakLaunches(torch.device(device).type == "cuda")
+    tmp = tempfile.mkdtemp(prefix="p17-", dir=out_dir)
+    try:
+        t0 = time.perf_counter()
+        p17_dense(device, card, tally)
+        p17_wide(device, card, tally, big_nodes)
+        t1 = time.perf_counter()
+        p17_elastic(device, card, tally)
+        t2 = time.perf_counter()
+        p17_chaos(device, card, tally, tmp)
+        t3 = time.perf_counter()
+        p17_ha(device, card, tally, tmp)
+        t4 = time.perf_counter()
+        p17_fleet(device, card, tally)
+        t5 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 17 seconds: (a) {t1 - t0:.1f} (b) {t2 - t1:.1f} "
+          f"(c) {t3 - t2:.1f} (d) {t4 - t3:.1f} (e) {t5 - t4:.1f}; row-walk "
+          f"launches {tally.total['window']}, probe {tally.total['probe']} "
+          f"({card})", flush=True)
+    return tally.total
+
+
 def main() -> int:
     try:
         import torch
@@ -6366,6 +6781,11 @@ def main() -> int:
     print(f"phase 16: passed in {time.perf_counter() - t0:.1f} s; row-walk "
           f"launches {build_launches['window']}, probe "
           f"{build_launches['probe']} ({card})", flush=True)
+    t0 = time.perf_counter()
+    soak_launches = run_soak_phase(device, card)
+    print(f"phase 17: passed in {time.perf_counter() - t0:.1f} s; row-walk "
+          f"launches {soak_launches['window']}, probe "
+          f"{soak_launches['probe']} ({card})", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
@@ -6373,15 +6793,17 @@ def main() -> int:
     # with fused claims (phase 11), over pruned windows (phase 12), under
     # the policy engine and the autoscaler (phase 13), over the device
     # pool, its re-dispatches and its quarantine probes (phase 14), under
-    # trace capture, replay, what-if, sweep and the fleet (phase 15), and
-    # fed by the resident host build under churn (phase 16).
+    # trace capture, replay, what-if, sweep and the fleet (phase 15), fed
+    # by the resident host build under churn (phase 16), and driven by the
+    # soak engines under chaos (phase 17).
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
                         + wal_launches[k] + ha_launches[k] + fused_launches[k]
                         + prune_launches[k] + policy_launches[k]
                         + elastic_launches[k] + pool_launches[k]
                         + shed_launches[k] + greedy_launches[k]
-                        + replay_launches[k] + build_launches[k])
+                        + replay_launches[k] + build_launches[k]
+                        + soak_launches[k])
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",

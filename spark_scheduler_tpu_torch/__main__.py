@@ -408,6 +408,10 @@ def main(argv=None) -> int:
             max_spillover_hops=config.fleet_max_spillover_hops,
             suppress_resync=False,
         )
+        # Every cluster's write-back loops, not only cluster 0's (which
+        # the server's start would run): a cluster whose reservations never
+        # reach its backend looks empty to kill_cluster.
+        fleet_facade.start_background()
         app = fleet_facade.stacks[0].app
     else:
         app = build_scheduler_app(

@@ -63,6 +63,7 @@ class OverheadComputer:
         self._rrm = reservation_manager
         self._lock = threading.RLock()
         self._pods: dict[tuple[str, str], _PodState] = {}  # (ns, name) -> state
+        self._on_node: dict[str, int] = {}  # node name -> pods tracked there
         self._by_name: dict[str, set[tuple[str, str]]] = {}  # name -> keys
         self._overhead: dict[str, Resources] = {}
         self._nonsched: dict[str, Resources] = {}
@@ -183,6 +184,11 @@ class OverheadComputer:
                 if state.counted_nonsched:
                     self._sub(self._nonsched, state.node, state.requests)
                 del self._pods[key]
+                left = self._on_node[state.node] - 1
+                if left:
+                    self._on_node[state.node] = left
+                else:
+                    del self._on_node[state.node]
                 peers = self._by_name.get(name)
                 if peers is not None:
                     peers.discard(key)
@@ -199,6 +205,7 @@ class OverheadComputer:
                     state.counted_nonsched = True
                     self._add(self._nonsched, state.node, state.requests)
             self._pods[key] = state
+            self._on_node[state.node] = self._on_node.get(state.node, 0) + 1
             self._by_name.setdefault(name, set()).add(key)
 
     def _add(self, agg: dict[str, Resources], node: str, res: Resources) -> None:
@@ -231,10 +238,19 @@ class OverheadComputer:
 
     # -- dense feed (HostFeatureStore) ---------------------------------------
 
+    def holds_node(self, node: str) -> bool:
+        """Whether a tracked pod (bound, not terminated, reserved or not)
+        is bound to `node`: its requests key on the name, so the name's
+        registry row must not be recycled under it."""
+        return node in self._on_node
+
     def attach_registry(self, registry) -> None:
         """Start maintaining the dense [cap, 3] int64 overhead mirror over
-        `registry`'s node-index space. Idempotent; rebuilt from the current
+        `registry`'s node-index space, and hold the rows of names that
+        pods are still bound to (`NodeRegistry.row_holder`; the JAX
+        package recycles them). Idempotent; rebuilt from the current
         aggregate on (re)attach."""
+        registry.row_holder = self.holds_node
         with self._lock:
             if self._registry is registry and self._dense is not None:
                 return

@@ -1595,11 +1595,16 @@ class PlacementSolver:
         later node add reuses it; its statics ship as an ordinary static
         row delta). A row with leftovers stays parked and is retried every
         build; so is every row while a window is in flight (its fetch may
-        still name the row)."""
+        still name the row), and every row whose name the registry's
+        `row_holder` still holds: the overhead rows here are masked to
+        live nodes, so a deleted node's surviving pods show only there
+        (the JAX solver recycles such a row, and the next node to take it
+        inherits their overhead)."""
         p = self._pipe
         if p is not None and p["unfetched"]:
             return
         still = set()
+        holder = self.registry.row_holder
         for name in self._pending_tombstones:
             row = self.registry.index_of(name)
             if row is None:
@@ -1609,6 +1614,7 @@ class PlacementSolver:
                 and row < overhead_t.shape[0]
                 and not usage_t[row].any()
                 and not overhead_t[row].any()
+                and not (holder is not None and holder(name))
             ):
                 self.registry.remove(name)
                 self.tombstones_recycled += 1

@@ -330,17 +330,28 @@ class FleetFacade:
     def add_node(self, cluster: int, node) -> None:
         self.stacks[cluster].add_node(node)
 
+    def start_background(self) -> None:
+        """Start every cluster's background loops: the async write-back
+        workers, the unschedulable marker, the demand watcher (and the
+        autoscaler where enabled). A fleet served with `sync_writes` off
+        needs them on every stack, not only on the stack the HTTP server
+        fronts: without them clusters 1..F-1 never write their
+        reservations back. Idempotent; `stop` flushes and stops them."""
+        for s in self.stacks:
+            s.app.start_background()
+
     def kill_cluster(self, cluster: int) -> int:
-        """Remove a cluster from serving. Apps PLACED there (durable
-        reservation exists) keep their affinity and deny while it is down
-        — re-placing them on a sibling would double-place the gang.
-        PENDING apps are orphans: their affinity drops so the next retry
-        re-routes to a survivor. Returns the orphan count."""
+        """Remove a cluster from serving. Apps PLACED there (a reservation
+        in its backend, or in its cache with the write-back still queued)
+        keep their affinity and deny while it is down — re-placing them
+        on a sibling would double-place the gang. PENDING apps are
+        orphans: their affinity drops so the next retry re-routes to a
+        survivor. Returns the orphan count."""
+        stack = self.stacks[cluster]
         with self._lock:
             placed = {
-                rr.name
-                for rr in self.stacks[cluster].backend.list(RESERVATIONS_KIND)
-            }
+                rr.name for rr in stack.backend.list(RESERVATIONS_KIND)
+            } | {rr.name for rr in stack.app.rr_cache.list()}
             self.router.members.remove(cluster)
             orphans = self.router.drop_pending_affinity(cluster, placed)
         if self.dispatch is not None:

@@ -158,6 +158,11 @@ class NodeRegistry:
         # [("add"|"remove", name, row)]. Bounded; a missing epoch sends the
         # consumer to a full rebuild.
         self._journal: dict[int, list] = {}
+        # name -> bool, or None. A deleted node's row is recycled only
+        # while it does not hold the name: the overhead computer sets it
+        # (pods still bound to the name), so the node that next takes the
+        # row inherits none of their requests.
+        self.row_holder = None
 
     def _journal_put(self, entries: list) -> None:
         """Record one mutation's mapping changes (caller holds the lock;

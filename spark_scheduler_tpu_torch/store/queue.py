@@ -122,8 +122,14 @@ def make_sharded_queue(
     buffer_size: int = QUEUE_BUFFER_SIZE,
     prefer_native: bool = True,
 ):
-    """The pure-Python queue: the port has no native runtime lane yet, which
-    is the JAX package's own choice when its native library is absent.
-    `prefer_native` is accepted for the same signature. Exposes
-    add_if_absent / try_add_if_absent / pop / queue_lengths / num_buckets."""
+    """The native C++ queue (`native.NativeShardedQueue`) by default, as the
+    JAX package picks when its library loads; `prefer_native=False` is the
+    pure-Python queue. The port builds the native runtime or raises: a
+    missing compiler is an error, never a silent fall back to Python. Both
+    expose add_if_absent / try_add_if_absent / pop / queue_lengths /
+    num_buckets."""
+    if prefer_native:
+        from spark_scheduler_tpu_torch import native
+
+        return native.NativeShardedQueue(buckets, buffer_size)
     return ShardedUniqueQueue(buckets, buffer_size)

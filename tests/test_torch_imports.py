@@ -468,3 +468,49 @@ def test_replay_and_fleet_entry_points_default_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             FleetFacade(2)
+
+
+def test_soak_engines_run_with_jax_blocked(tmp_path):
+    """The soak engines are the port's own copies: testing.soak imports,
+    and a short invariant soak, a chaos-matrix leg, an HA cycle and a
+    fleet soak run on the CPU, while jax and the JAX package are
+    refused."""
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import numpy as np\n"
+        "from spark_scheduler_tpu_torch.testing import soak\n"
+        "s = soak.Soak(np.random.default_rng(0), 'tightly-pack', n_nodes=8, device='cpu')\n"
+        "s.run(40)\n"
+        "assert s.app_seq > 0 and sum(s.op_counts.values()) == 40\n"
+        "s.h.app.stop()\n"
+        f"m = soak.ChaosMatrixSoak('wal', seed=1, n_nodes=8, wal_path={str(tmp_path / 'w.log')!r}, device='cpu')\n"
+        "assert m.run(30)['fired']\n"
+        "m.soak.h.app.stop()\n"
+        "ha = soak.HAChaosSoak(n_nodes=8, ttl_s=2.0, device='cpu')\n"
+        "assert ha.run(cycles=1, burst=2)['promotions'] == 1\n"
+        "f = soak.FleetSoak(seed=1, device='cpu')\n"
+        "v = f.run(steps=12, kill_at=6, rejoin_at=9).verdict()\n"
+        "f.stop()\n"
+        "assert all(r['identical'] for r in v['equivalence'].values())\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_soak_engines_default_to_cuda():
+    import inspect
+
+    from spark_scheduler_tpu_torch.testing import soak
+
+    for engine in (soak.Soak, soak.ChaosMatrixSoak, soak.HAChaosSoak,
+                   soak.PolicySoak, soak.FleetSoak):
+        assert inspect.signature(engine).parameters["device"].default == (
+            "cuda"
+        ), engine
