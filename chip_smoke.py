@@ -345,9 +345,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
      the card. (e) `FleetSoak`'s two scenarios of
      tests/test_fleet_soak.py, three clusters on the card, every cluster
      identical to its standalone replay.
+ 18. Parallel across cards (spark_scheduler_tpu_torch/parallel/), shards
+     on cuda:0 with a stream each. (a) The node-sharded engine at S = 1,
+     2 and 4 against the kernels on the same CUDA inputs and against 4
+     cpu shards, no tolerance: a config-5 queue (10,000 nodes padded to
+     16,384) against fifo_pack, phase-3 rows as one-row skippable
+     segments (masked mode) and the first segments of a phase-3 window
+     (window mode) against window_pack; then the six strategies at 300
+     nodes, roomy and tight, queue and window mode, on 4 shards; prints
+     ms a call (CUDA events) beside the kernel's and the bytes that cross
+     shards. (b) Config 4's five groups on a (5, 1) groups mesh: exactly
+     five queue-kernel launches, equal to the single launch and the plain
+     version. (c) Phase 3's 10,000 nodes behind
+     `PlacementSolver(mesh=(1, 4))`: 4 pipelined windows of 8 drivers,
+     churn between the pairs, equal to a pool-less and a cpu solver. (d)
+     Phase 12 (c)'s 100,000 nodes, a tight top-k, the scale tier on the
+     shards of a `mesh=(1, 4)` slot: escalations, sharded re-solves, no
+     fallback, equal to the tier off and a cpu run. (e) A `solver: {mesh: {groups: 1,
+     node-shards: 4}, scale-tier: true}` app from YAML, 32 drivers from 4
+     clients, every body equal to a cpu replay. Its main-path launches
+     (the group-sharded route's five, the row walks and probes of (c)-(e))
+     count; the comparisons do not.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
 Needs one card; exits non-zero without CUDA or without the package beside it.
+
+    python3 chip_smoke.py --mesh-cards
+
+lays phase 18's shards and groups on distinct cards (shard k on card k
+modulo the cards) when there are two or more.
 
     python3 chip_smoke.py --trace-race ROUNDS [--nodes N] [--device cpu]
 
@@ -1072,10 +1098,14 @@ def measure(last, device, card, worst_small):
     p_dev = device_us_per_call(lambda: probe_add_one(x), 100, "probe_add_one")
     lib_dev = device_us_per_call(lambda: torch.add(x, 1), 100)
     p_bound = 2 * x.numel() * 4 / PEAK_BYTES_S * 1e3
+    # The card's floor for one launch: a library spin kernel of zero
+    # cycles, beside the probe's byte bound.
+    floor_dev = device_us_per_call(lambda: torch.cuda._sleep(0), 100)
     print(f"probe ({card}): probe_add_one {p_ms:.5f} ms, torch.add "
           f"{p_lib:.5f} ms per call (CUDA events, median of 100); profiled "
-          f"device time per call: probe kernel {p_dev}, torch.add {lib_dev}",
-          flush=True)
+          f"device time per call: probe kernel {p_dev}, torch.add {lib_dev}, "
+          f"launch floor (torch.cuda._sleep(0)) {floor_dev}; the probe's "
+          f"byte bound {p_bound * 1e3:.5f} us", flush=True)
     layout_keys = dict(layout=main.state, cluster=main.k,
                        smem_bytes=main.smem_bytes, regs=info["regs"])
     return {
@@ -6650,7 +6680,507 @@ def run_soak_phase(device, card, big_nodes=N_MAIN, out_dir=None):
     return tally.total
 
 
-def main() -> int:
+# --------------------------------------------------------------- phase 18
+
+P18_SHARDS = (1, 2, 4)
+P18_QUEUE_APPS = 32  # of a config-5 queue
+P18_MASKED_ROWS = 16
+P18_WINDOW_ROWS = 96  # the first segments of a phase-3 window
+P18_SMALL_NODES = 300
+P18_SMALL_APPS = 24
+P18_WINDOWS = 4  # (c) and (d): two pipelined pairs, churn between them
+P18_WINDOW = 8
+P18_TIGHT = (8, 0.25)  # (d): phase 12's tight top-k and slack
+P18_DRIVERS = 32
+P18_CLIENTS = 4
+
+
+def mesh_devices(device, s, mesh_cards):
+    """S shard devices: `device` repeated (one stream each), or with
+    `mesh_cards` and two or more cards, shard k on card k % cards."""
+    import torch
+
+    if mesh_cards and torch.cuda.device_count() >= 2:
+        return [torch.device("cuda", k % torch.cuda.device_count())
+                for k in range(s)]
+    return [torch.device(device)] * s
+
+
+def pad_fields(fields, n):
+    """Nine cluster fields padded to n rows with invalid slots."""
+    from spark_scheduler_tpu_torch.models.resources import INT32_INF
+
+    k = n - len(fields[0])
+    pads = [np.zeros((k, 3), np.int32), np.zeros((k, 3), np.int32),
+            np.zeros(k, np.int32), np.arange(len(fields[0]), n, dtype=np.int32),
+            np.full(k, INT32_INF, np.int32), np.full(k, INT32_INF, np.int32),
+            np.zeros(k, bool), np.zeros(k, bool), np.zeros(k, bool)]
+    return [np.concatenate([f, p]) for f, p in zip(fields, pads)]
+
+
+def window_outputs(meta, execs, base, si, ri):
+    """A row walk's outputs as flat BatchedPacking fields (numpy)."""
+    meta, execs = meta.cpu().numpy(), execs.cpu().numpy()
+    return (meta[si, ri, 0], execs[si, ri], meta[si, ri, 1] == 1,
+            meta[si, ri, 2] == 1, base.cpu().numpy())
+
+
+def same_outputs(got, want) -> bool:
+    """A BatchedPacking's real rows against flat (driver, execs, admitted,
+    packed, available_after) arrays."""
+    rows = len(want[0])
+    g = (got.driver_node.cpu().numpy()[:rows],
+         got.executor_nodes.cpu().numpy()[:rows],
+         got.admitted.cpu().numpy()[:rows], got.packed.cpu().numpy()[:rows],
+         got.available_after.cpu().numpy())
+    return all(np.array_equal(a, b) for a, b in zip(g, want))
+
+
+def p18_engine_case(label, card, cluster, apps, want, devs_of, kernel_ms, **kw):
+    """The node-sharded engine at S = 1, 2, 4 on the card and S = 4 on
+    `cpu` shards against `want` (the kernel's outputs); prints ms per call
+    (CUDA events) beside the kernel's and the cross-shard bytes per row."""
+    import torch
+
+    from spark_scheduler_tpu_torch.parallel import (
+        node_sharded_fifo_pack,
+        shard_cluster,
+    )
+
+    rows = int(torch.as_tensor(apps.app_valid).sum())
+    line = []
+    for s in P18_SHARDS:
+        shards = shard_cluster(devs_of(s), cluster)
+        stats: dict = {}
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = node_sharded_fifo_pack(shards, apps, stats=stats, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        check(same_outputs(got, want),
+              f"phase 18 (a) {label}: the engine on {s} shards differs from "
+              "the kernel")
+        line.append(f"S={s} {start.elapsed_time(end):.1f} ms "
+                    f"({stats.get('xbytes', 0) / max(rows, 1):.0f} B a row "
+                    f"of summaries and {stats.get('xbytes_keys', 0):,} B of "
+                    f"sort keys, ranks and chunks across shards)")
+    cpu = cluster.__class__(*(f.cpu() for f in cluster.fields()))
+    got = node_sharded_fifo_pack(shard_cluster(["cpu"] * 4, cpu), apps, **kw)
+    check(same_outputs(got, want),
+          f"phase 18 (a) {label}: the engine on 4 cpu shards differs")
+    print(f"phase 18 (a) {label} ({card}): {rows} rows, N "
+          f"{cluster.num_nodes}, identical to the kernel and to 4 cpu shards; "
+          f"per call {'; '.join(line)}; the kernel {kernel_ms:.3f} ms "
+          f"(CUDA events)", flush=True)
+
+
+def p18_engine(device, card, last, mesh_cards):
+    """(a) The node-sharded engine against the kernels: a config-5 queue
+    (10,000 nodes padded to 16,384) against fifo_pack, a masked batch of
+    one-row segments against window_pack, the first segments of a phase-3
+    window against window_pack; then the six strategies at 300 nodes,
+    roomy and tight, queue and window mode, on 4 shards. Every launch here
+    is a comparison."""
+    import torch
+
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import (
+        app_batch_to_device,
+        make_app_batch,
+    )
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.ops.window import (
+        SegmentedWindow,
+        segmented_window_from_flat,
+        window_pack,
+    )
+    from spark_scheduler_tpu_torch.parallel import (
+        node_sharded_fifo_pack,
+        shard_cluster,
+    )
+
+    def devs_of(s):
+        return mesh_devices(device, s, mesh_cards)
+
+    def kernel(fn):
+        out, ms = None, 0.0
+        for _ in range(2):  # the second call is timed
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        return out, ms
+
+    # Queue mode: a config-5 queue against the queue kernel.
+    rng = np.random.default_rng(CONFIG_SEEDS["config5"])
+    c5 = cluster_from_numpy(pad_fields(baseline_cluster(rng, 10_000), 16_384),
+                            device=device)
+    q = app_batch_to_device(
+        baseline_batches(rng, P18_QUEUE_APPS, P18_QUEUE_APPS, 8)[0], device)
+    kw = dict(fill="tightly-pack", emax=8, num_zones=4)
+    want, k_ms = kernel(lambda: fifo_pack(c5, q, **kw))
+    want = tuple(x.cpu().numpy() for x in want)
+    p18_engine_case("queue mode, config 5", card, c5, q, want, devs_of, k_ms, **kw)
+
+    # Masked mode: rows of a phase-3 window, each with its own masks; all
+    # skippable, so no FIFO block carries and one-row window segments that
+    # all commit solve the same rows.
+    cluster, batch = last
+    win, n = batch.win, cluster.num_nodes
+    live = np.flatnonzero(win.valid.reshape(-1))[:P18_MASKED_ROWS]
+    r = len(live)
+
+    def flat(a):
+        return a.reshape(-1, *a.shape[2:])[live]
+
+    mrng = np.random.default_rng(71)
+    valid = cluster.valid.cpu().numpy()
+    cand = (mrng.random((r, n)) < 0.7) & valid
+    dom = (mrng.random((r, n)) < 0.9) & valid
+    skip = np.ones(r, bool)
+    mwin, si, ri = segmented_window_from_flat(
+        flat(win.driver_req), flat(win.exec_req), flat(win.exec_count), skip,
+        np.ones(r, np.int64), list(cand), list(dom), pad_segments=r, pad_rows=1)
+    wkw = dict(fill="tightly-pack", emax=batch.emax, num_zones=batch.num_zones)
+    out, k_ms = kernel(lambda: window_pack(cluster, mwin, **wkw))
+    masked = make_app_batch(flat(win.driver_req), flat(win.exec_req),
+                            flat(win.exec_count), skippable=skip,
+                            driver_cand=cand, domain=dom)
+    p18_engine_case("masked mode, phase-3 rows", card, cluster, masked,
+                    window_outputs(*out, si, ri), devs_of, k_ms, **wkw)
+
+    # Window mode: the first segments of the phase-3 window.
+    k = max(1, int(np.searchsorted(np.cumsum(win.row_count), P18_WINDOW_ROWS,
+                                   side="right")))
+    cut = SegmentedWindow(*(f[:k] for f in win))
+    apps, (si, ri) = segmented_to_app_batch(cut)
+    out, k_ms = kernel(lambda: window_pack(cluster, cut, **wkw))
+    p18_engine_case(f"window mode, {k} phase-3 segments", card, cluster, apps,
+                    window_outputs(*out, si, ri), devs_of, k_ms, **wkw)
+
+    # The six strategies at 300 nodes, roomy and tight, queue and window
+    # mode, on 4 shards.
+    srng = np.random.default_rng(73)
+    done = []
+    for hi, label in ((40, "roomy"), (8, "tight")):
+        c = cluster_from_numpy(queue_cluster_fields(srng, P18_SMALL_NODES, hi),
+                               device=device)
+        shards = shard_cluster(devs_of(4), c)
+        qa = app_batch_to_device(
+            queue_apps(srng, P18_SMALL_APPS, P18_SMALL_APPS), device)
+        sw = small_window(srng, P18_SMALL_NODES, 8, 4, 8)
+        wa, (si, ri) = segmented_to_app_batch(sw)
+        for fill in STRATEGIES:
+            skw = dict(fill=fill, emax=8, num_zones=4)
+            want = tuple(x.cpu().numpy() for x in fifo_pack(c, qa, **skw))
+            got = node_sharded_fifo_pack(shards, qa, **skw)
+            check(same_outputs(got, want),
+                  f"phase 18 (a) {label} {fill}: the engine on 4 shards "
+                  "differs from the queue kernel")
+            wwant = window_outputs(*window_pack(c, sw, **skw), si, ri)
+            wgot = node_sharded_fifo_pack(shards, wa, **skw)
+            check(same_outputs(wgot, wwant),
+                  f"phase 18 (a) {label} {fill}: the engine on 4 shards "
+                  "differs from the row walk")
+            done.append((int(got.admitted.sum()), int(wgot.admitted.sum())))
+    print(f"phase 18 (a) ({card}): six strategies x roomy/tight at "
+          f"{P18_SMALL_NODES} nodes on 4 shards identical to the queue kernel "
+          f"and the row walk (admitted, queue / window: {done})", flush=True)
+
+
+def p18_grouped(device, card, mesh_cards):
+    """(b) The group-sharded queue kernel: config 4's five groups of 1,000
+    nodes on a (5, 1) groups mesh, one launch a groups device, against the
+    single-launch `grouped_fifo_pack` and the plain version. Returns the
+    route's queue-kernel launches (the main path's)."""
+    import torch
+
+    from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
+    from spark_scheduler_tpu_torch.ops.batched import app_batch_to_device
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.parallel import (
+        grouped_fifo_pack,
+        grouped_fifo_pack_auto,
+        grouped_fifo_pack_reference,
+        make_solver_mesh,
+        stack_groups,
+    )
+
+    rng = np.random.default_rng(CONFIG_SEEDS["config4"])
+    groups, group_apps = [], []
+    for cpu, mem, gpu in CONFIG4_SHAPES:
+        groups.append(cluster_from_numpy(
+            baseline_cluster(rng, 1_000, cpu=cpu, mem=mem, gpu=gpu), device=device))
+        group_apps.append(app_batch_to_device(
+            baseline_batches(rng, 40, 40, 8)[0], device))
+    c4, a4 = stack_groups(groups, group_apps)
+    mesh = make_solver_mesh(5, 1, devices=mesh_devices(device, 5, mesh_cards))
+    kw = dict(fill="tightly-pack", emax=8, num_zones=4)
+    on_card = torch.device(device).type == "cuda"
+    before = fifo_pack.launches
+    got, route_ms = timed_ms(lambda: grouped_fifo_pack_auto(mesh, c4, a4, **kw))
+    launches = fifo_pack.launches - before
+    check(launches == 5 or not on_card,
+          f"phase 18 (b): {launches} queue-kernel launches on a (5, 1) groups "
+          "mesh (one a groups device)")
+    single, single_ms = timed_ms(lambda: grouped_fifo_pack(c4, a4, **kw))
+    fifo_pack.launches = before + launches  # the single launch compares
+    plain = grouped_fifo_pack_reference(c4, a4, **kw)
+    check(packing_diff(got, single) == 0 and packing_diff(got, plain) == 0,
+          "phase 18 (b): the group-sharded route differs from the single "
+          "launch or the plain version")
+    print(f"phase 18 (b) ({card}): config 4 on a (5, 1) groups mesh "
+          f"({[str(d) for d in mesh.devices]}): {launches} queue-kernel "
+          f"launches, identical to the single-launch grouped_fifo_pack and the "
+          f"plain version ({int(got.admitted.sum())} admitted); "
+          f"{route_ms:.2f} ms against the single launch's {single_ms:.2f} ms "
+          f"(host clock)", flush=True)
+    return launches
+
+
+def p18_pairs(solver, nodes, usage, windows, seed):
+    """Pipelined pairs of windows with phase 12's churn between them."""
+    crng = np.random.default_rng(seed)
+    out = []
+    for k in range(0, len(windows), 2):
+        decisions, _ = prune_pair(solver, nodes, usage, windows[k:k + 2], False)
+        out.append(decisions)
+        nodes, usage = prune_churn(crng, nodes, usage, k)
+    return out
+
+
+def p18_mesh_slot(device, card, mesh_cards):
+    """(c) Serving on a mesh slot: phase 3's 10,000 nodes behind
+    PlacementSolver(mesh=(1, 4)), 4 pipelined windows of 8 drivers, churn
+    between the pairs, against a pool-less solver (the row walk) and a cpu
+    solver. Returns the mesh solver's launches."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    nodes, usage = main_cluster(seed=7)
+    names = [nd.name for nd in nodes]
+    rng = np.random.default_rng(61)
+    windows = [prune_window(rng, names, P18_WINDOW) for _ in range(P18_WINDOWS)]
+    devs = mesh_devices(device, 4, mesh_cards)
+    w0, p0 = window_pack.launches, probe_add_one.launches
+    t0 = time.perf_counter()
+    mesh = PlacementSolver(device=device, mesh=(1, 4), pool_devices=devs)
+    got = p18_pairs(mesh, nodes, usage, windows, 67)
+    mesh_s = time.perf_counter() - t0
+    launches = {"window": window_pack.launches - w0,
+                "probe": probe_add_one.launches - p0}
+    check(mesh.pool_size == 1 and mesh._pool.slots[0].is_mesh,
+          f"phase 18 (c): the mesh solver's pool {mesh.device_pool_stats()}")
+    check(mesh.window_path_counts == {"pool": P18_WINDOWS},
+          f"phase 18 (c): window paths {mesh.window_path_counts}")
+    check(launches["window"] == 0,
+          f"phase 18 (c): {launches['window']} row walks on the mesh slot")
+    t0 = time.perf_counter()
+    plain = p18_pairs(PlacementSolver(device=device), nodes, usage, windows, 67)
+    plain_s = time.perf_counter() - t0
+    window_pack.launches = w0 + launches["window"]
+    probe_add_one.launches = p0 + launches["probe"]
+    cpu = p18_pairs(PlacementSolver(device="cpu"), nodes, usage, windows, 67)
+    check(got == plain, "phase 18 (c): the mesh slot's decisions differ from "
+                        "the pool-less solver's")
+    check(got == cpu, "phase 18 (c): the mesh slot's decisions differ from "
+                      "the cpu solver's")
+    fault_free(mesh, 18)
+    admitted = sum(d.admitted for pair in got for w in pair for d in w)
+    print(f"phase 18 (c) ({card}): {P18_WINDOWS} pipelined windows of "
+          f"{P18_WINDOW} drivers on one 4-shard mesh slot "
+          f"{list(mesh.device_pool_stats())} ({[str(d) for d in devs]}): "
+          f"identical to the pool-less row walk and the cpu solver, "
+          f"{admitted} admitted; window paths {mesh.window_path_counts}; "
+          f"{mesh_s:.1f} s against the row walk's {plain_s:.1f} s (host clock, "
+          f"builds included)", flush=True)
+    return launches
+
+
+def p18_scale_tier(device, card, mesh_cards):
+    """(d) The scale tier: phase 12 (c)'s 100,000 nodes, a tight top-k, a
+    4-shard mesh slot whose shards the tier re-solves on, against the same
+    solver with the tier off and a cpu run. Returns the tier solver's
+    launches."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    nodes, usage = main_cluster(seed=7, n=PRUNE_BIG_NODES)
+    names = [nd.name for nd in nodes]
+    rng = np.random.default_rng(79)
+    windows = [prune_window(rng, names, P18_WINDOW) for _ in range(P18_WINDOWS)]
+    top_k, slack = P18_TIGHT
+    devs = mesh_devices(device, 4, mesh_cards)
+    kw = dict(prune_top_k=top_k, prune_slack=slack)
+    w0, p0 = window_pack.launches, probe_add_one.launches
+    t0 = time.perf_counter()
+    tier = PlacementSolver(device=device, mesh=(1, 4), scale_tier=True,
+                           pool_devices=devs, **kw)
+    got = p18_pairs(tier, nodes, usage, windows, 83)
+    tier_s = time.perf_counter() - t0
+    launches = {"window": window_pack.launches - w0,
+                "probe": probe_add_one.launches - p0}
+    st, esc = dict(tier.scale_tier_stats), tier.prune_stats["escalations"]
+    check(esc > 0 and st["resolves"] > 0 and st["sharded"] > 0
+          and st["fallbacks"] == 0,
+          f"phase 18 (d): escalations {esc}, scale tier {st}")
+    t0 = time.perf_counter()
+    off = p18_pairs(PlacementSolver(device=device, mesh=(1, 4),
+                                    pool_devices=devs, **kw),
+                    nodes, usage, windows, 83)
+    off_s = time.perf_counter() - t0
+    window_pack.launches = w0 + launches["window"]
+    probe_add_one.launches = p0 + launches["probe"]
+    cpu = p18_pairs(PlacementSolver(device="cpu", **kw), nodes, usage, windows, 83)
+    check(got == off, "phase 18 (d): the tier's decisions differ from the "
+                      "same run with the tier off")
+    check(got == cpu, "phase 18 (d): the tier's decisions differ from the "
+                      "cpu run")
+    fault_free(tier, 18)
+    print(f"phase 18 (d) ({card}): {len(nodes)} nodes, top-k {top_k}, slack "
+          f"{slack}, {P18_WINDOWS} windows of {P18_WINDOW}: escalations {esc}, "
+          f"scale tier {st} over {[str(d) for d in devs]}; identical to the "
+          f"tier off and the cpu run; {tier_s:.1f} s against {off_s:.1f} s "
+          f"with the tier off (host clock, builds included)", flush=True)
+    return launches
+
+
+def p18_server(device, card, mesh_cards, n_drivers=P18_DRIVERS,
+               n_clients=P18_CLIENTS, n_nodes=N_MAIN):
+    """(e) The app from YAML, `solver: {mesh: {groups: 1, node-shards: 4},
+    scale-tier: true}`, on phase 7's cluster: drivers from `n_clients`
+    threads; every body must equal a cpu replay's. Returns the launches."""
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.testing.harness import overcommit_violations
+
+    raw = {"fifo": True, "binpack-algo": "tightly-pack",
+           "solver": {"mesh": {"groups": 1, "node-shards": 4},
+                      "scale-tier": True}}
+    config = dataclasses.replace(
+        InstallConfig.from_dict(raw), instance_group_label=EXT_IG_LABEL,
+        sync_writes=True, debug_routes=True)
+    devs = mesh_devices(device, 4, mesh_cards)
+
+    def factory(backend, registry, metrics):
+        return build_scheduler_app(backend, config, metrics=metrics,
+                                   clock=lambda: EXT_CLOCK, device=device,
+                                   pool_devices=devs), None
+
+    w0, p0 = window_pack.launches, probe_add_one.launches
+    srv = RecordedServer(device, config, app_factory=factory)
+    port = srv.server.port
+    label = "phase 18 (e)"
+    try:
+        solver = srv.app.solver
+        check(solver.pool_size == 1 and solver._pool.slots[0].is_mesh
+              and solver._scale_tier, f"{label}: {solver.device_pool_stats()}")
+        nodes, usage = main_cluster(seed=7)
+        nodes, usage = nodes[:n_nodes], usage[:n_nodes]
+        for node in nodes:
+            node.labels[EXT_IG_LABEL] = EXT_IG
+        names = [nd.name for nd in nodes]
+        run_clients(port, [[("PUT", "/state/nodes", k8s_node_json(nd))]
+                           for nd in nodes[:SRV_ROUTE_NODES]], 1)
+        from spark_scheduler_tpu_torch.models.kube import Container, Pod
+        from spark_scheduler_tpu_torch.models.resources import Resources
+
+        for i, node in enumerate(nodes):
+            if i >= SRV_ROUTE_NODES:
+                srv.backend.add_node(node)
+            srv.backend.add_pod(Pod(
+                name=f"base-{i:05d}", namespace="other", uid=f"uid-base-{i:05d}",
+                scheduler_name="default-scheduler", node_name=node.name,
+                phase="Running",
+                containers=[Container(requests=Resources(*map(int, usage[i])))],
+            ))
+        rng = np.random.default_rng(89)
+        jobs = []
+        for i in range(n_drivers):
+            n_exec = 32 if rng.random() < 0.15 else int(rng.integers(2, 9))
+            pod = k8s_spark_pod_json(f"p18-{i:03d}", "driver",
+                                     f"p18-{i:03d}-driver", n_exec,
+                                     EXT_CLOCK - 500 + i)
+            jobs.append([("PUT", "/state/pods", pod),
+                         ("POST", "/predicates", {"Pod": pod, "NodeNames": names})])
+        got, lat = run_clients(port, jobs, n_clients)
+        check(all(st == 200 for st, _ in got.values()),
+              f"{label}: a driver was refused")
+        state = json.loads(http_get(port, "/debug/state")[1])
+        paths = state["solver"]["window_paths"]
+        check(paths.get("pool", 0) > 0, f"{label}: window paths {paths}")
+        violations = overcommit_violations(srv.app, srv.backend)
+        check(not violations, f"{label} over-commit: {violations[:8]}")
+        check(srv.solo_packs["other"] == 0, f"{label}: solo packs off the "
+                                            "batcher thread")
+        fault_free(solver, 18)
+    finally:
+        srv.server.stop()
+    launches = {"window": window_pack.launches - w0,
+                "probe": probe_add_one.launches - p0}
+    compared = replay_server_log(
+        srv.log, dataclasses.replace(config, solver_mesh_groups=None,
+                                     solver_mesh_node_shards=None),
+        got, label=label)
+    check(compared == len(got), f"{label}: compared {compared} of {len(got)}")
+    admitted = sum(bool(json.loads(b).get("NodeNames")) for _, b in got.values())
+    print(f"{label} ({card}): the YAML app (mesh 1 x 4 on "
+          f"{[str(d) for d in devs]}, scale tier) served {n_drivers} drivers "
+          f"from {n_clients} clients ({admitted} admitted), window paths "
+          f"{paths}, device_pool {list(state.get('device_pool', {}))}; every "
+          f"body equal to a cpu replay ({compared}); driver p50 "
+          f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms "
+          f"(client host clock)", flush=True)
+    return launches
+
+
+def run_mesh_phase(device, card, last, mesh_cards=False):
+    """Phase 18: parallel across cards (ROADMAP §A.6) on the card: the
+    node-sharded engine against the kernels (a), the group-sharded queue
+    kernel (b), serving on a mesh slot (c), the scale tier (d) and the app
+    from YAML (e). Shards go on `device`, repeated (one stream each), or
+    with `mesh_cards` on distinct cards. Returns the main path's launches
+    (row walk, probe, queue kernel)."""
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    seconds = {}
+    saved = (window_pack.launches, fifo_pack.launches, probe_add_one.launches)
+    t0 = time.perf_counter()
+    p18_engine(device, card, last, mesh_cards)
+    seconds["a"] = time.perf_counter() - t0
+    window_pack.launches, fifo_pack.launches, probe_add_one.launches = saved
+    t0 = time.perf_counter()
+    queue = p18_grouped(device, card, mesh_cards)
+    seconds["b"] = time.perf_counter() - t0
+    out = {"window": 0, "probe": 0}
+    for key, fn in (("c", p18_mesh_slot), ("d", p18_scale_tier),
+                    ("e", p18_server)):
+        t0 = time.perf_counter()
+        got = fn(device, card, mesh_cards)
+        seconds[key] = time.perf_counter() - t0
+        for k in out:
+            out[k] += got[k]
+    out["queue"] = queue
+    print(f"phase 18 seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in seconds.items())
+        + f"; main-path launches: row walk {out['window']}, probe "
+        f"{out['probe']}, queue kernel {queue} ({card})", flush=True)
+    return out
+
+
+def main(mesh_cards: bool = False) -> int:
     try:
         import torch
     except ImportError as exc:
@@ -6786,6 +7316,12 @@ def main() -> int:
     print(f"phase 17: passed in {time.perf_counter() - t0:.1f} s; row-walk "
           f"launches {soak_launches['window']}, probe "
           f"{soak_launches['probe']} ({card})", flush=True)
+    t0 = time.perf_counter()
+    mesh_launches = run_mesh_phase(device, card, last, mesh_cards)
+    print(f"phase 18: passed in {time.perf_counter() - t0:.1f} s; row-walk "
+          f"launches {mesh_launches['window']}, probe "
+          f"{mesh_launches['probe']}, queue kernel {mesh_launches['queue']} "
+          f"({card})", flush=True)
     # The row walk and the probe serve the main path at each of its entry
     # points: the solver's windows (phase 3), the extender's (phase 6), the
     # HTTP server's on both transports (phases 7 and 8), fed by apiserver
@@ -6794,8 +7330,10 @@ def main() -> int:
     # the policy engine and the autoscaler (phase 13), over the device
     # pool, its re-dispatches and its quarantine probes (phase 14), under
     # trace capture, replay, what-if, sweep and the fleet (phase 15), fed
-    # by the resident host build under churn (phase 16), and driven by the
-    # soak engines under chaos (phase 17).
+    # by the resident host build under churn (phase 16), driven by the
+    # soak engines under chaos (phase 17), and beside mesh slots and the
+    # scale tier (phase 18). The queue kernel serves phase 5's configs and
+    # phase 18's group-sharded route.
     for k in launches:
         launches[k] += (ext_launches[k] + srv_launches[k] + async_launches[k]
                         + wal_launches[k] + ha_launches[k] + fused_launches[k]
@@ -6803,7 +7341,8 @@ def main() -> int:
                         + elastic_launches[k] + pool_launches[k]
                         + shed_launches[k] + greedy_launches[k]
                         + replay_launches[k] + build_launches[k]
-                        + soak_launches[k])
+                        + soak_launches[k] + mesh_launches[k])
+    queue_launches += mesh_launches["queue"]
     kernels = [
         dict(name="window_row_walk", route="cuda",
              source="spark_scheduler_tpu_torch/csrc/window_kernel.cu",
@@ -6901,4 +7440,6 @@ def trace_race(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(trace_race(sys.argv[1:]) if sys.argv[1:] else main())
+    if sys.argv[1:] in ([], ["--mesh-cards"]):
+        sys.exit(main(mesh_cards=bool(sys.argv[1:])))
+    sys.exit(trace_race(sys.argv[1:]))

@@ -4,6 +4,7 @@
       [--transport threaded|async] [--ingest python|native]
       [--kube-api-url URL|in-cluster] [--durable-store WAL]
       [--ha-replica ID [--ha-lease-ttl SECONDS]] [--autoscaler]
+      [--device-pool N | --mesh GROUPSxSHARDS] [--scale-tier]
   python -m spark_scheduler_tpu_torch print-crds [--conversion-webhook-url URL]
   python -m spark_scheduler_tpu_torch conversion-webhook [--port N]
   python -m spark_scheduler_tpu_torch version
@@ -22,10 +23,13 @@ CUDA card and raises without one; an install key the port cannot serve yet
 raises NotImplementedError (server/app.py), and `--ingest native` builds
 the port's native library or raises. With a durable store or an apiserver
 the server waits for the watch caches to sync, reconciles (or runs one
-election tick as an HA replica), and only then serves. The JAX package's
-multi-device flags and `--fleet-stack` are not ported: the server solves
-on the card, where `fleet.stack-window-ms` is accepted but inert (the row
-walk serves every window; fleet/facade.py).
+election tick as an HA replica), and only then serves. The multi-device
+flags are the JAX package's: `--device-pool N`, `--mesh GROUPSxSHARDS`
+(SHARDS > 1: node-sharded mesh slots over the cards, parallel/mesh.py)
+and `--scale-tier` (node-sharded escalation re-solves). Only
+`--fleet-stack` is not ported: the server solves on the card, where
+`fleet.stack-window-ms` is accepted but inert (the row walk serves every
+window; fleet/facade.py).
 """
 
 from __future__ import annotations
@@ -88,10 +92,11 @@ def main(argv=None) -> int:
     srv.add_argument(
         "--mesh",
         default=None,
-        metavar="GROUPSx1",
-        help="full mesh form of --device-pool, e.g. '4x1' = 4 pool slots "
-        "(solver.mesh {groups, node-shards}); node-shards > 1 is not "
-        "supported by the port (ROADMAP A.6)",
+        metavar="GROUPSxSHARDS",
+        help="full mesh form of --device-pool, e.g. '4x2' = 4 pool slots "
+        "of 2 node-sharding cards each (solver.mesh {groups, "
+        "node-shards}); node-shards > 1 runs each window on the slot's "
+        "node-sharded engine",
     )
     srv.add_argument(
         "--fuse-windows",
@@ -114,6 +119,15 @@ def main(argv=None) -> int:
         "post-solve certificate that re-solves any window a pruned row "
         "could have changed (decisions stay byte-identical); overrides the "
         "install config's solver.prune-top-k (default 0 = off)",
+    )
+    srv.add_argument(
+        "--scale-tier",
+        action="store_true",
+        default=None,
+        help="run certificate escalations and fallback re-solves as a "
+        "node-sharded solve over the local cards instead of one card's "
+        "row walk (identical decisions); overrides solver.scale-tier "
+        "(default off)",
     )
     srv.add_argument(
         "--prune-slack",
@@ -279,12 +293,14 @@ def main(argv=None) -> int:
         config.solver_prune_top_k = args.prune_top_k
     if args.prune_slack is not None:
         config.solver_prune_slack = args.prune_slack
+    if args.scale_tier:
+        config.solver_scale_tier = True
     if args.mesh is not None:
         try:
             groups, shards = (int(x) for x in args.mesh.lower().split("x"))
         except ValueError:
             print(
-                f"--mesh expects GROUPSxSHARDS (e.g. 4x1), got {args.mesh!r}",
+                f"--mesh expects GROUPSxSHARDS (e.g. 4x2), got {args.mesh!r}",
                 file=sys.stderr,
             )
             return 2

@@ -7,6 +7,12 @@ one card (`PlacementSolver(pool_devices=[...])`), and then their solves
 overlap on the card's streams. Slot choice never changes a decision: every
 slot serves the same statics, and a slot re-solves from the same inputs.
 
+A MESH slot (`solver.mesh.node-shards` > 1) is a ("nodes",) SolverMesh
+(parallel/mesh.py): its statics live as S node chunks, one a shard, each
+shard with a stream of its own beside the slot's; it solves whole windows
+on the node-sharded engine (parallel/node_shards.py), and a device fault
+on any of its shards quarantines the whole slot.
+
 Stream rules (core/solver.py keeps them): work for a slot is queued on its
 stream behind an event of the stream that produced its inputs, and every
 tensor one stream allocated and another reads is `record_stream`ed there,
@@ -24,6 +30,7 @@ import torch
 
 from spark_scheduler_tpu_torch.faults.errors import AllSlotsQuarantinedError
 from spark_scheduler_tpu_torch.models.cluster import FIELD_DTYPES, cluster_statics
+from spark_scheduler_tpu_torch.parallel.node_shards import shard_fields
 
 
 class _DaemonFetchPool:
@@ -106,18 +113,28 @@ class PoolSlot:
     state."""
 
     __slots__ = (
-        "device", "label", "stream", "statics", "statics_epoch",
+        "device", "label", "stream", "mesh", "shard_streams",
+        "statics", "statics_epoch",
         "sub_statics", "uploads", "last_full_upload", "inflight",
         "quarantined", "last_probe", "failure_count",
         "mirror", "avail", "avail_epoch", "avail_token",
     )
 
-    def __init__(self, device: torch.device, label: str):
+    def __init__(self, placement, label: str):
+        # A mesh slot's `device` is its lead shard's: the decision blob and
+        # the committed base land there.
+        self.mesh = placement if hasattr(placement, "grid") else None
+        device = self.mesh.devices[0] if self.mesh is not None else placement
         self.device = device
         self.label = label
         self.stream = (
             torch.cuda.Stream(device=device) if device.type == "cuda" else None
         )
+        self.shard_streams = None
+        if self.mesh is not None and device.type == "cuda":
+            self.shard_streams = [
+                torch.cuda.Stream(device=d) for d in self.mesh.devices
+            ]
         self.statics = None  # resident static-field tuple (full cluster)
         self.statics_epoch = -1
         # idx_key -> (epoch, statics tuple) for gathered partition domains.
@@ -146,6 +163,15 @@ class PoolSlot:
         self.avail_epoch = -1
         self.avail_token = None
 
+    @property
+    def is_mesh(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def shard_devices(self) -> list:
+        """The devices the slot's work runs on (one, or every shard's)."""
+        return self.mesh.devices if self.mesh is not None else [self.device]
+
     def context(self):
         """The slot's stream as the calling thread's current stream (a
         no-op on the CPU)."""
@@ -158,7 +184,13 @@ class PoolSlot:
         return torch.tensor(np.asarray(arr), dtype=dtype, device=self.device)
 
     def upload_statics(self, fields) -> tuple:
-        """Static fields (cluster_statics order) uploaded to the slot."""
+        """Static fields (cluster_statics order) uploaded to the slot; on
+        a mesh slot, one tuple of node chunks a shard."""
+        if self.mesh is not None:
+            return shard_fields(self.mesh.devices, [
+                torch.tensor(np.asarray(f), dtype=dt)
+                for f, dt in zip(fields, FIELD_DTYPES[1:])
+            ])
         return tuple(
             self.put(f, dt) for f, dt in zip(fields, FIELD_DTYPES[1:])
         )
@@ -178,7 +210,8 @@ class PoolSlot:
             return self.statics
         statics_np = cluster_statics(host)
         if (
-            self.statics is not None
+            self.mesh is None  # a mesh slot re-uploads its chunks in full
+            and self.statics is not None
             and journal
             and 0 <= self.statics_epoch < epoch
             and self.statics[0].shape[0] == np.asarray(statics_np[0]).shape[0]
@@ -254,9 +287,9 @@ class PoolSlot:
 
 
 def slot_labels(devices) -> list[str]:
-    """One label per slot: the device's name, with `/k` appended when
-    several slots share the device (k counts them from 0)."""
-    names = [str(d) for d in devices]
+    """One label per slot: the device's name (a mesh slot's `cuda:0-3`),
+    with `/k` appended when several slots share it (k counts from 0)."""
+    names = [getattr(d, "label", None) or str(d) for d in devices]
     seen: dict = {}
     out = []
     for name in names:

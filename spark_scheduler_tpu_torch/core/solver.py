@@ -48,6 +48,7 @@ tests.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -95,7 +96,7 @@ from spark_scheduler_tpu_torch.models.resources import (
     NUM_DIMS,
     Resources,
 )
-from spark_scheduler_tpu_torch.ops.batched import make_app_batch
+from spark_scheduler_tpu_torch.ops.batched import _packing_blob, make_app_batch
 from spark_scheduler_tpu_torch.ops.efficiency import avg_packing_efficiency_np
 from spark_scheduler_tpu_torch.ops.packing import (
     BINPACK_STRATEGIES,
@@ -107,6 +108,11 @@ from spark_scheduler_tpu_torch.ops.window import (
     SegmentedWindow,
     segmented_window_from_flat,
     window_pack,
+)
+from spark_scheduler_tpu_torch.parallel.node_shards import (
+    node_sharded_fifo_pack,
+    shard_cluster,
+    shard_fields,
 )
 
 # Device shim (testing/rtt_shim.py, faults/injector.py). When installed,
@@ -584,6 +590,7 @@ class PlacementSolver:
         use_native: bool = True,
         build_oracle: bool = False,
         lazy_warm_start: bool = True,
+        scale_tier: bool = False,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -603,12 +610,25 @@ class PlacementSolver:
         # `device_pool=P` (mesh (P, 1)) asks for that many slots over the
         # devices of the solver's type, clamped to their count, so one card
         # gives no pool. `pool_devices` (a deliberate deviation from the
-        # JAX package) names the slots' devices instead, one slot each,
-        # repeats allowed: several slots on one card, each on its own
-        # stream. A pool of one slot is no pool. Node-sharded slots
-        # (node_shards > 1) raise (ROADMAP §A.6).
+        # JAX package) names the devices instead, repeats allowed, as the
+        # flat list `make_pool_slots` groups row-major: with one node shard
+        # each entry is a slot (several slots on one card, each on its own
+        # stream), with S node shards each S entries are one MESH slot
+        # (parallel/mesh.py), so `mesh=(1, 4), pool_devices=[cuda:0] * 4`
+        # is one 4-shard slot on one card. A pool of one plain slot is no
+        # pool; one mesh slot is (JAX :1262-1266).
         self._pool: DevicePool | None = None
         groups, node_shards = mesh if mesh is not None else (device_pool, 1)
+        node_shards = max(1, int(node_shards or 1))
+        if node_shards & (node_shards - 1):
+            # The node axis is padded to powers of two (pad_bucket, the
+            # pruned gathers), so no other shard count divides it.
+            raise ValueError(
+                f"solver.mesh node-shards={node_shards}: the solver's "
+                f"power-of-two node buckets are not divisible by mesh "
+                f'"nodes" axis {node_shards}; pad with invalid slots, or '
+                "use a power of two"
+            )
         if pool_devices is not None or groups > 1 or node_shards > 1:
             from spark_scheduler_tpu_torch.parallel.mesh import (
                 local_devices,
@@ -624,13 +644,25 @@ class PlacementSolver:
                 len(devices) if pool_devices is not None else groups,
                 node_shards, devices=devices,
             )
-            if any(d.type != self.device.type for d in slots):
+            flat = [
+                d for sl in slots
+                for d in (sl.devices if node_shards > 1 else [sl])
+            ]
+            if any(d.type != self.device.type for d in flat):
                 raise ValueError(
-                    f"pool devices {[str(d) for d in slots]} are not of the "
+                    f"pool devices {[str(d) for d in flat]} are not of the "
                     f"solver's type {self.device.type}"
                 )
-            if len(slots) > 1:
+            if len(slots) > 1 or node_shards > 1:
                 self._pool = DevicePool(slots)
+        # `solver.scale-tier`: a window re-solve from the host truth (a
+        # pruned window's certificate escalation, a fallback handle) runs
+        # node-sharded over the solver's devices (`_scale_mesh_for`) when
+        # they give more than one shard; `sharded` counts those,
+        # `fallbacks` the re-solves a classified device fault sent to the
+        # host greedy.
+        self._scale_tier = bool(scale_tier)
+        self.scale_tier_stats = {"resolves": 0, "sharded": 0, "fallbacks": 0}
         # Quarantine probing, the degraded-mode controller
         # (faults/degraded.py, wired by build_scheduler_app; None = device
         # failures propagate) and the lazy host greedy it serves through.
@@ -923,7 +955,7 @@ class PlacementSolver:
     def probe_quarantined(self, force: bool = False) -> int:
         """Launch the probe kernel (ops/probe.probe_add_one) on each
         quarantined slot whose probe interval elapsed, on the slot's
-        stream; success reinstates the slot (statics re-upload on its next
+        stream (a mesh slot: on each shard's device and stream); success reinstates the slot (statics re-upload on its next
         dispatch). A classified device fault keeps it quarantined; wrong
         values or any other error raise. Returns the slots reinstated.
         After a fault that poisons the CUDA context (an uncorrectable ECC
@@ -938,10 +970,22 @@ class PlacementSolver:
                 continue
             s.last_probe = now
             try:
-                with s.context():
-                    _shim("dispatch")
-                    x = torch.zeros(PROBE_SHAPE, dtype=torch.int32, device=s.device)
-                    ok = bool((probe_add_one(x) == 1).all())
+                # A mesh slot probes every shard's device: it is back only
+                # when all of them answer.
+                ok = True
+                for k, dev in enumerate(s.shard_devices):
+                    stream = (
+                        s.shard_streams[k] if s.shard_streams is not None
+                        else s.stream
+                    )
+                    ctx = (
+                        torch.cuda.stream(stream) if stream is not None
+                        else contextlib.nullcontext()
+                    )
+                    with ctx:
+                        _shim("dispatch")
+                        x = torch.zeros(PROBE_SHAPE, dtype=torch.int32, device=dev)
+                        ok = ok and bool((probe_add_one(x) == 1).all())
             except Exception as exc:
                 if classify_slot_failure(exc):
                     self._on_slot_event("probe-failed", s.label)
@@ -3434,6 +3478,11 @@ class PlacementSolver:
                 0, torch.as_tensor(idx.astype(np.int64), device=base.device)
             )
             return sub if sub.device == slot.device else sub.to(slot.device)
+        if slot.is_mesh:
+            # A mesh slot's availability is re-placed at each dispatch
+            # (the solve places its shard chunks, `shard_fields`); it keeps no
+            # mirror.
+            return base if base.device == slot.device else base.to(slot.device)
         if base.device == slot.device:
             slot.mirror["reuse"] += 1
             return base
@@ -3529,20 +3578,64 @@ class PlacementSolver:
         return t if t.device == self.device else t.to(self.device)
 
     @staticmethod
-    def _part_solve(slot, strategy, sub_avail, statics, batch, zone_base,
-                    delta, after_fut):
-        """One part's solve on a pool worker, on the slot's stream: the row
-        walk over the slot's (sub-)cluster; its committed base (a delta
-        over the kept rows for a pruned part) publishes on `after_fut` as
-        soon as the solve is queued, then the decision blob is pulled."""
+    def _slot_solve(slot, strategy, sub_avail, statics, batch, apps,
+                    zone_base):
+        """A window's solve on `slot`, on the calling thread's current
+        stream: the row walk over the slot's (sub-)cluster, or on a mesh
+        slot the node-sharded engine in window mode over its shards
+        (`apps`, the flat window batch; the JAX package runs
+        `_window_blob_statics` there). Returns (decision blob, committed
+        base): the blob [S, R, 3 + emax] of the row walk, or flat
+        [B, 3 + emax] rows in request order from the engine."""
+        if not slot.is_mesh:
+            meta, execs, after = window_pack(
+                cluster_from_statics(sub_avail, statics), batch.win,
+                fill=strategy, emax=batch.emax, num_zones=batch.num_zones,
+                zone_base=zone_base,
+            )
+            return torch.cat([meta[:, :, :3], execs], dim=2), after
+        shards = [
+            cluster_from_statics(av, st)
+            for (av,), st in zip(shard_fields(slot.mesh.devices, [sub_avail]), statics)
+        ]
+        out = node_sharded_fifo_pack(
+            shards, apps, fill=strategy, emax=batch.emax,
+            num_zones=batch.num_zones, zone_base=zone_base,
+            streams=slot.shard_streams,
+        )
+        return _packing_blob(out), out.available_after
+
+    @staticmethod
+    def _blob_rows(full: np.ndarray, batch, apps) -> np.ndarray:
+        """The flat decision rows, in request order, of `_slot_solve`'s
+        pulled blob."""
+        return full if apps is not None else full[batch.seg_map[0], batch.seg_map[1]]
+
+    def _mesh_apps(self, slot, rows: _WindowRows, idx=None):
+        """The flat window batch a mesh slot solves (None on a plain
+        slot); `idx` gathers the masks onto a sub-cluster's rows."""
+        if not slot.is_mesh:
+            return None
+        if idx is not None:
+            rows = rows._replace(
+                cand_per_req=[c[idx] for c in rows.cand_per_req],
+                dom_per_req=[d[idx] for d in rows.dom_per_req],
+            )
+        return self.window_app_batch(rows, pad_to=len(rows.drv_arr))
+
+    @staticmethod
+    def _part_solve(slot, strategy, sub_avail, statics, batch, apps,
+                    zone_base, delta, after_fut):
+        """One part's solve on a pool worker, on the slot's stream
+        (`_slot_solve`); its committed base (a delta over the kept rows for
+        a pruned part) publishes on `after_fut` as soon as the solve is
+        queued, then the decision blob is pulled."""
         t0 = time.perf_counter()
         try:
             with slot.context():
                 _shim("dispatch")
-                meta, execs, after = window_pack(
-                    cluster_from_statics(sub_avail, statics), batch.win,
-                    fill=strategy, emax=batch.emax, num_zones=batch.num_zones,
-                    zone_base=zone_base,
+                blob, after = PlacementSolver._slot_solve(
+                    slot, strategy, sub_avail, statics, batch, apps, zone_base
                 )
                 if delta:
                     after = after - sub_avail
@@ -3550,7 +3643,6 @@ class PlacementSolver:
                 if slot.stream is not None:
                     ev = torch.cuda.Event()
                     ev.record(slot.stream)
-                blob = torch.cat([meta[:, :, :3], execs], dim=2)
         except BaseException as exc:
             if not after_fut.done():
                 after_fut.set_exception(exc)
@@ -3562,7 +3654,7 @@ class PlacementSolver:
             full = blob.cpu().numpy()
         t2 = time.perf_counter()
         return {
-            "blob": full[batch.seg_map[0], batch.seg_map[1]],
+            "blob": PlacementSolver._blob_rows(full, batch, apps),
             "solve_ms": (t1 - t0) * 1e3,
             "fetch_ms": (t2 - t1) * 1e3,
             "device": slot.label,
@@ -3582,7 +3674,9 @@ class PlacementSolver:
         equal the serialized window's. A window that does not partition
         runs whole on the next slot. With pruning on, each partition (or a
         whole window with one shared domain) solves the planner's top-K
-        rows of its domain instead.
+        rows of its domain instead. A pool of MESH slots makes no partition
+        plan (JAX :4627-4635): a mesh slot solves the whole window (or its
+        pruned gather, with its `zone_base`) on the node-sharded engine.
 
         The committed base stays one logical thread: each part's committed
         rows scatter back into a copy of the global base (out of place: a
@@ -3611,7 +3705,10 @@ class PlacementSolver:
         # The partition plan: at least two distinct domain keys, every
         # request keyed, masks pairwise disjoint and non-empty.
         plan = None
-        if all(k is not None for k in dom_keys):
+        if (
+            not any(s.is_mesh for s in pool.slots)
+            and all(k is not None for k in dom_keys)
+        ):
             groups: dict = {}
             for r, key in enumerate(dom_keys):
                 groups.setdefault(key, []).append(r)
@@ -3712,7 +3809,8 @@ class PlacementSolver:
             after_fut: Future = Future()
             fut = solve_pool.submit(
                 self._part_solve, slot, strategy, sub_avail, statics, batch,
-                zone_base, prune_plan is not None, after_fut,
+                self._mesh_apps(slot, sub, idx), zone_base,
+                prune_plan is not None, after_fut,
             )
 
             def propagate_cancel(f, af=after_fut):
@@ -3996,13 +4094,18 @@ class PlacementSolver:
                 part.rows.exc_arr.astype(np.int64), part.base_kept, strict["ps"],
             )
             if not ok:
-                # Re-solve just this partition on the row walk over the
-                # dense base (the other partitions are row-disjoint and
-                # stand), then poison the carry.
-                full_blob, segments, nbytes = self._solve_on_base(
+                # Re-solve just this partition over the dense base
+                # (`_escalation_decisions`; the other partitions are
+                # row-disjoint and stand), then poison the carry.
+                res = self._escalation_decisions(
                     handle.strategy, handle.host_tensors, dense_base(),
                     part.rows,
                 )
+                if res is None:
+                    greedy(part)
+                    self._note_prune_escalation(handle, reason)
+                    continue
+                full_blob, segments, nbytes = res
                 reconstruct(
                     part, full_blob, dense_base(), handle.host_schedulable,
                     None, True,
@@ -4101,14 +4204,14 @@ class PlacementSolver:
                             for a in part.prune.zone_base
                         )
                     _shim("dispatch")
-                    meta, execs, _ = window_pack(
-                        cluster_from_statics(sub_avail, statics), batch.win,
-                        fill=handle.strategy, emax=batch.emax,
-                        num_zones=batch.num_zones, zone_base=zone_base,
+                    apps = self._mesh_apps(slot, part.rows, part.idx)
+                    blob, _ = self._slot_solve(
+                        slot, handle.strategy, sub_avail, statics, batch,
+                        apps, zone_base,
                     )
                     t1 = time.perf_counter()
                     _shim("d2h")
-                    full = torch.cat([meta[:, :, :3], execs], dim=2).cpu().numpy()
+                    full = blob.cpu().numpy()
                 t2 = time.perf_counter()
             except Exception as exc:
                 if classify_slot_failure(exc):
@@ -4124,7 +4227,7 @@ class PlacementSolver:
                 for r in part.req_ids:
                     handle.request_device[r] = slot.label
             return {
-                "blob": full[batch.seg_map[0], batch.seg_map[1]],
+                "blob": self._blob_rows(full, batch, apps),
                 "solve_ms": (t1 - t0) * 1e3,
                 "fetch_ms": (t2 - t1) * 1e3,
                 "device": slot.label,
@@ -4240,6 +4343,8 @@ class PlacementSolver:
             return handle.resolved
         if handle.use_fallback:
             if handle.resolved is None:
+                if handle.parts is not None:
+                    self._drain_parts(handle)
                 handle.resolved = self._resolve_full(handle, bounds)
             return handle.resolved
         if handle.parts is not None:
@@ -4273,6 +4378,26 @@ class PlacementSolver:
             )
         self._device_recovered()
         return out
+
+    def _drain_parts(self, handle: WindowHandle) -> None:
+        """A pooled dispatch whose carry an escalation dropped re-solves in
+        full; its part solves are discarded, but each runs to its end first
+        (a solve left running on a worker could outlive the process) and
+        releases its slot. A part that died of a classified device fault
+        quarantines its slot; any other failure raises."""
+        for part in handle.parts:
+            try:
+                part.future.result()
+            except Exception as exc:
+                if not classify_slot_failure(exc):
+                    raise
+                self._quarantine_slot(part.slot, exc)
+            part.slot.inflight = max(0, part.slot.inflight - 1)
+            if self.telemetry is not None:
+                self.telemetry.on_device_inflight(
+                    part.slot.label, part.slot.inflight
+                )
+        handle.parts = None
 
     def _windows_from_blob(
         self, handle, bounds, blob, base, host_schedulable, row_map=None
@@ -4389,16 +4514,21 @@ class PlacementSolver:
         return out
 
     def _resolve_full(self, handle: WindowHandle, bounds) -> list:
-        """Re-solve a dispatch from the exact host reconstruction: the row
-        walk over the full [N,3] `_dense_base` (the host view at dispatch
-        minus the placements of windows in flight then) and the dispatch's
-        own statics and masks, on the solver's device. The same solve an
-        unpruned dispatch on that base runs, so the decisions are those
-        of the unpruned path."""
+        """Re-solve a dispatch from the exact host reconstruction: the full
+        [N,3] `_dense_base` (the host view at dispatch minus the placements
+        of windows in flight then) and the dispatch's own statics and
+        masks, through `_escalation_decisions` (the row walk on the
+        solver's device, or the scale tier's node-sharded solve). The same
+        solve an unpruned dispatch on that base runs, so the decisions are
+        those of the unpruned path."""
         base = self._dense_base(handle)
-        blob, segments, nbytes = self._solve_on_base(
+        res = self._escalation_decisions(
             handle.strategy, handle.host_tensors, base, handle.window_rows
         )
+        if res is None:
+            handle.greedy = True
+            return self._fetch_fallback(handle, bounds)
+        blob, segments, nbytes = res
         if handle.info is not None:
             # The re-solve's reason, its live segments (row-walk launches
             # on the card) and its decision bytes, for the records.
@@ -4412,6 +4542,79 @@ class PlacementSolver:
         return self._windows_from_blob(
             handle, bounds, blob, base, handle.host_schedulable,
         )
+
+    def _escalation_decisions(self, strategy, host, base, rows: _WindowRows):
+        """The exact re-solve of a window from host truth (JAX
+        :4424-4445): (flat decision blob, row-walk segments, pulled bytes),
+        or None when the caller serves the host greedy.
+
+        With `solver.scale-tier` off, or where `_scale_mesh_for` finds a
+        single shard, it is the row walk over `base` (`_solve_on_base`):
+        the port's recorded deviation, since the JAX package re-solves on
+        its host greedy there. With the tier on and S > 1 shards it is the
+        node-sharded engine in window mode (`_scale_tier_decisions`).
+        Deviation, recorded: the JAX tier falls back to the host greedy on
+        ANY exception; here only a classified device fault
+        (faults/errors.classify_slot_failure) reaches the degraded policy,
+        as every device fault of the port does (`_degraded_or_raise`: the
+        fault again with no controller, DegradedUnavailableError under
+        shed); a greedy answer counts in `fallbacks`. Anything else
+        raises."""
+        if not self._scale_tier:
+            return self._solve_on_base(strategy, host, base, rows)
+        try:
+            out = self._scale_tier_decisions(strategy, host, base, rows)
+        except Exception as exc:
+            if not classify_slot_failure(exc):
+                raise
+            self._degraded_or_raise(exc)
+            self.scale_tier_stats["fallbacks"] += 1
+            return None
+        self.scale_tier_stats["resolves"] += 1
+        return out
+
+    def _scale_mesh_for(self, n: int):
+        """The shard devices of a scale-tier re-solve (JAX :4447-4464): the
+        largest power of two of the solver's devices that divides `n`, or
+        None for one shard (the unsharded re-solve). The devices: a
+        healthy mesh slot's shards when the pool has one (repeats allowed,
+        as the mesh names them), else every local device of the solver's
+        type."""
+        from spark_scheduler_tpu_torch.parallel.mesh import local_devices
+
+        meshes = [
+            s.mesh.devices for s in (self._pool.slots if self._pool else ())
+            if s.is_mesh and not s.quarantined
+        ]
+        devs = meshes[0] if meshes else local_devices(self.device.type)
+        shards = 1
+        while shards * 2 <= len(devs) and n % (shards * 2) == 0:
+            shards *= 2
+        return devs[:shards] if shards > 1 else None
+
+    def _scale_tier_decisions(self, strategy, host, base, rows: _WindowRows):
+        """One synchronous window re-solve over `base` (int64 [N,3]) and
+        `host`'s statics: node-sharded over `_scale_mesh_for`'s devices
+        (counted in `sharded`), else the row walk."""
+        n = int(host.available.shape[0])
+        devices = self._scale_mesh_for(n)
+        if devices is None:
+            return self._solve_on_base(strategy, host, base, rows)
+        apps = self.window_app_batch(rows, pad_to=len(rows.drv_arr))
+        avail32 = np.clip(base, _INT32.min, _INT32.max).astype(np.int32)
+        self._note_transfer("h2d", _host_nbytes(host))
+        self._ensure_probed()
+        cluster = cluster_from_numpy(
+            (avail32,) + tuple(cluster_statics(host)), device=devices[0]
+        )
+        out = node_sharded_fifo_pack(
+            shard_cluster(devices, cluster), apps, fill=strategy,
+            emax=rows.emax, num_zones=rows.num_zones,
+        )
+        full = _packing_blob(out).cpu().numpy()
+        self._note_transfer("d2h", full.nbytes)
+        self.scale_tier_stats["sharded"] += 1
+        return full, 0, full.nbytes
 
     def _solve_on_base(self, strategy, host, base, rows: _WindowRows):
         """The row walk over `rows` on the full cluster with availability

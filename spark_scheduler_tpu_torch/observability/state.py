@@ -171,6 +171,15 @@ def debug_state_snapshot(app, clock=time.time, server=None) -> dict:
             if planner is not None:
                 block["planner"] = planner.index_stats()
             out["prune"] = block
+        # The window-solve pool per slot label (a mesh slot's `cuda:0-3`)
+        # and the scale tier's re-solve ledger once engaged, under the JAX
+        # package's keys.
+        pool_stats = solver.device_pool_stats()
+        if pool_stats:
+            out["device_pool"] = pool_stats
+        scale = getattr(solver, "scale_tier_stats", None)
+        if scale is not None and any(scale.values()):
+            out["scale_tier"] = dict(scale)
         # Device-state upload mix: full uploads, availability and static
         # row deltas, reuses, and their h2d bytes.
         dev_state = getattr(solver, "device_state_stats", None)

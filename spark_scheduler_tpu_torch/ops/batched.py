@@ -3,9 +3,9 @@ spark_scheduler_tpu/ops/batched.py.
 
 A FIFO-sorted queue of B apps is one batch (`AppBatch`). `batched_fifo_pack`
 admits it in order, carrying the cluster availability from app to app: each
-step is one vectorized gang pack (ops/packing.py `pack_one_app`, or the
-single-AZ pack), and an admitted gang's usage is subtracted before the next
-app packs (resource.go:251-255). A valid, non-skippable app that fails
+step is one vectorized gang pack (the semantics of ops/packing.py
+`pack_one_app`, or of the single-AZ pack), and an admitted gang's usage is
+subtracted before the next app packs (resource.go:251-255). A valid, non-skippable app that fails
 blocks every later app (strict FIFO, resource.go:241-249).
 
 Three modes, as in the JAX package:
@@ -25,7 +25,8 @@ The JAX package's `lax.scan` is a Python loop over rows here, with the carry
 as tensors on the cluster's device; the loop reads only the host copies of
 the row flags, never a device result, so on the card it queues its work
 without synchronising. It is the XLA program's counterpart and runs on the
-CPU and the card alike; the serving path uses the row-walk kernel
+CPU and the card alike, as the one-shard case of the node-sharded engine
+(parallel/node_shards.py); the serving path uses the row-walk kernel
 (ops/window.py) and the queue kernel (ops/fifo.py) instead.
 """
 
@@ -39,13 +40,6 @@ import torch
 from spark_scheduler_tpu_torch.models.cluster import (
     ClusterTensors,
     cluster_from_statics,
-)
-from spark_scheduler_tpu_torch.ops.packing import (
-    _FILLS,
-    _check_cumsum_bound,
-    pack_one_app,
-    pack_one_app_single_az,
-    single_az_orders,
 )
 from spark_scheduler_tpu_torch.ops.sorting import (
     _rank_of_position,
@@ -166,175 +160,23 @@ def batched_fifo_pack(
     single-AZ zone scores depend on the subset.
 
     `available_after` is a new tensor (the committed base in window mode);
-    `cluster.available` is left as it was."""
-    single_az = fill in _SINGLE_AZ_INNER
-    if zone_base is not None and single_az:
-        raise ValueError(
-            "zone_base offsets are only sound for plain fills; "
-            f"got single-AZ strategy {fill!r}"
-        )
-    inner = _SINGLE_AZ_INNER.get(fill, fill)
-    if inner not in _FILLS:
-        raise ValueError(f"unknown strategy {fill!r}")
-    fill_fn = _FILLS[inner]
-    az_fallback = fill == "az-aware-tightly-pack"
-    include_exec = inner != "minimal-fragmentation"
-    n = cluster.num_nodes
-    _check_cumsum_bound(n, emax)
+    `cluster.available` is left as it was.
+
+    It is the one-shard case of the node-sharded engine
+    (parallel/node_shards.py `node_sharded_fifo_pack`), so one code path
+    holds the batched packing semantics, sharded or not. Window mode's
+    first valid row must be a reset row (the JAX scan would pack it
+    against placeholder orders; here it raises)."""
+    # parallel/node_shards.py imports this module.
+    from spark_scheduler_tpu_torch.parallel.node_shards import (
+        node_sharded_fifo_pack,
+    )
+
     dev = cluster.device
-    if (apps.commit is None) != (apps.reset is None):
-        raise ValueError("window mode requires commit AND reset together")
-    apps = app_batch_to_device(apps, dev)
-    zone_base = _device_zone_base(zone_base, dev)
-    b = apps.driver_req.shape[0]
-    segmented = apps.commit is not None
-    masked = segmented or apps.driver_cand is not None or apps.domain is not None
-
-    def fresh_orders(avail, driver_elig, exec_elig, domain):
-        """Priority orders from the given availability (the sort at
-        resource.go:299)."""
-        zrank = zone_ranks(
-            cluster, domain, num_zones, available=avail, zone_base=zone_base
-        )
-        d_order, _ = priority_order(
-            cluster, driver_elig, zrank, cluster.label_rank_driver,
-            available=avail,
-        )
-        e_order, _ = priority_order(
-            cluster, exec_elig, zrank, cluster.label_rank_executor,
-            available=avail,
-        )
-        out = (d_order, _rank_of_position(d_order), e_order)
-        if single_az:
-            out = out + single_az_orders(
-                cluster, driver_elig, exec_elig, zrank, num_zones,
-                available=avail,
-            )
-        return out
-
-    def placeholder_orders():
-        """What a window row before any reset row sorts with (the scan's
-        initial carry)."""
-        z = torch.zeros(n, dtype=torch.int32, device=dev)
-        out = (z, z, z)
-        if single_az:
-            zb = torch.zeros((num_zones, n), dtype=torch.bool, device=dev)
-            zi = torch.zeros((num_zones, n), dtype=torch.int32, device=dev)
-            out = out + (zb, zb, zi, zi, zi)
-        return out
-
-    if not masked:
-        driver_elig, exec_elig, d_order0, d_rank0, e_order0, zrank0 = (
-            queue_mode_orders(cluster, num_zones)
-        )
-        orders = (d_order0, d_rank0, e_order0)
-        if single_az:
-            orders = orders + single_az_orders(
-                cluster, driver_elig, exec_elig, zrank0, num_zones
-            )
-    else:
-        orders = placeholder_orders()
-        ones = torch.ones(n, dtype=torch.bool, device=dev)
-
-    # Host copies of the row flags steer the loop; no device value is read.
-    valid_h = apps.app_valid.cpu().numpy()
-    reset_h = apps.reset.cpu().numpy() if segmented else None
-    avail = cluster.available
-    base = avail
-    blocked = torch.zeros((), dtype=torch.bool, device=dev)
-    none_placed = torch.full((emax,), -1, dtype=torch.int32, device=dev)
-    minus_one = torch.full((), -1, dtype=torch.int32, device=dev)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-    out_driver, out_execs, out_admitted, out_packed = [], [], [], []
-    for i in range(b):
-        if segmented and reset_h[i]:
-            # Segment boundary: rewind to the committed base; FIFO blocking
-            # is segment-local.
-            avail = base
-            blocked = false
-        if masked:
-            cand_i = apps.driver_cand[i] if apps.driver_cand is not None else ones
-            dom_i = apps.domain[i] if apps.domain is not None else ones
-            domain = dom_i & cluster.valid
-            driver_elig = domain & cand_i
-            exec_elig = domain & ~cluster.unschedulable & cluster.ready
-            if not segmented or reset_h[i]:
-                # Window mode sorts once per segment, at its reset row;
-                # masked mode sorts every row against the current
-                # availability.
-                orders = fresh_orders(avail, driver_elig, exec_elig, domain)
-        if not valid_h[i]:
-            # Padding: packs nothing, debits nothing, blocks nothing.
-            out_driver.append(minus_one)
-            out_execs.append(none_placed)
-            out_admitted.append(false)
-            out_packed.append(false)
-            continue
-        driver_req = apps.driver_req[i]
-        exec_req = apps.exec_req[i]
-        raw = apps.exec_count[i]
-        # A gang wider than the slot padding cannot be represented: it is
-        # rejected outright, never truncated.
-        too_big = raw > emax
-        count = torch.clamp(raw, max=emax)
-        d_order, d_rank, e_order = orders[:3]
-        if single_az:
-            driver_node, one_hot, exec_nodes, ok = pack_one_app_single_az(
-                cluster.zone_id, cluster.schedulable, avail,
-                driver_elig, exec_elig, d_rank, *orders[3:],
-                driver_req, exec_req, count, fill_fn, emax, num_zones,
-                include_executors_in_reserved=include_exec,
-            )
-            if az_fallback:
-                # az-aware: plain tightly-pack when no single zone fits.
-                p_driver, p_hot, p_execs, p_ok = pack_one_app(
-                    avail, exec_elig, driver_elig, d_order, d_rank, e_order,
-                    driver_req, exec_req, count, fill_fn, emax,
-                )
-                driver_node = torch.where(ok, driver_node, p_driver)
-                one_hot = torch.where(ok, one_hot, p_hot)
-                exec_nodes = torch.where(ok, exec_nodes, p_execs)
-                ok = ok | p_ok
-        else:
-            driver_node, one_hot, exec_nodes, ok = pack_one_app(
-                avail, exec_elig, driver_elig, d_order, d_rank, e_order,
-                driver_req, exec_req, count, fill_fn, emax,
-            )
-        packed = ok & ~too_big
-        admitted = packed & ~blocked
-        # Scatter-subtract the admitted gang's usage (resource.go:251-255).
-        exec_counts = torch.zeros(n, dtype=torch.int32, device=dev)
-        exec_counts.index_add_(
-            0, torch.clamp(exec_nodes, 0, n - 1).long(),
-            (exec_nodes >= 0).to(torch.int32),
-        )
-        delta = exec_counts[:, None] * exec_req[None, :] + torch.where(
-            one_hot, driver_req[None, :], 0
-        ).to(torch.int32)
-        avail = torch.where(admitted, avail - delta, avail)
-        if segmented:
-            base = torch.where(admitted & apps.commit[i], base - delta, base)
-        # Strict FIFO: a non-skippable failure blocks the rest.
-        blocked = blocked | (~packed & ~apps.skippable[i])
-        out_driver.append(torch.where(admitted, driver_node, -1).to(torch.int32))
-        out_execs.append(torch.where(admitted, exec_nodes, -1).to(torch.int32))
-        out_admitted.append(admitted)
-        out_packed.append(packed)
-    if not b:
-        return BatchedPacking(
-            driver_node=torch.zeros(0, dtype=torch.int32, device=dev),
-            executor_nodes=torch.zeros((0, emax), dtype=torch.int32, device=dev),
-            admitted=torch.zeros(0, dtype=torch.bool, device=dev),
-            packed=torch.zeros(0, dtype=torch.bool, device=dev),
-            available_after=cluster.available.clone(),
-        )
-    after = base if segmented else avail
-    return BatchedPacking(
-        driver_node=torch.stack(out_driver),
-        executor_nodes=torch.stack(out_execs),
-        admitted=torch.stack(out_admitted),
-        packed=torch.stack(out_packed),
-        available_after=after.clone() if after is cluster.available else after,
+    return node_sharded_fifo_pack(
+        [cluster], apps, fill=fill, emax=emax, num_zones=num_zones,
+        zone_base=zone_base,
+        streams=[torch.cuda.current_stream(dev)] if dev.type == "cuda" else None,
     )
 
 

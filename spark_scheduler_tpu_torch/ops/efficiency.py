@@ -83,6 +83,34 @@ def avg_packing_efficiency_np(
     return AvgEfficiency(cpu=cpu_mean, memory=mem_mean, gpu=gpu_mean, max=max_mean)
 
 
+def zone_score_sum(
+    is_drv: torch.Tensor,  # [N] i32, 1 on the driver's node
+    counts: torch.Tensor,  # [N] i32 executors placed per node
+    sched: torch.Tensor,  # [N,3] i32
+    avail: torch.Tensor,  # [N,3] i32
+    dreq: torch.Tensor,  # [3] i32
+    ereq: torch.Tensor,  # [3] i32
+    include_exec_in_reserved: bool,
+) -> torch.Tensor:  # 0-d float64
+    """The float64 sum of `zone_score`'s per-node terms over these nodes.
+    A node-sharded solve (parallel/node_shards.py) adds its shards' sums
+    and rounds that once; the order of the additions differs from one
+    sum over all nodes, so the float64 totals can differ in the last ulp
+    and, rarely, the float32 scores too: equal except for a cross-zone
+    tie within one float32 ulp."""
+    new_res = is_drv[:, None] * dreq[None, :]
+    if include_exec_in_reserved:
+        new_res = new_res + counts[:, None] * ereq[None, :]
+    reserved = (sched - avail) + new_res
+    eff = reserved.to(torch.float32) / torch.clamp(sched, min=1).to(torch.float32)
+    eff_gpu = torch.where(sched[:, GPU_DIM] != 0, eff[:, GPU_DIM], 0.0)
+    node_max = torch.maximum(
+        eff_gpu, torch.maximum(eff[:, CPU_DIM], eff[:, MEM_DIM])
+    )
+    w = (counts + is_drv).to(torch.float32)
+    return (node_max * w).to(torch.float64).sum()
+
+
 def zone_score(
     count,  # executors in the gang (int or 0-d tensor)
     is_drv: torch.Tensor,  # [N] i32, 1 on the driver's node
@@ -104,17 +132,9 @@ def zone_score(
     The JAX package sums in float32 instead: the two can differ in the last
     ulp, which only matters for a cross-zone tie closer than that. Stays on
     the tensors' device: no host synchronisation."""
-    new_res = is_drv[:, None] * dreq[None, :]
-    if include_exec_in_reserved:
-        new_res = new_res + counts[:, None] * ereq[None, :]
-    reserved = (sched - avail) + new_res
-    eff = reserved.to(torch.float32) / torch.clamp(sched, min=1).to(torch.float32)
-    eff_gpu = torch.where(sched[:, GPU_DIM] != 0, eff[:, GPU_DIM], 0.0)
-    node_max = torch.maximum(
-        eff_gpu, torch.maximum(eff[:, CPU_DIM], eff[:, MEM_DIM])
-    )
-    w = (counts + is_drv).to(torch.float32)
-    total = (node_max * w).to(torch.float64).sum().to(torch.float32)
+    total = zone_score_sum(
+        is_drv, counts, sched, avail, dreq, ereq, include_exec_in_reserved
+    ).to(torch.float32)
     # A tensor divisor on the device: a scalar one may be applied as a
     # multiplication by its reciprocal, which rounds differently.
     entries = torch.as_tensor(count, device=total.device) + 1

@@ -20,9 +20,10 @@ the JAX package. With `policy.enabled` the extender carries a PolicyEngine
 (priority or DRF ordering, the preemption search on the solver's device,
 the defragmenter); with `autoscaler.enabled` the app carries an
 ElasticAutoscaler over a ClusterCensus, started and stopped with the app.
-`solver.device-pool` / `solver.mesh.groups` give the solver a device pool
-(`pool_devices=` lays its slots on named devices instead, several on one
-card allowed), and the solver always carries the DegradedModeController of
+`solver.device-pool` / `solver.mesh` give the solver a device pool, of
+node-sharded mesh slots when `solver.mesh.node-shards` > 1, and
+`solver.scale-tier` its node-sharded re-solves (`pool_devices=` names the
+devices instead, several on one card allowed), and the solver always carries the DegradedModeController of
 `server.degraded-mode`, as in the JAX package. With `trace.path` (and the
 flight recorder on) the app carries a replay.TraceWriter: the recorder's
 sink plus node and pod subscriptions journal every decision's inputs and
@@ -57,8 +58,6 @@ from spark_scheduler_tpu_torch.store.crd import (
 # Install keys the port cannot serve yet: field -> (YAML key, where it is
 # ported). A field that differs from InstallConfig's default raises.
 UNSUPPORTED_KEYS = {
-    "solver_mesh_node_shards": ("solver.mesh.node-shards", "ROADMAP A.6"),
-    "solver_scale_tier": ("solver.scale-tier", "ROADMAP A.6"),
     "jax_compilation_cache_dir": (
         "jax-compilation-cache-dir",
         "none: the port's kernels build into spark_scheduler_tpu_torch/_build/",
@@ -78,11 +77,7 @@ def unsupported_keys(config: InstallConfig) -> list[str]:
             else f.default
         )
         value = getattr(config, field)
-        if field == "solver_mesh_node_shards":
-            refused = (value or 1) > 1  # one node shard is the plain slot
-        else:
-            refused = value != default
-        if refused:
+        if value != default:
             out.append(
                 f"{key}: {value!r} is not supported by the port "
                 f"(default {default!r}; {where})"
@@ -288,9 +283,10 @@ def build_scheduler_app(
         demand_crd_watcher.on_ready(
             lambda: backend.subscribe("demands", on_update=_on_demand_update)
         )
-    # The window-solve device pool: `solver.mesh.groups` wins over the
-    # `solver.device-pool` shorthand when both are set (node-sharded slots
-    # are refused above). `pool_devices` names the slots' devices instead.
+    # The window-solve device pool: `solver.mesh {groups, node-shards}`
+    # wins over the `solver.device-pool` shorthand when both are set
+    # (node-shards > 1: mesh slots on the node-sharded engine).
+    # `pool_devices` names the flat device list instead (repeats allowed).
     mesh = None
     if config.solver_mesh_groups or config.solver_mesh_node_shards:
         mesh = (
@@ -319,6 +315,7 @@ def build_scheduler_app(
         use_native=use_native,
         build_oracle=config.solver_build_oracle,
         lazy_warm_start=config.solver_lazy_warm_start,
+        scale_tier=config.solver_scale_tier,
     )
     recorder = None
     if config.flight_recorder:

@@ -1445,3 +1445,162 @@ def test_resident_build_on_cuda_matches_cpu_under_churn(cuda_device, prune):
         h.app.stop()
     assert runs[0] == runs[1]
     assert stats[0]["dirty_rows"] == stats[1]["dirty_rows"]
+
+
+# ------------------------------------------- parallel across cards (§A.6)
+
+
+def _sharded_case(seed, n, mode):
+    """A cpu cluster (`_queue_case`'s) and a batch of 9 rows padded to 12
+    in `mode`: a zero-count gang first, gangs up to emax + 2 wide, per-row
+    masks (masked), segments of 3, 1, 2 and 3 rows (window)."""
+    from spark_scheduler_tpu_torch.ops.batched import make_app_batch
+
+    rng = np.random.default_rng(seed)
+    cluster, _ = _queue_case(rng, n, 1, "cpu")
+    b = 9
+    driver = rng.integers(1, 6, size=(b, 3)).astype(np.int32)
+    execs = rng.integers(1, 8, size=(b, 3)).astype(np.int32)
+    counts = rng.integers(0, 11, size=b).astype(np.int32)
+    counts[0] = 0
+    kw = dict(skippable=rng.random(b) < 0.3, pad_to=12)
+    if mode == "masked":
+        kw.update(driver_cand=rng.random((b, n)) < 0.7,
+                  domain=rng.random((b, n)) < 0.9)
+    if mode == "window":
+        reset, commit = np.zeros(b, bool), np.zeros(b, bool)
+        cand, dom = np.zeros((b, n), bool), np.zeros((b, n), bool)
+        r = 0
+        for seg in (3, 1, 2, 3):
+            reset[r], commit[r + seg - 1] = True, True
+            cand[r:r + seg] = rng.random(n) < 0.7
+            dom[r:r + seg] = rng.random(n) < 0.9
+            r += seg
+        kw.update(commit=commit, reset=reset, driver_cand=cand, domain=dom)
+    return cluster, make_app_batch(driver, execs, counts, **kw)
+
+
+@pytest.mark.parametrize("mode", ["queue", "masked", "window"])
+@pytest.mark.parametrize("fill", STRATEGIES)
+def test_node_sharded_engine_on_cuda_matches_unsharded(cuda_device, fill, mode):
+    """The node-sharded engine on 1, 2 and 4 shards of the card (one stream
+    each) against the unsharded engine on the card and the 4 cpu shards."""
+    from spark_scheduler_tpu_torch.ops.batched import batched_fifo_pack
+    from spark_scheduler_tpu_torch.parallel import (
+        node_sharded_fifo_pack,
+        shard_cluster,
+    )
+
+    for seed in (0, 1):
+        cluster, apps = _sharded_case(seed, 36, mode)
+        kw = dict(fill=fill, emax=8, num_zones=4)
+        cpu = node_sharded_fifo_pack(shard_cluster(["cpu"] * 4, cluster), apps, **kw)
+        card = cluster.__class__(*(f.to(cuda_device) for f in cluster.fields()))
+        want = batched_fifo_pack(card, apps, **kw)
+        for s in (1, 2, 4):
+            got = node_sharded_fifo_pack(
+                shard_cluster([cuda_device] * s, card), apps, **kw
+            )
+            for g, w, c in zip(got, want, cpu):
+                assert g.device == cuda_device
+                assert torch.equal(g, w) and torch.equal(g.cpu(), c), (s, seed)
+
+
+def test_node_sharded_engine_on_two_cards(cuda_device):
+    """The engine with its two shards on distinct cards (the cross-card
+    copies of the hand-offs) against the unsharded engine; needs two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the shards go on distinct cards")
+    from spark_scheduler_tpu_torch.ops.batched import batched_fifo_pack
+    from spark_scheduler_tpu_torch.parallel import (
+        node_sharded_fifo_pack,
+        shard_cluster,
+    )
+
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    for mode in ("queue", "masked", "window"):
+        for fill in STRATEGIES:
+            cluster, apps = _sharded_case(2, 36, mode)
+            kw = dict(fill=fill, emax=8, num_zones=4)
+            want = batched_fifo_pack(cluster, apps, **kw)
+            got = node_sharded_fifo_pack(shard_cluster(devs, cluster), apps, **kw)
+            for g, w in zip(got, want):
+                assert g.device == devs[0]
+                assert torch.equal(g.cpu(), w), (mode, fill)
+
+
+def test_group_sharded_queue_kernel_launches_once_a_device(cuda_device):
+    """Four groups on a (4, 1) groups mesh of the card: four launches of the
+    queue kernel, one a groups device, equal to the single launch."""
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
+    from spark_scheduler_tpu_torch.parallel import (
+        grouped_fifo_pack,
+        grouped_fifo_pack_auto,
+        make_solver_mesh,
+        stack_groups,
+    )
+    rng = np.random.default_rng(3)
+    cases = [_queue_case(rng, 300, 12, cuda_device) for _ in range(4)]
+    sc, sa = stack_groups([c for c, _ in cases], [a for _, a in cases])
+    kw = dict(fill="tightly-pack", emax=8, num_zones=4)
+    before = fifo_pack.launches
+    got = grouped_fifo_pack_auto(
+        make_solver_mesh(4, 1, devices=[cuda_device] * 4), sc, sa, **kw
+    )
+    assert fifo_pack.launches == before + 4
+    want = grouped_fifo_pack(sc, sa, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_mesh_slot_and_scale_tier_on_cuda_match_cpu(cuda_device):
+    """A one-slot 4-shard mesh on the card with a tight top-K and the scale
+    tier (tests/test_torch_scale_tier.py's world, 128 nodes): pruned windows
+    on the mesh, escalations re-solved node-sharded, every decision equal
+    to a cpu solver's."""
+    from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest
+    from spark_scheduler_tpu_torch.models.kube import ZONE_LABEL, Node
+    from spark_scheduler_tpu_torch.models.resources import Resources
+
+    nodes = [
+        Node(name=f"n{i:03d}",
+             allocatable=Resources.from_quantities("8", "8Gi", "1", round_up=False),
+             labels={ZONE_LABEL: f"z{i % 3}"})
+        for i in range(128)
+    ]
+    names = [n.name for n in nodes]
+    one = Resources.from_quantities("1", "1Gi")
+    rng = np.random.default_rng(9)
+    batches = []
+    for _ in range(3):
+        wins = []
+        for _ in range(2):
+            reqs = []
+            for _ in range(4):
+                rows = [(one, one, int(rng.integers(1, 3)), bool(rng.random() < 0.5))
+                        for _ in range(int(rng.integers(0, 3)))]
+                res = Resources.from_quantities("2", "2Gi") if rng.random() < 0.3 else one
+                rows.append((res, one, int(rng.integers(1, 4)), False))
+                reqs.append(WindowRequest(rows=rows, driver_candidate_names=names))
+            wins.append(reqs)
+        batches.append(wins)
+
+    def run(solver):
+        out = []
+        for wins in batches:
+            handles = [
+                solver.pack_window_dispatch(
+                    "tightly-pack", solver.build_tensors_pipelined(nodes, {}, {}), w)
+                for w in wins
+            ]
+            out.extend(d for h in handles for d in solver.pack_window_fetch(h))
+        return out
+
+    tight = dict(prune_top_k=1, prune_slack=0.01)
+    mesh = PlacementSolver(device=cuda_device, mesh=(1, 4), scale_tier=True,
+                           pool_devices=[cuda_device] * 4, **tight)
+    assert run(mesh) == run(PlacementSolver(device="cpu", **tight))
+    assert mesh.prune_stats["escalations"] > 0
+    st = mesh.scale_tier_stats
+    assert st["sharded"] > 0 and st["fallbacks"] == 0, st

@@ -514,3 +514,44 @@ def test_soak_engines_default_to_cuda():
         assert inspect.signature(engine).parameters["device"].default == (
             "cuda"
         ), engine
+
+
+PARALLEL = (
+    "spark_scheduler_tpu_torch.parallel.mesh",
+    "spark_scheduler_tpu_torch.parallel.node_shards",
+    "spark_scheduler_tpu_torch.parallel.solve",
+)
+
+
+def test_parallel_modules_run_with_jax_blocked():
+    """The mesh, the node-sharded engine and the grouped routes are the
+    port's own: with jax and the JAX package refused, each imports, and a
+    one-slot 4-shard mesh solver with the scale tier serves a window on
+    `cpu` shards."""
+    assert set(PARALLEL) <= set(_port_modules())
+    code = _BLOCKED_IMPORT.split("import spark_scheduler_tpu_torch as pkg")[0] + (
+        "import importlib\n"
+        f"for name in {PARALLEL!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from spark_scheduler_tpu_torch.core.solver import PlacementSolver, WindowRequest\n"
+        "from spark_scheduler_tpu_torch.models.kube import Node\n"
+        "from spark_scheduler_tpu_torch.models.resources import Resources\n"
+        "one = Resources.from_quantities('1', '1Gi')\n"
+        "nodes = [Node(name=f'n{i}', allocatable=Resources.from_quantities('8', '8Gi')) for i in range(8)]\n"
+        "names = [n.name for n in nodes]\n"
+        "reqs = [WindowRequest(rows=[(one, one, 2, False)], driver_candidate_names=names) for _ in range(3)]\n"
+        "s = PlacementSolver(device='cpu', mesh=(1, 4), scale_tier=True, pool_devices=['cpu'] * 4)\n"
+        "assert s._pool.slots[0].is_mesh\n"
+        "out = s.pack_window('tightly-pack', s.build_tensors_pipelined(nodes, {}, {}), reqs)\n"
+        "assert all(d.admitted for d in out) and s.window_path_counts == {'pool': 1}\n"
+        "leaked = [m for m in sys.modules\n"
+        "          if any(m == b or m.startswith(b + '.') for b in BLOCKED)]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -11,7 +11,8 @@ The four cases of tests/test_multi_device.py, each run on both packages:
     serves;
   - make_pool_slots clamps an oversized pool to the devices there are (the
     port's enumerator: one CPU device, every card), lays repeated devices
-    out as slots of their own, and refuses node-sharded slots naming §A.6.
+    out as slots of their own, and groups them into node-sharded mesh
+    slots (node shards beyond the devices raise, as in the JAX package).
 
 The JAX package's pool runs on the conftest's 8 virtual CPU devices, the
 port's on two slots of the CPU (`pool_devices=["cpu"] * 2`). Decisions and
@@ -221,11 +222,19 @@ def test_make_pool_slots_clamps_to_available_devices():
     pooled = PlacementSolver(device="cpu", pool_devices=["cpu"] * 3)
     assert pooled.pool_size == 3
     assert list(pooled.device_pool_stats()) == ["cpu/0", "cpu/1", "cpu/2"]
-    # Node-sharded slots are not ported.
-    with pytest.raises(NotImplementedError, match="A.6"):
+    # Node-sharded slots: node shards beyond the devices raise the JAX
+    # ValueError; on named devices each S entries are one mesh slot.
+    with pytest.raises(ValueError, match="exceeds the 1 available"):
         make_pool_slots(2, 4, devices=cpu)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="exceeds the 1 available"):
         PlacementSolver(device="cpu", mesh=(2, 2))
+    mesh_slots = make_pool_slots(2, 4, devices=["cpu"] * 8)
+    assert len(mesh_slots) == 2
+    assert all(s.shape == {"groups": 1, "nodes": 4} for s in mesh_slots)
+    meshed = PlacementSolver(device="cpu", mesh=(2, 4), pool_devices=["cpu"] * 8)
+    assert meshed.pool_size == 2
+    assert [s.is_mesh for s in meshed._pool.slots] == [True, True]
+    assert list(meshed.device_pool_stats()) == ["cpu:0-0/0", "cpu:0-0/1"]
     with pytest.raises(ValueError, match="solver's type"):
         PlacementSolver(device="cpu", pool_devices=["meta", "meta"])
     # The JAX package on its 8 virtual devices clamps the same way.

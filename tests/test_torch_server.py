@@ -596,11 +596,7 @@ def _unsupported_values():
     """A non-default value for every key the port refuses."""
     from spark_scheduler_tpu_torch.server.app import UNSUPPORTED_KEYS
 
-    values = {
-        "solver_mesh_node_shards": 2,
-        "solver_scale_tier": True,
-        "jax_compilation_cache_dir": "jax-cache",
-    }
+    values = {"jax_compilation_cache_dir": "jax-cache"}
     assert set(values) == set(UNSUPPORTED_KEYS)
     return [(f, v, UNSUPPORTED_KEYS[f][0]) for f, v in values.items()]
 
@@ -614,6 +610,81 @@ def test_unsupported_key_raises_naming_it(field, value, key):
     config = dataclasses.replace(InstallConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         build_scheduler_app(InMemoryBackend(), config, device="cpu")
+
+
+def _served_on_cpu_shards(root, shards=4, **cfg):
+    """`root`'s test Harness with install keys `cfg`; the port's app lays
+    its devices on `cpu` x `shards` (`build_scheduler_app`'s
+    `pool_devices=`), the JAX package's on its virtual devices."""
+    h_mod = _mod(root, "testing.harness")
+    h_mod._ts = itertools.count(1)
+    if root == JAX:
+        load_jax_native()
+        return h_mod.Harness(clock=lambda: NOW, **cfg)
+    import functools
+    from unittest import mock
+
+    build = functools.partial(
+        h_mod.build_scheduler_app, pool_devices=["cpu"] * shards
+    )
+    with mock.patch.object(h_mod, "build_scheduler_app", build):
+        return h_mod.Harness(clock=lambda: NOW, device="cpu", **cfg)
+
+
+def _resync_pod_uids():
+    """Pod uids come from a counter a package; the harness twins compare
+    reservations (owner uids included) and keep both counters in
+    lock-step. A test that makes one package's pods alone restarts both."""
+    for root in (JAX, PORT):
+        _mod(root, "models.kube")._uid_counter = itertools.count(1)
+
+
+def _serve_drivers(h, root, n_nodes=8, n_drivers=4):
+    h_mod = _mod(root, "testing.harness")
+    h.add_nodes(*[h_mod.new_node(f"n{i}") for i in range(n_nodes)])
+    names = [f"n{i}" for i in range(n_nodes)]
+    return [
+        canon(h.schedule(h_mod.static_allocation_spark_pods(f"f-{i}", 2)[0], names))
+        for i in range(n_drivers)
+    ]
+
+
+@pytest.mark.parametrize(
+    "key,cfg",
+    [
+        ("solver.mesh.node-shards",
+         {"solver_mesh_groups": 1, "solver_mesh_node_shards": 4}),
+        ("solver.scale-tier", {"solver_scale_tier": True}),
+    ],
+    ids=["solver.mesh.node-shards", "solver.scale-tier"],
+)
+def test_formerly_refused_key_is_served(key, cfg):
+    """The two keys the port refused until it had its node-sharded engine
+    (parallel/node_shards.py) build an app on `cpu` shards and serve
+    drivers as the JAX package and the port's plain app do."""
+    from spark_scheduler_tpu_torch.server.app import unsupported_keys
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+
+    assert unsupported_keys(InstallConfig(**cfg)) == []
+    kw = dict(binpack_algo="tightly-pack", **cfg)
+    h = _served_on_cpu_shards(PORT, **kw)
+    solver = h.app.solver
+    if "solver_mesh_node_shards" in cfg:
+        assert solver.pool_size == 1 and solver._pool.slots[0].is_mesh
+    else:
+        assert solver._scale_tier
+    got = _serve_drivers(h, PORT)
+    assert solver.window_path_counts, solver.window_path_counts
+    h.app.stop()
+    plain = _served_on_cpu_shards(PORT, binpack_algo="tightly-pack")
+    want = _serve_drivers(plain, PORT)
+    plain.app.stop()
+    jax_h = _served_on_cpu_shards(JAX, **kw)
+    jax_got = _serve_drivers(jax_h, JAX)
+    jax_h.app.stop()
+    _resync_pod_uids()
+    assert got == want == jax_got
+    assert all(d[0] for d in got)
 
 
 def test_build_oracle_and_lazy_warm_start_keys_are_served():
@@ -785,36 +856,58 @@ def test_served_key_builds_like_jax(field):
 
 
 def test_unsupported_yaml_keys_raise_from_from_dict():
+    """`jax-compilation-cache-dir` (no counterpart: the port's kernels build
+    into spark_scheduler_tpu_torch/_build/) is the one key YAML can still
+    set that the port refuses; the keys around it are served."""
     from spark_scheduler_tpu_torch.server.app import build_scheduler_app
     from spark_scheduler_tpu_torch.server.config import InstallConfig
     from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
 
-    raw = {"solver": {"scale-tier": True}, "fleet": {"enabled": True}}
+    raw = {"jax-compilation-cache-dir": "/var/cache/jax",
+           "solver": {"scale-tier": True}, "fleet": {"enabled": True}}
     with pytest.raises(NotImplementedError) as err:
         build_scheduler_app(
             InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
         )
-    assert "solver.scale-tier" in str(err.value)
-    assert "ROADMAP A.6" in str(err.value)
-    # fleet.* is served (fleet/facade.py builds one app per cluster): it
-    # is not among the refused keys.
+    assert "jax-compilation-cache-dir" in str(err.value)
+    assert "_build" in str(err.value)
+    # solver.scale-tier and fleet.* are served: not among the refused keys.
+    assert "scale-tier" not in str(err.value)
     assert "fleet" not in str(err.value)
 
 
 def test_node_sharded_mesh_still_raises_naming_a6():
-    """`solver.mesh` with one node shard builds a pool; two node shards
-    (the JAX package's node-sharded slots) still raise, naming §A.6."""
-    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    """Once refused naming ROADMAP §A.6, node-sharded `solver.mesh` slots
+    are served now: `{groups: 2, node-shards: 2}` from YAML builds two mesh
+    slots of two `cpu` shards each, and its drivers land as a pool-less
+    app's. One node shard still builds a plain pool (clamped to the one
+    CPU device)."""
+    from spark_scheduler_tpu_torch.server.app import (
+        build_scheduler_app,
+        unsupported_keys,
+    )
     from spark_scheduler_tpu_torch.server.config import InstallConfig
     from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
 
     raw = {"solver": {"mesh": {"groups": 2, "node-shards": 2}}}
-    with pytest.raises(NotImplementedError) as err:
-        build_scheduler_app(
-            InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
-        )
-    assert "solver.mesh.node-shards" in str(err.value)
-    assert "ROADMAP A.6" in str(err.value)
+    config = InstallConfig.from_dict(raw)
+    assert unsupported_keys(config) == []
+    assert (config.solver_mesh_groups, config.solver_mesh_node_shards) == (2, 2)
+    h = _served_on_cpu_shards(
+        PORT, binpack_algo="tightly-pack", solver_mesh_groups=2,
+        solver_mesh_node_shards=2,
+    )
+    slots = h.app.solver._pool.slots
+    assert [s.is_mesh for s in slots] == [True, True]
+    assert [s.label for s in slots] == ["cpu:0-0/0", "cpu:0-0/1"]
+    got = _serve_drivers(h, PORT)
+    assert h.app.solver.window_path_counts.get("pool", 0) >= 1
+    h.app.stop()
+    plain = _served_on_cpu_shards(PORT, binpack_algo="tightly-pack")
+    want = _serve_drivers(plain, PORT)
+    plain.app.stop()
+    _resync_pod_uids()
+    assert got == want
     one = {"solver": {"mesh": {"groups": 2, "node-shards": 1}},
            "server": {"degraded-mode": "shed"}}
     app = build_scheduler_app(
