@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. Build every CUDA source of the port with nvcc (one process per source,
      all at once) and, beside them, the port's native runtime
      (spark_scheduler_tpu_torch/native/runtime.cpp) with g++; launch the
-     probe kernel and check it, print the card.
+     probe kernel and check it, print the card. First, an app whose
+     `jax-compilation-cache-dir` is a fresh temporary directory builds the
+     native runtime and the probe's library there, and the probe launches
+     from that library.
   2. Kernel vs plain, small: the CUDA window kernel (`window_pack` on CUDA
      tensors, one thread-block cluster per segment) against its plain
      PyTorch version (`window_pack_reference`) on the same CUDA inputs, all
@@ -309,7 +312,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (the usage tracker the app attaches): a `cuda` solver on the arena
      with `solver.build-oracle`, a `cuda` solver on the dense Python build
      (`use_native=False`) and a `cpu` solver on the arena. 16 pipelined
-     windows of 32 drivers with churn between and under windows in flight:
+     windows of 16 drivers with churn between and under windows in flight:
      base-pod deletes (overhead rows), 4 node adds, a label and a zone
      update, and, after a drain, 2 idle nodes deleted with their pods,
      whose registry rows the later adds take. Every result, reservation
@@ -363,8 +366,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      shards of a `mesh=(1, 4)` slot: escalations, sharded re-solves, no
      fallback, equal to the tier off and a cpu run. (e) A `solver: {mesh: {groups: 1,
      node-shards: 4}, scale-tier: true}` app from YAML, 32 drivers from 4
-     clients, every body equal to a cpu replay. Its main-path launches
-     (the group-sharded route's five, the row walks and probes of (c)-(e))
+     clients, every body equal to a cpu replay. (f) (c)'s slot with (d)'s
+     tight top-k, the tier on and the greedy degraded policy, a
+     classified CudaDeviceFault(214) raised in every tier re-solve on the
+     tier's thread only: fallbacks, no resolve, no slot quarantined,
+     decisions equal to a cpu mesh run with the same injection and to the
+     tier-off row walk; after close() every future done and every slot's
+     in-flight count 0. (g) A child python3 dispatches a pooled mesh
+     window on the card, abandons it while its part solve runs and exits:
+     rc 0, no "terminate called". Its main-path launches (the
+     group-sharded route's five, the row walks and probes of (c)-(f))
      count; the comparisons do not.
 
 Prints the card, a {"kernels": [...]} line and, last, the result line.
@@ -5915,7 +5926,7 @@ def run_replay_phase(device, card, n_nodes=N_MAIN, n_drivers=P15_DRIVERS,
 # ------------------------------------------------------------ phase 16
 
 P16_WINDOWS = 16
-P16_WINDOW = 32
+P16_WINDOW = 16  # cut from 32: the cpu side held ~90 s of the 1,200 s limit
 P16_SYNC = 9  # the window before which the pipeline drains and 2 nodes go
 P16_BIG_WINDOWS = 8
 P16_BIG_WINDOW = 32
@@ -7144,13 +7155,189 @@ def p18_server(device, card, mesh_cards, n_drivers=P18_DRIVERS,
     return launches
 
 
+def p18_tier_fault(device, card, mesh_cards, n_nodes=N_MAIN):
+    """(f) A device fault in the scale tier's re-solve: (c)'s 10,000 nodes
+    on a 4-shard mesh slot with (d)'s tight top-k, the tier on and the
+    greedy degraded policy. The node-sharded engine raises a classified
+    CudaDeviceFault(214) on the tier's thread only (the mesh slot's own
+    part solves, on the solve pool's workers, run clean). Against the same
+    injection on a cpu mesh slot and the tier-off row walk on the card;
+    after close() no future of the solver runs and every slot's in-flight
+    count is 0. Returns the tier solver's launches."""
+    import threading
+
+    from spark_scheduler_tpu_torch.core import solver as sm
+    from spark_scheduler_tpu_torch.faults.degraded import DegradedModeController
+    from spark_scheduler_tpu_torch.faults.errors import CudaDeviceFault
+    from spark_scheduler_tpu_torch.ops.probe import probe_add_one
+    from spark_scheduler_tpu_torch.ops.window import window_pack
+
+    nodes, usage = main_cluster(seed=7, n=n_nodes)
+    names = [nd.name for nd in nodes]
+    rng = np.random.default_rng(89)
+    windows = [prune_window(rng, names, P18_WINDOW) for _ in range(P18_WINDOWS)]
+    top_k, slack = P18_TIGHT
+    devs = mesh_devices(device, 4, mesh_cards)
+    kw = dict(prune_top_k=top_k, prune_slack=slack)
+    real_tier = sm.PlacementSolver._scale_tier_decisions
+    real_engine = sm.node_sharded_fifo_pack
+    inside = threading.local()
+    faults = []
+
+    def tier(self, *a, **k):
+        inside.on = True
+        try:
+            return real_tier(self, *a, **k)
+        finally:
+            inside.on = False
+
+    def engine(*a, **k):
+        if getattr(inside, "on", False):
+            faults.append(threading.current_thread().name)
+            raise CudaDeviceFault(
+                214, "phase 18 (f): uncorrectable ECC error (injected)")
+        return real_engine(*a, **k)
+
+    def faulted(dev, pool):
+        solver = sm.PlacementSolver(device=dev, mesh=(1, 4), scale_tier=True,
+                                    pool_devices=pool, **kw)
+        solver.degraded = DegradedModeController(policy="greedy")
+        return solver
+
+    sm.PlacementSolver._scale_tier_decisions = tier
+    sm.node_sharded_fifo_pack = engine
+    try:
+        w0, p0 = window_pack.launches, probe_add_one.launches
+        t0 = time.perf_counter()
+        solver = faulted(device, devs)
+        got = p18_pairs(solver, nodes, usage, windows, 97)
+        tier_s = time.perf_counter() - t0
+        launches = {"window": window_pack.launches - w0,
+                    "probe": probe_add_one.launches - p0}
+        st, esc = dict(solver.scale_tier_stats), solver.prune_stats["escalations"]
+        card_faults, card_degraded = len(faults), solver.degraded.fallback_decisions
+        health = solver.device_health()
+        futures = list(solver._inflight_futures)
+        t0 = time.perf_counter()
+        solver.close()
+        close_ms = (time.perf_counter() - t0) * 1e3
+        inflight = [s.inflight for s in solver._pool.slots]
+        cpu_solver = faulted("cpu", ["cpu"] * 4)
+        cpu = p18_pairs(cpu_solver, nodes, usage, windows, 97)
+        cpu_st = dict(cpu_solver.scale_tier_stats)
+    finally:
+        sm.PlacementSolver._scale_tier_decisions = real_tier
+        sm.node_sharded_fifo_pack = real_engine
+    t0 = time.perf_counter()
+    off = p18_pairs(sm.PlacementSolver(device=device, mesh=(1, 4),
+                                       pool_devices=devs, **kw),
+                    nodes, usage, windows, 97)
+    off_s = time.perf_counter() - t0
+    window_pack.launches = w0 + launches["window"]
+    probe_add_one.launches = p0 + launches["probe"]
+    check(esc > 0 and st["fallbacks"] > 0 and st["resolves"] == 0
+          and st["sharded"] == 0,
+          f"phase 18 (f): escalations {esc}, scale tier {st}")
+    check(cpu_st["fallbacks"] > 0 and cpu_st["resolves"] == cpu_st["sharded"] == 0,
+          f"phase 18 (f): the cpu run's scale tier {cpu_st}")
+    check(card_faults >= st["fallbacks"] and card_degraded > 0,
+          f"phase 18 (f): {card_faults} injected faults, {card_degraded} "
+          f"greedy decisions")
+    check(set(faults) == {threading.current_thread().name},
+          f"phase 18 (f): the fault fired off the tier's thread: {set(faults)}")
+    check(not health["quarantined"],
+          f"phase 18 (f): a tier fault quarantined a slot: {health}")
+    check(all(f.done() for f in futures) and not solver._inflight_futures
+          and inflight == [0],
+          f"phase 18 (f): after close(): futures done "
+          f"{[f.done() for f in futures]}, left {len(solver._inflight_futures)}, "
+          f"in flight {inflight}")
+    check(got == cpu, "phase 18 (f): the decisions differ from the cpu run "
+                      "with the same injection")
+    check(got == off, "phase 18 (f): the decisions differ from the tier-off "
+                      "row walk")
+    admitted = sum(d.admitted for pair in got for w in pair for d in w)
+    print(f"phase 18 (f) ({card}): {len(nodes)} nodes, top-k {top_k}, slack "
+          f"{slack}, {P18_WINDOWS} windows of {P18_WINDOW} on a 4-shard mesh "
+          f"slot, a device fault in every tier re-solve: escalations {esc}, "
+          f"scale tier {st}, {card_degraded} greedy decisions, no slot "
+          f"quarantined; identical to the cpu run with the same injection "
+          f"and to the tier-off row walk, {admitted} admitted; close() "
+          f"{close_ms:.1f} ms, every future done, in flight {inflight}; "
+          f"{tier_s:.1f} s against {off_s:.1f} s with the tier off (host "
+          f"clock, builds included)", flush=True)
+    return launches
+
+
+# (g)'s child: it dispatches one pooled mesh window and exits with it
+# unfetched while the part solve, held in a CUDA wait after its decisions
+# were copied out, still runs on the solve pool's worker.
+P18_ABANDON_CHILD = """
+import sys, time
+sys.path.insert(0, {here!r})
+import numpy as np
+import torch
+import chip_smoke as c
+from spark_scheduler_tpu_torch.core.solver import PlacementSolver
+
+real_rows = PlacementSolver._blob_rows
+held = []
+
+
+def rows(*a, **k):
+    held.append(time.perf_counter())
+    torch.cuda._sleep(int(2e9))  # about a second of the card's clock
+    torch.cuda.synchronize()
+    return real_rows(*a, **k)
+
+
+PlacementSolver._blob_rows = staticmethod(rows)
+dev = torch.device("cuda", 0)
+nodes, usage = c.main_cluster(seed=7)
+names = [nd.name for nd in nodes]
+solver = PlacementSolver(device=dev, mesh=(1, 4), pool_devices=[dev] * 4)
+t = solver.build_tensors_pipelined(nodes, usage, {{}})
+window = c.prune_window(np.random.default_rng(101), names, c.P18_WINDOW)
+solver.pack_window_dispatch("tightly-pack", t, window)
+while not held:
+    time.sleep(0.001)
+print("abandoned", time.time(), flush=True)
+"""
+
+
+def p18_abandon(device, card):
+    """(g) A child python3 on the card dispatches a pooled mesh window,
+    abandons it and exits while its part solve runs: exit waits for the
+    part (core/device_pool.py PART_WAIT_S), so the child exits 0, with no
+    "terminate called" from a worker unwound inside a CUDA call."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", P18_ABANDON_CHILD.format(here=here)], cwd=here,
+        capture_output=True, text=True, timeout=300,
+    )
+    ended = time.time()
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and "terminate called" not in proc.stderr
+          and "abandoned" in proc.stdout,
+          f"phase 18 (g): the child exited {proc.returncode}: "
+          f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    exit_s = ended - float(proc.stdout.split("abandoned")[1].split()[0])
+    print(f"phase 18 (g) ({card}): a child abandoned a pooled mesh window "
+          f"on the card and exited 0, no 'terminate called'; exit took "
+          f"{exit_s:.2f} s after the abandon (host clock; the part held "
+          f"about 1 s of card time), the child {child_s:.1f} s in all",
+          flush=True)
+
+
 def run_mesh_phase(device, card, last, mesh_cards=False):
     """Phase 18: parallel across cards (ROADMAP §A.6) on the card: the
     node-sharded engine against the kernels (a), the group-sharded queue
-    kernel (b), serving on a mesh slot (c), the scale tier (d) and the app
-    from YAML (e). Shards go on `device`, repeated (one stream each), or
-    with `mesh_cards` on distinct cards. Returns the main path's launches
-    (row walk, probe, queue kernel)."""
+    kernel (b), serving on a mesh slot (c), the scale tier (d), the app
+    from YAML (e), a device fault in the tier's re-solve (f) and a pooled
+    window abandoned at exit (g). Shards go on `device`, repeated (one
+    stream each), or with `mesh_cards` on distinct cards. Returns the main
+    path's launches (row walk, probe, queue kernel)."""
     from spark_scheduler_tpu_torch.ops.fifo import fifo_pack
     from spark_scheduler_tpu_torch.ops.probe import probe_add_one
     from spark_scheduler_tpu_torch.ops.window import window_pack
@@ -7166,18 +7353,65 @@ def run_mesh_phase(device, card, last, mesh_cards=False):
     seconds["b"] = time.perf_counter() - t0
     out = {"window": 0, "probe": 0}
     for key, fn in (("c", p18_mesh_slot), ("d", p18_scale_tier),
-                    ("e", p18_server)):
+                    ("e", p18_server), ("f", p18_tier_fault)):
         t0 = time.perf_counter()
         got = fn(device, card, mesh_cards)
         seconds[key] = time.perf_counter() - t0
         for k in out:
             out[k] += got[k]
+    t0 = time.perf_counter()
+    p18_abandon(device, card)
+    seconds["g"] = time.perf_counter() - t0
     out["queue"] = queue
     print(f"phase 18 seconds: " + ", ".join(
         f"({k}) {v:.1f}" for k, v in seconds.items())
         + f"; main-path launches: row walk {out['window']}, probe "
         f"{out['probe']}, queue kernel {queue} ({card})", flush=True)
     return out
+
+
+def build_into_cache_dir(device) -> float:
+    """Phase 1's install-key step: an app whose `jax-compilation-cache-dir`
+    is a fresh temporary directory builds the native runtime (g++) and the
+    probe's library (nvcc) there, and the probe launches from that library
+    (ops/_build.py `use_build_dir`). The build directory then returns to
+    the package's; the loaded libraries stay loaded. Returns the seconds."""
+    import shutil
+    import tempfile
+
+    from spark_scheduler_tpu_torch import native
+    from spark_scheduler_tpu_torch.ops import _build
+    from spark_scheduler_tpu_torch.ops.probe import PROBE_SHAPE, probe_add_one
+    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
+    from spark_scheduler_tpu_torch.server.config import InstallConfig
+    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
+    import torch
+
+    t0 = time.perf_counter()
+    cache = tempfile.mkdtemp(prefix="chip-smoke-build-")
+    try:
+        check("probe" not in _build._loaded and native._lib is None,
+              "phase 1: a library was loaded before the cache-dir step")
+        app = build_scheduler_app(
+            InMemoryBackend(), InstallConfig(jax_compilation_cache_dir=cache),
+            device=device)
+        try:
+            x = torch.zeros(PROBE_SHAPE, dtype=torch.int32, device=device)
+            ok = bool((probe_add_one(x) == 1).all())
+            built = sorted(os.listdir(cache))
+            probe_path = _build.library_path("probe")
+            check(ok and probe_path.parent == _build.Path(cache).resolve()
+                  and probe_path.name in built
+                  and native.library_path().name in built
+                  and _build._loaded["probe"]._name == str(probe_path),
+                  f"phase 1: the cache dir {cache} holds {built}; the probe "
+                  f"loaded from {_build._loaded['probe']._name}, ok {ok}")
+        finally:
+            app.stop()
+    finally:
+        _build.use_build_dir(_build.DEFAULT_BUILD_DIR)
+        shutil.rmtree(cache, ignore_errors=True)
+    return time.perf_counter() - t0
 
 
 def main(mesh_cards: bool = False) -> int:
@@ -7203,6 +7437,8 @@ def main(mesh_cards: bool = False) -> int:
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
 
+    cache_s = build_into_cache_dir(device)
+
     t0 = time.perf_counter()
     # The native runtime (g++) builds beside the CUDA sources (nvcc); a
     # failure of either raises.
@@ -7226,6 +7462,9 @@ def main(mesh_cards: bool = False) -> int:
     card = card_line()
     print(f"phase 1: probe ok on {torch.cuda.get_device_name(0)}; "
           f"card: {card}", flush=True)
+    print(f"phase 1: an app with jax-compilation-cache-dir built the native "
+          f"runtime and the probe's library into its directory and launched "
+          f"the probe from it in {cache_s:.2f} s ({card})", flush=True)
 
     worst_small = compare_small(device)
     worst_queue = compare_queue_small(device)

@@ -5,6 +5,7 @@
       [--kube-api-url URL|in-cluster] [--durable-store WAL]
       [--ha-replica ID [--ha-lease-ttl SECONDS]] [--autoscaler]
       [--device-pool N | --mesh GROUPSxSHARDS] [--scale-tier]
+      [--fleet-stack MS]
   python -m spark_scheduler_tpu_torch print-crds [--conversion-webhook-url URL]
   python -m spark_scheduler_tpu_torch conversion-webhook [--port N]
   python -m spark_scheduler_tpu_torch version
@@ -19,17 +20,16 @@ autoscaler (`--autoscaler`), and the multi-cluster fleet (`fleet.enabled`:
 F private in-memory cluster stacks behind this endpoint, cluster 0
 doubling as the local app; refused with HA, a durable store or an
 apiserver backend, as in the JAX package). The server solves on the current
-CUDA card and raises without one; an install key the port cannot serve yet
-raises NotImplementedError (server/app.py), and `--ingest native` builds
-the port's native library or raises. With a durable store or an apiserver
+CUDA card and raises without one, and `--ingest native` builds the port's
+native library or raises. With a durable store or an apiserver
 the server waits for the watch caches to sync, reconciles (or runs one
 election tick as an HA replica), and only then serves. The multi-device
 flags are the JAX package's: `--device-pool N`, `--mesh GROUPSxSHARDS`
 (SHARDS > 1: node-sharded mesh slots over the cards, parallel/mesh.py)
-and `--scale-tier` (node-sharded escalation re-solves). Only
-`--fleet-stack` is not ported: the server solves on the card, where
-`fleet.stack-window-ms` is accepted but inert (the row walk serves every
-window; fleet/facade.py).
+and `--scale-tier` (node-sharded escalation re-solves). `--fleet-stack MS`
+sets `fleet.stack-window-ms` as in the JAX CLI; the server solves on the
+card, where the setting is inert (the row walk serves every window;
+fleet/facade.py). Every flag of the JAX CLI is served.
 """
 
 from __future__ import annotations
@@ -175,6 +175,17 @@ def main(argv=None) -> int:
         "Demand CRDs, provision simulated nodes, drain idle ones "
         "(see the install config's `autoscaler:` block for knobs)",
     )
+    srv.add_argument(
+        "--fleet-stack",
+        type=float,
+        default=None,
+        metavar="MS",
+        help="fused fleet dispatch gather window in milliseconds "
+        "(fleet.stack-window-ms): concurrent per-cluster windows stack "
+        "into one dispatch (fleet/dispatch.py); 0 disables; requires "
+        "fleet.enabled with >= 2 clusters to have any effect, and on the "
+        "card, where the row walk serves every window, it is inert",
+    )
     pc = sub.add_parser(
         "print-crds",
         help="emit the CustomResourceDefinition manifests as YAML "
@@ -274,6 +285,8 @@ def main(argv=None) -> int:
         config.ha_replica_id = args.ha_replica
     if args.ha_lease_ttl is not None:
         config.ha_lease_ttl_s = args.ha_lease_ttl
+    if args.fleet_stack is not None:
+        config.fleet_stack_window_ms = args.fleet_stack
     if args.transport is not None:
         config.server_transport = args.transport
     if args.ingest is not None:

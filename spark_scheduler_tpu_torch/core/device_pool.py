@@ -22,8 +22,10 @@ reads it.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import threading
+from concurrent.futures import Future, wait
 
 import numpy as np
 import torch
@@ -33,11 +35,25 @@ from spark_scheduler_tpu_torch.models.cluster import FIELD_DTYPES, cluster_stati
 from spark_scheduler_tpu_torch.parallel.node_shards import shard_fields
 
 
+# The longest interpreter exit, `PlacementSolver.close()` and
+# `discard_pipeline()` wait for part solves still running. A window's part
+# solve takes milliseconds on the card and well under a second at the CPU
+# tests' sizes; a solve still running after 10 s is taken as stuck on a
+# dead device, and the waiter goes on without it.
+PART_WAIT_S = 10.0
+
+
 class _DaemonFetchPool:
     """Minimal worker pool with DAEMON threads: a solve stuck on a dead
     device must never block interpreter exit, which ThreadPoolExecutor's
     non-daemon workers (joined by its atexit hook) would. Futures are
     concurrent.futures.Future.
+
+    At interpreter exit (`wait_at_exit`, an atexit hook) the pool cancels
+    the solves still queued and waits up to PART_WAIT_S for the running
+    ones: the interpreter ends a daemon thread that is still inside a torch
+    op with a forced unwind through C++ frames, which aborts the process
+    ("terminate called without an active exception").
 
     ONE pool is shared by every solver in the process
     (`shared_solve_pool`): workers run stateless solves, and a pool per
@@ -50,8 +66,11 @@ class _DaemonFetchPool:
         self._q: "_queue.Queue" = _queue.Queue()
         self._name = name
         self._threads: list = []
+        # Submitted futures a worker has not finished with yet.
+        self._live: set = set()
         for _ in range(workers):
             self._spawn_worker()
+        atexit.register(self.wait_at_exit)
 
     def _spawn_worker(self) -> None:
         t = threading.Thread(
@@ -70,23 +89,33 @@ class _DaemonFetchPool:
     def _run(self) -> None:
         while True:
             fut, fn = self._q.get()
-            if not fut.set_running_or_notify_cancel():
-                continue
             try:
-                fut.set_result(fn())
-            except BaseException as exc:  # delivered via future.result()
-                fut.set_exception(exc)
-                if isinstance(exc, KeyboardInterrupt):
-                    import _thread
+                if not fut.set_running_or_notify_cancel():
+                    continue
+                try:
+                    fut.set_result(fn())
+                except BaseException as exc:  # delivered via future.result()
+                    fut.set_exception(exc)
+                    if isinstance(exc, KeyboardInterrupt):
+                        import _thread
 
-                    _thread.interrupt_main()
+                        _thread.interrupt_main()
+            finally:
+                self._live.discard(fut)
 
     def submit(self, fn, *args):
-        from concurrent.futures import Future
-
         fut: Future = Future()
+        self._live.add(fut)
         self._q.put((fut, lambda: fn(*args)))
         return fut
+
+    def wait_at_exit(self) -> None:
+        """Cancel the queued solves and wait up to PART_WAIT_S for the
+        running ones to end."""
+        live = list(self._live)
+        for fut in live:
+            fut.cancel()
+        wait(live, timeout=PART_WAIT_S)
 
 
 _solve_pool: "_DaemonFetchPool | None" = None
@@ -104,6 +133,13 @@ def shared_solve_pool(min_workers: int = 2) -> _DaemonFetchPool:
         else:
             _solve_pool.ensure_workers(min_workers)
         return _solve_pool
+
+
+def on_solve_worker() -> bool:
+    """True on a worker of the shared solve pool, where a wait for a pool
+    future could wait for itself."""
+    pool = _solve_pool
+    return pool is not None and threading.current_thread() in pool._threads
 
 
 class PoolSlot:
@@ -276,7 +312,20 @@ class PoolSlot:
         """Drop every resident device buffer (close()/discard_pipeline()/
         quarantine). In-flight accounting resets too: a release goes with
         dropping the pipeline, and a discarded window's parts are never
-        fetched."""
+        fetched. On a card each dropped tensor is first recorded on the
+        slot's streams, so the caching allocator hands its memory out only
+        once those streams have passed the work queued on them by then (a
+        part solve that outlived its waiter still reads it)."""
+        streams = [
+            s for s in (self.stream, *(self.shard_streams or ())) if s is not None
+        ]
+        if streams:
+            held = [self.statics, self.avail]
+            held.extend(st for _epoch, st in self.sub_statics.values())
+            for t in _tensors(held):
+                for stream in streams:
+                    if t.device == stream.device:
+                        t.record_stream(stream)
         self.statics = None
         self.statics_epoch = -1
         self.sub_statics.clear()
@@ -284,6 +333,15 @@ class PoolSlot:
         self.avail_epoch = -1
         self.avail_token = None
         self.inflight = 0
+
+
+def _tensors(obj):
+    """The tensors in nested tuples and lists."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _tensors(x)
 
 
 def slot_labels(devices) -> list[str]:

@@ -56,7 +56,7 @@ import threading
 import time
 import weakref
 from collections import OrderedDict
-from concurrent.futures import Future
+from concurrent.futures import Future, wait
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -64,9 +64,11 @@ import torch
 
 from spark_scheduler_tpu_torch import native
 from spark_scheduler_tpu_torch.core.device_pool import (
+    PART_WAIT_S,
     DevicePool,
     PendingBase,
     WindowPart,
+    on_solve_worker,
     shared_solve_pool,
 )
 from spark_scheduler_tpu_torch.core.prune import (
@@ -671,9 +673,10 @@ class PlacementSolver:
         self._fallback = None
         self.redispatch_count = 0
         self._clock = time.time
-        # Pool worker futures in flight, cancelled (if not started) by
-        # close(); after close() a dispatch fails fast.
-        self._inflight_futures: set = set()
+        # Pool worker futures in flight -> their slots: cancelled (if not
+        # started) and awaited by close(), awaited by discard_pipeline();
+        # after close() a dispatch fails fast.
+        self._inflight_futures: dict = {}
         self._closed = False
         # Statics-epoch journal: epoch -> rows a static row delta changed.
         # A pool slot E epochs behind scatters the union of those rows; a
@@ -1773,24 +1776,30 @@ class PlacementSolver:
     def close(self) -> None:
         """Release the pipelined device state (the app's shutdown): cancel
         the pool's queued part solves of this solver (the shared workers
-        stay up for other solvers), drop the pipeline, the gathered
-        statics, fused buffers and every slot's resident replicas. A
-        dispatch after close() raises. On one device a dispatch's decision
-        copy is queued on the card's stream: there is nothing to cancel."""
+        stay up for other solvers) and wait for its running ones
+        (`_await_inflight`), drop the pipeline, the gathered statics, fused
+        buffers and every slot's resident replicas. A dispatch after
+        close() raises. On one device a dispatch's decision copy is queued
+        on the card's stream: there is nothing to cancel. A running part
+        that failed with an error no device fault explains raises here,
+        once the state is released."""
         self._closed = True
         for fut in list(self._inflight_futures):
             fut.cancel()
-        self._inflight_futures.clear()
-        self._pipe = None
-        self._dev = None
-        with self._build_lock:
-            self._snap_res = None  # the resident host buffers
-            self._avail_undo.clear()
-        self._poisoned.clear()
-        self._prune_gather_cache.clear()  # release the gathered statics
-        self._release_fused()
-        self._release_pool()
-        self._note_inflight()
+        try:
+            self._await_inflight()
+        finally:
+            self._inflight_futures.clear()
+            self._pipe = None
+            self._dev = None
+            with self._build_lock:
+                self._snap_res = None  # the resident host buffers
+                self._avail_undo.clear()
+            self._poisoned.clear()
+            self._prune_gather_cache.clear()  # release the gathered statics
+            self._release_fused()
+            self._release_pool()
+            self._note_inflight()
 
     def discard_pipeline(self) -> None:
         """Drop the pipelined device state: the next build_tensors_pipelined
@@ -1798,15 +1807,70 @@ class PlacementSolver:
         decisions are being discarded (capacity changed under them) — the
         host view is the durable truth once every surviving window has
         applied. Fused batches in flight release their decision buffers:
-        their decisions are discarded with the pipeline."""
-        self._pipe = None
-        self._poisoned.clear()
-        self._prune_gather_cache.clear()  # release the gathered statics
-        self._release_fused()
-        self._release_pool()
-        self._note_inflight()
-        if self.telemetry is not None:
-            self.telemetry.on_pipeline_event("discard")
+        their decisions are discarded with the pipeline, and the pooled
+        part solves still running end first (`_await_inflight`: the wait
+        runs where a window's fetch would wait, in its completion; no part
+        solve takes the build lock or the trace order lock)."""
+        try:
+            self._await_inflight()
+        finally:
+            self._pipe = None
+            self._poisoned.clear()
+            self._prune_gather_cache.clear()  # release the gathered statics
+            self._release_fused()
+            self._release_pool()
+            self._note_inflight()
+            if self.telemetry is not None:
+                self.telemetry.on_pipeline_event("discard")
+
+    def _await_inflight(self) -> None:
+        """Wait, up to PART_WAIT_S, for this solver's part solves still on
+        the shared pool (`_await_parts`); a solve still running then is
+        taken as stuck on a dead device and logged, and the slot's buffers
+        it reads stay allocated on its stream (PoolSlot.release)."""
+        stuck = self._await_parts(
+            list(self._inflight_futures.items()), timeout=PART_WAIT_S
+        )
+        if stuck:
+            from spark_scheduler_tpu_torch.tracing import svc1log
+
+            svc1log().warn(
+                "part solve still running after the wait",
+                devices=sorted({slot.label for _f, slot in stuck}),
+                wait_s=PART_WAIT_S,
+            )
+
+    def _await_parts(self, parts, timeout=None) -> list:
+        """Wait for pooled part solves [(future, slot)] that a route ends
+        or abandons: each part that ended releases its slot's in-flight
+        count, a classified device fault quarantines its slot, and once
+        every part has ended (or `timeout` passed) the first other failure
+        raises. A cancelled part only releases its count. Returns the
+        [(future, slot)] still running at `timeout`. Never on a worker of
+        the shared pool, where it could wait for itself, and never under
+        the build lock."""
+        if not parts:
+            return []
+        if on_solve_worker():
+            raise RuntimeError("a part solve is awaited on a worker of its pool")
+        pending = wait([f for f, _slot in parts], timeout=timeout).not_done
+        failure = None
+        for fut, slot in parts:
+            if fut in pending:
+                continue
+            if not fut.cancelled():
+                exc = fut.exception()
+                if exc is not None:
+                    if classify_slot_failure(exc):
+                        self._quarantine_slot(slot, exc)
+                    elif failure is None:
+                        failure = exc
+            slot.inflight = max(0, slot.inflight - 1)
+            if self.telemetry is not None:
+                self.telemetry.on_device_inflight(slot.label, slot.inflight)
+        if failure is not None:
+            raise failure
+        return [(f, slot) for f, slot in parts if f in pending]
 
     def _release_fused(self) -> None:
         for h in list(self._fused_owners):
@@ -3820,8 +3884,10 @@ class PlacementSolver:
                     af.cancel()
 
             fut.add_done_callback(propagate_cancel)
-            self._inflight_futures.add(fut)
-            fut.add_done_callback(self._inflight_futures.discard)
+            self._inflight_futures[fut] = slot
+            fut.add_done_callback(
+                lambda f: self._inflight_futures.pop(f, None)
+            )
             for r in req_ids:
                 request_device[r] = slot.label
             return WindowPart(
@@ -3877,16 +3943,15 @@ class PlacementSolver:
                     p, np.concatenate([pt.idx for pt in parts])
                 )
         except Exception as exc:
-            if not classify_slot_failure(exc):
-                raise
-            # A device boundary failed on the dispatcher thread: the parts
-            # already submitted are cancelled and the window is served per
-            # the degraded policy.
+            # The parts already submitted are cancelled, or end, and release
+            # their slots before the dispatch fails.
             for part in parts:
                 part.future.cancel()
-                part.slot.inflight = max(0, part.slot.inflight - 1)
-                if tel is not None:
-                    tel.on_device_inflight(part.slot.label, part.slot.inflight)
+            self._await_parts([(pt.future, pt.slot) for pt in parts])
+            if not classify_slot_failure(exc):
+                raise
+            # A device boundary failed on the dispatcher thread: the window
+            # is served per the degraded policy.
             return self._device_failed_at_dispatch(
                 exc, strategy, tensors, rows, p
             )
@@ -4032,22 +4097,20 @@ class PlacementSolver:
             if self.degraded is not None:
                 self.degraded.on_fallback_decision(len(part.requests))
 
-        def release(parts) -> None:
-            for pt in parts:
-                pt.slot.inflight = max(0, pt.slot.inflight - 1)
-                if tel is not None:
-                    tel.on_device_inflight(pt.slot.label, pt.slot.inflight)
+        def release(part) -> None:
+            part.slot.inflight = max(0, part.slot.inflight - 1)
+            if tel is not None:
+                tel.on_device_inflight(part.slot.label, part.slot.inflight)
 
-        for part_i, part in enumerate(handle.parts):
+        def fetch_part(part) -> None:
             try:
                 out = part.future.result()
             except Exception as exc:
-                release([part])
+                release(part)
                 if not classify_slot_failure(exc):
                     # The base embodies unknowable placements: the pipeline
-                    # drops; the later parts release their slots here.
+                    # drops.
                     self._drop_pipeline("fetch-failure")
-                    release(handle.parts[part_i + 1:])
                     raise
                 # Slot-failure recovery: quarantine the slot (its resident
                 # state is unreachable and the base it fed is poisoned),
@@ -4055,16 +4118,12 @@ class PlacementSolver:
                 # reconstruction.
                 self._drop_pipeline("fetch-failure")
                 self._quarantine_slot(part.slot, exc)
-                try:
-                    out = self._redispatch_part(handle, part, dense_base())
-                except Exception:
-                    release(handle.parts[part_i + 1:])
-                    raise
+                out = self._redispatch_part(handle, part, dense_base())
                 if out is None:
                     greedy(part)
-                    continue
+                    return
             else:
-                release([part])
+                release(part)
             blob = out["blob"]
             if tel is not None:
                 tel.on_transfer("d2h", blob.nbytes)
@@ -4078,13 +4137,13 @@ class PlacementSolver:
                 reconstruct(
                     part, blob, dense_base(), handle.host_schedulable, None, True
                 )
-                continue
+                return
             gmap = part.idx
             sched_loc = np.asarray(handle.host_schedulable)[gmap]
             if part.prune is None:
                 bk = _debit_rows(part.base_kept.copy(), gmap, lp_rows, lp_vals)
                 reconstruct(part, blob, bk, sched_loc, gmap, False)
-                continue
+                return
             # A pruned part: its certificate, in its own row space.
             if "ps" not in strict:
                 strict["ps"] = self._collect_priors(handle, strict=True)
@@ -4104,7 +4163,7 @@ class PlacementSolver:
                 if res is None:
                     greedy(part)
                     self._note_prune_escalation(handle, reason)
-                    continue
+                    return
                 full_blob, segments, nbytes = res
                 reconstruct(
                     part, full_blob, dense_base(), handle.host_schedulable,
@@ -4117,8 +4176,20 @@ class PlacementSolver:
                         "d2h": nbytes,
                     }
                 self._note_prune_escalation(handle, reason)
-                continue
+                return
             reconstruct(part, blob, base_loc, sched_loc, gmap, False)
+
+        for part_i, part in enumerate(handle.parts):
+            try:
+                fetch_part(part)
+            except BaseException:
+                # Whatever ends the fetch (a shed, a fault with no
+                # controller, an error no device fault explains), the parts
+                # not reached yet end and release their slots first.
+                self._await_parts(
+                    [(pt.future, pt.slot) for pt in handle.parts[part_i + 1:]]
+                )
+                raise
         out = []
         for w, (lo, hi) in enumerate(bounds):
             if win_rows[w]:
@@ -4339,12 +4410,12 @@ class PlacementSolver:
             raise RuntimeError("window dispatch was discarded")
         if handle.greedy:
             if handle.resolved is None:
+                if handle.parts is not None:
+                    self._drain_parts(handle)
                 handle.resolved = self._fetch_fallback(handle, bounds)
             return handle.resolved
         if handle.use_fallback:
             if handle.resolved is None:
-                if handle.parts is not None:
-                    self._drain_parts(handle)
                 handle.resolved = self._resolve_full(handle, bounds)
             return handle.resolved
         if handle.parts is not None:
@@ -4380,24 +4451,13 @@ class PlacementSolver:
         return out
 
     def _drain_parts(self, handle: WindowHandle) -> None:
-        """A pooled dispatch whose carry an escalation dropped re-solves in
-        full; its part solves are discarded, but each runs to its end first
-        (a solve left running on a worker could outlive the process) and
-        releases its slot. A part that died of a classified device fault
-        quarantines its slot; any other failure raises."""
-        for part in handle.parts:
-            try:
-                part.future.result()
-            except Exception as exc:
-                if not classify_slot_failure(exc):
-                    raise
-                self._quarantine_slot(part.slot, exc)
-            part.slot.inflight = max(0, part.slot.inflight - 1)
-            if self.telemetry is not None:
-                self.telemetry.on_device_inflight(
-                    part.slot.label, part.slot.inflight
-                )
-        handle.parts = None
+        """A pooled dispatch answered another way (re-solved in full, or on
+        the host greedy) discards its part solves, but each runs to its end
+        first (a solve left running on a worker could outlive the process)
+        and releases its slot (`_await_parts`: a classified device fault
+        quarantines the slot; any other failure raises)."""
+        parts, handle.parts = handle.parts, None
+        self._await_parts([(pt.future, pt.slot) for pt in parts])
 
     def _windows_from_blob(
         self, handle, bounds, blob, base, host_schedulable, row_map=None
@@ -4520,7 +4580,10 @@ class PlacementSolver:
         masks, through `_escalation_decisions` (the row walk on the
         solver's device, or the scale tier's node-sharded solve). The same
         solve an unpruned dispatch on that base runs, so the decisions are
-        those of the unpruned path."""
+        those of the unpruned path. A pooled dispatch's part solves end
+        first (`_drain_parts`), whichever way the re-solve then answers."""
+        if handle.parts is not None:
+            self._drain_parts(handle)
         base = self._dense_base(handle)
         res = self._escalation_decisions(
             handle.strategy, handle.host_tensors, base, handle.window_rows

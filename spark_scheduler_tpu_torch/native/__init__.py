@@ -19,7 +19,8 @@ source, `native/runtime.cpp` beside this file. Exposes:
 
 The library is compiled at first use with `g++ -O2 -std=c++17 -fPIC
 -shared` (`$CXX` overrides the compiler) into
-`spark_scheduler_tpu_torch/_build/libsched_runtime-<digest>.so`, named by a
+`BUILD_DIR/libsched_runtime-<digest>.so` (`spark_scheduler_tpu_torch/_build/`,
+or the directory `ops/_build.use_build_dir` sets), named by a
 hash of the flags and the source, as ops/_build.py names the CUDA kernels:
 the compiler writes a `.<pid>.tmp` file that `os.replace` moves into place,
 so test workers building at once never load a half-written library. A

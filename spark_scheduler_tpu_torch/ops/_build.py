@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes its own shared library with a plain C
-interface, compiled for Hopper (sm_90a) into `spark_scheduler_tpu_torch/_build/`
-at first use. The file name carries a hash of the flags, the source and every
+interface, compiled for Hopper (sm_90a) into `BUILD_DIR` at first use:
+`spark_scheduler_tpu_torch/_build/`, or the directory the install key
+`jax-compilation-cache-dir` names (`use_build_dir`). The file name carries a hash of the flags, the source and every
 header in `csrc/`, so an edited source builds anew and a stale library is
 never loaded. `build_all()` starts one nvcc per source, all at once.
 """
@@ -14,13 +15,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+# Where libraries build and load from; native/__init__.py keeps a copy
+# (`use_build_dir` sets both).
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("probe", "window_kernel", "fifo_kernel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,6 +54,25 @@ def build_totals() -> dict:
     """{"count", "seconds"}: libraries compiled by this process so far."""
     with _totals_lock:
         return dict(_totals)
+
+
+def use_build_dir(path) -> Path:
+    """Build the CUDA kernels and the native runtime into `path`, and load
+    them from there, from now on: the port's counterpart of the JAX
+    package's persistent compilation cache (`jax-compilation-cache-dir`).
+    Builds stay atomic (a `.<pid>.tmp` file, then `os.replace`), so
+    replicas may share the directory. Libraries this process has already
+    loaded stay loaded. Raises OSError when `path` cannot be created or
+    written."""
+    global BUILD_DIR
+    from spark_scheduler_tpu_torch import native
+
+    d = Path(path).expanduser().resolve()
+    d.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryFile(dir=d):
+        pass
+    BUILD_DIR = native.BUILD_DIR = d
+    return d
 
 
 def nvcc_path() -> str:

@@ -9,10 +9,13 @@ the HTTP server (async write-back, background loops).
 
 The port's copy of spark_scheduler_tpu/server/app.py. The wiring is the
 JAX package's, line for line, for every option the port supports. The
-solver runs on the card unless the caller passes `device="cpu"`. An
-install key the port cannot serve yet raises NotImplementedError up front,
-naming the key and the ROADMAP item that ports it (`unsupported_keys`):
-`build_scheduler_app` never degrades quietly. With `kube_api_url` set the
+solver runs on the card unless the caller passes `device="cpu"`. The port
+serves every install key of the JAX package; a key it could not serve
+would raise NotImplementedError up front, naming the key
+(`unsupported_keys`): `build_scheduler_app` never degrades quietly.
+`jax-compilation-cache-dir` names the directory the port's CUDA kernels
+and native runtime build into and load from (ops/_build.py
+`use_build_dir`), applied before anything loads one. With `kube_api_url` set the
 app carries a `KubeIngestion` (node and pod reflectors, or the in-cluster
 serviceaccount variant) that `start_background` starts first. With the
 flight recorder on (the default) the solver carries SolverTelemetry, as in
@@ -46,6 +49,7 @@ from spark_scheduler_tpu_torch.core.soft_reservations import SoftReservationStor
 from spark_scheduler_tpu_torch.core.sparkpods import SparkPodLister
 from spark_scheduler_tpu_torch.core.unschedulable import UnschedulablePodMarker
 from spark_scheduler_tpu_torch.core.usage_tracker import ReservedUsageTracker
+from spark_scheduler_tpu_torch.ops._build import use_build_dir
 from spark_scheduler_tpu_torch.server.config import InstallConfig
 from spark_scheduler_tpu_torch.store.backend import ClusterBackend, DEMAND_CRD
 from spark_scheduler_tpu_torch.store.cache import ResourceReservationCache, SafeDemandCache
@@ -56,13 +60,9 @@ from spark_scheduler_tpu_torch.store.crd import (
 
 
 # Install keys the port cannot serve yet: field -> (YAML key, where it is
-# ported). A field that differs from InstallConfig's default raises.
-UNSUPPORTED_KEYS = {
-    "jax_compilation_cache_dir": (
-        "jax-compilation-cache-dir",
-        "none: the port's kernels build into spark_scheduler_tpu_torch/_build/",
-    ),
-}
+# ported). A field that differs from InstallConfig's default raises. The
+# port serves every key of the JAX package.
+UNSUPPORTED_KEYS: dict = {}
 
 
 def unsupported_keys(config: InstallConfig) -> list[str]:
@@ -176,6 +176,18 @@ def build_scheduler_app(
     refused = unsupported_keys(config)
     if refused:
         raise NotImplementedError("; ".join(refused))
+    if config.jax_compilation_cache_dir:
+        # Before anything loads a kernel or the native runtime. A
+        # RuntimeError, never an OSError: the fault classifier counts
+        # OSError as a device fault.
+        try:
+            use_build_dir(config.jax_compilation_cache_dir)
+        except OSError as exc:
+            raise RuntimeError(
+                "jax-compilation-cache-dir: "
+                f"{config.jax_compilation_cache_dir!r} cannot hold the "
+                f"port's compiled libraries: {exc}"
+            ) from exc
 
     # The scheduler owns its reservation CRD: create-or-upgrade + verify
     # Established before anything consumes it (cmd/server.go:103-109); the

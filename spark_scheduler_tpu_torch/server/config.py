@@ -1,9 +1,10 @@
 """Install-time configuration (config/config.go:24-84).
 
 The port's copy of spark_scheduler_tpu/server/config.py without the JAX
-compilation-cache helpers. Every key parses as it does there; the keys the
-port cannot serve yet are refused by `server.app.build_scheduler_app`
-(`unsupported_keys`), which raises instead of degrading.
+compilation-cache helpers. Every key parses as it does there, and the port
+serves every one (`jax-compilation-cache-dir` names the directory its
+compiled libraries build into); a key it could not serve would be refused
+by `server.app.build_scheduler_app` (`unsupported_keys`).
 
 YAML-loadable install config with the reference's option surface: FIFO mode
 + age-based enforcement per instance group, binpack algorithm selection,
@@ -150,9 +151,11 @@ class InstallConfig:
     # async retry budget reload live on file change or SIGHUP
     # (server/runtime.py). None = no runtime reloads.
     runtime_config_path: Optional[str] = None
-    # The JAX package's persistent compilation cache directory. The port
-    # has no counterpart (its kernels build into the package's _build/
-    # directory), so the app builder refuses the key when it is set.
+    # The JAX package's persistent compilation cache directory; in the port
+    # the directory its CUDA kernels and native runtime build into and load
+    # from (ops/_build.py `use_build_dir`, applied by the app builder; None
+    # = spark_scheduler_tpu_torch/_build/). Libraries a process has
+    # already loaded stay loaded.
     jax_compilation_cache_dir: Optional[str] = None
     # Multi-device window-solve engine (core/solver.py): `solver.device-pool`
     # keeps a resident cluster replica on N devices and round-robins

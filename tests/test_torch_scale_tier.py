@@ -11,7 +11,11 @@ around it, against the JAX package on the CPU.
   - The recorded deviation: only a classified device fault in the sharded
     re-solve reaches the degraded policy (the host greedy, counted in
     `fallbacks`; a shed; or the fault itself with no controller); a plain
-    RuntimeError raises.
+    RuntimeError raises. The fault injector faults the tier's thread only.
+  - A classified fault in the mesh slot's own part solve while another
+    window's escalation runs: exact decisions, the slot quarantined and
+    reinstated, the run driven as the batcher drives it (a build that
+    raises PipelineDrainRequired fetches the windows in flight first).
   - `/debug/state` carries the JAX package's `device_pool` (mesh slot
     labels) and `scale_tier` blocks for the same run.
   - The CLI: `--mesh 1x4 --scale-tier` parses to the JAX CLI's
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import importlib
 import itertools
+import threading
 
 import numpy as np
 import pytest
@@ -151,21 +156,22 @@ def test_scale_tier_escalation_matches_host_resolve(pooled):
 
 def _fault_in_the_tier(monkeypatch, exc):
     """The node-sharded engine raises `exc`, only inside the scale tier's
-    re-solve (the mesh slot's own window solves run it too)."""
+    re-solve (the mesh slot's own window solves run it too, on the solve
+    pool's workers: the flag is the tier's thread's own)."""
     sm = mod(PORT, "core.solver")
     real_tier = sm.PlacementSolver._scale_tier_decisions
     real_engine = sm.node_sharded_fifo_pack
-    inside = []
+    inside = threading.local()
 
     def tier(self, *a, **k):
-        inside.append(True)
+        inside.on = True
         try:
             return real_tier(self, *a, **k)
         finally:
-            inside.pop()
+            inside.on = False
 
     def engine(*a, **k):
-        if inside:
+        if getattr(inside, "on", False):
             raise exc
         return real_engine(*a, **k)
 
@@ -240,6 +246,77 @@ def test_device_fault_in_the_sharded_resolve_follows_the_degraded_policy(
     assert tier.scale_tier_stats["fallbacks"] == 0
     if policy is not None:
         assert tier.degraded.active and tier.degraded.shed_requests > 0
+
+
+def esc_run_draining(solver, nodes, batches, strategy="tightly-pack"):
+    """esc_run as the server's batcher drives it (server/http.py): a build
+    that raises PipelineDrainRequired fetches the windows in flight first,
+    then builds again."""
+    drain_required = mod(PORT, "core.solver").PipelineDrainRequired
+    out = []
+    for wins in batches:
+        handles = []
+        for w in wins:
+            try:
+                t = solver.build_tensors_pipelined(nodes, {}, {})
+            except drain_required:
+                for hd in handles:
+                    out.extend(solver.pack_window_fetch(hd))
+                handles = []
+                t = solver.build_tensors_pipelined(nodes, {}, {})
+            handles.append(solver.pack_window_dispatch(strategy, t, w))
+        for hd in handles:
+            out.extend(solver.pack_window_fetch(hd))
+    return out
+
+
+def test_device_fault_in_a_mesh_slot_part_solve_while_an_escalation_is_pending(
+    monkeypatch,
+):
+    """A classified device fault in the mesh slot's own part solve (on a
+    worker of the solve pool) while another window's escalation runs in
+    the scale tier: the part's window re-solves exactly, the slot is
+    quarantined and comes back at its probe, and the decisions equal the
+    fault-free run's. The second part solve of the run waits until the
+    tier has started, then faults."""
+    from spark_scheduler_tpu_torch.core.device_pool import on_solve_worker
+    from spark_scheduler_tpu_torch.faults.degraded import DegradedModeController
+
+    world = esc_world(9)
+    nodes = esc_nodes(PORT, 128)
+    batches = materialize(PORT, world, nodes)
+    want = esc_run(port_solver(), nodes, batches)
+
+    sm = mod(PORT, "core.solver")
+    real_tier = sm.PlacementSolver._scale_tier_decisions
+    real_engine = sm.node_sharded_fifo_pack
+    tier_started = threading.Event()
+    part_solves = []
+
+    def tier(self, *a, **k):
+        tier_started.set()
+        return real_tier(self, *a, **k)
+
+    def engine(*a, **k):
+        if on_solve_worker():
+            part_solves.append(1)
+            if len(part_solves) == 2:
+                assert tier_started.wait(60), "no escalation ran"
+                raise _ecc()
+        return real_engine(*a, **k)
+
+    monkeypatch.setattr(sm.PlacementSolver, "_scale_tier_decisions", tier)
+    monkeypatch.setattr(sm, "node_sharded_fifo_pack", engine)
+    solver = port_solver(True, scale_tier=True, **TIGHT)
+    solver.degraded = DegradedModeController(policy="greedy")
+    solver.quarantine_probe_s = 0.0
+    assert esc_run_draining(solver, nodes, batches) == want
+    (slot,) = solver._pool.slots
+    assert slot.failure_count == 1 and not slot.quarantined
+    st = solver.scale_tier_stats
+    assert st["resolves"] > 0 and st["fallbacks"] == 0, st
+    solver.close()
+    assert not solver._inflight_futures and slot.inflight == 0
 
 
 def _state_run(pkg):

@@ -589,29 +589,6 @@ def test_node_put_under_in_flight_window_matches_jax(pair, change):
         assert same(g[1], w[1]), (i, g[1][:300], w[1][:300])
 
 
-# ------------------------------------------------------- config refusals
-
-
-def _unsupported_values():
-    """A non-default value for every key the port refuses."""
-    from spark_scheduler_tpu_torch.server.app import UNSUPPORTED_KEYS
-
-    values = {"jax_compilation_cache_dir": "jax-cache"}
-    assert set(values) == set(UNSUPPORTED_KEYS)
-    return [(f, v, UNSUPPORTED_KEYS[f][0]) for f, v in values.items()]
-
-
-@pytest.mark.parametrize("field,value,key", _unsupported_values())
-def test_unsupported_key_raises_naming_it(field, value, key):
-    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
-    from spark_scheduler_tpu_torch.server.config import InstallConfig
-    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
-
-    config = dataclasses.replace(InstallConfig(), **{field: value})
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-        build_scheduler_app(InMemoryBackend(), config, device="cpu")
-
-
 def _served_on_cpu_shards(root, shards=4, **cfg):
     """`root`'s test Harness with install keys `cfg`; the port's app lays
     its devices on `cpu` x `shards` (`build_scheduler_app`'s
@@ -853,27 +830,6 @@ def test_served_key_builds_like_jax(field):
         app.stop()
     assert wired[1] == wired[0]
     assert (wired[1]["ingestion"] == "KubeIngestion") == (field == "kube_api_url")
-
-
-def test_unsupported_yaml_keys_raise_from_from_dict():
-    """`jax-compilation-cache-dir` (no counterpart: the port's kernels build
-    into spark_scheduler_tpu_torch/_build/) is the one key YAML can still
-    set that the port refuses; the keys around it are served."""
-    from spark_scheduler_tpu_torch.server.app import build_scheduler_app
-    from spark_scheduler_tpu_torch.server.config import InstallConfig
-    from spark_scheduler_tpu_torch.store.backend import InMemoryBackend
-
-    raw = {"jax-compilation-cache-dir": "/var/cache/jax",
-           "solver": {"scale-tier": True}, "fleet": {"enabled": True}}
-    with pytest.raises(NotImplementedError) as err:
-        build_scheduler_app(
-            InMemoryBackend(), InstallConfig.from_dict(raw), device="cpu"
-        )
-    assert "jax-compilation-cache-dir" in str(err.value)
-    assert "_build" in str(err.value)
-    # solver.scale-tier and fleet.* are served: not among the refused keys.
-    assert "scale-tier" not in str(err.value)
-    assert "fleet" not in str(err.value)
 
 
 def test_node_sharded_mesh_still_raises_naming_a6():
