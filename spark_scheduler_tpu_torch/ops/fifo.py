@@ -64,6 +64,7 @@ from spark_scheduler_tpu_torch.ops.window import (
     WALK_STATIC_SMEM,
     _device_index,
 )
+from spark_scheduler_tpu_torch.tracing import profiled_span
 
 def fifo_eligible(apps: AppBatch, fill: str) -> bool:
     """What the queue path serves (pallas_fifo.py `pallas_eligible`): queue
@@ -90,14 +91,15 @@ def check_queue(apps: AppBatch, fill: str) -> None:
 def kernel_orders(cluster: ClusterTensors, num_zones: int):
     """The queue-mode orders as the row walk takes them: (elig_e, elig_d,
     drank, d_order, erank, e_order), ranks and orders int32 permutations of
-    0..N-1."""
-    driver_elig, exec_elig, d_order, d_rank, e_order, _ = queue_mode_orders(
-        cluster, num_zones
-    )
-    return (
-        exec_elig, driver_elig, d_rank, d_order,
-        _rank_of_position(e_order), e_order,
-    )
+    0..N-1. Traced as the span `queue.orders`."""
+    with profiled_span("queue.orders"):
+        driver_elig, exec_elig, d_order, d_rank, e_order, _ = queue_mode_orders(
+            cluster, num_zones
+        )
+        return (
+            exec_elig, driver_elig, d_rank, d_order,
+            _rank_of_position(e_order), e_order,
+        )
 
 
 def empty_packing(available: torch.Tensor, emax: int, lead=()) -> BatchedPacking:
@@ -370,26 +372,29 @@ def fifo_pack(
     on the cluster's device). CPU tensors: `fifo_pack_reference`.
     Any other device raises. `emax` is the executor-slot padding; a gang of
     more than `emax` executors never packs. `available_after` is always a
-    new tensor: the caller's `cluster.available` is left as it was."""
-    check_queue(apps, fill)
-    check_cluster(cluster)
-    dev = cluster.device
-    if dev.type == "cpu":
-        return fifo_pack_reference(
-            cluster, apps, fill=fill, emax=emax, num_zones=num_zones
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"fifo_pack runs on cuda or cpu, got {dev}")
-    _check_cumsum_bound(cluster.num_nodes, emax)
-    fields = device_apps(apps, dev)
-    if fields[0].shape[0] == 0:
-        return empty_packing(cluster.available, emax)
-    out = queue_packing(*fifo_queue(
-        *queue_operands(cluster, fields, num_zones),
-        fill=fill, emax=emax, num_zones=num_zones,
-        layout=queue_layout(cluster.num_nodes),
-    ))
-    return BatchedPacking(*(x[0] for x in out))
+    new tensor: the caller's `cluster.available` is left as it was.
+    Traced, entry to return, as the span `queue.pack`."""
+    with profiled_span("queue.pack", nodes=cluster.num_nodes,
+                       rows=apps.driver_req.shape[0], groups=1):
+        check_queue(apps, fill)
+        check_cluster(cluster)
+        dev = cluster.device
+        if dev.type == "cpu":
+            return fifo_pack_reference(
+                cluster, apps, fill=fill, emax=emax, num_zones=num_zones
+            )
+        if dev.type != "cuda":
+            raise ValueError(f"fifo_pack runs on cuda or cpu, got {dev}")
+        _check_cumsum_bound(cluster.num_nodes, emax)
+        fields = device_apps(apps, dev)
+        if fields[0].shape[0] == 0:
+            return empty_packing(cluster.available, emax)
+        out = queue_packing(*fifo_queue(
+            *queue_operands(cluster, fields, num_zones),
+            fill=fill, emax=emax, num_zones=num_zones,
+            layout=queue_layout(cluster.num_nodes),
+        ))
+        return BatchedPacking(*(x[0] for x in out))
 
 
 fifo_pack.launches = 0

@@ -62,6 +62,7 @@ from spark_scheduler_tpu_torch.parallel.node_shards import (
 from spark_scheduler_tpu_torch.parallel.node_shards import (
     shard_apps as _shard_apps,
 )
+from spark_scheduler_tpu_torch.tracing import profiled_span
 
 
 def _stack(vals, what):
@@ -164,28 +165,32 @@ def grouped_fifo_pack(
     """G independent queue-mode solves; outputs stacked [G, ...]. CUDA
     tensors: each group's sorts in PyTorch, then ONE launch of the queue
     kernel with G teams. CPU tensors: `grouped_fifo_pack_reference`. Any
-    other device raises. Decisions equal G separate `fifo_pack` calls."""
-    check_queue(apps, fill)
-    groups = _groups(clusters, apps)
-    for c, _ in groups:
-        check_cluster(c)
-    dev = clusters.available.device
-    if dev.type == "cpu":
-        return grouped_fifo_pack_reference(
-            clusters, apps, fill=fill, emax=emax, num_zones=num_zones
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"grouped_fifo_pack runs on cuda or cpu, got {dev}")
-    g = len(groups)
-    _check_cumsum_bound(clusters.available.shape[1], emax)
-    fields = device_apps(apps, dev, lead=(g,))
-    if fields[0].shape[1] == 0:
-        return empty_packing(clusters.available, emax, lead=(g,))
-    return queue_packing(*fifo_queue(
-        *grouped_queue_operands(clusters, fields, num_zones),
-        fill=fill, emax=emax, num_zones=num_zones,
-        layout=queue_layout(clusters.available.shape[1]),
-    ))
+    other device raises. Decisions equal G separate `fifo_pack` calls.
+    Traced, entry to return, as one span `queue.pack` (each group's orders
+    a `queue.orders` under it)."""
+    g, n = clusters.available.shape[:2]
+    with profiled_span("queue.pack", nodes=n, rows=apps.driver_req.shape[1],
+                       groups=g):
+        check_queue(apps, fill)
+        groups = _groups(clusters, apps)
+        for c, _ in groups:
+            check_cluster(c)
+        dev = clusters.available.device
+        if dev.type == "cpu":
+            return grouped_fifo_pack_reference(
+                clusters, apps, fill=fill, emax=emax, num_zones=num_zones
+            )
+        if dev.type != "cuda":
+            raise ValueError(f"grouped_fifo_pack runs on cuda or cpu, got {dev}")
+        _check_cumsum_bound(n, emax)
+        fields = device_apps(apps, dev, lead=(g,))
+        if fields[0].shape[1] == 0:
+            return empty_packing(clusters.available, emax, lead=(g,))
+        return queue_packing(*fifo_queue(
+            *grouped_queue_operands(clusters, fields, num_zones),
+            fill=fill, emax=emax, num_zones=num_zones,
+            layout=queue_layout(n),
+        ))
 
 
 # -- the mesh routes ---------------------------------------------------------

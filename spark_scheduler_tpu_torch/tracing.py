@@ -8,20 +8,26 @@ lib pkg/logging/logging.go:23-55). This module provides both natively:
   - `Tracer`: thread-local span stacks; `span()` context manager; b3
     single+multi header extraction/injection (x-b3-traceid / x-b3-spanid /
     x-b3-sampled); finished spans land in a bounded ring buffer (pollable
-    at GET /debug/traces) and optionally as JSON lines in a trace log.
+    at GET /debug/traces). Spans are timed on `time.perf_counter`, the
+    clock the benchmark aligns device traces to; `timestamp_s` is reported
+    in epoch seconds.
+  - `profiled_span`: a span on the device path (the queue solve) that is
+    recorded only while a torch profiler runs, and then also marks its
+    interval in the profiler's trace, so the trace nests the span's kernels
+    under it. With no profiler running it costs one flag read.
   - `svc1log`: JSON-line service log with explicit safe-param dicts —
     `pod_safe_params`, `demand_safe_params`, `rr_safe_params` mirror the
     reference's safe-param helpers so log pipelines receive identical keys.
   - torch.profiler hooks: `start_torch_profile(dir)` /
     `stop_torch_profile()` drive the server's /debug/profile routes (the
-    JAX package's `start_jax_profile` / `stop_jax_profile`); a stopped
-    trace is written to `<dir>/trace.json` in the Chrome trace format.
+    JAX package's `start_jax_profile` / `stop_jax_profile`); the trace
+    records every thread, and a stopped trace is written to
+    `<dir>/trace.json` in the Chrome trace format.
 """
 
 from __future__ import annotations
 
 import collections
-import itertools
 import json
 import os
 import random
@@ -31,7 +37,7 @@ import threading
 import time
 from typing import Any, Optional
 
-_span_counter = itertools.count(1)
+from torch.autograd import profiler as _autograd_profiler
 
 
 class Span:
@@ -60,13 +66,15 @@ class Span:
     def duration_ms(self) -> float:
         return (self.end - self.start) * 1e3
 
-    def to_dict(self) -> dict:
+    def to_dict(self, epoch: float = 0.0) -> dict:
+        """The span as /debug/traces gives it; `epoch` is added to the
+        tracer's clock to give `timestamp_s`."""
         return {
             "name": self.name,
             "traceId": self.trace_id,
             "id": self.span_id,
             **({"parentId": self.parent_id} if self.parent_id else {}),
-            "timestamp_s": self.start,
+            "timestamp_s": self.start + epoch,
             "duration_ms": round(self.duration_ms, 3),
             "tags": dict(self.tags),
         }
@@ -129,13 +137,21 @@ class _AttachedContext:
 
 
 class Tracer:
-    """Thread-local span stack + bounded finished-span ring buffer."""
+    """Thread-local span stack + bounded finished-span ring buffer.
 
-    def __init__(self, capacity: int = 512, log_stream=None, clock=time.time):
+    Spans are timed on `clock`; by default `time.perf_counter`, with
+    `timestamp_s` moved to epoch seconds by one offset taken here. A clock
+    passed in is used as given, its readings reported unchanged."""
+
+    def __init__(self, capacity: int = 512, clock=None):
         self._local = threading.local()
         self._finished: collections.deque = collections.deque(maxlen=capacity)
         self._lock = threading.Lock()
-        self._log_stream = log_stream
+        if clock is None:
+            clock = time.perf_counter
+            self._epoch = time.time() - time.perf_counter()
+        else:
+            self._epoch = 0.0
         self._clock = clock
 
     # -- context management --------------------------------------------------
@@ -156,25 +172,27 @@ class Tracer:
         stack = self._stack()
         if stack and stack[-1] is span:
             stack.pop()
+        self._record(span)
+
+    def _record(self, span: Span) -> None:
         if span.sampled:
-            # Stream write stays under the lock: concurrent handler threads
-            # finishing spans must not interleave JSONL lines.
             with self._lock:
                 self._finished.append(span)
-                if self._log_stream is not None:
-                    self._log_stream.write(json.dumps(span.to_dict()) + "\n")
 
     # -- span creation -------------------------------------------------------
 
-    def span(self, name: str, **tags) -> _SpanContext:
-        """Child of the thread's current span, or a new root."""
+    def _child(self, name: str, tags: dict) -> Span:
         parent = self.current()
         if parent is not None:
             s = Span(name, parent.trace_id, _new_id(), parent.span_id, parent.sampled)
         else:
             s = Span(name, _new_id(128), _new_id(), None)
         s.tags.update(tags)
-        return _SpanContext(self, s)
+        return s
+
+    def span(self, name: str, **tags) -> _SpanContext:
+        """Child of the thread's current span, or a new root."""
+        return _SpanContext(self, self._child(name, tags))
 
     def attach(self, span: Span) -> _AttachedContext:
         """Adopt `span` as this thread's current span (see _AttachedContext)."""
@@ -230,17 +248,19 @@ class Tracer:
 
     def finish_detached(self, span: Span) -> None:
         span.end = self._clock()
-        if span.sampled:
-            with self._lock:
-                self._finished.append(span)
-                if self._log_stream is not None:
-                    self._log_stream.write(json.dumps(span.to_dict()) + "\n")
+        self._record(span)
 
     # -- inspection ----------------------------------------------------------
 
     def finished_spans(self) -> list[dict]:
         with self._lock:
-            return [s.to_dict() for s in self._finished]
+            return [s.to_dict(self._epoch) for s in self._finished]
+
+    def finished(self) -> list[Span]:
+        """The finished spans themselves, oldest first: name, span_id,
+        parent_id, and start / end on the tracer's clock."""
+        with self._lock:
+            return list(self._finished)
 
     def clear(self) -> None:
         with self._lock:
@@ -262,6 +282,55 @@ def set_tracer(t: Tracer) -> Tracer:
     return t
 
 
+class _ProfiledContext(_SpanContext):
+    """A span that also marks its interval in the running torch.profiler
+    trace (`record_function`), so the trace shows the span's device work
+    under its name."""
+
+    def __enter__(self) -> "_ProfiledContext":
+        super().__enter__()
+        self._mark = _autograd_profiler.record_function(self.span.name)
+        self._mark.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            self._mark.__exit__(exc_type, exc, tb)
+        finally:
+            super().__exit__(exc_type, exc, tb)
+
+
+class _NoSpan:
+    """What `profiled_span` returns while no profiler runs: records
+    nothing."""
+
+    __slots__ = ()
+
+    def tag(self, key: str, value) -> None:
+        pass
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+def profiled_span(name: str, **tags):
+    """A span on the device path, child of the thread's current span in the
+    default tracer. It is recorded only while a torch profiler runs (the
+    benchmark's traced slice, /debug/profile), and then also enters
+    `torch.profiler.record_function(name)`. Otherwise it returns one shared
+    no-op context: one flag read, no ids, no lock."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    t = _default_tracer
+    return _ProfiledContext(t, t._child(name, tags))
+
+
 # --------------------------------------------------- svc1log + safe params
 
 
@@ -277,12 +346,18 @@ def _profile_worker(log_dir, started, stop, errors) -> None:
     bound to the thread that started it, and the HTTP routes that drive it
     run on whichever handler thread took the request."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
 
     try:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=activities)
+        # Every thread's ops and spans, not only this one's: the serving
+        # threads do the work.
+        prof = torch.profiler.profile(
+            activities=activities,
+            experimental_config=_ExperimentalConfig(profile_all_threads=True),
+        )
         prof.start()
     except Exception as exc:
         errors.append(exc)
