@@ -43,7 +43,7 @@ from spark_scheduler_tpu_torch.models.cluster import (
 )
 from spark_scheduler_tpu_torch.ops.sorting import (
     _rank_of_position,
-    priority_order,
+    priority_orders,
     zone_ranks,
 )
 
@@ -110,12 +110,7 @@ def queue_mode_orders(cluster: ClusterTensors, num_zones: int):
     exec_elig = domain0 & ~cluster.unschedulable & cluster.ready
     driver_elig = exec_elig
     zrank = zone_ranks(cluster, domain0, num_zones)
-    d_order, _ = priority_order(
-        cluster, driver_elig, zrank, cluster.label_rank_driver
-    )
-    e_order, _ = priority_order(
-        cluster, exec_elig, zrank, cluster.label_rank_executor
-    )
+    d_order, e_order = priority_orders(cluster, driver_elig, exec_elig, zrank)
     d_rank = _rank_of_position(d_order)
     return driver_elig, exec_elig, d_order, d_rank, e_order, zrank
 

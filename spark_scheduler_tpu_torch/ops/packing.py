@@ -45,6 +45,7 @@ from spark_scheduler_tpu_torch.ops.sorting import (
     _rank_of_position,
     lexsort_torch,
     priority_order,
+    priority_orders,
     zone_ranks,
 )
 
@@ -272,8 +273,7 @@ def spark_bin_pack(
     )
     if zrank is None:
         zrank = zone_ranks(cluster, _domain, num_zones)
-    d_order, _ = priority_order(cluster, driver_elig, zrank, cluster.label_rank_driver)
-    e_order, _ = priority_order(cluster, exec_elig, zrank, cluster.label_rank_executor)
+    d_order, e_order = priority_orders(cluster, driver_elig, exec_elig, zrank)
     d_rank = _rank_of_position(d_order)
     driver_node, _, exec_nodes, has_cap = pack_one_app(
         cluster.available, exec_elig, driver_elig, d_order, d_rank, e_order,
@@ -302,18 +302,12 @@ def single_az_orders(
     zmask_all = cluster.zone_id[None, :] == zones[:, None]
     d_elig_z = driver_elig[None, :] & zmask_all
     e_elig_z = exec_elig[None, :] & zmask_all
-    d_order_z = torch.stack([
-        priority_order(
-            cluster, e, zrank, cluster.label_rank_driver, available=available
-        )[0]
-        for e in d_elig_z
-    ])
-    e_order_z = torch.stack([
-        priority_order(
-            cluster, e, zrank, cluster.label_rank_executor, available=available
-        )[0]
-        for e in e_elig_z
-    ])
+    per_zone = [
+        priority_orders(cluster, d, e, zrank, available=available)
+        for d, e in zip(d_elig_z, e_elig_z)
+    ]
+    d_order_z = torch.stack([d for d, _ in per_zone])
+    e_order_z = torch.stack([e for _, e in per_zone])
     d_rank_z = torch.stack([_rank_of_position(o) for o in d_order_z])
     return d_elig_z, e_elig_z, d_order_z, d_rank_z, e_order_z
 
@@ -545,11 +539,8 @@ def preemption_batched_fit(
     for freed in freed_cum:
         avail = cluster.available + freed
         zrank = zone_ranks(cluster, domain, num_zones, available=avail)
-        d_order, _ = priority_order(
-            cluster, driver_elig, zrank, cluster.label_rank_driver, available=avail
-        )
-        e_order, _ = priority_order(
-            cluster, exec_elig, zrank, cluster.label_rank_executor, available=avail
+        d_order, e_order = priority_orders(
+            cluster, driver_elig, exec_elig, zrank, available=avail
         )
         driver_node, _, exec_nodes, ok = pack_one_app(
             avail, exec_elig, driver_elig, d_order, _rank_of_position(d_order),

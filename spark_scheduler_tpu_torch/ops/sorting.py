@@ -8,9 +8,34 @@ counterpart of spark_scheduler_tpu/ops/sorting.py:
   3. Optional configured label priority as the most significant key,
      missing labels rank last (nodesorting.go:62-64,160-185).
 
-PyTorch has no `lexsort`: `lexsort_torch` chains stable argsorts, least
-significant key first, which is exactly lexsort's definition. Keys are never
-packed into int64 (name_rank x mem x cpu would overflow).
+Every order is exactly `numpy.lexsort`'s over the int32 keys (name rank,
+cpu, mem, zone rank, label rank, not eligible), least significant first,
+and every zone rank exactly its lexsort over (zone id, cpu sum, mem sum,
+absent). Both are sorted as chains of stable argsorts: a stable pass by k2
+over an order already sorted by k1 orders by (k2, k1), which is lexsort's
+definition. Fewer passes do the same work over keys packed without loss:
+
+  - Zone sums are exact int64 sums (`index_add_` over the node rows). The
+    JAX package sums int32 8-bit chunks and compares their carry-normal
+    form (s3, s2, s1, s0), s2..s0 in 0..255, which orders exactly as the
+    sum S = s3 * 2^24 + s2 * 2^16 + s1 * 2^8 + s0 does; a `zone_base` limb
+    pair rebuilds exactly as S = (hi << 24) + lo. core/prune.py's
+    `zone_ranks_host` rests on the same equality. Zones sort in three
+    passes, cpu sum, mem sum, absent; the zone id is the stable sort's own
+    tie-break.
+  - lo = (mem << 32) + (cpu + 2^31), int64: mem signed in bits 32-63, cpu
+    biased into 0..2^32-1 in bits 0-31, so lo orders as (mem, cpu) and
+    spans [-2^63, 2^63 - 1] exactly.
+  - hi = (not eligible) << (32 + zbits) | (label + 2^31) << zbits | zone
+    rank, int64, zbits = bit_length(num_zones - 1): the zone rank
+    (0..num_zones-1) in bits 0..zbits-1, the biased label in the next 32,
+    the flag above them, so hi < 2^(33 + zbits) <= 2^63 while num_zones <=
+    2^30 (`MAX_PACKED_ZONES`; beyond it the key would overflow, and
+    `priority_order` and `priority_orders` raise).
+
+An order is three passes: name rank, lo, hi. The driver and the executor
+orders over one availability share the first two (`priority_orders`), so
+the two cost four passes over the nodes.
 """
 
 from __future__ import annotations
@@ -22,56 +47,40 @@ import torch
 from spark_scheduler_tpu_torch.models.cluster import ClusterTensors
 from spark_scheduler_tpu_torch.models.resources import CPU_DIM, MEM_DIM
 
+MAX_PACKED_ZONES = 2**30
+
 
 def _rank_of_position(order: torch.Tensor) -> torch.Tensor:
-    """rank[node] = position of node in `order` (int32)."""
+    """rank[node] = position of node in `order` (int32); `order` is a
+    permutation of 0..n-1, so every slot is written."""
     n = order.shape[0]
-    rank = torch.zeros(n, dtype=torch.int32, device=order.device)
-    rank[order.long()] = torch.arange(n, dtype=torch.int32, device=order.device)
+    rank = torch.empty(n, dtype=torch.int32, device=order.device)
+    rank[order] = torch.arange(n, dtype=torch.int32, device=order.device)
     return rank
+
+
+def stable_argsort(key: torch.Tensor) -> torch.Tensor:
+    """One stable sort pass (int64 indices), counted in
+    `stable_argsort.passes`."""
+    stable_argsort.passes += 1
+    return torch.argsort(key, stable=True)
+
+
+stable_argsort.passes = 0
+
+
+def _then_by(order: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """`order` re-sorted stably by `key`: ties keep their place in `order`."""
+    return order[stable_argsort(key[order])]
 
 
 def lexsort_torch(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """`numpy.lexsort` semantics (the LAST key is primary; ties keep index
     order) as chained stable argsorts. Returns int64 indices."""
-    order = torch.argsort(keys[0], stable=True)
+    order = stable_argsort(keys[0])
     for k in keys[1:]:
-        order = order[torch.argsort(k[order], stable=True)]
+        order = _then_by(order, k)
     return order
-
-
-def _zone_sum_chunks(vals, mask, zone_id, num_zones: int, base=None) -> list:
-    """Exact int32 per-zone sums without int64: each value splits into four
-    8-bit chunks (the top chunk keeps the sign via arithmetic shift), each
-    chunk is segment-summed, then carries normalize upward. Low-chunk sums
-    are <= n*255, exact for n < 2^23 nodes. Chunks most-significant first,
-    comparable lexicographically. `base` = (hi, lo) int32 limbs of per-zone
-    offsets (S >> 24, S & 0xFFFFFF), added into the chunks before the
-    carries normalize."""
-    v = torch.where(mask, vals, 0)
-    zone = zone_id.long()
-
-    def seg(x):
-        out = torch.zeros(num_zones, dtype=torch.int32, device=v.device)
-        return out.index_add_(0, zone, x.to(torch.int32))
-
-    s3 = seg(v >> 24)
-    s2 = seg((v >> 16) & 0xFF)
-    s1 = seg((v >> 8) & 0xFF)
-    s0 = seg(v & 0xFF)
-    if base is not None:
-        hi, lo = base
-        s3 = s3 + hi
-        s2 = s2 + ((lo >> 16) & 0xFF)
-        s1 = s1 + ((lo >> 8) & 0xFF)
-        s0 = s0 + (lo & 0xFF)
-    s1 = s1 + (s0 >> 8)
-    s0 = s0 & 0xFF
-    s2 = s2 + (s1 >> 8)
-    s1 = s1 & 0xFF
-    s3 = s3 + (s2 >> 8)
-    s2 = s2 & 0xFF
-    return [s3, s2, s1, s0]
 
 
 def zone_ranks(
@@ -93,29 +102,47 @@ def zone_ranks(
     if available is None:
         available = cluster.available
     mask = domain_mask & cluster.valid
-    mem_base = cpu_base = base_present = None
+    # The domain's (cpu, mem, 1) rows, summed by zone exactly in int64.
+    rows = torch.stack((available[:, CPU_DIM], available[:, MEM_DIM], mask), 1)
+    rows = torch.where(mask[:, None], rows, 0).to(torch.int64)
+    sums = torch.zeros((num_zones, 3), dtype=torch.int64, device=mask.device)
+    sums.index_add_(0, cluster.zone_id.long(), rows)
+    cpu, mem, absent = sums[:, 0], sums[:, 1], sums[:, 2] == 0
     if zone_base is not None:
         mem_hi, mem_lo, cpu_hi, cpu_lo, base_present = zone_base
-        mem_base, cpu_base = (mem_hi, mem_lo), (cpu_hi, cpu_lo)
-    mem_k = _zone_sum_chunks(
-        available[:, MEM_DIM], mask, cluster.zone_id, num_zones, mem_base
+        cpu = cpu + (cpu_hi.to(torch.int64) << 24) + cpu_lo
+        mem = mem + (mem_hi.to(torch.int64) << 24) + mem_lo
+        absent = absent & ~base_present
+    return _rank_of_position(lexsort_torch((cpu, mem, absent)))
+
+
+def _zone_bits(num_zones: int) -> int:
+    """zbits of the hi key; raises where the key would overflow int64."""
+    if num_zones > MAX_PACKED_ZONES:
+        raise ValueError(
+            f"{num_zones} zones: the packed priority key holds at most "
+            f"{MAX_PACKED_ZONES}"
+        )
+    return (num_zones - 1).bit_length()
+
+
+def _zone_key(cluster: ClusterTensors, zrank: torch.Tensor):
+    """(key, flag, unit): per node, hi's zone rank, label bias and flag
+    with the flag set (int64); an eligible node subtracts `flag`, and the
+    label rank adds in `unit`s."""
+    zbits = _zone_bits(zrank.shape[0])
+    flag = 1 << (32 + zbits)
+    key = zrank.to(torch.int64) + (flag + (1 << (31 + zbits)))
+    return key[cluster.zone_id.long()], flag, 1 << zbits
+
+
+def _by_name_then_lo(cluster: ClusterTensors, available: torch.Tensor):
+    """Passes 1-2: int64 node indices ordered by (mem, cpu, name rank)."""
+    lo = torch.add(
+        available[:, CPU_DIM].to(torch.int64) + 2**31,
+        available[:, MEM_DIM], alpha=2**32,
     )
-    cpu_k = _zone_sum_chunks(
-        available[:, CPU_DIM], mask, cluster.zone_id, num_zones, cpu_base
-    )
-    members = torch.zeros(num_zones, dtype=torch.int32, device=mask.device)
-    members.index_add_(0, cluster.zone_id.long(), mask.to(torch.int32))
-    present = members > 0
-    if base_present is not None:
-        present = present | base_present
-    keys = (
-        [torch.arange(num_zones, device=mask.device)]
-        + list(reversed(cpu_k))
-        + list(reversed(mem_k))
-        + [(~present).to(torch.int32)]
-    )
-    order = lexsort_torch(keys)
-    return _rank_of_position(order)
+    return _then_by(stable_argsort(cluster.name_rank), lo)
 
 
 def priority_order(
@@ -126,15 +153,42 @@ def priority_order(
     available: torch.Tensor | None = None,  # [N,3] override
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(order[N] int32 node indices, count) — eligible nodes in priority
-    order, ineligible pushed to the end. `count` stays a device scalar."""
+    order, ineligible pushed to the end. `count` stays a device scalar.
+    Raises for more than `MAX_PACKED_ZONES` zones."""
     if available is None:
         available = cluster.available
+    az, flag, unit = _zone_key(cluster, zrank)
     elig = eligible & cluster.valid
-    az = zrank[cluster.zone_id.long()]
-    mem = available[:, MEM_DIM]
-    cpu = available[:, CPU_DIM]
-    order = lexsort_torch(
-        (cluster.name_rank, cpu, mem, az, label_rank, (~elig).to(torch.int32))
+    hi = torch.add(torch.add(az, elig, alpha=-flag), label_rank, alpha=unit)
+    order = _then_by(_by_name_then_lo(cluster, available), hi)
+    return order.to(torch.int32), elig.sum().to(torch.int32)
+
+
+def priority_orders(
+    cluster: ClusterTensors,
+    driver_elig: torch.Tensor,  # [N] bool
+    exec_elig: torch.Tensor,  # [N] bool
+    zrank: torch.Tensor,  # [num_zones] i32 from zone_ranks
+    available: torch.Tensor | None = None,  # [N,3] override
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(driver order, executor order), int32 node indices: `priority_order`
+    of each eligibility with the cluster's driver and executor label ranks,
+    in four passes where two calls take six, since both share the name and
+    lo passes. One tensor passed as both eligibilities (queue mode) is
+    masked once."""
+    if available is None:
+        available = cluster.available
+    az, flag, unit = _zone_key(cluster, zrank)
+    base = _by_name_then_lo(cluster, available)
+    d_key = torch.add(az, driver_elig & cluster.valid, alpha=-flag)
+    e_key = (
+        d_key if exec_elig is driver_elig
+        else torch.add(az, exec_elig & cluster.valid, alpha=-flag)
     )
-    count = elig.sum().to(torch.int32)
-    return order.to(torch.int32), count
+    return tuple(
+        _then_by(base, torch.add(key, label, alpha=unit)).to(torch.int32)
+        for key, label in (
+            (d_key, cluster.label_rank_driver),
+            (e_key, cluster.label_rank_executor),
+        )
+    )

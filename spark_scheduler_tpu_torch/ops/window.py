@@ -48,7 +48,7 @@ from spark_scheduler_tpu_torch.ops.packing import (
     _check_cumsum_bound,
     _rank_of_position,
 )
-from spark_scheduler_tpu_torch.ops.sorting import priority_order, zone_ranks
+from spark_scheduler_tpu_torch.ops.sorting import priority_orders, zone_ranks
 
 
 def _round_up(x: int, m: int) -> int:
@@ -179,11 +179,8 @@ def _segment_orders(
     zrank = zone_ranks(
         cluster, dom, num_zones, available=base, zone_base=zone_base
     )
-    d_order, _ = priority_order(
-        cluster, driver_elig, zrank, cluster.label_rank_driver, available=base
-    )
-    e_order, _ = priority_order(
-        cluster, exec_elig, zrank, cluster.label_rank_executor, available=base
+    d_order, e_order = priority_orders(
+        cluster, driver_elig, exec_elig, zrank, available=base
     )
     return (
         exec_elig, driver_elig,

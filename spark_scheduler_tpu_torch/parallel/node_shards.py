@@ -36,10 +36,10 @@ tensors:
   - the single-AZ zone scores: each shard's float64 term sums and its
     per-zone first-driver rank and executor presence.
 
-Global sorts. `zone_ranks` and `priority_order` gather their keys (the
+Global sorts. `zone_ranks` and `priority_orders` gather their keys (the
 availability and the eligibility masks; the static keys once a call) to
 the lead shard and run there: the very functions the unsharded engine
-calls, so ties, `zone_base` and the int32-limb zone sums break alike. The
+calls, so ties, `zone_base` and the exact zone sums break alike. The
 node ranks are scattered back to the shards. A sort runs once per queue,
 once per window segment, or once per masked row, as the unsharded engine
 sorts.
@@ -78,7 +78,7 @@ from spark_scheduler_tpu_torch.ops.packing import (
 )
 from spark_scheduler_tpu_torch.ops.sorting import (
     _rank_of_position,
-    priority_order,
+    priority_orders,
     zone_ranks,
 )
 
@@ -621,12 +621,7 @@ def node_sharded_fifo_pack(
         de, ee, dom = sh.cat(driver_elig), sh.cat(exec_elig), sh.cat(domain)
         cl = lead_cluster(av)
         zrank = zone_ranks(cl, dom, num_zones, available=av, zone_base=zone_base)
-        d_order, _ = priority_order(
-            cl, de, zrank, cl.label_rank_driver, available=av
-        )
-        e_order, _ = priority_order(
-            cl, ee, zrank, cl.label_rank_executor, available=av
-        )
+        d_order, e_order = priority_orders(cl, de, ee, zrank, available=av)
         extra = (
             single_az_orders(cl, de, ee, zrank, num_zones, available=av)
             if single_az else None

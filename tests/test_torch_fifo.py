@@ -6,6 +6,9 @@ tests/test_pallas_fifo.py), go through the JAX functions and their port
 counterparts:
 
   - ops/batched: `queue_mode_orders` and `make_app_batch`;
+  - ops/fifo: `kernel_orders`, as `fifo_pack`'s CPU path takes it, against
+    numpy.lexsort of the unpacked keys, in at most seven stable sort passes
+    (`ops/sorting.stable_argsort.passes`);
   - ops/fifo: `fifo_pack` on CPU tensors (its plain version,
     `fifo_pack_reference`) against the JAX package's Mosaic queue kernel run
     by the Pallas interpreter (`fifo_pack_pallas(..., interpret=True)`) AND
@@ -48,11 +51,14 @@ from spark_scheduler_tpu_torch.ops.batched import (
     make_app_batch,
     queue_mode_orders,
 )
+from spark_scheduler_tpu_torch.ops import fifo as port_fifo
 from spark_scheduler_tpu_torch.ops.fifo import (
     fifo_eligible,
     fifo_pack,
     fifo_pack_reference,
+    kernel_orders,
 )
+from spark_scheduler_tpu_torch.ops.sorting import stable_argsort
 from spark_scheduler_tpu_torch.parallel import grouped_fifo_pack, stack_groups
 from tests.test_packing_golden import random_cluster
 from tests.test_pallas_fifo import random_apps
@@ -318,6 +324,68 @@ def test_queue_mode_orders_match_jax(seed):
     got = queue_mode_orders(port_cluster(c), 6)
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=str(i))
+
+
+def _rank(order):
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0], dtype=order.dtype)
+    return rank
+
+
+def lexsort_kernel_orders(c, num_zones):
+    """`kernel_orders`' six outputs from numpy.lexsort of the unpacked int32
+    keys: the zones by their exact int64 (mem, cpu) sums over the valid
+    nodes, absent zones last; the nodes by (not eligible, label, zone rank,
+    mem, cpu, name rank)."""
+    valid = np.asarray(c.valid)
+    elig = valid & ~np.asarray(c.unschedulable) & np.asarray(c.ready)
+    avail = np.asarray(c.available)
+    zone = np.asarray(c.zone_id)
+    sums = np.zeros((num_zones, 3), np.int64)
+    rows = np.c_[avail[:, :2], np.ones(len(zone), np.int64)]
+    np.add.at(sums, zone[valid], rows[valid])
+    zrank = _rank(np.lexsort(
+        (np.arange(num_zones), sums[:, 0], sums[:, 1], sums[:, 2] == 0)
+    ))
+    orders = [
+        np.lexsort((np.asarray(c.name_rank), avail[:, 0], avail[:, 1],
+                    zrank[zone], np.asarray(label), ~elig)).astype(np.int32)
+        for label in (c.label_rank_driver, c.label_rank_executor)
+    ]
+    return (elig, elig, _rank(orders[0]), orders[0], _rank(orders[1]),
+            orders[1])
+
+
+@pytest.mark.parametrize("num_zones", [1, 4, 64])
+def test_fifo_pack_cpu_sorts_the_lexsort_orders_in_seven_passes(
+    num_zones, monkeypatch
+):
+    rng = np.random.default_rng(num_zones + 20)
+    n = 500
+    c = random_cluster(rng, n, num_zones=max(num_zones - 1, 1),
+                       with_labels=True)
+    # Zone sums far past int32, (mem, cpu) ties, padding rows.
+    c.available[(c.zone_id == 0) & (rng.random(n) < 0.5), :2] = INT32_INF
+    c.available[c.zone_id % 3 == 1, :2] = rng.integers(0, 2, size=(1, 2))
+    pad = rng.random(n) < 0.1
+    c.valid[pad] = False
+    c.name_rank[pad] = INT32_INF
+    seen = []
+
+    def spy(cluster, nz):
+        before = stable_argsort.passes
+        out = kernel_orders(cluster, nz)
+        seen.append((stable_argsort.passes - before, out))
+        return out
+
+    monkeypatch.setattr(port_fifo, "kernel_orders", spy)
+    got = fifo_pack(port_cluster(c), port_apps(random_apps(rng, 9)),
+                    fill="tightly-pack", emax=EMAX, num_zones=num_zones)
+    assert got.packed.any()
+    [(passes, out)] = seen
+    assert passes <= 7  # 22 with a 10-key zone lexsort and 6-key orders
+    for i, (g, w) in enumerate(zip(out, lexsort_kernel_orders(c, num_zones))):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=str(i))
 
 
 def test_make_app_batch_matches_jax():

@@ -3,8 +3,12 @@
 The same inputs, made with numpy from a seed, go through the JAX function and
 its port counterpart:
 
-  - ops/capacity.node_capacities, ops/sorting.zone_ranks and
-    ops/sorting.priority_order against the JAX functions;
+  - ops/capacity.node_capacities, ops/sorting.zone_ranks,
+    ops/sorting.priority_order and ops/sorting.priority_orders (the shared
+    passes over packed int64 keys) against the JAX functions, on clusters at
+    the edges of those keys (availability at +-INT32_INF, the whole int32
+    range, ties, padding rows, unranked labels, empty zones, 1-64 zones, a
+    negative zone_base);
   - the port's plain window solve (`window_pack_reference`, built on
     ops/gang.gang_solve) and its CPU wrapper `window_pack` against the JAX
     package's Mosaic window kernel run by the Pallas interpreter
@@ -28,13 +32,22 @@ from spark_scheduler_tpu.ops.pallas_window import (
     make_segmented_window as jax_make_window,
     window_pack_pallas,
 )
+from spark_scheduler_tpu.ops.batched import (
+    queue_mode_orders as jax_queue_mode_orders,
+)
 from spark_scheduler_tpu.ops.sorting import (
     priority_order as jax_priority_order,
     zone_ranks as jax_zone_ranks,
 )
 from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
 from spark_scheduler_tpu_torch.ops.capacity import node_capacities
-from spark_scheduler_tpu_torch.ops.sorting import priority_order, zone_ranks
+from spark_scheduler_tpu_torch.ops.batched import queue_mode_orders
+from spark_scheduler_tpu_torch.ops.sorting import (
+    MAX_PACKED_ZONES,
+    priority_order,
+    priority_orders,
+    zone_ranks,
+)
 from spark_scheduler_tpu_torch.ops.window import (
     make_segmented_window,
     window_pack,
@@ -151,6 +164,118 @@ def test_zone_ranks_and_priority_order_match_jax(seed):
         )
         np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
         assert int(got_c) == int(want_c)
+
+
+EDGE_KINDS = (
+    "inf_zones", "full_range", "ties", "padding", "unranked_labels",
+    "empty_zones",
+)
+
+
+def _edge_cluster(kind, rng, n, num_zones):
+    """(fields, domain) at one edge of the exact zone sums or the packed
+    keys. With more than one zone the last one never has a node."""
+    fields = _cluster_np(rng, n, num_zones=max(num_zones - 1, 1))
+    avail, zone = fields[0], fields[2]
+    dom = rng.random(n) < 0.8
+    if kind == "inf_zones":  # every node of a zone at +-INT32_INF
+        avail[:, :2] = np.where((zone % 2 == 0)[:, None], INT32_INF, -INT32_INF)
+    elif kind == "full_range":  # int32's ends included
+        avail[:, :2] = rng.integers(-2**31, 2**31, size=(n, 2))
+        avail[:4, :2] = [[-2**31, -2**31], [-1, -2**31], [2**31 - 1] * 2,
+                         [-2**31, 2**31 - 1]]
+    elif kind == "ties":  # (mem, cpu) ties broken by name rank
+        avail[:, :2] = rng.integers(0, 2, size=(n, 2))
+    elif kind == "padding":
+        pad = rng.random(n) < 0.25
+        fields[3] = np.where(pad, INT32_INF, fields[3]).astype(np.int32)
+        fields[8] = ~pad
+    elif kind == "unranked_labels":
+        for f in (4, 5):
+            fields[f] = np.where(
+                rng.random(n) < 0.5, INT32_INF, rng.integers(0, 3, size=n)
+            ).astype(np.int32)
+    elif kind == "empty_zones":  # a populated zone with no domain node
+        dom &= zone != 0
+    return fields, dom
+
+
+@pytest.mark.parametrize("num_zones", [1, 4, 64])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_packed_orders_match_jax_at_the_key_edges(kind, num_zones):
+    rng = np.random.default_rng(EDGE_KINDS.index(kind) * 101 + num_zones)
+    n = 80
+    fields, dom = _edge_cluster(kind, rng, n, num_zones)
+    jax_c, port_c = _both(fields)
+    d_elig = dom & (rng.random(n) < 0.7)
+    e_elig = dom & ~fields[6] & fields[7]
+    want_z = np.asarray(jax_zone_ranks(jax_c, jnp.asarray(dom), num_zones))
+    got_z = zone_ranks(port_c, torch.tensor(dom), num_zones)
+    np.testing.assert_array_equal(got_z.numpy(), want_z)
+    want = []
+    for elig, label in (
+        (d_elig, jax_c.label_rank_driver), (e_elig, jax_c.label_rank_executor)
+    ):
+        want_o, want_c = jax_priority_order(
+            jax_c, jnp.asarray(elig), jnp.asarray(want_z), label
+        )
+        got_o, got_c = priority_order(
+            port_c, torch.tensor(elig), got_z, torch.tensor(np.asarray(label))
+        )
+        np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
+        assert int(got_c) == int(want_c)
+        want.append(np.asarray(want_o))
+    got = priority_orders(
+        port_c, torch.tensor(d_elig), torch.tensor(e_elig), got_z
+    )
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    for i, (g, w) in enumerate(zip(
+        queue_mode_orders(port_c, num_zones),
+        jax_queue_mode_orders(jax_c, num_zones),
+    )):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=str(i))
+
+
+@pytest.mark.parametrize("decides", ["mem", "cpu"])
+@pytest.mark.parametrize("num_zones", [1, 4, 64])
+def test_zone_ranks_with_a_negative_zone_base_match_jax(num_zones, decides):
+    rng = np.random.default_rng(num_zones + 7)
+    n = 80
+    fields, dom = _edge_cluster("full_range", rng, n, num_zones)
+    # Per-zone offsets past int32, of either sign and of the local sums'
+    # size. Where the cpu sums decide, every zone's mem sum is the same.
+    sums = rng.integers(-2**34, 2**34, size=(2, num_zones))
+    if decides == "cpu":
+        fields[0][:, 1] = 0
+        sums[0] = -2**33 - 5
+    jax_c, port_c = _both(fields)
+    limbs = []
+    for s in sums:  # mem, then cpu, as (hi, lo) limbs
+        limbs += [(s >> 24).astype(np.int32), (s & 0xFFFFFF).astype(np.int32)]
+    present = rng.random(num_zones) < 0.5
+    want = np.asarray(jax_zone_ranks(
+        jax_c, jnp.asarray(dom), num_zones,
+        zone_base=tuple(jnp.asarray(x) for x in (*limbs, present)),
+    ))
+    got = zone_ranks(
+        port_c, torch.tensor(dom), num_zones,
+        zone_base=tuple(torch.tensor(x) for x in (*limbs, present)),
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_more_zones_than_the_packed_key_holds_raise():
+    rng = np.random.default_rng(3)
+    _, port_c = _both(_cluster_np(rng, 8))
+    elig = torch.ones(8, dtype=torch.bool)
+    # A zero-stride view: the check reads the zone count, not the values.
+    zrank = torch.zeros(1, dtype=torch.int32).expand(MAX_PACKED_ZONES + 1)
+    with pytest.raises(ValueError, match="zones"):
+        priority_order(port_c, elig, zrank, port_c.label_rank_driver)
+    with pytest.raises(ValueError, match="zones"):
+        priority_orders(port_c, elig, elig, zrank)
 
 
 @pytest.mark.parametrize("fill", STRATEGIES)
