@@ -81,7 +81,7 @@ struct QueueParams {
   const int* e_order;  // [G][n]
   const int* zone;     // [G][n]
   const int* sched;    // [G][n][3]
-  int* meta;           // [G][rows][4] (driver_node, admitted, packed, 0)
+  int* meta;           // [G][rows][4] (driver_node, admitted, packed, zone score bits)
   int* execs;          // [G][rows][emax]
   int* avail_out;      // [G][n][3] availability after every admitted app
   // Per block, in launch order ([G][blocks a team]): 2 emax + 2 num_zones
@@ -133,7 +133,7 @@ __device__ __forceinline__ void walk_queue(Team& t, const QueueParams& p, long l
       continue;
     }
     gs_fifo_row(t, c, p.s, w, dreq + b * 3, ereq + b * 3, cnt[b], skip[b] != 0, &blocked,
-                nullptr, meta + b * 4, execs + b * emax);
+                nullptr, meta + b * 4, execs + b * emax, true);
   }
   int* avail_out = p.avail_out + g * n * 3;
   GS_NODES(t, li, i) {

@@ -431,8 +431,9 @@ __device__ float gs_zone_efficiency(Team& t, const GangCtx& c, int drv, const in
 }
 
 // The whole per-gang solve (make_gang_solver). On return, *ok says whether
-// the gang packs, *drv is its driver (or -1), and *cnt_out / *ex_out point
-// at the buffers holding the chosen placement (one of the two pairs given).
+// the gang packs, *drv is its driver (or -1), *score is the chosen zone's
+// score (0 where no zone was chosen), and *cnt_out / *ex_out point at the
+// buffers holding the chosen placement (one of the two pairs given).
 // zfirst/zhas hold, per zone, the smallest driver rank among its
 // driver-eligible nodes and whether it has an executor-eligible node.
 template <class Team>
@@ -440,7 +441,9 @@ __device__ void gs_gang_solve(Team& t, const GangCtx& c, int fill, bool single_a
                               bool az_fallback, bool include_exec, int num_zones,
                               const int* zfirst, const int* zhas,
                               int* cnt0, int* cnt1, int* ex0, int* ex1,
-                              bool* ok, int* drv, int** cnt_out, int** ex_out) {
+                              bool* ok, int* drv, float* score, int** cnt_out,
+                              int** ex_out) {
+  *score = 0.0f;
   if (!single_az) {
     const int d = gs_select_driver(t, c, -1);
     gs_run_fill(t, c, fill, -1, d, d >= 0, cnt0, ex0);
@@ -476,6 +479,7 @@ __device__ void gs_gang_solve(Team& t, const GangCtx& c, int fill, bool single_a
   if (any_valid && best_eff > 0.0f) {
     *ok = true;
     *drv = best_drv;
+    *score = best_eff;
     *cnt_out = best_c;
     *ex_out = best_e;
     return;
@@ -575,11 +579,14 @@ __device__ __forceinline__ void gs_empty_row(const Team& t, int* meta, int* exec
 // w.avail (and from `commit_base` [n][3] too when it is not null), the
 // meta row (driver, admitted, packed, 0) and executor slots written by the
 // leader block, and strict-FIFO blocking: a non-skippable failure blocks
-// the later rows (resource.go:241-249). Ends with a barrier.
+// the later rows (resource.go:241-249). With `with_score`, meta[3] holds
+// the float32 bits of the chosen zone's score when the row packed (else
+// 0); without it, 0. Ends with a barrier.
 template <class Team>
 __device__ void gs_fifo_row(Team& t, GangCtx& c, const GsStrategy& s, const GsWork& w,
                             const int* dreq, const int* ereq, int raw, bool skip,
-                            bool* blocked, int* commit_base, int* meta, int* execs) {
+                            bool* blocked, int* commit_base, int* meta, int* execs,
+                            bool with_score) {
   const int sl = t.slice;
   const bool too_big = raw > c.emax;
   c.count = min(raw, c.emax);
@@ -610,10 +617,11 @@ __device__ void gs_fifo_row(Team& t, GangCtx& c, const GsStrategy& s, const GsWo
 
   bool ok;
   int drv;
+  float score;
   int *cnt, *ex;
   gs_gang_solve(t, c, s.fill, s.single_az != 0, s.az_fallback != 0, s.include_exec != 0,
                 s.num_zones, w.zfirst, w.zhas, w.cnt0, w.cnt1, w.ex0, w.ex1, &ok, &drv,
-                &cnt, &ex);
+                &score, &cnt, &ex);
   const bool packed = ok && !too_big;
   const bool admitted = packed && !*blocked;
   if (admitted) {
@@ -633,7 +641,7 @@ __device__ void gs_fifo_row(Team& t, GangCtx& c, const GsStrategy& s, const GsWo
       meta[0] = admitted ? drv : -1;
       meta[1] = admitted ? 1 : 0;
       meta[2] = packed ? 1 : 0;
-      meta[3] = 0;
+      meta[3] = with_score && packed ? __float_as_int(score) : 0;
     }
     for (int j = threadIdx.x; j < c.emax; j += kGsThreads) execs[j] = admitted ? ex[j] : -1;
   }

@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p)
     }
     // The committing row (the segment's last) is also debited from the base.
     gs_fifo_row(t, c, s, w, p.dreq + r * 3, p.ereq + r * 3, p.cnt[r], p.skip[r] != 0,
-                &blocked, r == p.row_count - 1 ? p.base : nullptr, meta, execs);
+                &blocked, r == p.row_count - 1 ? p.base : nullptr, meta, execs, false);
   }
   ClusterTeam::cluster_sync();  // no block exits while a push may target it
 }

@@ -131,17 +131,23 @@ def fifo_pack_reference(
     then a Python loop over the B apps (`ops/gang.walk_rows`), carrying the
     availability and the blocked flag. Runs on whatever device `cluster`
     lives on; the app fields may be tensors or numpy arrays."""
+    return _walk_queue(cluster, apps, fill=fill, emax=emax,
+                       num_zones=num_zones)[0]
+
+
+def _walk_queue(cluster, apps, *, fill, emax, num_zones):
+    """`fifo_pack_reference`'s walk: (packing, `zone_scores`)."""
     check_queue(apps, fill)
     _check_cumsum_bound(cluster.num_nodes, emax)
     avail = cluster.available.clone()
     if apps.driver_req.shape[0] == 0:
-        return empty_packing(cluster.available, emax)
+        return _empty(cluster.available, emax)
     meta, execs = walk_rows(
         fill, num_zones=num_zones, emax=emax, cluster=cluster, avail=avail,
         orders=kernel_orders(cluster, num_zones),
         driver_req=_host(apps.driver_req), exec_req=_host(apps.exec_req),
         exec_count=_host(apps.exec_count), valid=_host(apps.app_valid),
-        skippable=_host(apps.skippable),
+        skippable=_host(apps.skippable), with_score=True,
     )
     dev = cluster.device
     meta = torch.tensor(meta, device=dev)
@@ -151,7 +157,20 @@ def fifo_pack_reference(
         admitted=meta[:, 1] != 0,
         packed=meta[:, 2] != 0,
         available_after=avail,
-    )
+    ), zone_scores(meta)
+
+
+def zone_scores(meta: torch.Tensor) -> torch.Tensor:
+    """The float32 scores of the zones a queue solve chose, from its meta
+    rows' fourth word: a packed row's score under a single-AZ or az-aware
+    strategy, 0.0 where a row did not pack or no zone was chosen. A view of
+    `meta`: no copy, no synchronisation."""
+    return meta[..., 3].view(torch.float32)
+
+
+def _empty(available: torch.Tensor, emax: int):
+    return (empty_packing(available, emax),
+            torch.zeros(0, dtype=torch.float32, device=available.device))
 
 
 def device_apps(apps: AppBatch, device: torch.device, lead=()) -> list:
@@ -293,8 +312,9 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
     team of `layout` each. Every input is a contiguous CUDA tensor stacked
     on a leading group axis: `avail`/`sched` [G,N,3] i32, `zone` [G,N] i32,
     `orders` the six [G,N] tensors of `kernel_orders`, `app_fields` the
-    five of `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4],
-    execs [G,B,emax], avail_after [G,N,3]), all new tensors; the kernel runs
+    five of `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4] rows
+    of (driver, admitted, packed, `zone_scores` bits), execs [G,B,emax],
+    avail_after [G,N,3]), all new tensors; the kernel runs
     on the current stream and nothing waits for it."""
     g, n, _ = avail.shape
     if layout != queue_layout(n, team=layout.team, state=layout.state):
@@ -374,13 +394,28 @@ def fifo_pack(
     more than `emax` executors never packs. `available_after` is always a
     new tensor: the caller's `cluster.available` is left as it was.
     Traced, entry to return, as the span `queue.pack`."""
+    return fifo_pack_with_scores(cluster, apps, fill=fill, emax=emax,
+                                 num_zones=num_zones)[0]
+
+
+def fifo_pack_with_scores(
+    cluster: ClusterTensors,
+    apps: AppBatch,
+    *,
+    fill: str = "tightly-pack",
+    emax: int,
+    num_zones: int,
+) -> tuple[BatchedPacking, torch.Tensor]:
+    """`fifo_pack`, and its [B] float32 `zone_scores`: the score of the zone
+    each packed row chose under a single-AZ or az-aware strategy (0.0
+    elsewhere), read from the same solve at no extra cost."""
     with profiled_span("queue.pack", nodes=cluster.num_nodes,
                        rows=apps.driver_req.shape[0], groups=1):
         check_queue(apps, fill)
         check_cluster(cluster)
         dev = cluster.device
         if dev.type == "cpu":
-            return fifo_pack_reference(
+            return _walk_queue(
                 cluster, apps, fill=fill, emax=emax, num_zones=num_zones
             )
         if dev.type != "cuda":
@@ -388,13 +423,14 @@ def fifo_pack(
         _check_cumsum_bound(cluster.num_nodes, emax)
         fields = device_apps(apps, dev)
         if fields[0].shape[0] == 0:
-            return empty_packing(cluster.available, emax)
-        out = queue_packing(*fifo_queue(
+            return _empty(cluster.available, emax)
+        meta, execs, after = fifo_queue(
             *queue_operands(cluster, fields, num_zones),
             fill=fill, emax=emax, num_zones=num_zones,
             layout=queue_layout(cluster.num_nodes),
-        ))
-        return BatchedPacking(*(x[0] for x in out))
+        )
+        out = queue_packing(meta, execs, after)
+        return BatchedPacking(*(x[0] for x in out)), zone_scores(meta[0])
 
 
 fifo_pack.launches = 0

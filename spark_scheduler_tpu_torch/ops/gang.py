@@ -159,7 +159,8 @@ def gang_solve(
 ):
     """Driver selection + executor fill for one gang, and for the single-AZ
     wrappers the per-zone pack and zone pick (make_gang_solver semantics).
-    Returns (ok, driver node or -1, [emax] executor slots, [N] counts)."""
+    Returns (ok, driver node or -1, [emax] executor slots, [N] counts, the
+    chosen zone's float32 score or 0.0 where no zone was chosen)."""
     inner, single_az, az_fallback, include_exec = strategy_params(fill)
     all_nodes = torch.ones_like(elig_e)
 
@@ -171,7 +172,7 @@ def gang_solve(
         return found, drv, execs, counts
 
     if not single_az:
-        return solve_in(all_nodes)
+        return (*solve_in(all_nodes), np.float32(0.0))
 
     best = None
     best_eff = np.float32(-1.0)
@@ -191,15 +192,15 @@ def gang_solve(
         )
         if eff > best_eff or (eff == best_eff and zone_first < best_first):
             best_eff, best_first = eff, zone_first
-            best = (True, drv, execs, counts)
+            best = (True, drv, execs, counts, eff)
     # chooseBestResult replaces only on strictly greater than 0.0.
     if any_valid and best_eff > 0.0:
         return best
     if az_fallback:
         # az-aware: the plain pack when no single zone fits
         # (az_aware_pack_tightly.go:27-38).
-        return solve_in(all_nodes)
-    return False, -1, [-1] * emax, torch.zeros_like(cap_e)
+        return (*solve_in(all_nodes), np.float32(0.0))
+    return False, -1, [-1] * emax, torch.zeros_like(cap_e), np.float32(0.0)
 
 
 def walk_rows(
@@ -215,6 +216,7 @@ def walk_rows(
     exec_count: np.ndarray,  # [R] i32
     valid: np.ndarray,  # [R] bool
     skippable: np.ndarray,  # [R] bool
+    with_score: bool = False,
 ):
     """The plain FIFO row walk, shared by the window and queue paths (the
     loop of pallas_fifo.py `_make_kernel` and of the window kernel): rows in
@@ -225,7 +227,10 @@ def walk_rows(
     (resource.go:241-249). Padding rows never pack, debit or block.
 
     Returns host (meta [R,4] i32 rows of (driver, admitted, packed, 0) with
-    driver -1 unless admitted, execs [R,emax] i32, -1 unless admitted)."""
+    driver -1 unless admitted, execs [R,emax] i32, -1 unless admitted).
+    With `with_score`, as the queue kernel writes it, a packed row's fourth
+    word holds the float32 bits of its chosen zone's score (0 where no zone
+    was chosen)."""
     elig_e, elig_d, drank, d_order, erank, e_order = orders
     dev = avail.device
     r_pad = len(exec_count)
@@ -249,7 +254,7 @@ def walk_rows(
             node_capacities(avail, dreq_t.expand_as(avail), ereq_t),
             0,
         )
-        ok, drv, row_execs, counts = gang_solve(
+        ok, drv, row_execs, counts, score = gang_solve(
             fill, num_zones=num_zones, emax=emax, count=count,
             cap_e=cap_e, cap_wd=cap_wd, fit_d=fits(avail, dreq_t),
             elig_e=elig_e, elig_d=elig_d, drank=drank, d_order=d_order,
@@ -266,5 +271,7 @@ def walk_rows(
             execs[r] = row_execs
         else:
             meta[r, 2] = int(packed)
+        if with_score and packed:
+            meta[r, 3] = np.float32(score).view(np.int32)
         blocked = blocked or (not packed and not skippable[r])
     return meta, execs

@@ -238,6 +238,40 @@ def test_queue_kernel_default_layout(cuda_device, fill):
 
 
 @pytest.mark.parametrize("fill", STRATEGIES)
+@pytest.mark.parametrize("n", [9, 300, 5000])
+@pytest.mark.parametrize("team,state", QUEUE_LAYOUTS)
+def test_queue_kernel_scores_match_the_plain_walk(cuda_device, fill, n, team,
+                                                   state):
+    """The queue kernel's zone scores, in every forced layout, equal the
+    plain walk's bit for bit (0 outside the zone strategies), on a roomy
+    and a tight cluster."""
+    from spark_scheduler_tpu_torch.ops.fifo import (
+        device_apps,
+        fifo_pack_with_scores,
+        fifo_queue,
+        queue_operands,
+        zone_scores,
+    )
+
+    layout = _forced_layout(n, team, state)
+    for seed, hi in enumerate((40, 8)):
+        got_cl, got_apps = _queue_case(np.random.default_rng(seed), n, 9,
+                                       cuda_device, hi)
+        want_cl, want_apps = _queue_case(np.random.default_rng(seed), n, 9,
+                                         torch.device("cpu"), hi)
+        meta, _, _ = fifo_queue(
+            *queue_operands(got_cl, device_apps(got_apps, cuda_device), 4),
+            fill=fill, emax=8, num_zones=4, layout=layout)
+        want, scores = fifo_pack_with_scores(want_cl, want_apps, fill=fill,
+                                             emax=8, num_zones=4)
+        got = zone_scores(meta[0]).cpu()
+        assert torch.equal(got.view(torch.int32), scores.view(torch.int32))
+        assert torch.equal(meta[0, :, 2].cpu() != 0, want.packed)
+        if fill.startswith("single-az") and want.packed.any():
+            assert (got[want.packed] > 0).all()
+
+
+@pytest.mark.parametrize("fill", STRATEGIES)
 @pytest.mark.parametrize("team", ["block", "cluster"])
 def test_queue_kernel_wide_gangs(cuda_device, fill, team):
     """Queue-mode gangs of more than 1,024 executors (emax 2,048): the slot
