@@ -765,13 +765,13 @@ QUEUE_LAYOUTS = (("block", "smem"), ("block", "global"),
                  ("cluster", "smem"), ("cluster", "global"))
 
 
-def fitting_layout(n, team, state):
-    """queue_layout(n, team=..., state=...), or None where the node state
-    does not fit in shared memory."""
+def fitting_layout(n, team, state, zone_lanes=False):
+    """queue_layout(n, team=..., state=..., zone_lanes=...), or None where
+    the node state does not fit in shared memory."""
     from spark_scheduler_tpu_torch.ops.fifo import queue_layout
 
     try:
-        return queue_layout(n, team=team, state=state)
+        return queue_layout(n, team=team, state=state, zone_lanes=zone_lanes)
     except ValueError:
         return None
 
@@ -1248,27 +1248,33 @@ def measure_queue_layouts(device, card):
     from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.ops.batched import app_batch_to_device
     from spark_scheduler_tpu_torch.ops.fifo import (
+        QUEUE_BLOCK_LANE_SMEM,
         QUEUE_BLOCK_STATIC_SMEM,
         QUEUE_CLUSTER_MIN_NODES,
         fifo_kernel_info,
         queue_layout,
     )
-    from spark_scheduler_tpu_torch.ops.window import WALK_STATIC_SMEM
+    from spark_scheduler_tpu_torch.ops.window import WALK_LANE_SMEM, WALK_STATIC_SMEM
     from spark_scheduler_tpu_torch.parallel import stack_groups
 
     for team, state in QUEUE_LAYOUTS:
         for n in (1_000, 10_000):
-            lay = fitting_layout(n, team, state)
-            if lay is None:
-                continue
-            info = fifo_kernel_info(lay)
-            static = WALK_STATIC_SMEM if team == "cluster" else QUEUE_BLOCK_STATIC_SMEM
-            check(info["static_smem"] == static,
-                  f"{lay}: static shared memory {info['static_smem']} B != {static}")
-            check(info["max_active_teams"] >= 1, f"{lay} cannot run: {info}")
-            print(f"  queue kernel {team}/{state} at n={n}: slice {lay.slice}, "
-                  f"{lay.smem_bytes} B shared a block; ptxas/runtime {info}",
-                  flush=True)
+            for lanes in (False, True):  # the plain and zone-parallel ones
+                lay = fitting_layout(n, team, state, zone_lanes=lanes)
+                if lay is None:
+                    continue
+                info = fifo_kernel_info(lay)
+                static = (WALK_STATIC_SMEM if team == "cluster"
+                          else QUEUE_BLOCK_STATIC_SMEM)
+                if lanes:
+                    static += (WALK_LANE_SMEM if team == "cluster"
+                               else QUEUE_BLOCK_LANE_SMEM)
+                check(info["static_smem"] == static,
+                      f"{lay}: static shared memory {info['static_smem']} B != {static}")
+                check(info["max_active_teams"] >= 1, f"{lay} cannot run: {info}")
+                print(f"  queue kernel {team}/{state}{'/zone lanes' * lanes} at "
+                      f"n={n}: slice {lay.slice}, {lay.smem_bytes} B shared a "
+                      f"block; ptxas/runtime {info}", flush=True)
 
     def up(fields):
         return cluster_from_numpy(fields, device=device)

@@ -17,11 +17,20 @@
 // out in node order.
 //
 // What bounds it on this card: latency, not bandwidth or arithmetic. Apps
-// are sequential and every app is a chain of dependent team reductions
-// over the nodes (the driver's sum and min, then one per fill round: per
-// placed node for tightly-pack, per slot for distribute-evenly, per zone
-// for single-AZ, emax at most). The TPU kernel's sequential grid over apps
-// becomes a loop inside one team of threads per queue.
+// are sequential and every app is a chain of dependent steps, each a pass
+// over the team's nodes (about one node a thread) and a team reduction:
+// the driver's sum and min, then one per fill round (per placed node for
+// tightly-pack, per slot for distribute-evenly, emax at most). A step costs
+// about the same whatever it touches, so the chain's length sets the time.
+// The single-AZ strategies used to run that chain once a zone (~30
+// reductions a gang at 6 zones, half the gang's time inside them on an
+// H100: PERF.md); their instantiation (kLanes) now solves every zone in
+// one chain of lane reductions, one lane a zone (gang_solve.cuh
+// `gs_gang_solve_lanes`): ~5 steps a gang whatever the zone count up to
+// kGsLanes. The plain strategies keep their own instantiation, compiled
+// from the code they had, so its registers, spills and shared memory are
+// what they were. The TPU kernel's sequential grid over apps becomes a
+// loop inside one team of threads per queue.
 //
 // What the design does about it: each queue gets a TEAM sized to its node
 // count (ops/fifo.py `queue_layout`), and the G queues of a grouped solve
@@ -48,8 +57,8 @@
 // writes its slice of the availability after the queue. The winner's
 // payload rides in the 64-bit reduction key, so no thread reads another's
 // node state and the state needs no barrier of its own.
-// ptxas (-Xptxas -v) for the four instantiations is printed by
-// chip_smoke.py phase 1.
+// ptxas (-Xptxas -v) for the eight instantiations (team x node-state
+// place x lanes) is printed by chip_smoke.py phase 1.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -84,15 +93,15 @@ struct QueueParams {
   int* meta;           // [G][rows][4] (driver_node, admitted, packed, zone score bits)
   int* execs;          // [G][rows][emax]
   int* avail_out;      // [G][n][3] availability after every admitted app
-  // Per block, in launch order ([G][blocks a team]): 2 emax + 2 num_zones
-  // words (gang slots, zone facts), then 8 slice words of node state for
-  // the global layout.
+  // Per block, in launch order ([G][blocks a team]): gs_extra_words (gang
+  // slots, zone facts, and the lane slots of the zone-parallel
+  // instantiation), then 8 slice words of node state for the global layout.
   int* scratch;
 };
 
 // Queue g walked by team t; `state` holds the team's 8 slice words of node
 // state, `extra` its gang slots and zone facts.
-template <class Team>
+template <bool kLanes, class Team>
 __device__ __forceinline__ void walk_queue(Team& t, const QueueParams& p, long long g,
                                            int* state, int* extra) {
   const int n = p.n, rows = p.rows, emax = p.emax, slice = t.slice;
@@ -117,7 +126,7 @@ __device__ __forceinline__ void walk_queue(Team& t, const QueueParams& p, long l
   c.d_order = p.d_order + g * n;
   c.erank = p.erank + g * n;
   c.e_order = p.e_order + g * n;
-  gs_zone_facts(t, c, p.s, w);  // the orders are fixed for the whole queue
+  gs_zone_facts<kLanes>(t, c, p.s, w);  // the orders are fixed for the whole queue
 
   const int* dreq = p.dreq + g * rows * 3;
   const int* ereq = p.ereq + g * rows * 3;
@@ -132,7 +141,7 @@ __device__ __forceinline__ void walk_queue(Team& t, const QueueParams& p, long l
       gs_empty_row(t, meta + b * 4, execs + b * emax, emax);
       continue;
     }
-    gs_fifo_row(t, c, p.s, w, dreq + b * 3, ereq + b * 3, cnt[b], skip[b] != 0, &blocked,
+    gs_fifo_row<kLanes>(t, c, p.s, w, dreq + b * 3, ereq + b * 3, cnt[b], skip[b] != 0, &blocked,
                 nullptr, meta + b * 4, execs + b * emax, true);
   }
   int* avail_out = p.avail_out + g * n * 3;
@@ -141,10 +150,13 @@ __device__ __forceinline__ void walk_queue(Team& t, const QueueParams& p, long l
   }
 }
 
-template <int kTeam, bool kSmemState>
+// kLanes: the zone-parallel instantiation, for the single-AZ strategies
+// (gang_solve.cuh gs_gang_solve_lanes), with its lane buffers in static
+// shared memory; the plain strategies run the instantiation without them.
+template <int kTeam, bool kSmemState, bool kLanes>
 __global__ void __launch_bounds__(kThreads) fifo_queue_kernel(QueueParams p) {
   extern __shared__ int smem_state[];  // [8 slice] when kSmemState
-  const int extra_words = 2 * p.emax + 2 * p.s.num_zones;
+  const int extra_words = gs_extra_words(p.emax, p.s.num_zones, kLanes);
   int* block_scratch = p.scratch + static_cast<long long>(blockIdx.x) *
                                        (extra_words + (kSmemState ? 0 : 8 * p.slice));
   int* state = kSmemState ? smem_state : block_scratch + extra_words;
@@ -164,34 +176,51 @@ __global__ void __launch_bounds__(kThreads) fifo_queue_kernel(QueueParams p) {
     t.red = red;
     t.slots = slots;
     t.bars = bars;
+    t.lslots = nullptr;
+    if constexpr (kLanes) {
+      __shared__ unsigned long long lanes[kGsClusterLaneWords];
+      t.ln.attach(lanes);
+      t.lslots = lanes + kGsLaneWords;
+    }
     t.start();
-    walk_queue(t, p, blockIdx.x / kGsCluster, state, block_scratch);
+    walk_queue<kLanes>(t, p, blockIdx.x / kGsCluster, state, block_scratch);
     ClusterTeam::cluster_sync();  // no block exits while a push may target it
   } else {
     __shared__ unsigned long long red[2 * 32];
-    BlockTeam t{p.n, p.n, red, 0};
-    walk_queue(t, p, blockIdx.x, state, block_scratch);
+    BlockTeam t{p.n, p.n, red, 0, {}};
+    if constexpr (kLanes) {
+      __shared__ unsigned long long lanes[kGsLaneWords];
+      t.ln.attach(lanes);
+      __syncthreads();  // the accumulators are zero before the first lane fold
+    }
+    walk_queue<kLanes>(t, p, blockIdx.x, state, block_scratch);
   }
 }
 
 using QueueKernel = void (*)(QueueParams);
 
-SmemAllowance<2> g_smem_allowance;  // slot: team
+SmemAllowance<4> g_smem_allowance;  // slot: 2 team + lanes
 
-// Sets `device` current and picks the instantiation for (team, smem_state),
-// with its dynamic shared memory for `slice` nodes a block allowed there.
-cudaError_t prepare(int device, int team, int smem_state, int slice, QueueKernel* kernel,
-                    int* dynamic) {
-  if (team == kTeamCluster)
-    *kernel = smem_state ? &fifo_queue_kernel<kTeamCluster, true>
-                         : &fifo_queue_kernel<kTeamCluster, false>;
-  else
-    *kernel = smem_state ? &fifo_queue_kernel<kTeamBlock, true>
-                         : &fifo_queue_kernel<kTeamBlock, false>;
+template <int kTeam>
+QueueKernel pick(int smem_state, int lanes) {
+  if (lanes)
+    return smem_state ? &fifo_queue_kernel<kTeam, true, true>
+                      : &fifo_queue_kernel<kTeam, false, true>;
+  return smem_state ? &fifo_queue_kernel<kTeam, true, false>
+                    : &fifo_queue_kernel<kTeam, false, false>;
+}
+
+// Sets `device` current and picks the instantiation for (team, smem_state,
+// lanes), with its dynamic shared memory for `slice` nodes a block allowed
+// there.
+cudaError_t prepare(int device, int team, int smem_state, int lanes, int slice,
+                    QueueKernel* kernel, int* dynamic) {
+  *kernel = team == kTeamCluster ? pick<kTeamCluster>(smem_state, lanes)
+                                 : pick<kTeamBlock>(smem_state, lanes);
   *dynamic = smem_state ? 8 * slice * static_cast<int>(sizeof(int)) : 0;
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess && smem_state)
-    e = g_smem_allowance.ensure(device, team == kTeamCluster ? 1 : 0,
+    e = g_smem_allowance.ensure(device, 2 * (team == kTeamCluster ? 1 : 0) + (lanes ? 1 : 0),
                                 reinterpret_cast<const void*>(*kernel), *dynamic);
   return e;
 }
@@ -222,7 +251,8 @@ cudaLaunchConfig_t queue_config(int team, int groups, int dynamic, cudaStream_t 
 // One launch over `groups` queues. team: 0 one block a queue, 1 one
 // cluster of kGsCluster blocks a queue; slice: nodes a block owns;
 // smem_state: where the node state lives (1 shared memory, 0 global
-// scratch). Returns the CUDA error of the launch (0 on success).
+// scratch). A single-AZ strategy runs the zone-parallel instantiation.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int fifo_queue(
     int device, int groups, int rows, int n, int emax, int num_zones, int fill, int single_az,
     int az_fallback, int include_exec, const int* dreq, const int* ereq, const int* cnt,
@@ -238,7 +268,7 @@ extern "C" int fifo_queue(
                 avail_out, scratch};
   QueueKernel kernel;
   int dynamic;
-  cudaError_t e = prepare(device, team, smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, team, smem_state, single_az, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -247,16 +277,18 @@ extern "C" int fifo_queue(
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// What the card reports for one instantiation: out[0] registers a thread,
+// What the card reports for one instantiation (lanes: the zone-parallel
+// one): out[0] registers a thread,
 // out[1] local (spill) bytes a thread, out[2] static shared bytes a block,
 // out[3] how many such teams with `slice` nodes a block can be resident at
 // once (cudaOccupancyMaxActiveClusters for the cluster team, resident
 // blocks over all SMs for the block team; 0 means the launch cannot run).
 // Returns the CUDA error (0 on success).
-extern "C" int fifo_kernel_info(int device, int team, int smem_state, int slice, int* out) {
+extern "C" int fifo_kernel_info(int device, int team, int smem_state, int lanes, int slice,
+                                int* out) {
   QueueKernel kernel;
   int dynamic;
-  cudaError_t e = prepare(device, team, smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, team, smem_state, lanes, slice, &kernel, &dynamic);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);

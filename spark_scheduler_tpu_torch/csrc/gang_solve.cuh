@@ -32,6 +32,25 @@
 // in float32 in tile order instead: a cross-zone tie closer than about 1 ulp
 // may break differently there (the deviation ops/pallas_fifo.py:49-56
 // documents between its own two paths).
+//
+// What bounds a gang: its chain of dependent steps, each a pass over the
+// team's nodes (one node a thread at 5,000 nodes) and a team reduction
+// (warp shuffles, a __syncthreads and, for a cluster, one
+// distributed-shared-memory round trip: ~0.6 us on an H100 whatever it
+// carries, the pass's loads and barriers about as much again), not the
+// node visits. A single-AZ gang solved zone by zone ran a driver selection
+// (2 reductions), a fill (a round or more, and 2 barriers) and a score
+// (1 reduction) for EACH zone: ~30 reductions a gang at 6 zones (PERF.md).
+// The zones partition the nodes, so the single-AZ strategies solve every
+// zone at once instead (`gs_gang_solve_lanes`): each reduction carries
+// kGsLanes LANES, one a zone, each node folding into the lane of its own
+// zone (`fold_lanes`), and one count buffer holds every zone's tentative
+// executors. A gang then waits on ~5 reductions (driver sum, driver
+// minimum, a fill round or more, the scores) whatever the zone count up to
+// kGsLanes; more zones run in chunks of kGsLanes. The lane buffers exist
+// only in the zone-parallel instantiation (template flag kLanes of the
+// kernels): the plain strategies keep their own instantiation, compiled
+// from the code it had (gs_gang_solve).
 #pragma once
 
 #include <cstdint>
@@ -77,6 +96,100 @@ struct GsSum {
   __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
 };
 
+__device__ __forceinline__ unsigned long long gs_key(unsigned hi, unsigned lo) {
+  return (static_cast<unsigned long long>(hi) << 32) | lo;
+}
+
+// Zones one lane reduction carries: 8 covers every region of AWS (6 AZs
+// at most), GCP and Azure; more zones run in chunks of kGsLanes.
+constexpr int kGsLanes = 8;
+// Row stride of the [kGsLanes][32] warp partials of the zone scores: 33,
+// so the writers of one row hit distinct banks.
+constexpr int kGsLaneStride = 33;
+
+// Warp sum (the zone scores' doubles); every lane gets the same bits.
+template <typename T, typename Op>
+__device__ __forceinline__ T gs_warp_reduce(T v, Op op) {
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Lane reductions (zone-parallel instantiations). A node pass folds each
+// node's value into lane `zone - z0` of the block's current accumulator
+// (Team::acc()) with a shared-memory atomic, so a thread keeps no array of
+// lanes whatever the number of nodes it walks. Every fold has identity 0,
+// so an accumulator is reset by zeroing it: int sums, and minima of 32- or
+// 64-bit unsigned keys stored complemented (a maximum of ~key; a fold of 0
+// reads back as the key of all ones, "none"). Integer folds are exact in
+// any order, so the atomics' order does not show in the bits.
+__device__ __forceinline__ void gs_acc_add(unsigned long long* acc, int lane, int v) {
+  atomicAdd(reinterpret_cast<int*>(acc + lane), v);
+}
+__device__ __forceinline__ void gs_acc_min(unsigned long long* acc, int lane, unsigned key) {
+  atomicMax(reinterpret_cast<unsigned*>(acc + lane), ~key);
+}
+__device__ __forceinline__ void gs_acc_min(unsigned long long* acc, int lane,
+                                           unsigned long long key) {
+  atomicMax(acc + lane, ~key);
+}
+// A fold's lane l, from the register in which thread (lane index) l holds
+// it; called by every thread of the warp.
+template <typename T>
+__device__ __forceinline__ T gs_lane(T folded, int l) {
+  return __shfl_sync(0xffffffffu, folded, l);
+}
+
+// A team's lane buffers in shared memory (zone-parallel instantiations):
+// three rotating [kGsLanes] accumulators, the [kGsLanes][kGsLaneStride]
+// warp partials of the zone scores, two [kGsLanes] int arrays (the chunk's
+// zone drivers, the minimal-fragmentation remainders) and the best zone so
+// far (4 ints); a cluster team adds two [kGsCluster][kGsLanes] slot rows
+// (ClusterTeam::lslots). kGsLaneWords 8-byte words (ops/window.py
+// LANE_WORDS).
+constexpr int kGsLaneWords = 3 * kGsLanes + kGsLanes * kGsLaneStride + kGsLanes + 2;
+struct GsLanes {
+  unsigned long long* accs;  // [3][kGsLanes]
+  double* part;              // [kGsLanes][kGsLaneStride]
+  int* zdrv;                 // [kGsLanes]
+  int* zaux;                 // [kGsLanes]
+  int* best;                 // [4]: score bits, first driver rank, driver, zone
+  int cur;                               // the accumulator nodes fold into
+  const unsigned long long* last;        // the last fold's accumulator
+
+  // Carves kGsLaneWords words; every thread, before the team's first
+  // barrier. The first two accumulators start at identity.
+  __device__ void attach(unsigned long long* smem) {
+    accs = smem;
+    part = reinterpret_cast<double*>(smem + 3 * kGsLanes);
+    zdrv = reinterpret_cast<int*>(smem + 3 * kGsLanes + kGsLanes * kGsLaneStride);
+    zaux = zdrv + kGsLanes;
+    best = zaux + kGsLanes;
+    cur = 0;
+    last = accs;
+    if (threadIdx.x < 2 * kGsLanes) accs[threadIdx.x] = 0;
+  }
+  __device__ __forceinline__ unsigned long long* acc() const { return accs + kGsLanes * cur; }
+  // After a fold's barrier: zero the accumulator of the fold after next,
+  // whose last reads (the pass after the fold before this one) are behind
+  // this barrier and whose next writes are behind the next one.
+  __device__ __forceinline__ void advance() {
+    const int after_next = cur == 0 ? 2 : cur - 1;
+    if (threadIdx.x < kGsLanes) accs[kGsLanes * after_next + threadIdx.x] = 0;
+    cur = cur == 2 ? 0 : cur + 1;
+  }
+  // The block's sum of lane l < nl's warp partials, in thread (lane index)
+  // l of the calling warp: one warp sum a lane.
+  __device__ __forceinline__ double warp_sums(int nl, int mine) const {
+    const int lane = threadIdx.x & 31;
+    double a = 0.0;
+    for (int l = 0; l < nl; ++l) {
+      const double y = gs_warp_reduce(part[l * kGsLaneStride + lane], GsSum());
+      if (mine == l) a = y;
+    }
+    return a;
+  }
+};
+
 // One block owns every node (the queue kernel's team for small clusters).
 // Node state is indexed by node (lo = 0, slice = n), in shared or global
 // memory.
@@ -87,6 +200,7 @@ struct BlockTeam {
   int slice;  // stride of the state arrays = n
   unsigned long long* red;  // shared, [2][32] partials, alternating by parity
   int parity;               // the buffer the next reduction uses
+  GsLanes ln;               // zone-parallel instantiations only
 
   template <typename T, typename Op>
   __device__ __forceinline__ T reduce(T v, Op op) {
@@ -94,6 +208,33 @@ struct BlockTeam {
     T* buf = reinterpret_cast<T*>(red + 32 * parity);
     parity ^= 1;
     return gs_block_reduce<T>(v, op, buf);
+  }
+  __device__ __forceinline__ unsigned long long* acc() const { return ln.acc(); }
+  // Ends a lane reduction: after one barrier the accumulator holds the
+  // block's folds. Returns lane (threadIdx.x % kGsLanes)'s fold.
+  template <typename T, typename Op>
+  __device__ __forceinline__ T fold_lanes(Op) {
+    __syncthreads();
+    T r;
+    memcpy(&r, ln.acc() + (threadIdx.x & (kGsLanes - 1)), sizeof(T));
+    ln.last = ln.acc();
+    ln.advance();
+    return r;
+  }
+  // During the pass after fold_lanes: its lane l, l known only at run time.
+  template <typename T, typename Op>
+  __device__ __forceinline__ T lane_fold(int l, Op) const {
+    T r;
+    memcpy(&r, ln.last + l, sizeof(T));
+    return r;
+  }
+  // Ends a lane sum of doubles (the zone scores) whose warps left their
+  // lane-l sums in ln.part[l * kGsLaneStride + warp]: one barrier, then
+  // the same shuffles in every warp. Returns lane (threadIdx.x % 32)'s sum
+  // for the first nl lanes.
+  __device__ __forceinline__ double fold_lane_sums(int nl) const {
+    __syncthreads();
+    return ln.warp_sums(nl, threadIdx.x & 31);
   }
   __device__ __forceinline__ bool owns(int node) const {
     return node < count && (node & (kGsThreads - 1)) == static_cast<int>(threadIdx.x);
@@ -104,6 +245,9 @@ struct BlockTeam {
 // non-portable size, measured no faster for the row walk on an H100:
 // PERF.md.)
 constexpr int kGsCluster = 8;
+// A cluster team's lane buffers: GsLanes' and two [kGsCluster][kGsLanes]
+// slot rows (ops/window.py WALK_LANE_SMEM).
+constexpr int kGsClusterLaneWords = kGsLaneWords + 2 * kGsCluster * kGsLanes;
 
 // Shared-memory address helpers (PTX): the 32-bit shared::cta address of a
 // generic pointer, and the same offset in block `rank` of the cluster.
@@ -140,6 +284,13 @@ struct ClusterTeam {
   unsigned long long* bars;   // shared, [2] mbarriers, one per slot row
   int parity;                 // the slot row the next reduction uses
   unsigned phases;            // bit p: the phase of bars[p] to wait for
+  // Zone-parallel instantiations only: the lane buffers and, in shared
+  // memory, [2][kGsCluster][kGsLanes] block lane partials. A lane
+  // reduction takes the next slot row's parity and mbarrier, as a plain one
+  // does, so the two kinds interleave freely.
+  GsLanes ln;
+  unsigned long long* lslots;
+  const unsigned long long* lrow;  // the last lane fold's slot row
 
   // Once per launch, by every thread, before the first reduction.
   __device__ void start() {
@@ -192,6 +343,87 @@ struct ClusterTeam {
     }
     parity ^= 1;
     return r;
+  }
+  __device__ __forceinline__ unsigned long long* acc() const { return ln.acc(); }
+  // Ends a lane reduction (reduce's scheme with kGsLanes words a block):
+  // after one barrier, threads 0-63 push lane l of this block's fold into
+  // slot [rank][l] of block q, one 8-byte st.async each, so a phase
+  // completes at 8 x K x kGsLanes bytes. Then every warp reads the K x
+  // kGsLanes folds two a thread and combines the ranks with two xor
+  // shuffles: the same operations on the same values in every thread of
+  // every block, so the same bits. Returns lane (threadIdx.x % kGsLanes)'s
+  // fold.
+  template <typename T, typename Op>
+  __device__ __forceinline__ T fold_lanes(Op op) {
+    const unsigned bar = gs_smem(bars + parity);
+    if (threadIdx.x == 0)  // this phase completes when K x kGsLanes partials landed
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"(8 * kGsCluster * kGsLanes) : "memory");
+    __syncthreads();
+    unsigned long long* row = lslots + parity * kGsCluster * kGsLanes;
+    if (threadIdx.x < kGsCluster * kGsLanes)
+      push(row, threadIdx.x % kGsLanes, threadIdx.x / kGsLanes, ln.acc()[threadIdx.x % kGsLanes],
+           bar);
+    ln.advance();
+    return combine<T>(row, bar, op);
+  }
+  // During the pass after fold_lanes: its lane l, l known only at run time
+  // (the ranks combined in rank order; integer folds, so the same value).
+  template <typename T, typename Op>
+  __device__ __forceinline__ T lane_fold(int l, Op op) const {
+    T r;
+    memcpy(&r, lrow + l, sizeof(T));
+#pragma unroll
+    for (int q = 1; q < kGsCluster; ++q) {
+      T x;
+      memcpy(&x, lrow + q * kGsLanes + l, sizeof(T));
+      r = op(r, x);
+    }
+    return r;
+  }
+  // Ends a lane sum of doubles (the zone scores) whose warps left their
+  // lane-l sums in ln.part[l * kGsLaneStride + warp]: warps 0-1 sum each
+  // lane over the block's warps and push it as fold_lanes does. Returns
+  // lane (threadIdx.x % kGsLanes)'s sum for the first nl lanes.
+  __device__ __forceinline__ double fold_lane_sums(int nl) {
+    const unsigned bar = gs_smem(bars + parity);
+    if (threadIdx.x == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"(8 * kGsCluster * kGsLanes) : "memory");
+    __syncthreads();
+    unsigned long long* row = lslots + parity * kGsCluster * kGsLanes;
+    if (threadIdx.x < kGsCluster * kGsLanes) {  // warps 0-1, whole
+      const double mine = ln.warp_sums(nl, threadIdx.x % kGsLanes);
+      unsigned long long bits;
+      memcpy(&bits, &mine, sizeof(bits));
+      push(row, threadIdx.x % kGsLanes, threadIdx.x / kGsLanes, bits, bar);
+    }
+    return combine<double>(row, bar, GsSum());
+  }
+  __device__ __forceinline__ void push(unsigned long long* row, int l, int q,
+                                       unsigned long long bits, unsigned bar) const {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.u64 [%0], %1, [%2];" ::"r"(
+            gs_mapa(gs_smem(row + rank * kGsLanes + l), q)),
+        "l"(bits), "r"(gs_mapa(bar, q))
+        : "memory");
+  }
+  // Waits for row's K x kGsLanes folds; thread t reads (t / kGsLanes,
+  // t % kGsLanes) and (t / kGsLanes + 4, t % kGsLanes) of row[q][l].
+  template <typename T, typename Op>
+  __device__ __forceinline__ T combine(const unsigned long long* row, unsigned bar, Op op) {
+    static_assert(kGsCluster * kGsLanes == 64, "two slots a thread");
+    wait(bar, (phases >> parity) & 1u);
+    phases ^= 1u << parity;
+    parity ^= 1;
+    lrow = row;
+    const int lane = threadIdx.x & 31;
+    T a, x;
+    memcpy(&a, row + lane, sizeof(T));
+    memcpy(&x, row + 32 + lane, sizeof(T));
+    a = op(a, x);
+    for (int o = kGsLanes; o < 32; o <<= 1) a = op(a, __shfl_xor_sync(0xffffffffu, a, o));
+    return a;
   }
   __device__ __forceinline__ bool owns(int node) const {
     const int li = node - lo;
@@ -254,10 +486,6 @@ __device__ __forceinline__ bool gs_in_zone(const GangCtx& c, int i, int z) {
 __device__ __forceinline__ int gs_cap_fill(const GangCtx& c, int li, int i, int z, int drv) {
   if (!gs_in_zone(c, i, z)) return 0;
   return i == drv ? c.cap_wd[li] : c.cap_e[li];
-}
-
-__device__ __forceinline__ unsigned long long gs_key(unsigned hi, unsigned lo) {
-  return (static_cast<unsigned long long>(hi) << 32) | lo;
 }
 
 // Driver selection by the feasibility identity (make_driver_selector):
@@ -430,12 +658,18 @@ __device__ float gs_zone_efficiency(Team& t, const GangCtx& c, int drv, const in
   return static_cast<float>(total) / static_cast<float>(c.count + 1);
 }
 
-// The whole per-gang solve (make_gang_solver). On return, *ok says whether
-// the gang packs, *drv is its driver (or -1), *score is the chosen zone's
-// score (0 where no zone was chosen), and *cnt_out / *ex_out point at the
-// buffers holding the chosen placement (one of the two pairs given).
-// zfirst/zhas hold, per zone, the smallest driver rank among its
-// driver-eligible nodes and whether it has an executor-eligible node.
+// The whole per-gang solve (make_gang_solver), as the plain instantiation
+// runs it. On return, *ok says whether the gang packs, *drv is its driver
+// (or -1), *score is the chosen zone's score (0 where no zone was chosen),
+// and *cnt_out / *ex_out point at the buffers holding the chosen placement
+// (one of the two pairs given). zfirst/zhas hold, per zone, the smallest
+// driver rank among its driver-eligible nodes and whether it has an
+// executor-eligible node. The launchers send the single-AZ strategies to
+// the zone-parallel instantiation (gs_gang_solve_lanes), so the plain one
+// no longer takes the zone-by-zone branch; it is kept because the plain
+// instantiation compiles to the code it had only with it: without it,
+// ptxas allocated the plain kernel differently and queue-10k-w100's kernel
+// measured 3-8% slower on an H100 (PERF.md).
 template <class Team>
 __device__ void gs_gang_solve(Team& t, const GangCtx& c, int fill, bool single_az,
                               bool az_fallback, bool include_exec, int num_zones,
@@ -505,7 +739,9 @@ struct GsStrategy {
 
 // A team's workspace: the node state, 8 slice int32 words (global or
 // shared memory), and the gang's slots and zone facts, 2 emax + 2 num_zones
-// words of global memory (ex0/ex1 are used by the leader block only).
+// words of global memory (ex0/ex1 are used by the leader block only), then
+// for the zone-parallel instantiations min(num_zones, kGsLanes) x emax lane
+// slots (leader block only).
 struct GsWork {
   int* avail;   // [3][slice] availability, dimension-major
   int* cap_e;   // [slice]
@@ -517,7 +753,15 @@ struct GsWork {
   int* ex1;     // [emax]
   int* zfirst;  // [num_zones]
   int* zhas;    // [num_zones]
+  int* exl;     // [min(num_zones, kGsLanes)][emax], zone-parallel only
 };
+
+// Global words a block's gang slots and zone facts take (the layout of
+// ops/fifo.py queue_scratch_words and ops/window.py walk_scratch_words).
+__host__ __device__ __forceinline__ int gs_extra_words(int emax, int num_zones, bool lanes) {
+  const int nl = num_zones < kGsLanes ? num_zones : kGsLanes;
+  return 2 * emax + 2 * num_zones + (lanes ? nl * emax : 0);
+}
 
 __device__ __forceinline__ GsWork gs_carve(int* state, int slice, int* extra, int emax,
                                            int num_zones) {
@@ -532,16 +776,340 @@ __device__ __forceinline__ GsWork gs_carve(int* state, int slice, int* extra, in
   w.ex1 = w.ex0 + emax;
   w.zfirst = w.ex1 + emax;
   w.zhas = w.zfirst + num_zones;
+  w.exl = w.zhas + num_zones;
   return w;
+}
+
+// Tightly-pack (gs_run_fill's rounds) in every zone of a chunk at once,
+// one lane a zone. `capf` is each node's capacity in its own zone with that
+// zone's driver reserved, 0 outside the chunk's zones with a driver, so a
+// node keys only its own lane. The key is 32 bits, rank * (emax + 1) +
+// min(room, count): ranks are unique, so it orders by rank alone, the
+// winner's node is e_order[rank], and its take is the key's remainder
+// clamped to the lane's slots left. Thread (lane index) l keeps lane l's
+// slots placed, `jl`; lanes without a driver (bit l of `act` clear) are
+// closed from the start, and rounds run until every lane is full. Zone
+// lane l's slots go to exl[l * emax ...].
+template <class Team>
+__device__ __forceinline__ void gs_lanes_tightly(Team& t, const GangCtx& c, unsigned act,
+                                                 int z0, int nl, const int* capf, int* cnt,
+                                                 int* exl) {
+  const int count = c.count, emax = c.emax, lx = threadIdx.x & 31;
+  const unsigned span = static_cast<unsigned>(emax) + 1u;
+  int jl = lx < kGsLanes && ((act >> lx) & 1u) ? 0 : count;
+  while (__ballot_sync(0xffffffffu, jl < count) != 0) {
+    GS_NODES(t, li, i) {
+      const int room = capf[li] - cnt[li];
+      if (room > 0)
+        gs_acc_min(t.acc(), c.zone[i] - z0,
+                   static_cast<unsigned>(c.erank[i]) * span + min(room, count));
+    }
+    const unsigned key = ~t.template fold_lanes<unsigned>(GsMax());
+    int node = -1, take = 0;  // no open node: the rest read node 0
+    if (jl < count) {
+      take = count - jl;
+      if (key != 0xffffffffu) {
+        node = c.e_order[key / span];
+        take = min(static_cast<int>(key % span), take);
+      }
+    }
+    for (int l = 0; l < nl; ++l) {
+      const int nd = gs_lane(node, l), tk = gs_lane(take, l), j = gs_lane(jl, l);
+      if (tk == 0) continue;
+      if (nd >= 0 && t.owns(nd)) cnt[nd - t.lo] += tk;
+      if (t.leader)
+        for (int s = threadIdx.x; s < tk; s += kGsThreads) exl[l * emax + j + s] = max(nd, 0);
+    }
+    jl += take;
+  }
+}
+
+// Minimal-fragmentation (gs_run_fill's branches) in every zone of a chunk
+// at once, as gs_lanes_tightly does: branch A in one lane reduction; the
+// zones it did not settle consume nodes in branch B rounds, each lane
+// stopping where its zone's loop breaks; then one reduction places every
+// zone's remainder. Thread (lane index) l keeps lane l's state.
+template <class Team>
+__device__ __forceinline__ void gs_lanes_minfrag(Team& t, const GangCtx& c, unsigned act,
+                                                 int z0, int nl, const int* capf, int* cnt,
+                                                 int* exl) {
+  const int count = c.count, emax = c.emax, lx = threadIdx.x & 31;
+  const bool mine = lx < kGsLanes && ((act >> lx) & 1u);
+  GS_NODES(t, li, i) {
+    const int cap = capf[li];
+    if (cap > 0 && cap >= count) gs_acc_min(t.acc(), c.zone[i] - z0, gs_key(cap, c.erank[i]));
+  }
+  unsigned long long key = ~t.template fold_lanes<unsigned long long>(GsMax());
+  int node = -1;
+  bool live = false;  // this thread's lane is in branch B
+  if (mine) {
+    if (key != GS_U64_NONE)
+      node = c.e_order[static_cast<int>(key & 0xffffffffu)];
+    else
+      live = true;
+  }
+  for (int l = 0; l < nl; ++l) {
+    const int nd = gs_lane(node, l);
+    if (nd < 0) continue;
+    if (t.leader)
+      for (int s = threadIdx.x; s < count; s += kGsThreads) exl[l * emax + s] = nd;
+    if (t.owns(nd)) cnt[nd - t.lo] = count;
+  }
+  const bool branch_b = live;
+  int placed = 0;
+  for (int round = 0; round < emax && __ballot_sync(0xffffffffu, live) != 0; ++round) {
+    GS_NODES(t, li, i) {
+      const int cap = capf[li];
+      if (cap > 0 && cnt[li] == 0)
+        gs_acc_min(t.acc(), c.zone[i] - z0,
+                   gs_key(0x7fffffff - min(cap, count), c.erank[i]));
+    }
+    key = ~t.template fold_lanes<unsigned long long>(GsMax());
+    int c_max = 0;
+    node = -1;
+    if (live) {
+      c_max = key == GS_U64_NONE ? 0 : 0x7fffffff - static_cast<int>(key >> 32);
+      if (c_max <= 0 || placed + c_max > count) {
+        live = false;  // later rounds stop too
+        c_max = 0;
+      } else {
+        node = c.e_order[static_cast<int>(key & 0xffffffffu)];
+      }
+    }
+    for (int l = 0; l < nl; ++l) {
+      const int nd = gs_lane(node, l), cm = gs_lane(c_max, l), p = gs_lane(placed, l);
+      if (nd < 0) continue;
+      if (t.leader)
+        for (int s = threadIdx.x; s < cm; s += kGsThreads) exl[l * emax + p + s] = nd;
+      if (t.owns(nd)) cnt[nd - t.lo] = cm;
+    }
+    placed += c_max;
+  }
+  const int rem = branch_b ? count - placed : 0;
+  if (__ballot_sync(0xffffffffu, rem > 0) == 0) return;
+  // The remainder on the smallest unconsumed node of the zone fitting it.
+  if (threadIdx.x < kGsLanes) t.ln.zaux[threadIdx.x] = rem;
+  __syncthreads();
+  GS_NODES(t, li, i) {
+    const int cap = capf[li];
+    if (cap <= 0 || cnt[li] != 0) continue;  // capf > 0: a lane of the chunk
+    const int lz = c.zone[i] - z0;
+    const int r = t.ln.zaux[lz];
+    if (r > 0 && cap >= r) gs_acc_min(t.acc(), lz, gs_key(cap, c.erank[i]));
+  }
+  key = ~t.template fold_lanes<unsigned long long>(GsMax());
+  node = rem > 0 && key != GS_U64_NONE ? c.e_order[static_cast<int>(key & 0xffffffffu)] : -1;
+  for (int l = 0; l < nl; ++l) {
+    const int r = gs_lane(rem, l), nd = gs_lane(node, l), p = gs_lane(placed, l);
+    if (r <= 0) continue;
+    if (t.leader)
+      for (int s = threadIdx.x; s < r; s += kGsThreads) exl[l * emax + p + s] = max(nd, 0);
+    if (nd >= 0 && t.owns(nd)) cnt[nd - t.lo] += r;
+  }
+}
+
+// Whether zone lane `lz` lies outside the chunk's nl lanes (a node of an
+// earlier or later chunk, or of no zone in [0, num_zones)).
+__device__ __forceinline__ bool gs_lane_out(int lz, int nl) {
+  return static_cast<unsigned>(lz) >= static_cast<unsigned>(nl);
+}
+
+// The single-AZ gang solve (make_gang_solver :347-375, single_az.go:23-97)
+// with every zone of a chunk of kGsLanes solved at once: per chunk, the
+// driver selection (2 lane reductions), the fill into one count buffer
+// (w.cnt0: the zones are disjoint, so no zone's counts touch another's and
+// nothing is copied between chunks), the zone scores (1 lane reduction),
+// then the pick in zone order: strictly greater score, ties to the zone
+// appearing first in driver priority order, and a best of 0.0 rejects.
+// w.cnt1 holds the nodes' capacities in their zones, then their score
+// terms; thread (lane index) l holds lane l's score, and the team's lane
+// buffers the chunk's drivers and, between chunks, the best zone so far
+// (so no register holds it across a chunk). The chosen zone's slots stay
+// in its lane, or go to w.ex0 where a later chunk reuses the lanes. On
+// return *zone is the chosen zone (only its nodes' counts are the
+// placement), or -1.
+template <class Team>
+__device__ void gs_gang_solve_lanes(Team& t, const GangCtx& c, const GsStrategy& s,
+                                    const GsWork& w, bool* ok, int* drv, float* score,
+                                    int* zone, int** cnt_out, int** ex_out) {
+  const int count = c.count, emax = c.emax, nz = s.num_zones, lx = threadIdx.x & 31;
+  int* const cnt = w.cnt0;
+  int* const capf = w.cnt1;
+  GS_NODES(t, li, i) { cnt[li] = 0; }
+  const int z_last = (nz - 1) / kGsLanes * kGsLanes;  // the last chunk's first zone
+  for (int z0 = 0;; z0 += kGsLanes) {
+    const int nl = min(kGsLanes, nz - z0);
+    // Driver selection (gs_select_driver), one lane a zone.
+    GS_NODES(t, li, i) {
+      const int lz = c.zone[i] - z0;
+      if (!gs_lane_out(lz, nl)) gs_acc_add(t.acc(), lz, min(c.cap_e[li], count));
+    }
+    t.template fold_lanes<int>(GsSum());
+    GS_NODES(t, li, i) {
+      const int lz = c.zone[i] - z0;
+      if (gs_lane_out(lz, nl) || !c.elig_d[i] || !c.fit_d[li]) continue;
+      const int total_if = t.template lane_fold<int>(lz, GsSum()) - min(c.cap_e[li], count) +
+                           min(c.cap_wd[li], count);
+      if (total_if >= count) gs_acc_min(t.acc(), lz, static_cast<unsigned>(c.drank[i]));
+    }
+    const unsigned rank = ~t.template fold_lanes<unsigned>(GsMax());
+    const int dl = lx < nl && rank != 0xffffffffu ? c.d_order[rank] : -1;
+    const unsigned act = __ballot_sync(0xffffffffu, dl >= 0);  // bit l: lane l has a driver
+    // Read after the fill's barriers.
+    if (threadIdx.x < kGsLanes) t.ln.zdrv[threadIdx.x] = dl;
+    GS_NODES(t, li, i) {
+      const int lz = c.zone[i] - z0;
+      const unsigned r = gs_lane_out(lz, nl) ? 0xffffffffu
+                                             : ~t.template lane_fold<unsigned>(lz, GsMax());
+      capf[li] = r == 0xffffffffu ? 0 : gs_cap_fill(c, li, i, -1, c.d_order[r]);
+    }
+    // The lane slots; the fill's first write follows a reduction's barrier.
+    if (t.leader)
+      for (int j = threadIdx.x; j < nl * emax; j += kGsThreads) w.exl[j] = -1;
+    if (s.fill == GS_TIGHTLY)
+      gs_lanes_tightly(t, c, act, z0, nl, capf, cnt, w.exl);
+    else
+      gs_lanes_minfrag(t, c, act, z0, nl, capf, cnt, w.exl);
+    __syncthreads();  // the slots and zone drivers are visible to every thread
+    // Zone scores: each node's term (its largest dimension efficiency with
+    // the tentative reservation applied, times its entries) into capf,
+    // then per lane each thread's terms, each warp's, and the block's.
+    GS_NODES(t, li, i) {
+      const int lz = c.zone[i] - z0;
+      float term = 0.0f;
+      if (!gs_lane_out(lz, nl)) {
+        const int is_drv = i == t.ln.zdrv[lz] ? 1 : 0;
+        const int wt = cnt[li] + is_drv;
+        if (wt != 0) {
+          float eff[3];
+          for (int dim = 0; dim < 3; ++dim) {
+            int new_res = is_drv * c.dreq[dim];
+            if (s.include_exec) new_res += cnt[li] * c.ereq[dim];
+            const int sched = c.sched[i * 3 + dim];
+            const int reserved = (sched - c.avail[dim * t.slice + li]) + new_res;
+            eff[dim] = static_cast<float>(reserved) / static_cast<float>(max(sched, 1));
+          }
+          const float eff_gpu = c.sched[i * 3 + 2] != 0 ? eff[2] : 0.0f;
+          term = fmaxf(eff_gpu, fmaxf(eff[0], eff[1])) * static_cast<float>(wt);
+        }
+      }
+      capf[li] = __float_as_int(term);
+    }
+    for (int l = 0; l < nl; ++l) {
+      double x = 0.0;
+      GS_NODES(t, li, i) {
+        if (c.zone[i] - z0 == l) x += static_cast<double>(__int_as_float(capf[li]));
+      }
+      x = gs_warp_reduce(x, GsSum());
+      if (lx == 0) t.ln.part[l * kGsLaneStride + (threadIdx.x >> 5)] = x;
+    }
+    const double sum = t.fold_lane_sums(nl);
+    // The pick, zones in order (the loop the zone-by-zone solve had).
+    int zf = GS_INF, dz = -1;
+    bool valid = false;
+    if (lx < nl) {
+      dz = t.ln.zdrv[lx];
+      zf = w.zfirst[z0 + lx];
+      valid = dz >= 0 && zf < GS_INF && w.zhas[z0 + lx] != 0;
+    }
+    const float eff_l = static_cast<float>(sum) / static_cast<float>(count + 1);
+    float best_eff = -1.0f;
+    int best_first = GS_INF, best_drv = -1, best_zone = -1;
+    if (z0 > 0) {  // the best of the earlier chunks, as thread 0 left it
+      best_eff = __int_as_float(t.ln.best[0]);
+      best_first = t.ln.best[1];
+      best_drv = t.ln.best[2];
+      best_zone = t.ln.best[3];
+    }
+    int best_lane = -1;
+    for (int l = 0; l < nl; ++l) {
+      const bool v = gs_lane(valid ? 1 : 0, l) != 0;
+      const float eff = gs_lane(eff_l, l);
+      const int f = gs_lane(zf, l);
+      if (v && (eff > best_eff || (eff == best_eff && f < best_first))) {
+        best_eff = eff;
+        best_first = f;
+        best_zone = z0 + l;
+        best_lane = l;
+      }
+    }
+    if (best_lane >= 0) best_drv = t.ln.zdrv[best_lane];
+    if (z0 < z_last) {  // a later chunk refills the lanes: keep the best's slots
+      if (best_lane >= 0 && t.leader)
+        for (int j = threadIdx.x; j < emax; j += kGsThreads)
+          w.ex0[j] = w.exl[best_lane * emax + j];
+      if (threadIdx.x == 0) {
+        t.ln.best[0] = __float_as_int(best_eff);
+        t.ln.best[1] = best_first;
+        t.ln.best[2] = best_drv;
+        t.ln.best[3] = best_zone;
+      }
+      continue;
+    }
+    *score = 0.0f;
+    *zone = -1;
+    *cnt_out = cnt;
+    // chooseBestResult replaces only on strictly greater than 0.0 (a best
+    // of -1 means no zone was valid).
+    if (best_eff > 0.0f) {
+      *ok = true;
+      *drv = best_drv;
+      *score = best_eff;
+      *zone = best_zone;
+      *ex_out = best_lane >= 0 ? w.exl + best_lane * emax : w.ex0;
+      return;
+    }
+    *ok = false;
+    *drv = -1;
+    *ex_out = w.ex0;
+    if (s.az_fallback) {
+      // az-aware: plain pack when no single zone fits
+      // (az_aware_pack_tightly.go:27-38). az-aware-tightly-pack is the one
+      // strategy with a fallback (ops/gang.py PALLAS_SINGLE_AZ), so the
+      // fill is tightly-pack.
+      const int d = gs_select_driver(t, c, -1);
+      gs_run_fill(t, c, GS_TIGHTLY, -1, d, d >= 0, w.cnt1, w.ex1);
+      *ok = d >= 0;
+      *drv = d;
+      *cnt_out = w.cnt1;
+      *ex_out = w.ex1;
+    }
+    return;
+  }
 }
 
 // Availability-independent zone facts, once per set of orders (single-AZ
 // strategies only): per zone, the smallest driver rank among its
-// driver-eligible nodes and whether it has an executor-eligible node. Every
-// block keeps its own copy. Ends with a barrier.
-template <class Team>
+// driver-eligible nodes and whether it has an executor-eligible node; in
+// the zone-parallel instantiation two lane reductions a chunk of kGsLanes
+// zones, in the plain one (which keeps the zone-by-zone solve) two
+// reductions a zone. Every block keeps its own copy. Ends with a barrier.
+template <bool kLanes, class Team>
 __device__ void gs_zone_facts(Team& t, const GangCtx& c, const GsStrategy& s, const GsWork& w) {
-  if (s.single_az) {
+  if constexpr (kLanes) {
+    for (int z0 = 0; z0 < s.num_zones; z0 += kGsLanes) {
+      const int nl = min(kGsLanes, s.num_zones - z0);
+      GS_NODES(t, li, i) {
+        const int lz = c.zone[i] - z0;
+        if (!gs_lane_out(lz, nl) && c.elig_d[i])
+          gs_acc_min(t.acc(), lz, static_cast<unsigned>(c.drank[i]));
+      }
+      const unsigned first = ~t.template fold_lanes<unsigned>(GsMax());
+      GS_NODES(t, li, i) {
+        const int lz = c.zone[i] - z0;
+        if (!gs_lane_out(lz, nl) && c.elig_e[i]) gs_acc_add(t.acc(), lz, 1);
+      }
+      const int has = t.template fold_lanes<int>(GsSum());
+      for (int l = 0; l < nl; ++l) {
+        const unsigned f = gs_lane(first, l);
+        const int h = gs_lane(has, l);
+        if (threadIdx.x == 0) {
+          w.zfirst[z0 + l] = f == 0xffffffffu ? GS_INF : static_cast<int>(f);
+          w.zhas[z0 + l] = h > 0 ? 1 : 0;
+        }
+      }
+    }
+  } else if (s.single_az) {
     for (int z = 0; z < s.num_zones; ++z) {
       int first = GS_INF, has = 0;
       GS_NODES(t, li, i) {
@@ -582,7 +1150,7 @@ __device__ __forceinline__ void gs_empty_row(const Team& t, int* meta, int* exec
 // the later rows (resource.go:241-249). With `with_score`, meta[3] holds
 // the float32 bits of the chosen zone's score when the row packed (else
 // 0); without it, 0. Ends with a barrier.
-template <class Team>
+template <bool kLanes, class Team>
 __device__ void gs_fifo_row(Team& t, GangCtx& c, const GsStrategy& s, const GsWork& w,
                             const int* dreq, const int* ereq, int raw, bool skip,
                             bool* blocked, int* commit_base, int* meta, int* execs,
@@ -616,16 +1184,22 @@ __device__ void gs_fifo_row(Team& t, GangCtx& c, const GsStrategy& s, const GsWo
   }
 
   bool ok;
-  int drv;
+  int drv, zone = -1;
   float score;
   int *cnt, *ex;
-  gs_gang_solve(t, c, s.fill, s.single_az != 0, s.az_fallback != 0, s.include_exec != 0,
-                s.num_zones, w.zfirst, w.zhas, w.cnt0, w.cnt1, w.ex0, w.ex1, &ok, &drv,
-                &score, &cnt, &ex);
+  if constexpr (kLanes)
+    gs_gang_solve_lanes(t, c, s, w, &ok, &drv, &score, &zone, &cnt, &ex);
+  else
+    gs_gang_solve(t, c, s.fill, s.single_az != 0, s.az_fallback != 0, s.include_exec != 0,
+                  s.num_zones, w.zfirst, w.zhas, w.cnt0, w.cnt1, w.ex0, w.ex1, &ok, &drv,
+                  &score, &cnt, &ex);
   const bool packed = ok && !too_big;
   const bool admitted = packed && !*blocked;
   if (admitted) {
     GS_NODES(t, li, i) {
+      if constexpr (kLanes) {
+        if (zone >= 0 && c.zone[i] != zone) continue;  // another zone's tentative counts
+      }
       const int k = cnt[li];
       const int is_drv = i == drv ? 1 : 0;
       if (k == 0 && !is_drv) continue;

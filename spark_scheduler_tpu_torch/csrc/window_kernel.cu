@@ -17,8 +17,9 @@
 // What bounds it on this card: latency. Rows are sequential and every row
 // is a chain of dependent reductions over the nodes (the driver's sum and
 // min, then one per fill round: per placed node for tightly-pack, per slot
-// for distribute-evenly, per zone for single-AZ, emax at most; ~9.6 a row
-// on the serving path's tightly-pack windows), a few nanoseconds of
+// for distribute-evenly, emax at most; ~9.6 a row on the serving path's
+// tightly-pack windows; the single-AZ strategies run one chain of lane
+// reductions for all the zones, gang_solve.cuh), a few nanoseconds of
 // arithmetic each at the bound. The segments are sequential too (each one's
 // sorts read the base the previous commit left): one launch per live
 // segment on the caller's stream, no host synchronisation between.
@@ -43,10 +44,10 @@
 // cluster barrier (arrive.release / wait.acquire) per reduction measured
 // 22.5 us a row on an H100 against 17.0 us for the mbarrier exchange
 // (PERF.md).
-// ptxas, CUDA 12.8, sm_90a (-Xptxas -v, printed by chip_smoke.py phase 1):
-// 64 registers a thread (the cap at 1,024 threads); no spills for the
-// shared-memory instantiation, 4 B of spill stores and loads for the
-// global-state one.
+// ptxas, sm_90a (-Xptxas -v, printed by chip_smoke.py phase 1): 64
+// registers a thread (the cap at 1,024 threads) in all four
+// instantiations; no local memory but for the plain global-state one's
+// 8 B (window_kernel_info, PERF.md).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -76,11 +77,14 @@ struct WalkParams {
   int n, emax, num_zones, fill, single_az, az_fallback, include_exec;
   int* meta;     // [rows][4]
   int* execs;    // [rows][emax]
-  int* scratch;  // per block: [8 slice (global state only)][2 emax + 2 num_zones]
+  int* scratch;  // per block: gs_extra_words words, then 8 slice (global state only)
   int slice;     // nodes per block = ceil(n / K)
 };
 
-template <bool kSmemState>
+// kLanes: the zone-parallel instantiation, for the single-AZ strategies
+// (gang_solve.cuh gs_gang_solve_lanes), with its lane buffers in static
+// shared memory; the plain strategies run the instantiation without them.
+template <bool kSmemState, bool kLanes>
 __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p) {
   extern __shared__ int smem_state[];  // [8 slice] when kSmemState
   __shared__ unsigned long long red[32];
@@ -100,9 +104,15 @@ __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p)
   t.red = red;
   t.slots = slots;
   t.bars = bars;
+  t.lslots = nullptr;
+  if constexpr (kLanes) {
+    __shared__ unsigned long long lanes[kGsClusterLaneWords];
+    t.ln.attach(lanes);
+    t.lslots = lanes + kGsLaneWords;
+  }
   t.start();
 
-  const int extra_words = 2 * p.emax + 2 * p.num_zones;
+  const int extra_words = gs_extra_words(p.emax, p.num_zones, kLanes);
   int* block_scratch = p.scratch + static_cast<long long>(rank) *
                                        (extra_words + (kSmemState ? 0 : 8 * slice));
   int* state = kSmemState ? smem_state : block_scratch + extra_words;
@@ -128,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p)
   c.d_order = p.d_order;
   c.erank = p.erank;
   c.e_order = p.e_order;
-  gs_zone_facts(t, c, s, w);  // once per segment
+  gs_zone_facts<kLanes>(t, c, s, w);  // once per segment
 
   bool blocked = false;
   for (int r = 0; r < p.rows; ++r) {
@@ -139,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p)
       continue;
     }
     // The committing row (the segment's last) is also debited from the base.
-    gs_fifo_row(t, c, s, w, p.dreq + r * 3, p.ereq + r * 3, p.cnt[r], p.skip[r] != 0,
+    gs_fifo_row<kLanes>(t, c, s, w, p.dreq + r * 3, p.ereq + r * 3, p.cnt[r], p.skip[r] != 0,
                 &blocked, r == p.row_count - 1 ? p.base : nullptr, meta, execs, false);
   }
   ClusterTeam::cluster_sync();  // no block exits while a push may target it
@@ -162,17 +172,24 @@ cudaLaunchConfig_t cluster_config(int dynamic, cudaStream_t stream, cudaLaunchAt
   return cfg;
 }
 
-SmemAllowance<1> g_smem_allowance;
+SmemAllowance<2> g_smem_allowance;  // slot: lanes
 
-// Sets `device` current and picks the instantiation for `smem_state`, with
-// its dynamic shared memory for `slice` nodes a block allowed there.
-cudaError_t prepare(int device, int smem_state, int slice, void (**kernel)(WalkParams),
-                    int* dynamic) {
-  *kernel = smem_state ? &window_row_walk_kernel<true> : &window_row_walk_kernel<false>;
+// Sets `device` current and picks the instantiation for (smem_state,
+// lanes), with its dynamic shared memory for `slice` nodes a block allowed
+// there.
+cudaError_t prepare(int device, int smem_state, int lanes, int slice,
+                    void (**kernel)(WalkParams), int* dynamic) {
+  if (lanes)
+    *kernel = smem_state ? &window_row_walk_kernel<true, true>
+                         : &window_row_walk_kernel<false, true>;
+  else
+    *kernel = smem_state ? &window_row_walk_kernel<true, false>
+                         : &window_row_walk_kernel<false, false>;
   *dynamic = smem_state ? 8 * slice * static_cast<int>(sizeof(int)) : 0;
   cudaError_t e = cudaSetDevice(device);
   if (e == cudaSuccess && smem_state)
-    e = g_smem_allowance.ensure(device, 0, reinterpret_cast<const void*>(*kernel), *dynamic);
+    e = g_smem_allowance.ensure(device, lanes ? 1 : 0, reinterpret_cast<const void*>(*kernel),
+                                *dynamic);
   return e;
 }
 
@@ -180,7 +197,8 @@ cudaError_t prepare(int device, int smem_state, int slice, void (**kernel)(WalkP
 
 // One launch on `device`: a cluster of kGsCluster blocks walks one
 // segment. smem_state selects where the node state lives (1: shared
-// memory, 0: global scratch). Returns the CUDA error of the launch (0 on
+// memory, 0: global scratch); a single-AZ strategy runs the zone-parallel
+// instantiation. Returns the CUDA error of the launch (0 on
 // success).
 extern "C" int window_row_walk(
     int device, const int* dreq, const int* ereq, const int* cnt, const unsigned char* valid,
@@ -196,7 +214,7 @@ extern "C" int window_row_walk(
                az_fallback, include_exec, meta, execs, scratch, slice};
   void (*kernel)(WalkParams);
   int dynamic;
-  cudaError_t e = prepare(device, smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, smem_state, single_az, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -205,15 +223,16 @@ extern "C" int window_row_walk(
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// What `device` reports for one instantiation: out[0] registers a thread,
+// What `device` reports for one instantiation (lanes: the zone-parallel
+// one): out[0] registers a thread,
 // out[1] local (spill) bytes a thread, out[2] static shared bytes a block,
 // out[3] how many such clusters with `slice` nodes a block can be resident
 // at once (cudaOccupancyMaxActiveClusters; 0 means the launch cannot run).
 // Returns the CUDA error (0 on success).
-extern "C" int window_kernel_info(int device, int smem_state, int slice, int* out) {
+extern "C" int window_kernel_info(int device, int smem_state, int lanes, int slice, int* out) {
   void (*kernel)(WalkParams);
   int dynamic;
-  cudaError_t e = prepare(device, smem_state, slice, &kernel, &dynamic);
+  cudaError_t e = prepare(device, smem_state, lanes, slice, &kernel, &dynamic);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -59,10 +59,13 @@ from spark_scheduler_tpu_torch.ops.packing import (
 )
 from spark_scheduler_tpu_torch.ops.window import (
     CLUSTER_BLOCKS,
+    LANE_WORDS,
     SMEM_PER_BLOCK,
     STATE_WORDS,
+    WALK_LANE_SMEM,
     WALK_STATIC_SMEM,
     _device_index,
+    gang_scratch_words,
 )
 from spark_scheduler_tpu_torch.tracing import profiled_span
 
@@ -207,6 +210,10 @@ QUEUE_CLUSTER_MIN_NODES = 1_250
 # 8-byte warp partials. The cluster team's is the row walk's,
 # WALK_STATIC_SMEM.
 QUEUE_BLOCK_STATIC_SMEM = 2 * 32 * 8
+# The zone-parallel (single-AZ) instantiation's lane buffers beside them:
+# LANE_WORDS for the block team, the row walk's WALK_LANE_SMEM for the
+# cluster team.
+QUEUE_BLOCK_LANE_SMEM = LANE_WORDS * 8
 _TEAM_CODES = {"block": 0, "cluster": 1}
 
 
@@ -218,17 +225,22 @@ class QueueLayout(NamedTuple):
     slice: int  # nodes a block owns, ceil(n / k)
     smem_bytes: int  # shared memory a block, static + dynamic
     state: str  # "smem": node state in shared memory; "global": in scratch
+    zone_lanes: bool = False  # the zone-parallel (single-AZ) instantiation
 
 
 def queue_layout(
-    n: int, *, team: str | None = None, state: str | None = None
+    n: int, *, team: str | None = None, state: str | None = None,
+    zone_lanes: bool = False,
 ) -> QueueLayout:
     """The queue kernel's layout for `n` nodes: one block a queue below
     QUEUE_CLUSTER_MIN_NODES nodes, one cluster from there on; the node state
     (8 words a node) in shared memory where a block's slice of it fits
     beside the static buffers (n up to 7,248 for a block, 58,008 for a
-    cluster), else in global scratch. `team` and `state` force a layout
-    (tests and chip_smoke.py); a forced "smem" that does not fit raises."""
+    cluster), else in global scratch. `zone_lanes`: the zone-parallel
+    instantiation the single-AZ strategies run, whose lane buffers take
+    QUEUE_BLOCK_LANE_SMEM / WALK_LANE_SMEM more (n up to 7,173 and 57,160).
+    `team` and `state` force a layout (tests and chip_smoke.py); a forced
+    "smem" that does not fit raises."""
     if n < 1:
         raise ValueError(f"queue_layout needs n >= 1, got {n}")
     if team is None:
@@ -237,6 +249,8 @@ def queue_layout(
         raise ValueError(f"no {team!r} queue team")
     k = CLUSTER_BLOCKS if team == "cluster" else 1
     static = WALK_STATIC_SMEM if team == "cluster" else QUEUE_BLOCK_STATIC_SMEM
+    if zone_lanes:
+        static += WALK_LANE_SMEM if team == "cluster" else QUEUE_BLOCK_LANE_SMEM
     sl = -(-n // k)
     smem = STATE_WORDS * 4 * sl + static
     fits = smem <= SMEM_PER_BLOCK
@@ -244,16 +258,18 @@ def queue_layout(
         state = "smem" if fits else "global"
     if state not in ("smem", "global") or (state == "smem" and not fits):
         raise ValueError(f"no {team!r}/{state!r} queue layout for n={n}")
-    return QueueLayout(team, k, sl, smem if state == "smem" else static, state)
+    return QueueLayout(team, k, sl, smem if state == "smem" else static, state,
+                       bool(zone_lanes))
 
 
 def queue_scratch_words(
     layout: QueueLayout, groups: int, emax: int, num_zones: int
 ) -> int:
     """Global scratch of one launch over `groups` queues: per block, the
-    gang's two slot buffers and the zone facts, plus the node state in the
-    global layout."""
-    per_block = 2 * emax + 2 * num_zones
+    gang's slot buffers and the zone facts (`ops/window.gang_scratch_words`,
+    with a slot row a zone lane in the zone-parallel instantiation), plus
+    the node state in the global layout."""
+    per_block = gang_scratch_words(emax, num_zones, layout.zone_lanes)
     if layout.state == "global":
         per_block += STATE_WORDS * layout.slice
     return groups * layout.k * per_block
@@ -282,7 +298,7 @@ def _queue_lib():
         fn.restype = ctypes.c_int
         lib.fifo_kernel_error.argtypes = [ctypes.c_int]
         lib.fifo_kernel_error.restype = ctypes.c_char_p
-        lib.fifo_kernel_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.fifo_kernel_info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.fifo_kernel_info.restype = ctypes.c_int
     return lib
 
@@ -296,7 +312,7 @@ def fifo_kernel_info(layout: QueueLayout, device=None) -> dict:
     out = (ctypes.c_int * 4)()
     err = lib.fifo_kernel_info(
         _device_index(device), _TEAM_CODES[layout.team],
-        int(layout.state == "smem"), layout.slice, out,
+        int(layout.state == "smem"), int(layout.zone_lanes), layout.slice, out,
     )
     if err != 0:
         raise cuda_launch_error(
@@ -315,16 +331,22 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
     five of `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4] rows
     of (driver, admitted, packed, `zone_scores` bits), execs [G,B,emax],
     avail_after [G,N,3]), all new tensors; the kernel runs
-    on the current stream and nothing waits for it."""
+    on the current stream and nothing waits for it. A single-AZ strategy
+    runs the zone-parallel instantiation in the layout's team and
+    node-state place (counted in `fifo_pack.zone_parallel_launches`)."""
     g, n, _ = avail.shape
-    if layout != queue_layout(n, team=layout.team, state=layout.state):
+    if layout != queue_layout(n, team=layout.team, state=layout.state,
+                              zone_lanes=layout.zone_lanes):
         raise ValueError(f"{layout} is not a queue layout for {n} nodes")
+    inner, single_az, az_fallback, include_exec = strategy_params(fill)
+    if layout.zone_lanes != single_az:
+        layout = queue_layout(n, team=layout.team, state=layout.state,
+                              zone_lanes=single_az)
     b = app_fields[0].shape[1]
     dev = avail.device
     # The scratch and any temporaries may be freed when this returns, before
     # the kernel ends: the caching allocator hands their memory only to
     # later work on the same stream, which runs after the kernel.
-    inner, single_az, az_fallback, include_exec = strategy_params(fill)
     lib = _queue_lib()
     meta = torch.empty((g, b, 4), dtype=torch.int32, device=dev)
     execs = torch.empty((g, b, emax), dtype=torch.int32, device=dev)
@@ -350,6 +372,7 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
             err, "queue kernel launch", lib.fifo_kernel_error(err).decode()
         )
     fifo_pack.launches += 1
+    fifo_pack.zone_parallel_launches += int(single_az)
     return meta, execs, avail_out
 
 
@@ -427,10 +450,13 @@ def fifo_pack_with_scores(
         meta, execs, after = fifo_queue(
             *queue_operands(cluster, fields, num_zones),
             fill=fill, emax=emax, num_zones=num_zones,
-            layout=queue_layout(cluster.num_nodes),
+            layout=queue_layout(cluster.num_nodes,
+                                zone_lanes=strategy_params(fill)[1]),
         )
         out = queue_packing(meta, execs, after)
         return BatchedPacking(*(x[0] for x in out)), zone_scores(meta[0])
 
 
 fifo_pack.launches = 0
+# Queue-kernel launches that ran the zone-parallel (single-AZ) instantiation.
+fifo_pack.zone_parallel_launches = 0

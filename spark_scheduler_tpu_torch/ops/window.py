@@ -257,6 +257,18 @@ CLUSTER_BLOCKS = 8  # kGsCluster: the largest portable cluster on Hopper
 SMEM_PER_BLOCK = 232_448  # shared memory one H100 block may opt into
 STATE_WORDS = 8  # int32 words of mutable state per node
 WALK_STATIC_SMEM = 400  # static reduction buffers: (32 + 2 x 8 + 2) x 8 B
+# The single-AZ strategies run the zone-parallel instantiation
+# (csrc/gang_solve.cuh `gs_gang_solve_lanes`): its reductions carry
+# ZONE_LANES lanes, one a zone, and its gang slots take one row a lane.
+ZONE_LANES = 8  # kGsLanes
+# A team's lane buffers, in 8-byte words (gang_solve.cuh kGsLaneWords):
+# three rotating accumulators of ZONE_LANES, the zone scores' warp partials
+# (ZONE_LANES rows of 33), two int arrays of ZONE_LANES and the best zone
+# so far (4 ints).
+LANE_WORDS = 3 * ZONE_LANES + ZONE_LANES * 33 + ZONE_LANES + 2
+# The cluster team's beside WALK_STATIC_SMEM add two rows of CLUSTER_BLOCKS
+# x ZONE_LANES block partials (kGsClusterLaneWords).
+WALK_LANE_SMEM = (LANE_WORDS + 2 * CLUSTER_BLOCKS * ZONE_LANES) * 8
 
 
 class WalkLayout(NamedTuple):
@@ -266,31 +278,48 @@ class WalkLayout(NamedTuple):
     slice: int  # nodes per block, ceil(n / k)
     smem_bytes: int  # shared memory per block, static + dynamic
     state: str  # "smem": node state in shared memory; "global": in scratch
+    zone_lanes: bool = False  # the zone-parallel (single-AZ) instantiation
 
 
-def walk_layout(n: int, *, state: str | None = None) -> WalkLayout:
+def walk_layout(
+    n: int, *, state: str | None = None, zone_lanes: bool = False
+) -> WalkLayout:
     """The row walk's layout for `n` nodes: the node state in shared memory
     when a block's slice of it (8 words a node) fits beside the static
-    buffers, else in global scratch (n above 58,008). Both are the same
-    hand-written kernel. `state` forces one layout (tests)."""
+    buffers, else in global scratch (n above 58,008; above 57,160 for the
+    zone-parallel instantiation, `zone_lanes`, whose lane buffers take
+    WALK_LANE_SMEM more). Both are the same hand-written kernel. `state`
+    forces one layout (tests)."""
     if n < 1:
         raise ValueError(f"walk_layout needs n >= 1, got {n}")
     sl = -(-n // CLUSTER_BLOCKS)
-    smem = STATE_WORDS * 4 * sl + WALK_STATIC_SMEM
+    static = WALK_STATIC_SMEM + (WALK_LANE_SMEM if zone_lanes else 0)
+    smem = STATE_WORDS * 4 * sl + static
     fits = smem <= SMEM_PER_BLOCK
     if state is None:
         state = "smem" if fits else "global"
     if state not in ("smem", "global") or (state == "smem" and not fits):
         raise ValueError(f"no {state!r} row-walk layout for n={n}")
     return WalkLayout(
-        CLUSTER_BLOCKS, sl, smem if state == "smem" else WALK_STATIC_SMEM, state
+        CLUSTER_BLOCKS, sl, smem if state == "smem" else static, state,
+        bool(zone_lanes),
     )
 
 
+def gang_scratch_words(emax: int, num_zones: int, zone_lanes: bool) -> int:
+    """Global words of one block's gang slots and zone facts (gang_solve.cuh
+    `gs_extra_words`): two slot buffers and the zone facts, and for the
+    zone-parallel instantiation one slot row a lane, min(num_zones,
+    ZONE_LANES) rows."""
+    lanes = min(num_zones, ZONE_LANES) if zone_lanes else 0
+    return (2 + lanes) * emax + 2 * num_zones
+
+
 def walk_scratch_words(layout: WalkLayout, emax: int, num_zones: int) -> int:
-    """Global scratch of one launch: per block, the gang's two slot buffers
-    and the zone facts, plus the node state in the global layout."""
-    per_block = 2 * emax + 2 * num_zones
+    """Global scratch of one launch: per block, the gang's slot buffers and
+    the zone facts (`gang_scratch_words`), plus the node state in the
+    global layout."""
+    per_block = gang_scratch_words(emax, num_zones, layout.zone_lanes)
     if layout.state == "global":
         per_block += STATE_WORDS * layout.slice
     return layout.k * per_block
@@ -331,7 +360,7 @@ def _row_walk_lib():
         fn.restype = ctypes.c_int
         lib.window_kernel_error.argtypes = [ctypes.c_int]
         lib.window_kernel_error.restype = ctypes.c_char_p
-        lib.window_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.window_kernel_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.window_kernel_info.restype = ctypes.c_int
     return lib
 
@@ -344,7 +373,8 @@ def window_kernel_info(layout: WalkLayout, device=None) -> dict:
     lib = _row_walk_lib()
     out = (ctypes.c_int * 4)()
     err = lib.window_kernel_info(
-        _device_index(device), int(layout.state == "smem"), layout.slice, out
+        _device_index(device), int(layout.state == "smem"),
+        int(layout.zone_lanes), layout.slice, out,
     )
     if err != 0:
         raise cuda_launch_error(
@@ -370,7 +400,9 @@ def window_pack(
     base) — no host synchronisation inside the segment loop. CPU tensors:
     `window_pack_reference`. Any other device raises. `layout` defaults to
     `walk_layout(n)`; tests pass another to drive the global-state layout
-    at a small n.
+    at a small n. A single-AZ strategy runs the zone-parallel
+    instantiation in the given layout's node-state place (counted in
+    `window_pack.zone_parallel_launches`).
 
     `zone_base` = (mem_hi, mem_lo, cpu_hi, cpu_lo) int32 and `present` bool
     [num_zones] tensors on the cluster's device: the per-zone sums of the
@@ -403,10 +435,13 @@ def window_pack(
     s_pad, r_pad = win.exec_count.shape
     if win.driver_cand.shape != (s_pad, n) or win.domain.shape != (s_pad, n):
         raise ValueError("window masks must be [S, N] over the cluster's N")
+    inner, single_az, az_fallback, include_exec = strategy_params(fill)
     if layout is None:
-        layout = walk_layout(n)
+        layout = walk_layout(n, zone_lanes=single_az)
     if layout.k != CLUSTER_BLOCKS or layout.slice * layout.k < n:
         raise ValueError(f"{layout} is not a row-walk layout for {n} nodes")
+    if layout.zone_lanes != single_az:
+        layout = walk_layout(n, state=layout.state, zone_lanes=single_az)
     lib = _row_walk_lib()
 
     def up(a, dtype):
@@ -427,7 +462,6 @@ def window_pack(
     scratch = torch.empty(
         walk_scratch_words(layout, emax, num_zones), dtype=torch.int32, device=dev
     )
-    inner, single_az, az_fallback, include_exec = strategy_params(fill)
     stream = torch.cuda.current_stream(dev).cuda_stream
     dead = np.flatnonzero(np.asarray(win.row_count) == 0)
     for s in range(s_pad):
@@ -459,6 +493,7 @@ def window_pack(
             )
         with _launches_lock:
             window_pack.launches += 1
+            window_pack.zone_parallel_launches += int(single_az)
     if dead.size:
         idx = torch.as_tensor(dead, device=dev)
         meta.index_fill_(0, idx, 0)
@@ -467,6 +502,8 @@ def window_pack(
 
 
 window_pack.launches = 0
+# Row-walk launches that ran the zone-parallel (single-AZ) instantiation.
+window_pack.zone_parallel_launches = 0
 # Several solvers (HA replicas, a standby beside its leader) launch from
 # their own threads: the count's read-modify-write takes a lock.
 _launches_lock = threading.Lock()

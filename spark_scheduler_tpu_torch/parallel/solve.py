@@ -51,6 +51,7 @@ from spark_scheduler_tpu_torch.ops.fifo import (
     queue_layout,
     queue_packing,
 )
+from spark_scheduler_tpu_torch.ops.gang import strategy_params
 from spark_scheduler_tpu_torch.ops.packing import _check_cumsum_bound
 from spark_scheduler_tpu_torch.parallel.mesh import SolverMesh
 from spark_scheduler_tpu_torch.parallel.node_shards import (
@@ -189,7 +190,7 @@ def grouped_fifo_pack(
         return queue_packing(*fifo_queue(
             *grouped_queue_operands(clusters, fields, num_zones),
             fill=fill, emax=emax, num_zones=num_zones,
-            layout=queue_layout(n),
+            layout=queue_layout(n, zone_lanes=strategy_params(fill)[1]),
         ))
 
 

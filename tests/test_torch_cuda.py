@@ -23,6 +23,19 @@ STRATEGIES = (
     "az-aware-tightly-pack",
 )
 
+SINGLE_AZ = STRATEGIES[3:]
+
+# Zone cases of the kernel comparisons: (num_zones, kind). Every strategy
+# runs the 4-zone case, the single-AZ strategies (the zone-parallel
+# instantiation) every case. "random": zone ids drawn in [0, num_zones),
+# zone 1 left empty from 5 zones on, and (queue kernel) a few nodes with
+# ids outside [0, num_zones). "uniform": every node alike, so zones tie on
+# their scores and the zone first in driver priority order must win.
+ZONE_CASES = [(4, "random")] + [(z, "random") for z in (1, 2, 6, 8, 9, 17)] + [
+    (6, "uniform")]
+STRATEGY_ZONES = [(f, *zc) for f in STRATEGIES for zc in ZONE_CASES
+                  if f in SINGLE_AZ or zc == ZONE_CASES[0]]
+
 pytestmark = pytest.mark.cuda
 
 
@@ -47,12 +60,26 @@ def test_probe_kernel(cuda_device):
     assert probe_add_one.launches == before + 1
 
 
-@pytest.mark.parametrize("fill", STRATEGIES)
+def _zone_column(rng, n, zones, kind):
+    """A test cluster's zone ids for a ZONE_CASES entry: "uniform" deals
+    the nodes round the zones; "random" draws them, and from 5 zones on
+    leaves zone 1 empty."""
+    if kind == "uniform":
+        return (np.arange(n) % zones).astype(np.int32)
+    z = rng.integers(0, zones, size=n).astype(np.int32)
+    if zones >= 5:
+        z[z == 1] = 0
+    return z
+
+
+@pytest.mark.parametrize("fill,zones,kind", STRATEGY_ZONES)
 @pytest.mark.parametrize("n", [24, 300, 8193, 10000])
 @pytest.mark.parametrize("state", ["smem", "global"])
-def test_window_kernel_matches_plain(cuda_device, fill, n, state):
+def test_window_kernel_matches_plain(cuda_device, fill, zones, kind, n, state):
     """The cluster kernel in both node-state layouts (global forced at every
-    n through the launcher's layout argument) against the plain version."""
+    n through the launcher's layout argument) against the plain version;
+    the single-AZ strategies in the zone-parallel instantiation, at every
+    zone case."""
     from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.models.resources import INT32_INF
     from spark_scheduler_tpu_torch.ops.window import (
@@ -66,8 +93,10 @@ def test_window_kernel_matches_plain(cuda_device, fill, n, state):
     emax = 8
     avail = rng.integers(0, 24, size=(n, 3)).astype(np.int32)
     avail[:, 2] = rng.integers(0, 3, size=n)
+    if kind == "uniform":
+        avail[:] = avail[0]
     cluster = cluster_from_numpy(
-        [avail, avail.copy(), rng.integers(0, 4, size=n).astype(np.int32),
+        [avail, avail.copy(), _zone_column(rng, n, zones, kind),
          rng.permutation(n).astype(np.int32),
          np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
          rng.random(n) < 0.1, rng.random(n) > 0.05, np.ones(n, bool)],
@@ -83,12 +112,15 @@ def test_window_kernel_matches_plain(cuda_device, fill, n, state):
     masks = [rng.random(n) < 0.9 for _ in requests]
     win = make_segmented_window(requests, masks, [np.ones(n, bool)] * 6)
     before = window_pack.launches
-    got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4,
+    zone_parallel = window_pack.zone_parallel_launches
+    got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=zones,
                       layout=walk_layout(n, state=state))
     torch.cuda.synchronize()
     assert window_pack.launches == before + len(requests)
+    assert window_pack.zone_parallel_launches == zone_parallel + (
+        len(requests) if fill in SINGLE_AZ else 0)
     want = window_pack_reference(cluster, win, fill=fill, emax=emax,
-                                 num_zones=4)
+                                 num_zones=zones)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -130,10 +162,11 @@ def test_window_kernel_wide_gangs(cuda_device, fill):
         assert torch.equal(g, w)
 
 
-def _queue_case(rng, n, b, device, hi=40):
+def _queue_case(rng, n, b, device, hi=40, zones=4, kind="random"):
     """A random cluster (tests/test_packing_golden.py's generator) and a
     queue of b apps padded to b + 3 (tests/test_pallas_fifo.py's), with
-    gangs up to emax + 2 wide and some non-skippable."""
+    gangs up to emax + 2 wide and some non-skippable; zone ids by
+    `_zone_column` ("uniform": every node alike too)."""
     from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.models.resources import INT32_INF
     from spark_scheduler_tpu_torch.ops.batched import (
@@ -143,9 +176,12 @@ def _queue_case(rng, n, b, device, hi=40):
 
     avail = rng.integers(0, hi, size=(n, 3)).astype(np.int32)
     avail[:, 2] = rng.integers(0, 3, size=n) * rng.integers(0, 2, size=n)
+    sched = avail + rng.integers(0, 8, size=(n, 3)).astype(np.int32)
+    if kind == "uniform":
+        avail[:] = (hi - 1, hi - 1, 4)
+        sched[:] = (hi + 3, hi + 3, 4)
     cluster = cluster_from_numpy(
-        [avail, avail + rng.integers(0, 8, size=(n, 3)).astype(np.int32),
-         rng.integers(0, 4, size=n).astype(np.int32),
+        [avail, sched, _zone_column(rng, n, zones, kind),
          rng.permutation(n).astype(np.int32),
          np.full(n, INT32_INF, np.int32), np.full(n, INT32_INF, np.int32),
          rng.random(n) < 0.1, rng.random(n) > 0.1, rng.random(n) > 0.05],
@@ -190,12 +226,14 @@ def _forced_queue(cluster, apps, layout, **kw):
     )
 
     before = fifo_pack.launches
+    zone_parallel = fifo_pack.zone_parallel_launches
     out = queue_packing(*fifo_queue(
         *queue_operands(cluster, device_apps(apps, cluster.device), kw["num_zones"]),
         layout=layout, **kw,
     ))
     torch.cuda.synchronize()
     assert fifo_pack.launches == before + 1
+    assert fifo_pack.zone_parallel_launches == zone_parallel + (kw["fill"] in SINGLE_AZ)
     return BatchedPacking(*(x[0] for x in out))
 
 
@@ -237,38 +275,79 @@ def test_queue_kernel_default_layout(cuda_device, fill):
             assert torch.equal(g, w), (fill, n)
 
 
-@pytest.mark.parametrize("fill", STRATEGIES)
+def _plain_queue(cluster, apps, *, fill, emax, num_zones, zone=None):
+    """`fifo_pack_reference`'s walk as the queue kernel's raw outputs (meta
+    [B,4] with the score bits, execs, availability after), on the CPU;
+    `zone` overrides the zone ids the gang solve reads (the orders are the
+    cluster's)."""
+    import dataclasses
+
+    from spark_scheduler_tpu_torch.ops.fifo import kernel_orders
+    from spark_scheduler_tpu_torch.ops.gang import walk_rows
+
+    orders = kernel_orders(cluster, num_zones)
+    if zone is not None:
+        cluster = dataclasses.replace(cluster, zone_id=zone)
+    avail = cluster.available.clone()
+    meta, execs = walk_rows(
+        fill, num_zones=num_zones, emax=emax, cluster=cluster, avail=avail,
+        orders=orders, driver_req=apps.driver_req.numpy(),
+        exec_req=apps.exec_req.numpy(), exec_count=apps.exec_count.numpy(),
+        valid=apps.app_valid.numpy(), skippable=apps.skippable.numpy(),
+        with_score=True,
+    )
+    return torch.tensor(meta), torch.tensor(execs), avail
+
+
+@pytest.mark.parametrize("fill,zones,kind", STRATEGY_ZONES)
 @pytest.mark.parametrize("n", [9, 300, 5000])
 @pytest.mark.parametrize("team,state", QUEUE_LAYOUTS)
-def test_queue_kernel_scores_match_the_plain_walk(cuda_device, fill, n, team,
-                                                   state):
-    """The queue kernel's zone scores, in every forced layout, equal the
-    plain walk's bit for bit (0 outside the zone strategies), on a roomy
-    and a tight cluster."""
+def test_queue_kernel_scores_match_the_plain_walk(cuda_device, fill, zones,
+                                                   kind, n, team, state):
+    """The queue kernel's outputs, its zone scores' bits included (0
+    outside the zone strategies), in every forced layout, equal the plain
+    walk's, on a roomy and a tight cluster; the single-AZ strategies in the
+    zone-parallel instantiation, at every zone case, with a few nodes of
+    the "random" cases (beside 4 zones) given ids outside [0, zones), which
+    belong to no zone."""
     from spark_scheduler_tpu_torch.ops.fifo import (
         device_apps,
-        fifo_pack_with_scores,
+        fifo_pack,
         fifo_queue,
         queue_operands,
         zone_scores,
     )
 
     layout = _forced_layout(n, team, state)
+    fallbacks = 0
     for seed, hi in enumerate((40, 8)):
         got_cl, got_apps = _queue_case(np.random.default_rng(seed), n, 9,
-                                       cuda_device, hi)
+                                       cuda_device, hi, zones, kind)
         want_cl, want_apps = _queue_case(np.random.default_rng(seed), n, 9,
-                                         torch.device("cpu"), hi)
-        meta, _, _ = fifo_queue(
-            *queue_operands(got_cl, device_apps(got_apps, cuda_device), 4),
-            fill=fill, emax=8, num_zones=4, layout=layout)
-        want, scores = fifo_pack_with_scores(want_cl, want_apps, fill=fill,
-                                             emax=8, num_zones=4)
-        got = zone_scores(meta[0]).cpu()
-        assert torch.equal(got.view(torch.int32), scores.view(torch.int32))
-        assert torch.equal(meta[0, :, 2].cpu() != 0, want.packed)
-        if fill.startswith("single-az") and want.packed.any():
-            assert (got[want.packed] > 0).all()
+                                         torch.device("cpu"), hi, zones, kind)
+        zone = None
+        ops = queue_operands(got_cl, device_apps(got_apps, cuda_device), zones)
+        if kind == "random" and zones != 4:  # ids -1 and `zones` on ~5% of nodes
+            stray = torch.from_numpy(np.random.default_rng(seed).random(n) < 0.05)
+            zone = want_cl.zone_id.clone()
+            zone[stray] = torch.where(torch.arange(n)[stray] % 2 == 0, -1,
+                                      zones).to(torch.int32)
+            ops = (*ops[:2], zone.to(cuda_device)[None].contiguous(), *ops[3:])
+        zone_parallel = fifo_pack.zone_parallel_launches
+        meta, execs, after = fifo_queue(*ops, fill=fill, emax=8,
+                                        num_zones=zones, layout=layout)
+        assert fifo_pack.zone_parallel_launches == zone_parallel + (fill in SINGLE_AZ)
+        want = _plain_queue(want_cl, want_apps, fill=fill, emax=8,
+                            num_zones=zones, zone=zone)
+        for g, w in zip((meta[0], execs[0], after[0]), want):
+            assert torch.equal(g.cpu(), w), (fill, zones, kind, n, hi, layout)
+        scores = zone_scores(want[0])
+        packed = want[0][:, 2] != 0
+        if fill in SINGLE_AZ and packed.any():
+            fallbacks += int((scores[packed] == 0).sum())
+            assert fill == "az-aware-tightly-pack" or (scores[packed] > 0).all()
+    if fill == "az-aware-tightly-pack" and zones == 17 and n == 300:
+        assert fallbacks > 0  # no zone fits some gang: the plain fallback packed it
 
 
 @pytest.mark.parametrize("fill", STRATEGIES)

@@ -11,17 +11,21 @@ bytes an H100 block may use, and in global scratch past that.
 import pytest
 
 from spark_scheduler_tpu_torch.ops.fifo import (
+    QUEUE_BLOCK_LANE_SMEM,
     QUEUE_BLOCK_STATIC_SMEM,
     QUEUE_CLUSTER_MIN_NODES,
     QueueLayout,
     queue_layout,
     queue_scratch_words,
 )
+from spark_scheduler_tpu_torch.ops.gang import strategy_params
 from spark_scheduler_tpu_torch.ops.window import (
     CLUSTER_BLOCKS,
     SMEM_PER_BLOCK,
     STATE_WORDS,
+    WALK_LANE_SMEM,
     WALK_STATIC_SMEM,
+    ZONE_LANES,
 )
 
 SIZES = [1, 9, 10, 500, 1000, QUEUE_CLUSTER_MIN_NODES - 1,
@@ -119,3 +123,55 @@ def test_queue_scratch_words(groups, team, state):
     per_block = 2 * emax + 2 * num_zones + (
         STATE_WORDS * slice_ if state == "global" else 0)
     assert queue_scratch_words(layout, groups, emax, num_zones) == groups * k * per_block
+
+
+@pytest.mark.parametrize("num_zones", [1, 6, 8, 17])
+@pytest.mark.parametrize("team,state", [("block", "smem"), ("block", "global"),
+                                        ("cluster", "smem"), ("cluster", "global")])
+def test_queue_scratch_words_zone_lanes(num_zones, team, state):
+    # The zone-parallel instantiation adds one slot row a zone lane:
+    # min(num_zones, 8) rows of emax words a block.
+    n, emax, groups = 1000, 32, 3
+    layout = queue_layout(n, team=team, state=state, zone_lanes=True)
+    assert layout.zone_lanes
+    k = 8 if team == "cluster" else 1
+    slice_ = 125 if team == "cluster" else 1000
+    per_block = 2 * emax + 2 * num_zones + min(num_zones, ZONE_LANES) * emax + (
+        STATE_WORDS * slice_ if state == "global" else 0)
+    assert queue_scratch_words(layout, groups, emax, num_zones) == groups * k * per_block
+
+
+@pytest.mark.parametrize("fill", ["tightly-pack", "distribute-evenly",
+                                  "minimal-fragmentation"])
+@pytest.mark.parametrize("n", [300, 5000, 10000])
+def test_plain_strategies_keep_their_scratch(fill, n):
+    # A plain strategy's launch: no lane rows, the layout and scratch the
+    # queue kernel had before the zone-parallel instantiation.
+    emax, num_zones = 8, 4
+    layout = queue_layout(n, zone_lanes=strategy_params(fill)[1])
+    assert layout == queue_layout(n) and not layout.zone_lanes
+    static = WALK_STATIC_SMEM if layout.team == "cluster" else QUEUE_BLOCK_STATIC_SMEM
+    assert layout.smem_bytes == STATE_WORDS * 4 * layout.slice + static
+    assert queue_scratch_words(layout, 1, emax, num_zones) == layout.k * (
+        2 * emax + 2 * num_zones)
+
+
+@pytest.mark.parametrize("team", ["block", "cluster"])
+def test_zone_lanes_smem_limit(team):
+    # The lane buffers are static shared memory of the zone-parallel
+    # instantiation: 2,384 B for a block, 3,408 B for a cluster, so its
+    # node state leaves shared memory sooner (n up to 7,173 / 57,160).
+    extra = QUEUE_BLOCK_LANE_SMEM if team == "block" else WALK_LANE_SMEM
+    assert extra == (2_384 if team == "block" else 3_408)
+    static = (QUEUE_BLOCK_STATIC_SMEM if team == "block" else WALK_STATIC_SMEM) + extra
+    k = 1 if team == "block" else CLUSTER_BLOCKS
+    last = k * ((SMEM_PER_BLOCK - static) // (STATE_WORDS * 4))
+    assert last == (7_173 if team == "block" else 57_160)
+    fit = queue_layout(last, team=team, zone_lanes=True)
+    assert fit.state == "smem" and fit.smem_bytes <= SMEM_PER_BLOCK
+    assert fit.smem_bytes == STATE_WORDS * 4 * fit.slice + static
+    past = queue_layout(last + 1, team=team, zone_lanes=True)
+    assert past == QueueLayout(team, k, -(-(last + 1) // k), static, "global", True)
+    assert queue_layout(last + 1, team=team).state == "smem"
+    with pytest.raises(ValueError):
+        queue_layout(last + 1, team=team, state="smem", zone_lanes=True)

@@ -12,7 +12,9 @@ from spark_scheduler_tpu_torch.ops.window import (
     CLUSTER_BLOCKS,
     SMEM_PER_BLOCK,
     STATE_WORDS,
+    WALK_LANE_SMEM,
     WALK_STATIC_SMEM,
+    ZONE_LANES,
     WalkLayout,
     walk_layout,
     walk_scratch_words,
@@ -71,3 +73,35 @@ def test_walk_scratch_words(state):
     layout = walk_layout(16384, state=state)
     per_block = 2 * 32 + 2 * 4 + (STATE_WORDS * 2048 if state == "global" else 0)
     assert walk_scratch_words(layout, 32, 4) == 8 * per_block
+
+
+@pytest.mark.parametrize("num_zones", [1, 6, 8, 17])
+@pytest.mark.parametrize("state", ["smem", "global"])
+def test_walk_scratch_words_zone_lanes(num_zones, state):
+    # The single-AZ strategies' zone-parallel instantiation adds one slot
+    # row a zone lane, min(num_zones, 8) rows of emax words a block; a
+    # plain strategy's launch keeps the scratch it had.
+    layout = walk_layout(16384, state=state, zone_lanes=True)
+    plain = walk_layout(16384, state=state)
+    assert layout.zone_lanes and not plain.zone_lanes
+    base = 2 * 32 + 2 * num_zones + (STATE_WORDS * 2048 if state == "global" else 0)
+    assert walk_scratch_words(plain, 32, num_zones) == 8 * base
+    assert walk_scratch_words(layout, 32, num_zones) == 8 * (
+        base + min(num_zones, ZONE_LANES) * 32)
+
+
+def test_zone_lanes_walk_layout():
+    # The lane buffers (3,408 B of static shared memory a block) move the
+    # zone-parallel instantiation's switch to global state to n = 57,160.
+    assert WALK_LANE_SMEM == 3_408
+    static = WALK_STATIC_SMEM + WALK_LANE_SMEM
+    last = 8 * ((SMEM_PER_BLOCK - static) // (STATE_WORDS * 4))
+    assert last == 57_160
+    fit = walk_layout(last, zone_lanes=True)
+    assert fit.state == "smem"
+    assert fit.smem_bytes == STATE_WORDS * 4 * fit.slice + static <= SMEM_PER_BLOCK
+    assert walk_layout(last + 1, zone_lanes=True) == WalkLayout(
+        8, -(-(last + 1) // 8), static, "global", True)
+    assert walk_layout(last + 1).state == "smem"
+    with pytest.raises(ValueError):
+        walk_layout(last + 1, state="smem", zone_lanes=True)
