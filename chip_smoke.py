@@ -30,7 +30,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
      too-big gang, an empty queue (B = 0: no launch), and a grouped solve of
      3 queues (`grouped_fifo_pack`, one launch). Then each of the kernel's
      four layouts forced (block or cluster team, node state in shared or
-     global memory; `ops/fifo.queue_layout`) where it fits, at N = 9 to
+     global memory; `ops/launch.kernel_layout`) where it fits, at N = 9 to
      10,000 and with gangs up to 2,048 wide. Tolerance: none.
   3. Main path at full width: a 10,000-node cluster (4 zones, heterogeneous
      nodes, ~10% with GPUs, 30-70% prior usage) built through
@@ -544,18 +544,18 @@ def compare_small(device) -> int:
     """Phase 2. Returns the largest |kernel - plain| over every output."""
     import torch
 
+    from spark_scheduler_tpu_torch.ops.launch import kernel_layout
     from spark_scheduler_tpu_torch.ops.window import (
-        walk_layout,
         window_pack,
         window_pack_reference,
     )
 
     worst, cases = 0, 0
 
-    def run(label, cluster, win, fill, emax, layout):
+    def run(label, cluster, win, fill, emax, state):
         nonlocal worst, cases
         got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=4,
-                          layout=layout)
+                          state=state)
         want = window_pack_reference(cluster, win, fill=fill, emax=emax,
                                      num_zones=4)
         torch.cuda.synchronize()
@@ -576,14 +576,14 @@ def compare_small(device) -> int:
             (10_000, 3, 3, 24, 1, None), (300, 8, 8, 6, 1, "global"),
             (10_000, 3, 3, 24, 1, "global"))
     for n, n_req, max_rows, hi, seeds, state in grid:
-        layout = walk_layout(n, state=state)
         for fill in STRATEGIES:
+            layout = kernel_layout(n, fill, team="cluster", state=state)
             for seed in range(seeds):
                 rng = np.random.default_rng(1000 * n + 10 * hi + seed)
                 cluster = small_cluster(rng, n, hi, device)
                 win = small_window(rng, n, n_req, max_rows, 8)
                 run(f"{fill} n={n} hi={hi} seed={seed} {layout.state}",
-                    cluster, win, fill, 8, layout)
+                    cluster, win, fill, 8, state)
     cluster, win = wide_window(device)
     for fill in STRATEGIES:
         run(f"{fill} wide gangs", cluster, win, fill, 2048, None)
@@ -652,7 +652,6 @@ def compare_queue_small(device) -> int:
     from spark_scheduler_tpu_torch.ops.fifo import (
         fifo_pack,
         fifo_pack_reference,
-        queue_layout,
     )
     from spark_scheduler_tpu_torch.parallel import (
         grouped_fifo_pack,
@@ -730,28 +729,27 @@ def compare_queue_small(device) -> int:
     forced = 0
     for team, state in QUEUE_LAYOUTS:
         for n in (9, 300, 1_000, 4_000, 8_193, 10_000):
-            layout = fitting_layout(n, team, state)
-            if layout is None:
-                continue
             for fill in STRATEGIES:
+                layout = fitting_layout(n, team, state, fill)
+                if layout is None:
+                    continue
                 rng = np.random.default_rng(7 * n + 1)
                 cluster = cluster_from_numpy(queue_cluster_fields(rng, n), device=device)
                 apps = app_batch_to_device(queue_apps(rng, 9, pad_to=12), device)
-                got = forced_queue(cluster, apps, layout, fill=fill, **kw)
+                got = forced_queue(cluster, apps, team, state, fill=fill, **kw)
                 want = fifo_pack_reference(cluster, apps, fill=fill, **kw)
                 err = packing_diff(got, want)
                 check(err == 0, f"queue kernel != plain: {fill} n={n} {layout}")
                 forced += 1
         cluster, apps = wide_queue(device)
         for fill in STRATEGIES:
-            layout = queue_layout(300, team=team, state=state)
-            got = forced_queue(cluster, apps, layout, fill=fill, emax=2048,
+            got = forced_queue(cluster, apps, team, state, fill=fill, emax=2048,
                                num_zones=4)
             want = fifo_pack_reference(cluster, apps, fill=fill, emax=2048,
                                        num_zones=4)
             check(bool(want.admitted[0]), "wide queue: the first gang not admitted")
             check(packing_diff(got, want) == 0,
-                  f"queue kernel != plain: {fill} wide gangs {layout}")
+                  f"queue kernel != plain: {fill} wide gangs {team}/{state}")
             forced += 1
     print(f"phase 2b: {cases} queues through fifo_pack / grouped_fifo_pack and "
           f"{forced} with the layout forced (block and cluster teams, node "
@@ -765,40 +763,41 @@ QUEUE_LAYOUTS = (("block", "smem"), ("block", "global"),
                  ("cluster", "smem"), ("cluster", "global"))
 
 
-def fitting_layout(n, team, state, zone_lanes=False):
-    """queue_layout(n, team=..., state=..., zone_lanes=...), or None where
-    the node state does not fit in shared memory."""
-    from spark_scheduler_tpu_torch.ops.fifo import queue_layout
+def fitting_layout(n, team, state, fill):
+    """kernel_layout(n, fill, team=..., state=...), or None where the node
+    state does not fit in shared memory."""
+    from spark_scheduler_tpu_torch.ops.launch import kernel_layout
 
     try:
-        return queue_layout(n, team=team, state=state, zone_lanes=zone_lanes)
+        return kernel_layout(n, fill, team=team, state=state)
     except ValueError:
         return None
 
 
 def queue_args(cluster, apps, num_zones):
-    """fifo_queue's operands for one queue or, for a stacked cluster, for
-    G queues."""
+    """fifo_queue's operands for one queue (a stacked group of one) or, for
+    a stacked cluster, for G queues."""
     from spark_scheduler_tpu_torch.ops.fifo import device_apps, queue_operands
-    from spark_scheduler_tpu_torch.parallel import grouped_queue_operands
+    from spark_scheduler_tpu_torch.parallel import stack_groups
 
-    dev = cluster.available.device
-    if cluster.available.dim() == 3:
-        g = cluster.available.shape[0]
-        return grouped_queue_operands(
-            cluster, device_apps(apps, dev, lead=(g,)), num_zones)
-    return queue_operands(cluster, device_apps(apps, dev), num_zones)
+    if cluster.available.dim() == 2:
+        cluster, apps = stack_groups([cluster], [apps])
+    g = cluster.available.shape[0]
+    return queue_operands(
+        cluster, device_apps(apps, cluster.available.device, lead=(g,)),
+        num_zones)
 
 
-def forced_queue(cluster, apps, layout, **kw):
-    """fifo_pack's launch with the kernel layout forced."""
+def forced_queue(cluster, apps, team, state, **kw):
+    """fifo_pack's launch with the kernel's team and node-state place
+    forced."""
     import torch
 
     from spark_scheduler_tpu_torch.ops.batched import BatchedPacking
     from spark_scheduler_tpu_torch.ops.fifo import fifo_queue, queue_packing
 
     out = queue_packing(*fifo_queue(*queue_args(cluster, apps, kw["num_zones"]),
-                                    layout=layout, **kw))
+                                    team=team, state=state, **kw))
     torch.cuda.synchronize()
     return BatchedPacking(*(x[0] for x in out))
 
@@ -1046,9 +1045,8 @@ def measure(last, device, card, worst_small):
         probe_add_one,
         probe_reference,
     )
+    from spark_scheduler_tpu_torch.ops.launch import STATIC_SMEM, kernel_layout
     from spark_scheduler_tpu_torch.ops.window import (
-        WALK_STATIC_SMEM,
-        walk_layout,
         window_kernel_info,
         window_pack,
         window_pack_reference,
@@ -1057,13 +1055,14 @@ def measure(last, device, card, worst_small):
     cluster, batch = last
     args = dict(fill="tightly-pack", emax=batch.emax, num_zones=batch.num_zones)
     n = cluster.num_nodes
-    main = walk_layout(n)
-    info = window_kernel_info(main)
+    main = kernel_layout(n, args["fill"], team="cluster")
+    info = window_kernel_info(n, args["fill"])
     check(main.state == "smem", f"the main path's node state is not in "
                                 f"shared memory at n={n}: {main}")
-    check(info["static_smem"] == WALK_STATIC_SMEM,
-          f"static shared memory {info['static_smem']} B != {WALK_STATIC_SMEM}")
-    check(info["max_active_clusters"] >= 1, f"cluster cannot run: {info}")
+    check(info["static_smem"] == STATIC_SMEM["cluster"],
+          f"static shared memory {info['static_smem']} B != "
+          f"{STATIC_SMEM['cluster']}")
+    check(info["max_active_teams"] >= 1, f"cluster cannot run: {info}")
     got = window_pack(cluster, batch.win, **args)
     t0 = time.perf_counter()
     want = window_pack_reference(cluster, batch.win, **args)
@@ -1076,13 +1075,14 @@ def measure(last, device, card, worst_small):
 
     # The two layouts in turns (A B A B): node state in shared memory (the
     # main path's) and in global memory. Both must give the same outputs.
-    layouts = {"smem": main, "global": walk_layout(n, state="global")}
+    layouts = {"smem": main, "global": kernel_layout(n, args["fill"], team="cluster",
+                                                     state="global")}
     print(f"window kernel at n={n}: {main}; ptxas/runtime {info}", flush=True)
     timed = {}
     for turn in range(2):
         for label, lay in layouts.items():
             def call(lay=lay):
-                return window_pack(cluster, batch.win, **args, layout=lay)
+                return window_pack(cluster, batch.win, **args, state=lay.state)
             check(max_abs_diff(call(), got) == 0, f"{label} layout != main")
             ms = cuda_time_ms(call, 5)
             kern, other = device_split(call)
@@ -1221,11 +1221,11 @@ def time_layouts(label, cluster, apps, layouts, card, *, fill, emax, calls=5):
     args = queue_args(cluster, apps, 4)
     b = int(args[4][0].shape[1])
     kw = dict(fill=fill, emax=emax, num_zones=4)
-    first = fifo_queue(*args, layout=layouts[0], **kw)
+    first = fifo_queue(*args, team=layouts[0].team, state=layouts[0].state, **kw)
     times = {}
     for lay in list(layouts) + list(reversed(layouts)):
-        us, outs = device_us(lambda lay=lay: fifo_queue(*args, layout=lay, **kw),
-                             calls)
+        us, outs = device_us(lambda lay=lay: fifo_queue(
+            *args, team=lay.team, state=lay.state, **kw), calls)
         for out in outs:
             check(max_abs_diff(out, first) == 0,
                   f"{label}: {lay.team}/{lay.state} != {layouts[0].team}/"
@@ -1247,28 +1247,26 @@ def measure_queue_layouts(device, card):
     registers per instantiation, and the block/cluster crossover sweep."""
     from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.ops.batched import app_batch_to_device
-    from spark_scheduler_tpu_torch.ops.fifo import (
-        QUEUE_BLOCK_LANE_SMEM,
-        QUEUE_BLOCK_STATIC_SMEM,
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_kernel_info
+    from spark_scheduler_tpu_torch.ops.launch import (
+        LANE_SMEM,
         QUEUE_CLUSTER_MIN_NODES,
-        fifo_kernel_info,
-        queue_layout,
+        STATIC_SMEM,
+        kernel_layout,
     )
-    from spark_scheduler_tpu_torch.ops.window import WALK_LANE_SMEM, WALK_STATIC_SMEM
     from spark_scheduler_tpu_torch.parallel import stack_groups
 
     for team, state in QUEUE_LAYOUTS:
         for n in (1_000, 10_000):
-            for lanes in (False, True):  # the plain and zone-parallel ones
-                lay = fitting_layout(n, team, state, zone_lanes=lanes)
+            # The plain instantiation, and the zone-parallel one the
+            # single-AZ strategies run.
+            for fill in ("tightly-pack", "single-az-tightly-pack"):
+                lay = fitting_layout(n, team, state, fill)
                 if lay is None:
                     continue
-                info = fifo_kernel_info(lay)
-                static = (WALK_STATIC_SMEM if team == "cluster"
-                          else QUEUE_BLOCK_STATIC_SMEM)
-                if lanes:
-                    static += (WALK_LANE_SMEM if team == "cluster"
-                               else QUEUE_BLOCK_LANE_SMEM)
+                lanes = lay.zone_lanes
+                info = fifo_kernel_info(n, fill, team=team, state=state)
+                static = STATIC_SMEM[team] + (LANE_SMEM[team] if lanes else 0)
                 check(info["static_smem"] == static,
                       f"{lay}: static shared memory {info['static_smem']} B != {static}")
                 check(info["max_active_teams"] >= 1, f"{lay} cannot run: {info}")
@@ -1304,16 +1302,16 @@ def measure_queue_layouts(device, card):
     ]
     for label, fill, emax, cluster, apps in shapes:
         n = cluster.available.shape[-2]
-        default = queue_layout(n)
+        default = kernel_layout(n, fill)
         layouts = [default] + [
-            lay for lay in (fitting_layout(n, t, st) for t, st in QUEUE_LAYOUTS)
+            lay for lay in (fitting_layout(n, t, st, fill) for t, st in QUEUE_LAYOUTS)
             if lay is not None and lay != default]
         print(f"  queue kernel at {label}, {card}, default layout "
               f"{default.team}/{default.state}:", flush=True)
         t = time_layouts(label.split(" (")[0], cluster, apps, layouts, card,
                          fill=fill, emax=emax)
         med = {lay: float(np.median(v)) for lay, v in t.items()}
-        old = queue_layout(n, team="block", state="global")
+        old = kernel_layout(n, fill, team="block", state="global")
         fastest = min(med, key=med.get)
         print(f"  queue kernel at {label}: default {default.team}/{default.state} "
               f"{turns(t[default])} us, block/global (the parent's layout) "
@@ -1332,8 +1330,8 @@ def measure_queue_layouts(device, card):
     for n in (500, 1_000, 1_250, 1_500, 1_750, 2_000, 3_000, 4_000, 5_500,
               7_000, 10_000):
         cluster = up(baseline_cluster(np.random.default_rng(n), n))
-        block = queue_layout(n, team="block")
-        team = queue_layout(n, team="cluster")
+        block = kernel_layout(n, "tightly-pack", team="block")
+        team = kernel_layout(n, "tightly-pack", team="cluster")
         t = time_layouts(f"n={n}", cluster, apps, [block, team], card,
                          fill="tightly-pack", emax=8)
         b_us, c_us = float(np.median(t[block])), float(np.median(t[team]))

@@ -33,7 +33,7 @@
 // loop inside one team of threads per queue.
 //
 // What the design does about it: each queue gets a TEAM sized to its node
-// count (ops/fifo.py `queue_layout`), and the G queues of a grouped solve
+// count (ops/launch.py `kernel_layout`), and the G queues of a grouped solve
 // are G teams of ONE launch (cudaLaunchKernelEx), side by side on the SMs:
 //   - "block": one block of 1,024 threads (gang_solve.cuh `BlockTeam`).
 //     A reduction is warp shuffles, one __syncthreads, and every warp
@@ -225,26 +225,8 @@ cudaError_t prepare(int device, int team, int smem_state, int lanes, int slice,
   return e;
 }
 
-// The launch shape: `groups` teams of one block, or of one cluster of
-// kGsCluster blocks; `attr` must outlive the config.
-cudaLaunchConfig_t queue_config(int team, int groups, int dynamic, cudaStream_t stream,
-                                cudaLaunchAttribute* attr) {
-  const int k = team == kTeamCluster ? kGsCluster : 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(groups * k, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = dynamic;
-  cfg.stream = stream;
-  if (team == kTeamCluster) {
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = kGsCluster;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  return cfg;
-}
+// Blocks a team: 1, or kGsCluster for the cluster team.
+int team_blocks(int team) { return team == kTeamCluster ? kGsCluster : 1; }
 
 }  // namespace
 
@@ -271,44 +253,22 @@ extern "C" int fifo_queue(
   cudaError_t e = prepare(device, team, smem_state, single_az, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      queue_config(team, groups, dynamic, static_cast<cudaStream_t>(stream), &attr);
+  const cudaLaunchConfig_t cfg = team_config(team_blocks(team), groups, kThreads, dynamic,
+                                             static_cast<cudaStream_t>(stream), &attr);
   e = cudaLaunchKernelEx(&cfg, kernel, p);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // What the card reports for one instantiation (lanes: the zone-parallel
-// one): out[0] registers a thread,
-// out[1] local (spill) bytes a thread, out[2] static shared bytes a block,
-// out[3] how many such teams with `slice` nodes a block can be resident at
-// once (cudaOccupancyMaxActiveClusters for the cluster team, resident
-// blocks over all SMs for the block team; 0 means the launch cannot run).
-// Returns the CUDA error (0 on success).
+// one) with `slice` nodes a block, in out[0..3] (device_setup.cuh
+// `team_info`). Returns the CUDA error (0 on success).
 extern "C" int fifo_kernel_info(int device, int team, int smem_state, int lanes, int slice,
                                 int* out) {
   QueueKernel kernel;
   int dynamic;
-  cudaError_t e = prepare(device, team, smem_state, lanes, slice, &kernel, &dynamic);
-  cudaFuncAttributes a;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
+  const cudaError_t e = prepare(device, team, smem_state, lanes, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
-  int teams = 0;
-  if (team == kTeamCluster) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = queue_config(team, 1, dynamic, nullptr, &attr);
-    e = cudaOccupancyMaxActiveClusters(&teams, kernel, &cfg);
-  } else {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, dynamic);
-    teams = sms * per_sm;
-  }
-  out[3] = teams;
-  return static_cast<int>(e);
+  return static_cast<int>(team_info(device, kernel, team_blocks(team), kThreads, dynamic, out));
 }
 
 extern "C" const char* fifo_kernel_error(int code) {

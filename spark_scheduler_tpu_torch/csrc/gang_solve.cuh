@@ -246,7 +246,7 @@ struct BlockTeam {
 // PERF.md.)
 constexpr int kGsCluster = 8;
 // A cluster team's lane buffers: GsLanes' and two [kGsCluster][kGsLanes]
-// slot rows (ops/window.py WALK_LANE_SMEM).
+// slot rows (ops/launch.py LANE_SMEM["cluster"]).
 constexpr int kGsClusterLaneWords = kGsLaneWords + 2 * kGsCluster * kGsLanes;
 
 // Shared-memory address helpers (PTX): the 32-bit shared::cta address of a
@@ -757,7 +757,7 @@ struct GsWork {
 };
 
 // Global words a block's gang slots and zone facts take (the layout of
-// ops/fifo.py queue_scratch_words and ops/window.py walk_scratch_words).
+// ops/launch.py gang_scratch_words).
 __host__ __device__ __forceinline__ int gs_extra_words(int emax, int num_zones, bool lanes) {
   const int nl = num_zones < kGsLanes ? num_zones : kGsLanes;
   return 2 * emax + 2 * num_zones + (lanes ? nl * emax : 0);

@@ -35,7 +35,7 @@
 // buffers and mbarriers (65,936 B a block); it is loaded from the base at
 // segment start and the commit row's debit goes back to the base by owner.
 // Layout "global" keeps the same state in global memory (per block) for
-// clusters whose slice does not fit (ops/window.py `walk_layout`: n above
+// clusters whose slice does not fit (ops/launch.py `kernel_layout`: n above
 // 58,008). The bound is now ONE distributed-shared-memory exchange per
 // dependent reduction: a __syncthreads, then each block pushes its partial
 // into every block's shared memory with `st.async` and waits on its own
@@ -155,23 +155,6 @@ __global__ void __launch_bounds__(kThreads) window_row_walk_kernel(WalkParams p)
   ClusterTeam::cluster_sync();  // no block exits while a push may target it
 }
 
-// The launch shape: one cluster of kGsCluster blocks, `dynamic` bytes of
-// shared memory each; `attr` must outlive the config.
-cudaLaunchConfig_t cluster_config(int dynamic, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kGsCluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = dynamic;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kGsCluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 SmemAllowance<2> g_smem_allowance;  // slot: lanes
 
 // Sets `device` current and picks the instantiation for (smem_state,
@@ -218,33 +201,21 @@ extern "C" int window_row_walk(
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(dynamic, static_cast<cudaStream_t>(stream), &attr);
+      team_config(kGsCluster, 1, kThreads, dynamic, static_cast<cudaStream_t>(stream), &attr);
   e = cudaLaunchKernelEx(&cfg, kernel, p);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // What `device` reports for one instantiation (lanes: the zone-parallel
-// one): out[0] registers a thread,
-// out[1] local (spill) bytes a thread, out[2] static shared bytes a block,
-// out[3] how many such clusters with `slice` nodes a block can be resident
-// at once (cudaOccupancyMaxActiveClusters; 0 means the launch cannot run).
-// Returns the CUDA error (0 on success).
+// one) with `slice` nodes a block, in out[0..3] (device_setup.cuh
+// `team_info`: out[3] the resident clusters). Returns the CUDA error (0 on
+// success).
 extern "C" int window_kernel_info(int device, int smem_state, int lanes, int slice, int* out) {
   void (*kernel)(WalkParams);
   int dynamic;
-  cudaError_t e = prepare(device, smem_state, lanes, slice, &kernel, &dynamic);
-  cudaFuncAttributes a;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
+  const cudaError_t e = prepare(device, smem_state, lanes, slice, &kernel, &dynamic);
   if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(dynamic, nullptr, &attr);
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  out[3] = clusters;
-  return static_cast<int>(e);
+  return static_cast<int>(team_info(device, kernel, kGsCluster, kThreads, dynamic, out));
 }
 
 extern "C" const char* window_kernel_error(int code) {

@@ -10,11 +10,15 @@ blocking. It is the counterpart of both `fifo_pack_pallas` and
   - CUDA tensors: the sorts in PyTorch, then ONE launch of the hand-written
     queue kernel csrc/fifo_kernel.cu, which walks the whole queue on one
     team of threads, a block or a thread-block cluster by node count
-    (`queue_layout`; it shares its per-app step with the window kernel
-    through csrc/gang_solve.cuh);
+    (`ops/launch.kernel_layout`; it shares its per-app step with the window
+    kernel through csrc/gang_solve.cuh);
   - CPU tensors: `fifo_pack_reference`, its plain PyTorch version (the same
     sorts, then `ops/gang.walk_rows`);
   - any other device raises. There is no switch and no fallback.
+
+`grouped_fifo_pack` runs G independent queues (instance groups) stacked on
+a leading axis the same way, one team a queue in the one launch;
+`fifo_pack` is the same solve on one group.
 
 Nodes are keyed by priority rank, as in the window path, so
 `available_after` comes out in node order: the JAX kernel's pre-permuted,
@@ -30,12 +34,10 @@ about 1 ulp may break differently.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from spark_scheduler_tpu_torch.faults.errors import cuda_launch_error
 from spark_scheduler_tpu_torch.models.cluster import (
     ClusterTensors,
     check_cluster,
@@ -53,21 +55,19 @@ from spark_scheduler_tpu_torch.ops.gang import (
     strategy_params,
     walk_rows,
 )
+from spark_scheduler_tpu_torch.ops.launch import (
+    TEAM_CODES,
+    KernelLibrary,
+    count_launch,
+    gang_scratch_words,
+    kernel_layout,
+)
 from spark_scheduler_tpu_torch.ops.packing import (
     _check_cumsum_bound,
     _rank_of_position,
 )
-from spark_scheduler_tpu_torch.ops.window import (
-    CLUSTER_BLOCKS,
-    LANE_WORDS,
-    SMEM_PER_BLOCK,
-    STATE_WORDS,
-    WALK_LANE_SMEM,
-    WALK_STATIC_SMEM,
-    _device_index,
-    gang_scratch_words,
-)
 from spark_scheduler_tpu_torch.tracing import profiled_span
+
 
 def fifo_eligible(apps: AppBatch, fill: str) -> bool:
     """What the queue path serves (pallas_fifo.py `pallas_eligible`): queue
@@ -105,9 +105,28 @@ def kernel_orders(cluster: ClusterTensors, num_zones: int):
         )
 
 
-def empty_packing(available: torch.Tensor, emax: int, lead=()) -> BatchedPacking:
+def _stack(ts) -> torch.Tensor:
+    """`ts` stacked on a new leading axis: a view for one tensor (of a
+    contiguous copy where it is not contiguous), a new tensor for more."""
+    return ts[0].contiguous()[None] if len(ts) == 1 else torch.stack(ts)
+
+
+def group_views(clusters: ClusterTensors, apps: AppBatch) -> list:
+    """Per group g of `clusters` and `apps` stacked on a leading axis:
+    (cluster g, apps g), as views."""
+    return [
+        (
+            ClusterTensors(*(f[g] for f in clusters.fields())),
+            AppBatch(*(None if col is None else col[g] for col in apps)),
+        )
+        for g in range(clusters.available.shape[0])
+    ]
+
+
+def _empty(available: torch.Tensor, emax: int, lead=()):
     """An empty queue admits nothing and leaves the availability unchanged
-    (pallas_fifo.py:604-613); `available_after` is a copy."""
+    (pallas_fifo.py:604-613): (packing, zone scores), `available_after` a
+    copy."""
     dev = available.device
     return BatchedPacking(
         driver_node=torch.zeros((*lead, 0), dtype=torch.int32, device=dev),
@@ -115,7 +134,7 @@ def empty_packing(available: torch.Tensor, emax: int, lead=()) -> BatchedPacking
         admitted=torch.zeros((*lead, 0), dtype=torch.bool, device=dev),
         packed=torch.zeros((*lead, 0), dtype=torch.bool, device=dev),
         available_after=available.clone(),
-    )
+    ), torch.zeros((*lead, 0), dtype=torch.float32, device=dev)
 
 
 def _host(x) -> np.ndarray:
@@ -136,6 +155,30 @@ def fifo_pack_reference(
     lives on; the app fields may be tensors or numpy arrays."""
     return _walk_queue(cluster, apps, fill=fill, emax=emax,
                        num_zones=num_zones)[0]
+
+
+def grouped_fifo_pack_reference(
+    clusters: ClusterTensors,  # fields stacked [G, N, ...]
+    apps: AppBatch,  # fields stacked [G, B, ...]
+    *,
+    fill: str = "tightly-pack",
+    emax: int,
+    num_zones: int,
+) -> BatchedPacking:
+    """The plain PyTorch version of `grouped_fifo_pack`:
+    `fifo_pack_reference` per group, stacked. Runs on whatever device the
+    tensors live on."""
+    return _reference(group_views(clusters, apps), fill=fill, emax=emax,
+                      num_zones=num_zones)[0]
+
+
+def _reference(groups, *, fill, emax, num_zones):
+    """The plain walk of each (cluster, apps) of `groups`: (packing, zone
+    scores), stacked on a leading group axis."""
+    outs = [_walk_queue(c, a, fill=fill, emax=emax, num_zones=num_zones)
+            for c, a in groups]
+    packing = BatchedPacking(*(_stack(x) for x in zip(*(p for p, _ in outs))))
+    return packing, _stack([s for _, s in outs])
 
 
 def _walk_queue(cluster, apps, *, fill, emax, num_zones):
@@ -171,11 +214,6 @@ def zone_scores(meta: torch.Tensor) -> torch.Tensor:
     return meta[..., 3].view(torch.float32)
 
 
-def _empty(available: torch.Tensor, emax: int):
-    return (empty_packing(available, emax),
-            torch.zeros(0, dtype=torch.float32, device=available.device))
-
-
 def device_apps(apps: AppBatch, device: torch.device, lead=()) -> list:
     """The five queue fields of `apps` as contiguous tensors of the kernel's
     dtypes; raises unless each is a tensor on `device` of shape
@@ -198,164 +236,63 @@ def device_apps(apps: AppBatch, device: torch.device, lead=()) -> list:
     return out
 
 
-# The queue kernel's teams (csrc/fifo_kernel.cu). From this node count on, a
-# queue runs on a cluster of CLUSTER_BLOCKS blocks, below it on one block.
-# chip_smoke.py phase 4's crossover sweep (100 tightly-pack apps, both teams
-# with the node state in shared memory, NVIDIA H100 80GB HBM3 at 700 W):
-# the block was faster at 1,000 nodes (431 against 481 us), the cluster from
-# 1,250 on (480 against 509 us); at 10,000 nodes, where the block's state
-# no longer fits in shared memory, 3.4x faster than the block (PERF.md).
-QUEUE_CLUSTER_MIN_NODES = 1_250
-# The block team's static shared memory: two alternating buffers of 32
-# 8-byte warp partials. The cluster team's is the row walk's,
-# WALK_STATIC_SMEM.
-QUEUE_BLOCK_STATIC_SMEM = 2 * 32 * 8
-# The zone-parallel (single-AZ) instantiation's lane buffers beside them:
-# LANE_WORDS for the block team, the row walk's WALK_LANE_SMEM for the
-# cluster team.
-QUEUE_BLOCK_LANE_SMEM = LANE_WORDS * 8
-_TEAM_CODES = {"block": 0, "cluster": 1}
+_QUEUE = KernelLibrary("fifo_kernel", "fifo_kernel", {
+    "fifo_queue": (
+        # device index (the entry point sets it first), groups, rows, n,
+        # emax, num_zones, fill, single_az, az_fallback, include_exec
+        [ctypes.c_int] * 10
+        + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip
+        # avail, elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
+        + [ctypes.c_void_p] * 9
+        + [ctypes.c_void_p] * 4  # meta, execs, avail_out, scratch
+        + [ctypes.c_int] * 3  # team, slice, smem_state
+        + [ctypes.c_void_p]  # stream
+    ),
+    # device index, team, smem_state, lanes, slice, out[4]
+    "fifo_kernel_info": [ctypes.c_int] * 5 + [ctypes.c_void_p],
+})
 
 
-class QueueLayout(NamedTuple):
-    """Launch shape of the queue kernel for one node count."""
-
-    team: str  # "block": one block a queue; "cluster": one cluster a queue
-    k: int  # blocks a team
-    slice: int  # nodes a block owns, ceil(n / k)
-    smem_bytes: int  # shared memory a block, static + dynamic
-    state: str  # "smem": node state in shared memory; "global": in scratch
-    zone_lanes: bool = False  # the zone-parallel (single-AZ) instantiation
-
-
-def queue_layout(
-    n: int, *, team: str | None = None, state: str | None = None,
-    zone_lanes: bool = False,
-) -> QueueLayout:
-    """The queue kernel's layout for `n` nodes: one block a queue below
-    QUEUE_CLUSTER_MIN_NODES nodes, one cluster from there on; the node state
-    (8 words a node) in shared memory where a block's slice of it fits
-    beside the static buffers (n up to 7,248 for a block, 58,008 for a
-    cluster), else in global scratch. `zone_lanes`: the zone-parallel
-    instantiation the single-AZ strategies run, whose lane buffers take
-    QUEUE_BLOCK_LANE_SMEM / WALK_LANE_SMEM more (n up to 7,173 and 57,160).
-    `team` and `state` force a layout (tests and chip_smoke.py); a forced
-    "smem" that does not fit raises."""
-    if n < 1:
-        raise ValueError(f"queue_layout needs n >= 1, got {n}")
-    if team is None:
-        team = "cluster" if n >= QUEUE_CLUSTER_MIN_NODES else "block"
-    if team not in _TEAM_CODES:
-        raise ValueError(f"no {team!r} queue team")
-    k = CLUSTER_BLOCKS if team == "cluster" else 1
-    static = WALK_STATIC_SMEM if team == "cluster" else QUEUE_BLOCK_STATIC_SMEM
-    if zone_lanes:
-        static += WALK_LANE_SMEM if team == "cluster" else QUEUE_BLOCK_LANE_SMEM
-    sl = -(-n // k)
-    smem = STATE_WORDS * 4 * sl + static
-    fits = smem <= SMEM_PER_BLOCK
-    if state is None:
-        state = "smem" if fits else "global"
-    if state not in ("smem", "global") or (state == "smem" and not fits):
-        raise ValueError(f"no {team!r}/{state!r} queue layout for n={n}")
-    return QueueLayout(team, k, sl, smem if state == "smem" else static, state,
-                       bool(zone_lanes))
-
-
-def queue_scratch_words(
-    layout: QueueLayout, groups: int, emax: int, num_zones: int
-) -> int:
-    """Global scratch of one launch over `groups` queues: per block, the
-    gang's slot buffers and the zone facts (`ops/window.gang_scratch_words`,
-    with a slot row a zone lane in the zone-parallel instantiation), plus
-    the node state in the global layout."""
-    per_block = gang_scratch_words(emax, num_zones, layout.zone_lanes)
-    if layout.state == "global":
-        per_block += STATE_WORDS * layout.slice
-    return groups * layout.k * per_block
-
-
-_QUEUE_ARGTYPES = (
-    # device index (the entry point sets it first), groups, rows, n, emax,
-    # num_zones, fill, single_az, az_fallback, include_exec
-    [ctypes.c_int] * 10
-    + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip
-    # avail, elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
-    + [ctypes.c_void_p] * 9
-    + [ctypes.c_void_p] * 4  # meta, execs, avail_out, scratch
-    + [ctypes.c_int] * 3  # team, slice, smem_state
-    + [ctypes.c_void_p]  # stream
-)
-
-
-def _queue_lib():
-    from spark_scheduler_tpu_torch.ops._build import load_library
-
-    lib = load_library("fifo_kernel")
-    fn = lib.fifo_queue
-    if fn.argtypes is None:
-        fn.argtypes = _QUEUE_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.fifo_kernel_error.argtypes = [ctypes.c_int]
-        lib.fifo_kernel_error.restype = ctypes.c_char_p
-        lib.fifo_kernel_info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.fifo_kernel_info.restype = ctypes.c_int
-    return lib
-
-
-def fifo_kernel_info(layout: QueueLayout, device=None) -> dict:
+def fifo_kernel_info(n: int, fill: str, *, team: str | None = None,
+                     state: str | None = None, device=None) -> dict:
     """What a card (`device`, default the current one) reports for the
-    queue kernel at `layout`: registers and local (spill) bytes a thread,
-    static shared bytes a block, and how many such teams can be resident at
-    once (0: the launch cannot run)."""
-    lib = _queue_lib()
-    out = (ctypes.c_int * 4)()
-    err = lib.fifo_kernel_info(
-        _device_index(device), _TEAM_CODES[layout.team],
-        int(layout.state == "smem"), int(layout.zone_lanes), layout.slice, out,
-    )
-    if err != 0:
-        raise cuda_launch_error(
-            err, "queue kernel query", lib.fifo_kernel_error(err).decode()
-        )
-    return dict(regs=out[0], local_bytes=out[1], static_smem=out[2],
-                max_active_teams=out[3])
+    queue kernel's instantiation for `n` nodes under `fill`, in its default
+    or the forced team and node-state place (`KernelLibrary.info`)."""
+    lay = kernel_layout(n, fill, team=team, state=state)
+    return _QUEUE.info(device, TEAM_CODES[lay.team], int(lay.state == "smem"),
+                       int(lay.zone_lanes), lay.slice)
 
 
 def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
-               layout: QueueLayout):
+               team: str | None = None, state: str | None = None):
     """ONE launch of the CUDA queue kernel over G independent queues, one
-    team of `layout` each. Every input is a contiguous CUDA tensor stacked
-    on a leading group axis: `avail`/`sched` [G,N,3] i32, `zone` [G,N] i32,
-    `orders` the six [G,N] tensors of `kernel_orders`, `app_fields` the
-    five of `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4] rows
-    of (driver, admitted, packed, `zone_scores` bits), execs [G,B,emax],
-    avail_after [G,N,3]), all new tensors; the kernel runs
-    on the current stream and nothing waits for it. A single-AZ strategy
-    runs the zone-parallel instantiation in the layout's team and
-    node-state place (counted in `fifo_pack.zone_parallel_launches`)."""
+    team each. Every input is a contiguous CUDA tensor stacked on a leading
+    group axis: `avail`/`sched` [G,N,3] i32, `zone` [G,N] i32, `orders` the
+    six [G,N] tensors of `kernel_orders`, `app_fields` the five of
+    `device_apps` ([G,B,3] or [G,B]). Returns (meta [G,B,4] rows of
+    (driver, admitted, packed, `zone_scores` bits), execs [G,B,emax],
+    avail_after [G,N,3]), all new tensors; the kernel runs on the current
+    stream and nothing waits for it. The launch shape is
+    `ops/launch.kernel_layout(n, fill)`; `team` and `state` force one
+    (tests and chip_smoke.py). A single-AZ strategy runs the zone-parallel
+    instantiation (counted in `fifo_pack.zone_parallel_launches`)."""
     g, n, _ = avail.shape
-    if layout != queue_layout(n, team=layout.team, state=layout.state,
-                              zone_lanes=layout.zone_lanes):
-        raise ValueError(f"{layout} is not a queue layout for {n} nodes")
+    layout = kernel_layout(n, fill, team=team, state=state)
     inner, single_az, az_fallback, include_exec = strategy_params(fill)
-    if layout.zone_lanes != single_az:
-        layout = queue_layout(n, team=layout.team, state=layout.state,
-                              zone_lanes=single_az)
     b = app_fields[0].shape[1]
     dev = avail.device
     # The scratch and any temporaries may be freed when this returns, before
     # the kernel ends: the caching allocator hands their memory only to
     # later work on the same stream, which runs after the kernel.
-    lib = _queue_lib()
     meta = torch.empty((g, b, 4), dtype=torch.int32, device=dev)
     execs = torch.empty((g, b, emax), dtype=torch.int32, device=dev)
     avail_out = torch.empty((g, n, 3), dtype=torch.int32, device=dev)
     scratch = torch.empty(
-        queue_scratch_words(layout, g, emax, num_zones), dtype=torch.int32,
+        gang_scratch_words(layout, g, emax, num_zones), dtype=torch.int32,
         device=dev,
     )
-    err = lib.fifo_queue(
+    _QUEUE.call(
+        "fifo_queue", "queue kernel launch",
         dev.index, g, b, n, emax, num_zones, FILL_CODES[inner], int(single_az),
         int(az_fallback), int(include_exec),
         *(t.data_ptr() for t in app_fields),
@@ -364,29 +301,37 @@ def fifo_queue(avail, sched, zone, orders, app_fields, *, fill, emax, num_zones,
         zone.data_ptr(), sched.data_ptr(),
         meta.data_ptr(), execs.data_ptr(), avail_out.data_ptr(),
         scratch.data_ptr(),
-        _TEAM_CODES[layout.team], layout.slice, int(layout.state == "smem"),
+        TEAM_CODES[layout.team], layout.slice, int(layout.state == "smem"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise cuda_launch_error(
-            err, "queue kernel launch", lib.fifo_kernel_error(err).decode()
-        )
-    fifo_pack.launches += 1
-    fifo_pack.zone_parallel_launches += int(single_az)
+    count_launch(fifo_pack, single_az)
     return meta, execs, avail_out
 
 
-def queue_operands(cluster: ClusterTensors, fields: list, num_zones: int) -> tuple:
-    """`fifo_queue`'s five operands for one queue (the cluster's
-    availability, schedulable and zones, its queue-mode orders, the app
-    fields of `device_apps`), each with a group axis of 1."""
-    orders = kernel_orders(cluster, num_zones)
+def _state(cluster: ClusterTensors) -> tuple:
+    """What the queue kernel reads of a cluster besides its orders: the
+    availability, schedulable and zones."""
+    return cluster.available, cluster.schedulable, cluster.zone_id
+
+
+def queue_operands(clusters: ClusterTensors, fields: list, num_zones: int) -> tuple:
+    """`fifo_queue`'s five operands for G queues, from `clusters` and the
+    app `fields` of `device_apps`, both stacked on a leading axis of G: the
+    availability, schedulable and zones, each group's queue-mode orders
+    stacked, and the app fields."""
+    views = [ClusterTensors(*(f[g] for f in clusters.fields()))
+             for g in range(clusters.available.shape[0])]
+    return _operands(_state(clusters), views, fields, num_zones)
+
+
+def _operands(state, views, fields, num_zones) -> tuple:
+    """`queue_operands` from the groups' `state` stacked and their
+    clusters' `views`. One group's orders are views, not stacked copies."""
+    orders = [kernel_orders(c, num_zones) for c in views]
     return (
-        cluster.available.contiguous()[None],
-        cluster.schedulable.contiguous()[None],
-        cluster.zone_id.contiguous()[None],
-        [t.contiguous()[None] for t in orders],
-        [t[None] for t in fields],
+        *(t.contiguous() for t in state),
+        [_stack(cols) for cols in zip(*orders)],
+        fields,
     )
 
 
@@ -401,6 +346,52 @@ def queue_packing(meta, execs, avail_after) -> BatchedPacking:
     )
 
 
+def _queue_solve(groups, state, apps, *, fill, emax, num_zones):
+    """The queue solve of G groups: `groups` their (cluster, apps) pairs;
+    `state`, the clusters' `_state`, and `apps` the same stacked on a
+    leading axis of G. Returns (packing [G, ...], zone scores [G, B]).
+    Traced, entry to return, as the span `queue.pack` (each group's orders
+    a `queue.orders` under it)."""
+    g, n = state[0].shape[:2]
+    with profiled_span("queue.pack", nodes=n, rows=apps.driver_req.shape[1],
+                       groups=g):
+        check_queue(apps, fill)
+        for c, _ in groups:
+            check_cluster(c)
+        dev = state[0].device
+        if dev.type == "cpu":
+            return _reference(groups, fill=fill, emax=emax, num_zones=num_zones)
+        if dev.type != "cuda":
+            raise ValueError(f"fifo_pack runs on cuda or cpu, got {dev}")
+        _check_cumsum_bound(n, emax)
+        fields = device_apps(apps, dev, lead=(g,))
+        if fields[0].shape[1] == 0:
+            return _empty(state[0], emax, lead=(g,))
+        meta, execs, after = fifo_queue(
+            *_operands(state, [c for c, _ in groups], fields, num_zones),
+            fill=fill, emax=emax, num_zones=num_zones,
+        )
+        return queue_packing(meta, execs, after), zone_scores(meta)
+
+
+def grouped_fifo_pack(
+    clusters: ClusterTensors,  # fields stacked [G, N, ...]
+    apps: AppBatch,  # fields stacked [G, B, ...]
+    *,
+    fill: str = "tightly-pack",
+    emax: int,
+    num_zones: int,
+) -> BatchedPacking:
+    """G independent queue-mode solves (instance groups, failover.go:276-313;
+    JAX `grouped_fifo_pack_auto` -> `_grouped_pallas`); outputs stacked
+    [G, ...]. CUDA tensors: each group's sorts in PyTorch, then ONE launch
+    of the queue kernel with G teams. CPU tensors:
+    `grouped_fifo_pack_reference`. Any other device raises. Decisions equal
+    G separate `fifo_pack` calls."""
+    return _queue_solve(group_views(clusters, apps), _state(clusters), apps,
+                        fill=fill, emax=emax, num_zones=num_zones)[0]
+
+
 def fifo_pack(
     cluster: ClusterTensors,
     apps: AppBatch,
@@ -411,12 +402,13 @@ def fifo_pack(
 ) -> BatchedPacking:
     """Admit a FIFO queue in queue mode. CUDA tensors: the sorts in
     PyTorch, then one launch of the CUDA queue kernel in the layout
-    `queue_layout` picks for the node count (the app fields must be tensors
-    on the cluster's device). CPU tensors: `fifo_pack_reference`.
-    Any other device raises. `emax` is the executor-slot padding; a gang of
-    more than `emax` executors never packs. `available_after` is always a
-    new tensor: the caller's `cluster.available` is left as it was.
-    Traced, entry to return, as the span `queue.pack`."""
+    `ops/launch.kernel_layout` picks for the node count and strategy (the
+    app fields must be tensors on the cluster's device). CPU tensors:
+    `fifo_pack_reference`. Any other device raises. `emax` is the
+    executor-slot padding; a gang of more than `emax` executors never
+    packs. `available_after` is always a new tensor: the caller's
+    `cluster.available` is left as it was. Traced, entry to return, as the
+    span `queue.pack`."""
     return fifo_pack_with_scores(cluster, apps, fill=fill, emax=emax,
                                  num_zones=num_zones)[0]
 
@@ -431,30 +423,14 @@ def fifo_pack_with_scores(
 ) -> tuple[BatchedPacking, torch.Tensor]:
     """`fifo_pack`, and its [B] float32 `zone_scores`: the score of the zone
     each packed row chose under a single-AZ or az-aware strategy (0.0
-    elsewhere), read from the same solve at no extra cost."""
-    with profiled_span("queue.pack", nodes=cluster.num_nodes,
-                       rows=apps.driver_req.shape[0], groups=1):
-        check_queue(apps, fill)
-        check_cluster(cluster)
-        dev = cluster.device
-        if dev.type == "cpu":
-            return _walk_queue(
-                cluster, apps, fill=fill, emax=emax, num_zones=num_zones
-            )
-        if dev.type != "cuda":
-            raise ValueError(f"fifo_pack runs on cuda or cpu, got {dev}")
-        _check_cumsum_bound(cluster.num_nodes, emax)
-        fields = device_apps(apps, dev)
-        if fields[0].shape[0] == 0:
-            return _empty(cluster.available, emax)
-        meta, execs, after = fifo_queue(
-            *queue_operands(cluster, fields, num_zones),
-            fill=fill, emax=emax, num_zones=num_zones,
-            layout=queue_layout(cluster.num_nodes,
-                                zone_lanes=strategy_params(fill)[1]),
-        )
-        out = queue_packing(meta, execs, after)
-        return BatchedPacking(*(x[0] for x in out)), zone_scores(meta[0])
+    elsewhere), read from the same solve at no extra cost. It is
+    `grouped_fifo_pack`'s solve on one group."""
+    packing, scores = _queue_solve(
+        [(cluster, apps)], [t[None] for t in _state(cluster)],
+        AppBatch(*(None if col is None else col[None] for col in apps)),
+        fill=fill, emax=emax, num_zones=num_zones,
+    )
+    return BatchedPacking(*(x[0] for x in packing)), scores[0]
 
 
 fifo_pack.launches = 0

@@ -10,11 +10,10 @@ plain version.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from spark_scheduler_tpu_torch.faults.errors import cuda_launch_error
+from spark_scheduler_tpu_torch.ops.launch import KernelLibrary, count_launch
 
 PROBE_SHAPE = (8, 128)
 
@@ -24,19 +23,11 @@ def probe_reference(x: torch.Tensor) -> torch.Tensor:
     return x + 1
 
 
-def _lib():
-    from spark_scheduler_tpu_torch.ops._build import load_library
-
-    lib = load_library("probe")
-    if lib.probe_add_one.argtypes is None:
-        lib.probe_add_one.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.probe_add_one.restype = ctypes.c_int
-        lib.probe_error.argtypes = [ctypes.c_int]
-        lib.probe_error.restype = ctypes.c_char_p
-    return lib
+_PROBE = KernelLibrary("probe", "probe", {
+    # device index, x, o, n, stream
+    "probe_add_one": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p],
+})
 
 
 def probe_add_one(x: torch.Tensor) -> torch.Tensor:
@@ -48,23 +39,17 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
         return probe_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"probe runs on cuda or cpu, got {x.device}")
-    lib = _lib()
     out = torch.empty_like(x)
-    err = lib.probe_add_one(
+    _PROBE.call(
+        "probe_add_one", "probe kernel launch",
         x.device.index, x.data_ptr(), out.data_ptr(), x.numel(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    if err != 0:
-        raise cuda_launch_error(
-            err, "probe kernel launch", lib.probe_error(err).decode()
-        )
-    with _launches_lock:
-        probe_add_one.launches += 1
+    count_launch(probe_add_one)
     return out
 
 
 probe_add_one.launches = 0
-_launches_lock = threading.Lock()  # solvers on several threads probe
 
 
 def probe(device="cuda") -> None:

@@ -14,9 +14,9 @@ The work splits as in the JAX package:
     row, availability carried from row to row. On the card this is the
     hand-written CUDA kernel csrc/window_kernel.cu (one launch of one
     thread-block cluster per live segment, which also subtracts the
-    committing row from the base; `walk_layout` picks where its node state
-    lives); on the CPU it is `window_pack_reference`, its plain PyTorch
-    version.
+    committing row from the base; `ops/launch.kernel_layout` picks where
+    its node state lives); on the CPU it is `window_pack_reference`, its
+    plain PyTorch version.
 
 `window_pack` returns (meta [S,R,4] i32, execs [S,R,emax] i32,
 base_after [N,3] i32); meta rows are (driver_node, admitted, packed, 0) in
@@ -26,13 +26,11 @@ node indices, the contract of `window_pack_pallas`.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from spark_scheduler_tpu_torch.faults.errors import cuda_launch_error
 from spark_scheduler_tpu_torch.models.cluster import (
     ClusterTensors,
     check_cluster,
@@ -43,6 +41,12 @@ from spark_scheduler_tpu_torch.ops.gang import (
     PALLAS_SINGLE_AZ,
     strategy_params,
     walk_rows,
+)
+from spark_scheduler_tpu_torch.ops.launch import (
+    KernelLibrary,
+    count_launch,
+    gang_scratch_words,
+    kernel_layout,
 )
 from spark_scheduler_tpu_torch.ops.packing import (
     _check_cumsum_bound,
@@ -251,137 +255,33 @@ def window_pack_reference(
     )
 
 
-# The row walk's launch shape (csrc/window_kernel.cu). A cluster of K
-# blocks runs one segment; block r owns nodes [r * slice, (r + 1) * slice).
-CLUSTER_BLOCKS = 8  # kGsCluster: the largest portable cluster on Hopper
-SMEM_PER_BLOCK = 232_448  # shared memory one H100 block may opt into
-STATE_WORDS = 8  # int32 words of mutable state per node
-WALK_STATIC_SMEM = 400  # static reduction buffers: (32 + 2 x 8 + 2) x 8 B
-# The single-AZ strategies run the zone-parallel instantiation
-# (csrc/gang_solve.cuh `gs_gang_solve_lanes`): its reductions carry
-# ZONE_LANES lanes, one a zone, and its gang slots take one row a lane.
-ZONE_LANES = 8  # kGsLanes
-# A team's lane buffers, in 8-byte words (gang_solve.cuh kGsLaneWords):
-# three rotating accumulators of ZONE_LANES, the zone scores' warp partials
-# (ZONE_LANES rows of 33), two int arrays of ZONE_LANES and the best zone
-# so far (4 ints).
-LANE_WORDS = 3 * ZONE_LANES + ZONE_LANES * 33 + ZONE_LANES + 2
-# The cluster team's beside WALK_STATIC_SMEM add two rows of CLUSTER_BLOCKS
-# x ZONE_LANES block partials (kGsClusterLaneWords).
-WALK_LANE_SMEM = (LANE_WORDS + 2 * CLUSTER_BLOCKS * ZONE_LANES) * 8
+_ROW_WALK = KernelLibrary("window_kernel", "window_kernel", {
+    "window_row_walk": (
+        [ctypes.c_int]  # device index: the entry point sets it first
+        + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip (segment slices)
+        + [ctypes.c_int] * 2  # rows, row_count
+        + [ctypes.c_void_p]  # base [N,3] (read, then commit row subtracted)
+        # elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
+        + [ctypes.c_void_p] * 8
+        # n, emax, num_zones, fill, single_az, az_fallback, include_exec
+        + [ctypes.c_int] * 7
+        + [ctypes.c_void_p] * 3  # meta, execs, scratch
+        + [ctypes.c_int] * 2  # slice, smem_state
+        + [ctypes.c_void_p]  # stream
+    ),
+    # device index, smem_state, lanes, slice, out[4]
+    "window_kernel_info": [ctypes.c_int] * 4 + [ctypes.c_void_p],
+})
 
 
-class WalkLayout(NamedTuple):
-    """Launch shape of the row walk for one node count."""
-
-    k: int  # blocks in the cluster
-    slice: int  # nodes per block, ceil(n / k)
-    smem_bytes: int  # shared memory per block, static + dynamic
-    state: str  # "smem": node state in shared memory; "global": in scratch
-    zone_lanes: bool = False  # the zone-parallel (single-AZ) instantiation
-
-
-def walk_layout(
-    n: int, *, state: str | None = None, zone_lanes: bool = False
-) -> WalkLayout:
-    """The row walk's layout for `n` nodes: the node state in shared memory
-    when a block's slice of it (8 words a node) fits beside the static
-    buffers, else in global scratch (n above 58,008; above 57,160 for the
-    zone-parallel instantiation, `zone_lanes`, whose lane buffers take
-    WALK_LANE_SMEM more). Both are the same hand-written kernel. `state`
-    forces one layout (tests)."""
-    if n < 1:
-        raise ValueError(f"walk_layout needs n >= 1, got {n}")
-    sl = -(-n // CLUSTER_BLOCKS)
-    static = WALK_STATIC_SMEM + (WALK_LANE_SMEM if zone_lanes else 0)
-    smem = STATE_WORDS * 4 * sl + static
-    fits = smem <= SMEM_PER_BLOCK
-    if state is None:
-        state = "smem" if fits else "global"
-    if state not in ("smem", "global") or (state == "smem" and not fits):
-        raise ValueError(f"no {state!r} row-walk layout for n={n}")
-    return WalkLayout(
-        CLUSTER_BLOCKS, sl, smem if state == "smem" else static, state,
-        bool(zone_lanes),
-    )
-
-
-def gang_scratch_words(emax: int, num_zones: int, zone_lanes: bool) -> int:
-    """Global words of one block's gang slots and zone facts (gang_solve.cuh
-    `gs_extra_words`): two slot buffers and the zone facts, and for the
-    zone-parallel instantiation one slot row a lane, min(num_zones,
-    ZONE_LANES) rows."""
-    lanes = min(num_zones, ZONE_LANES) if zone_lanes else 0
-    return (2 + lanes) * emax + 2 * num_zones
-
-
-def walk_scratch_words(layout: WalkLayout, emax: int, num_zones: int) -> int:
-    """Global scratch of one launch: per block, the gang's slot buffers and
-    the zone facts (`gang_scratch_words`), plus the node state in the
-    global layout."""
-    per_block = gang_scratch_words(emax, num_zones, layout.zone_lanes)
-    if layout.state == "global":
-        per_block += STATE_WORDS * layout.slice
-    return layout.k * per_block
-
-
-_ROW_WALK_ARGTYPES = (
-    [ctypes.c_int]  # device index: the entry point sets it first
-    + [ctypes.c_void_p] * 5  # dreq, ereq, cnt, valid, skip (segment slices)
-    + [ctypes.c_int] * 2  # rows, row_count
-    + [ctypes.c_void_p]  # base [N,3] (read, then commit row subtracted)
-    # elig_e, elig_d, drank, d_order, erank, e_order, zone, sched
-    + [ctypes.c_void_p] * 8
-    # n, emax, num_zones, fill, single_az, az_fallback, include_exec
-    + [ctypes.c_int] * 7
-    + [ctypes.c_void_p] * 3  # meta, execs, scratch
-    + [ctypes.c_int] * 2  # slice, smem_state
-    + [ctypes.c_void_p]  # stream
-)
-
-
-def _device_index(device) -> int:
-    """The CUDA device index of `device` (None: the current device)."""
-    if device is None:
-        return torch.cuda.current_device()
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"kernel queries need a CUDA device, got {device}")
-    return torch.cuda.current_device() if device.index is None else device.index
-
-
-def _row_walk_lib():
-    from spark_scheduler_tpu_torch.ops._build import load_library
-
-    lib = load_library("window_kernel")
-    fn = lib.window_row_walk
-    if fn.argtypes is None:
-        fn.argtypes = _ROW_WALK_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.window_kernel_error.argtypes = [ctypes.c_int]
-        lib.window_kernel_error.restype = ctypes.c_char_p
-        lib.window_kernel_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.window_kernel_info.restype = ctypes.c_int
-    return lib
-
-
-def window_kernel_info(layout: WalkLayout, device=None) -> dict:
+def window_kernel_info(n: int, fill: str, *, state: str | None = None,
+                       device=None) -> dict:
     """What a card (`device`, default the current one) reports for the row
-    walk at `layout`: registers and local (spill) bytes a thread, static
-    shared bytes a block, and how many such clusters can be resident at
-    once (0: the launch cannot run)."""
-    lib = _row_walk_lib()
-    out = (ctypes.c_int * 4)()
-    err = lib.window_kernel_info(
-        _device_index(device), int(layout.state == "smem"),
-        int(layout.zone_lanes), layout.slice, out,
-    )
-    if err != 0:
-        raise cuda_launch_error(
-            err, "window kernel query", lib.window_kernel_error(err).decode()
-        )
-    return dict(regs=out[0], local_bytes=out[1], static_smem=out[2],
-                max_active_clusters=out[3])
+    walk's instantiation for `n` nodes under `fill`, in its default or the
+    forced node-state place (`KernelLibrary.info`)."""
+    lay = kernel_layout(n, fill, team="cluster", state=state)
+    return _ROW_WALK.info(device, int(lay.state == "smem"),
+                          int(lay.zone_lanes), lay.slice)
 
 
 def window_pack(
@@ -391,17 +291,17 @@ def window_pack(
     fill: str,
     emax: int,
     num_zones: int,
-    layout: WalkLayout | None = None,
+    state: str | None = None,
     zone_base: tuple | None = None,
 ):
     """Serve a segmented window. CUDA tensors: per live segment, the sorts
     in PyTorch, then one launch of the CUDA row-walk kernel on one
     thread-block cluster (which also subtracts the committing row from the
     base) — no host synchronisation inside the segment loop. CPU tensors:
-    `window_pack_reference`. Any other device raises. `layout` defaults to
-    `walk_layout(n)`; tests pass another to drive the global-state layout
-    at a small n. A single-AZ strategy runs the zone-parallel
-    instantiation in the given layout's node-state place (counted in
+    `window_pack_reference`. Any other device raises. The launch shape is
+    `ops/launch.kernel_layout(n, fill, team="cluster")`; `state` forces the
+    node-state place (tests drive the global-state layout at a small n). A
+    single-AZ strategy runs the zone-parallel instantiation (counted in
     `window_pack.zone_parallel_launches`).
 
     `zone_base` = (mem_hi, mem_lo, cpu_hi, cpu_lo) int32 and `present` bool
@@ -436,13 +336,7 @@ def window_pack(
     if win.driver_cand.shape != (s_pad, n) or win.domain.shape != (s_pad, n):
         raise ValueError("window masks must be [S, N] over the cluster's N")
     inner, single_az, az_fallback, include_exec = strategy_params(fill)
-    if layout is None:
-        layout = walk_layout(n, zone_lanes=single_az)
-    if layout.k != CLUSTER_BLOCKS or layout.slice * layout.k < n:
-        raise ValueError(f"{layout} is not a row-walk layout for {n} nodes")
-    if layout.zone_lanes != single_az:
-        layout = walk_layout(n, state=layout.state, zone_lanes=single_az)
-    lib = _row_walk_lib()
+    layout = kernel_layout(n, fill, team="cluster", state=state)
 
     def up(a, dtype):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -460,7 +354,8 @@ def window_pack(
     meta = torch.empty((s_pad, r_pad, 4), dtype=torch.int32, device=dev)
     execs = torch.empty((s_pad, r_pad, emax), dtype=torch.int32, device=dev)
     scratch = torch.empty(
-        walk_scratch_words(layout, emax, num_zones), dtype=torch.int32, device=dev
+        gang_scratch_words(layout, 1, emax, num_zones), dtype=torch.int32,
+        device=dev,
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     dead = np.flatnonzero(np.asarray(win.row_count) == 0)
@@ -471,7 +366,8 @@ def window_pack(
         elig_e, elig_d, drank, d_order, erank, e_order = _segment_orders(
             cluster, base, cand[s], dom[s], num_zones, zone_base
         )
-        err = lib.window_row_walk(
+        _ROW_WALK.call(
+            "window_row_walk", "window row-walk kernel launch",
             dev.index, dreq[s].data_ptr(), ereq[s].data_ptr(), cnt[s].data_ptr(),
             valid[s].data_ptr(), skip[s].data_ptr(),
             r_pad, rc,
@@ -486,14 +382,7 @@ def window_pack(
             layout.slice, int(layout.state == "smem"),
             stream,
         )
-        if err != 0:
-            raise cuda_launch_error(
-                err, "window row-walk kernel launch",
-                lib.window_kernel_error(err).decode(),
-            )
-        with _launches_lock:
-            window_pack.launches += 1
-            window_pack.zone_parallel_launches += int(single_az)
+        count_launch(window_pack, single_az)
     if dead.size:
         idx = torch.as_tensor(dead, device=dev)
         meta.index_fill_(0, idx, 0)
@@ -504,6 +393,3 @@ def window_pack(
 window_pack.launches = 0
 # Row-walk launches that ran the zone-parallel (single-AZ) instantiation.
 window_pack.zone_parallel_launches = 0
-# Several solvers (HA replicas, a standby beside its leader) launch from
-# their own threads: the count's read-modify-write takes a lock.
-_launches_lock = threading.Lock()

@@ -1,8 +1,13 @@
 """Multi-device solves, the port of spark_scheduler_tpu/parallel/: device
 meshes and pool placements (mesh.py), the node-sharded engine
-(node_shards.py) and the grouped, group-sharded, node-sharded and 2-D
-routes (solve.py). The first eight names are the JAX package's `__all__`."""
+(node_shards.py), the grouped route (ops/fifo.py `grouped_fifo_pack`) and
+the group-sharded, node-sharded and 2-D routes (solve.py). The first eight
+names are the JAX package's `__all__`."""
 
+from spark_scheduler_tpu_torch.ops.fifo import (
+    grouped_fifo_pack,
+    grouped_fifo_pack_reference,
+)
 from spark_scheduler_tpu_torch.parallel.mesh import (
     SolverMesh,
     local_devices,
@@ -14,10 +19,7 @@ from spark_scheduler_tpu_torch.parallel.node_shards import (
     shard_cluster,
 )
 from spark_scheduler_tpu_torch.parallel.solve import (
-    grouped_fifo_pack,
     grouped_fifo_pack_auto,
-    grouped_fifo_pack_reference,
-    grouped_queue_operands,
     grouped_queue_sharded,
     grouped_sharded_fifo_pack,
     node_sharding,
@@ -40,7 +42,6 @@ __all__ = [
     "node_sharded_fifo_pack",
     "shard_cluster",
     "grouped_fifo_pack_reference",
-    "grouped_queue_operands",
     "grouped_queue_sharded",
     "grouped_sharded_fifo_pack",
 ]

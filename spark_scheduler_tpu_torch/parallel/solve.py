@@ -6,9 +6,10 @@ its own cluster, its own app queue and its own priority orders, and no data
 flows between them.
 
   grouped_fifo_pack — the single-card route (JAX `grouped_fifo_pack_auto`
-      -> `_grouped_pallas`, :205-301): each group sorted in PyTorch, then
-      ONE launch of the queue kernel with one team per group (a block or a
-      thread-block cluster, `ops/fifo.queue_layout`).
+      -> `_grouped_pallas`, :205-301), defined in ops/fifo.py beside
+      `fifo_pack`, which is the same solve on one group: each group sorted
+      in PyTorch, then ONE launch of the queue kernel with one team per
+      group (a block or a thread-block cluster, `ops/launch.kernel_layout`).
   grouped_queue_sharded — the group-sharded route (JAX
       `_grouped_pallas_sharded`, :142-202): G groups split over the mesh's
       "groups" devices, one launch of the queue kernel a device with G/D
@@ -31,10 +32,7 @@ import contextlib
 import numpy as np
 import torch
 
-from spark_scheduler_tpu_torch.models.cluster import (
-    ClusterTensors,
-    check_cluster,
-)
+from spark_scheduler_tpu_torch.models.cluster import ClusterTensors
 from spark_scheduler_tpu_torch.ops.batched import (
     AppBatch,
     BatchedPacking,
@@ -42,17 +40,10 @@ from spark_scheduler_tpu_torch.ops.batched import (
 )
 from spark_scheduler_tpu_torch.ops.fifo import (
     check_queue,
-    device_apps,
-    empty_packing,
     fifo_eligible,
-    fifo_pack_reference,
-    fifo_queue,
-    kernel_orders,
-    queue_layout,
-    queue_packing,
+    group_views,
+    grouped_fifo_pack,
 )
-from spark_scheduler_tpu_torch.ops.gang import strategy_params
-from spark_scheduler_tpu_torch.ops.packing import _check_cumsum_bound
 from spark_scheduler_tpu_torch.parallel.mesh import SolverMesh
 from spark_scheduler_tpu_torch.parallel.node_shards import (
     NodeShards,
@@ -63,7 +54,6 @@ from spark_scheduler_tpu_torch.parallel.node_shards import (
 from spark_scheduler_tpu_torch.parallel.node_shards import (
     shard_apps as _shard_apps,
 )
-from spark_scheduler_tpu_torch.tracing import profiled_span
 
 
 def _stack(vals, what):
@@ -104,94 +94,6 @@ def stack_groups(
             )
         cols.append(_stack(vals, f"apps.{field}"))
     return cluster, AppBatch(*cols)
-
-
-def _groups(clusters: ClusterTensors, apps: AppBatch):
-    """Per group g: (cluster g, apps g), as views."""
-    return [
-        (
-            ClusterTensors(*(f[g] for f in clusters.fields())),
-            AppBatch(*(None if col is None else col[g] for col in apps)),
-        )
-        for g in range(clusters.available.shape[0])
-    ]
-
-
-def grouped_queue_operands(
-    clusters: ClusterTensors, fields: list, num_zones: int
-) -> tuple:
-    """`ops/fifo.fifo_queue`'s five operands for G stacked queues: the
-    clusters' availability, schedulable and zones, each group's queue-mode
-    orders stacked, and the app fields of `device_apps`."""
-    g = clusters.available.shape[0]
-    per_group = [
-        kernel_orders(ClusterTensors(*(f[i] for f in clusters.fields())), num_zones)
-        for i in range(g)
-    ]
-    return (
-        clusters.available.contiguous(),
-        clusters.schedulable.contiguous(),
-        clusters.zone_id.contiguous(),
-        [torch.stack(cols) for cols in zip(*per_group)],
-        fields,
-    )
-
-
-def grouped_fifo_pack_reference(
-    clusters: ClusterTensors,  # fields stacked [G, N, ...]
-    apps: AppBatch,  # fields stacked [G, B, ...]
-    *,
-    fill: str = "tightly-pack",
-    emax: int,
-    num_zones: int,
-) -> BatchedPacking:
-    """The plain PyTorch version of `grouped_fifo_pack`:
-    `fifo_pack_reference` per group, stacked. Runs on whatever device the
-    tensors live on."""
-    outs = [
-        fifo_pack_reference(c, a, fill=fill, emax=emax, num_zones=num_zones)
-        for c, a in _groups(clusters, apps)
-    ]
-    return BatchedPacking(*(torch.stack(x) for x in zip(*outs)))
-
-
-def grouped_fifo_pack(
-    clusters: ClusterTensors,  # fields stacked [G, N, ...]
-    apps: AppBatch,  # fields stacked [G, B, ...]
-    *,
-    fill: str = "tightly-pack",
-    emax: int,
-    num_zones: int,
-) -> BatchedPacking:
-    """G independent queue-mode solves; outputs stacked [G, ...]. CUDA
-    tensors: each group's sorts in PyTorch, then ONE launch of the queue
-    kernel with G teams. CPU tensors: `grouped_fifo_pack_reference`. Any
-    other device raises. Decisions equal G separate `fifo_pack` calls.
-    Traced, entry to return, as one span `queue.pack` (each group's orders
-    a `queue.orders` under it)."""
-    g, n = clusters.available.shape[:2]
-    with profiled_span("queue.pack", nodes=n, rows=apps.driver_req.shape[1],
-                       groups=g):
-        check_queue(apps, fill)
-        groups = _groups(clusters, apps)
-        for c, _ in groups:
-            check_cluster(c)
-        dev = clusters.available.device
-        if dev.type == "cpu":
-            return grouped_fifo_pack_reference(
-                clusters, apps, fill=fill, emax=emax, num_zones=num_zones
-            )
-        if dev.type != "cuda":
-            raise ValueError(f"grouped_fifo_pack runs on cuda or cpu, got {dev}")
-        _check_cumsum_bound(n, emax)
-        fields = device_apps(apps, dev, lead=(g,))
-        if fields[0].shape[1] == 0:
-            return empty_packing(clusters.available, emax, lead=(g,))
-        return queue_packing(*fifo_queue(
-            *grouped_queue_operands(clusters, fields, num_zones),
-            fill=fill, emax=emax, num_zones=num_zones,
-            layout=queue_layout(n, zone_lanes=strategy_params(fill)[1]),
-        ))
 
 
 # -- the mesh routes ---------------------------------------------------------
@@ -331,7 +233,7 @@ def grouped_sharded_fifo_pack(
     per = g // rows
     first = mesh.devices[0]
     outs = []
-    for gi, (c, a) in enumerate(_groups(clusters, apps)):
+    for gi, (c, a) in enumerate(group_views(clusters, apps)):
         row = mesh.grid[gi // per]
         out = node_sharded_fifo_pack(
             shard_cluster(row, c), a, fill=fill, emax=emax, num_zones=num_zones,

@@ -77,14 +77,13 @@ def _zone_column(rng, n, zones, kind):
 @pytest.mark.parametrize("state", ["smem", "global"])
 def test_window_kernel_matches_plain(cuda_device, fill, zones, kind, n, state):
     """The cluster kernel in both node-state layouts (global forced at every
-    n through the launcher's layout argument) against the plain version;
+    n through the launcher's `state` argument) against the plain version;
     the single-AZ strategies in the zone-parallel instantiation, at every
     zone case."""
     from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
     from spark_scheduler_tpu_torch.models.resources import INT32_INF
     from spark_scheduler_tpu_torch.ops.window import (
         make_segmented_window,
-        walk_layout,
         window_pack,
         window_pack_reference,
     )
@@ -114,7 +113,7 @@ def test_window_kernel_matches_plain(cuda_device, fill, zones, kind, n, state):
     before = window_pack.launches
     zone_parallel = window_pack.zone_parallel_launches
     got = window_pack(cluster, win, fill=fill, emax=emax, num_zones=zones,
-                      layout=walk_layout(n, state=state))
+                      state=state)
     torch.cuda.synchronize()
     assert window_pack.launches == before + len(requests)
     assert window_pack.zone_parallel_launches == zone_parallel + (
@@ -203,33 +202,42 @@ QUEUE_LAYOUTS = [("block", "smem"), ("block", "global"),
                  ("cluster", "smem"), ("cluster", "global")]
 
 
-def _forced_layout(n, team, state):
-    """The queue layout forced to (team, state), or a skip where the node
-    state does not fit in shared memory at n."""
-    from spark_scheduler_tpu_torch.ops.fifo import queue_layout
+def _forced_layout(n, team, state, fill):
+    """The queue layout forced to (team, state) for `fill`, or a skip where
+    the node state does not fit in shared memory at n."""
+    from spark_scheduler_tpu_torch.ops.launch import kernel_layout
 
     try:
-        return queue_layout(n, team=team, state=state)
+        return kernel_layout(n, fill, team=team, state=state)
     except ValueError:
         pytest.skip(f"no {team}/{state} layout at n={n}: the state does not fit")
 
 
-def _forced_queue(cluster, apps, layout, **kw):
-    """`fifo_pack`'s launch with the kernel layout forced."""
+def _one_queue_operands(cluster, apps, num_zones):
+    """`fifo_queue`'s operands for one queue: a stacked group of one."""
+    from spark_scheduler_tpu_torch.ops.fifo import device_apps, queue_operands
+    from spark_scheduler_tpu_torch.parallel import stack_groups
+
+    sc, sa = stack_groups([cluster], [apps])
+    return queue_operands(sc, device_apps(sa, cluster.device, lead=(1,)),
+                          num_zones)
+
+
+def _forced_queue(cluster, apps, team, state, **kw):
+    """`fifo_pack`'s launch with the kernel's team and node-state place
+    forced."""
     from spark_scheduler_tpu_torch.ops.batched import BatchedPacking
     from spark_scheduler_tpu_torch.ops.fifo import (
-        device_apps,
         fifo_pack,
         fifo_queue,
-        queue_operands,
         queue_packing,
     )
 
     before = fifo_pack.launches
     zone_parallel = fifo_pack.zone_parallel_launches
     out = queue_packing(*fifo_queue(
-        *queue_operands(cluster, device_apps(apps, cluster.device), kw["num_zones"]),
-        layout=layout, **kw,
+        *_one_queue_operands(cluster, apps, kw["num_zones"]),
+        team=team, state=state, **kw,
     ))
     torch.cuda.synchronize()
     assert fifo_pack.launches == before + 1
@@ -245,10 +253,11 @@ def test_queue_kernel_matches_plain(cuda_device, fill, n, team, state):
     tight cluster (n = 9 leaves cluster blocks 5-7 without nodes)."""
     from spark_scheduler_tpu_torch.ops.fifo import fifo_pack_reference
 
-    layout = _forced_layout(n, team, state)
+    layout = _forced_layout(n, team, state, fill)
     for seed, hi in enumerate((40, 8)):
         cluster, apps = _queue_case(np.random.default_rng(seed), n, 9, cuda_device, hi)
-        got = _forced_queue(cluster, apps, layout, fill=fill, emax=8, num_zones=4)
+        got = _forced_queue(cluster, apps, team, state, fill=fill, emax=8,
+                            num_zones=4)
         want = fifo_pack_reference(cluster, apps, fill=fill, emax=8, num_zones=4)
         for g, w in zip(got, want):
             assert torch.equal(g, w), (fill, n, hi, layout)
@@ -256,13 +265,10 @@ def test_queue_kernel_matches_plain(cuda_device, fill, n, team, state):
 
 @pytest.mark.parametrize("fill", STRATEGIES)
 def test_queue_kernel_default_layout(cuda_device, fill):
-    """`fifo_pack` itself, in the layout `queue_layout` picks, on either
+    """`fifo_pack` itself, in the layout `kernel_layout` picks, on either
     side of the block/cluster crossover."""
-    from spark_scheduler_tpu_torch.ops.fifo import (
-        QUEUE_CLUSTER_MIN_NODES,
-        fifo_pack,
-        fifo_pack_reference,
-    )
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack, fifo_pack_reference
+    from spark_scheduler_tpu_torch.ops.launch import QUEUE_CLUSTER_MIN_NODES
 
     for seed, n in enumerate((QUEUE_CLUSTER_MIN_NODES - 1, QUEUE_CLUSTER_MIN_NODES)):
         cluster, apps = _queue_case(np.random.default_rng(seed), n, 9, cuda_device)
@@ -311,14 +317,12 @@ def test_queue_kernel_scores_match_the_plain_walk(cuda_device, fill, zones,
     the "random" cases (beside 4 zones) given ids outside [0, zones), which
     belong to no zone."""
     from spark_scheduler_tpu_torch.ops.fifo import (
-        device_apps,
         fifo_pack,
         fifo_queue,
-        queue_operands,
         zone_scores,
     )
 
-    layout = _forced_layout(n, team, state)
+    layout = _forced_layout(n, team, state, fill)
     fallbacks = 0
     for seed, hi in enumerate((40, 8)):
         got_cl, got_apps = _queue_case(np.random.default_rng(seed), n, 9,
@@ -326,7 +330,7 @@ def test_queue_kernel_scores_match_the_plain_walk(cuda_device, fill, zones,
         want_cl, want_apps = _queue_case(np.random.default_rng(seed), n, 9,
                                          torch.device("cpu"), hi, zones, kind)
         zone = None
-        ops = queue_operands(got_cl, device_apps(got_apps, cuda_device), zones)
+        ops = _one_queue_operands(got_cl, got_apps, zones)
         if kind == "random" and zones != 4:  # ids -1 and `zones` on ~5% of nodes
             stray = torch.from_numpy(np.random.default_rng(seed).random(n) < 0.05)
             zone = want_cl.zone_id.clone()
@@ -335,7 +339,7 @@ def test_queue_kernel_scores_match_the_plain_walk(cuda_device, fill, zones,
             ops = (*ops[:2], zone.to(cuda_device)[None].contiguous(), *ops[3:])
         zone_parallel = fifo_pack.zone_parallel_launches
         meta, execs, after = fifo_queue(*ops, fill=fill, emax=8,
-                                        num_zones=zones, layout=layout)
+                                        num_zones=zones, team=team, state=state)
         assert fifo_pack.zone_parallel_launches == zone_parallel + (fill in SINGLE_AZ)
         want = _plain_queue(want_cl, want_apps, fill=fill, emax=8,
                             num_zones=zones, zone=zone)
@@ -361,7 +365,7 @@ def test_queue_kernel_wide_gangs(cuda_device, fill, team):
         app_batch_to_device,
         make_app_batch,
     )
-    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack_reference, queue_layout
+    from spark_scheduler_tpu_torch.ops.fifo import fifo_pack_reference
 
     rng = np.random.default_rng(8)
     n, emax = 300, 2048
@@ -379,8 +383,8 @@ def test_queue_kernel_wide_gangs(cuda_device, fill, team):
     apps = app_batch_to_device(make_app_batch(
         one, one, [1500, 1100, 2048], skippable=np.array([True, False, False]),
     ), cuda_device)
-    got = _forced_queue(cluster, apps, queue_layout(n, team=team), fill=fill,
-                        emax=emax, num_zones=4)
+    got = _forced_queue(cluster, apps, team, None, fill=fill, emax=emax,
+                        num_zones=4)
     want = fifo_pack_reference(cluster, apps, fill=fill, emax=emax, num_zones=4)
     assert bool(want.admitted[0])  # the first gang was admitted
     for g, w in zip(got, want):
@@ -396,13 +400,12 @@ def test_grouped_queue_kernel_is_one_launch(cuda_device, groups, team):
         device_apps,
         fifo_pack,
         fifo_queue,
-        queue_layout,
+        queue_operands,
         queue_packing,
     )
     from spark_scheduler_tpu_torch.parallel import (
         grouped_fifo_pack,
         grouped_fifo_pack_reference,
-        grouped_queue_operands,
         stack_groups,
     )
 
@@ -413,9 +416,9 @@ def test_grouped_queue_kernel_is_one_launch(cuda_device, groups, team):
     want = grouped_fifo_pack_reference(clusters, apps, **kw)
     before = fifo_pack.launches
     got = queue_packing(*fifo_queue(
-        *grouped_queue_operands(
+        *queue_operands(
             clusters, device_apps(apps, cuda_device, lead=(groups,)), 4),
-        layout=queue_layout(200, team=team), **kw,
+        team=team, **kw,
     ))
     default = grouped_fifo_pack(clusters, apps, **kw)
     torch.cuda.synchronize()
@@ -438,12 +441,10 @@ def test_kernels_launch_on_the_tensors_device(cuda_device):
         fifo_kernel_info,
         fifo_pack,
         fifo_pack_reference,
-        queue_layout,
     )
     from spark_scheduler_tpu_torch.ops.probe import probe_add_one
     from spark_scheduler_tpu_torch.ops.window import (
         make_segmented_window,
-        walk_layout,
         window_kernel_info,
         window_pack,
         window_pack_reference,
@@ -475,7 +476,7 @@ def test_kernels_launch_on_the_tensors_device(cuda_device):
     for g, w in zip(got, want):
         assert g.device == dev1
         assert torch.equal(g.cpu(), w)
-    assert window_kernel_info(walk_layout(n), device=dev1)["max_active_clusters"] > 0
+    assert window_kernel_info(n, kw["fill"], device=dev1)["max_active_teams"] > 0
 
     _, apps1 = _queue_case(np.random.default_rng(3), n, 12, dev1)
     cluster_cpu, apps_cpu = _queue_case(np.random.default_rng(3), n, 12, "cpu")
@@ -487,7 +488,7 @@ def test_kernels_launch_on_the_tensors_device(cuda_device):
     want = fifo_pack_reference(cluster_cpu, apps_cpu, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    assert fifo_kernel_info(queue_layout(n), device=dev1)["max_active_teams"] > 0
+    assert fifo_kernel_info(n, kw["fill"], device=dev1)["max_active_teams"] > 0
     assert torch.cuda.current_device() == 0
 
 
@@ -1200,7 +1201,7 @@ def test_cuda_device_fault_from_a_wrapper_is_slot_fatal(cuda_device, monkeypatch
     )
     from spark_scheduler_tpu_torch.ops import _build, probe as probe_mod
 
-    lib = probe_mod._lib()
+    lib = probe_mod._PROBE.lib()
 
     class Faulting:
         code = 214  # cudaErrorECCUncorrectable
@@ -1212,7 +1213,7 @@ def test_cuda_device_fault_from_a_wrapper_is_slot_fatal(cuda_device, monkeypatch
             return lib.probe_error(code)
 
     faulting = Faulting()
-    monkeypatch.setattr(probe_mod, "_lib", lambda: faulting)
+    monkeypatch.setattr(probe_mod._PROBE, "lib", lambda: faulting)
     x = torch.zeros(probe_mod.PROBE_SHAPE, dtype=torch.int32, device=cuda_device)
     with pytest.raises(CudaDeviceFault) as ei:
         probe_mod.probe_add_one(x)
@@ -1260,7 +1261,7 @@ reqs = [WindowRequest(rows=[(one, one, 2 + i, False)], driver_candidate_names=na
         for i in range(3)]
 healthy = s.pack_window("tightly-pack", s.build_tensors_pipelined(nodes, {}, {}), reqs)
 torch.cuda.synchronize()
-real = window._row_walk_lib()
+real = window._ROW_WALK.lib()
 
 
 class Corrupt:
@@ -1273,7 +1274,7 @@ class Corrupt:
         return real.window_row_walk(*args)
 
 
-window._row_walk_lib = lambda: Corrupt()
+window._ROW_WALK.lib = lambda: Corrupt()
 raised = None
 try:
     s.pack_window("tightly-pack", s.build_tensors_pipelined(nodes, {}, {}), reqs)

@@ -13,8 +13,9 @@ counterparts:
     `fifo_pack_reference`) against the JAX package's Mosaic queue kernel run
     by the Pallas interpreter (`fifo_pack_pallas(..., interpret=True)`) AND
     its XLA scan (`batched_fifo_pack`), for all six strategies;
-  - parallel/solve: `grouped_fifo_pack` against `_grouped_pallas` (Pallas
-    interpreter) and `grouped_fifo_pack` on a one-group mesh;
+  - ops/fifo: `grouped_fifo_pack` against `_grouped_pallas` (Pallas
+    interpreter) and `grouped_fifo_pack` on a one-group mesh, and on one
+    group against `fifo_pack` and `fifo_pack_with_scores`;
   - the slice as a whole: a threaded chain of windows in the shape of
     BASELINE config 5 against `fifo_pack_auto`.
 
@@ -47,6 +48,7 @@ from spark_scheduler_tpu.parallel.solve import _grouped_pallas
 from spark_scheduler_tpu_torch.models.cluster import cluster_from_numpy
 from spark_scheduler_tpu_torch.ops.batched import (
     AppBatch,
+    BatchedPacking,
     app_batch_to_device,
     make_app_batch,
     queue_mode_orders,
@@ -446,6 +448,40 @@ def test_grouped_matches_jax(fill):
                         fill=fill, emax=EMAX, num_zones=NUM_ZONES)
         for field in FIELDS:
             assert torch.equal(getattr(got, field)[g], getattr(one, field))
+
+
+def test_one_group_is_the_grouped_solve():
+    """`fifo_pack_with_scores`, `fifo_pack` and `grouped_fifo_pack` on one
+    stacked group are one solve: the same packing and the same zone scores,
+    for a plain, a single-AZ and the az-aware strategy, an empty queue
+    included."""
+    rng = np.random.default_rng(31)
+    pc = port_cluster(random_cluster(rng, N, num_zones=NUM_ZONES))
+    queues = [port_apps(random_apps(rng, 9, pad_to=B_PAD)),
+              port_apps(jax_make_app_batch(np.zeros((0, 3), np.int32),
+                                           np.zeros((0, 3), np.int32),
+                                           np.zeros(0, np.int32)))]
+    sc_scored = 0
+    for pa in queues:
+        sc, sa = stack_groups([pc], [pa])
+        for fill in ("tightly-pack", "single-az-tightly-pack",
+                     "az-aware-tightly-pack"):
+            kw = dict(fill=fill, emax=EMAX, num_zones=NUM_ZONES)
+            packing, scores = port_fifo.fifo_pack_with_scores(pc, pa, **kw)
+            grouped, grouped_scores = port_fifo._queue_solve(
+                port_fifo.group_views(sc, sa), port_fifo._state(sc), sa, **kw)
+            assert scores.shape == (pa.driver_req.shape[0],)
+            assert torch.equal(scores.view(torch.int32),
+                               grouped_scores[0].view(torch.int32)), fill
+            for whole in (fifo_pack(pc, pa, **kw),
+                          *(BatchedPacking(*(x[0] for x in out)) for out in (
+                              grouped, grouped_fifo_pack(sc, sa, **kw)))):
+                for field in FIELDS:
+                    assert torch.equal(getattr(packing, field),
+                                       getattr(whole, field)), (fill, field)
+            if fill == "single-az-tightly-pack":
+                sc_scored += int((scores[packing.packed] > 0).sum())
+    assert sc_scored > 0  # the scores compared are not all zero
 
 
 def test_stack_groups_refuses_mixed_shapes():
